@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, loaded with ``ctypes``. The build happens at first
+use, into ``build/radardistill_tpu_torch/`` at the repository root, and is
+redone when a source is newer than the library. Nothing here runs at import
+time, so the CPU tests import every module without a CUDA toolchain.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("expand.cu", "dcn_sample.cu")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "radardistill_tpu_torch"
+LIB_PATH = BUILD_DIR / "librdt_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_lib = None
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def build(ptxas_verbose: bool = False) -> str:
+    """Compile the kernels if the library is missing or stale.
+
+    Returns the compiler's diagnostics (``-Xptxas -v`` register and shared
+    memory report when asked for), or "" when the library was up to date."""
+    srcs = [CSRC / s for s in SOURCES]
+    newest = max(s.stat().st_mtime for s in srcs)
+    if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest and not ptxas_verbose:
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose else ()),
+           "-o", str(tmp), *map(str, srcs)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
+    os.replace(tmp, LIB_PATH)
+    return res.stderr
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            so = ctypes.CDLL(str(LIB_PATH))
+            p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+            so.rdt_error_string.argtypes = [i32]
+            so.rdt_error_string.restype = ctypes.c_char_p
+            so.rdt_expand_rows.argtypes = [p, p, p, i64, i64, i64, i32, p]
+            so.rdt_expand_rows.restype = i32
+            so.rdt_dcn_sample.argtypes = [
+                p, p, p, p, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+                ctypes.c_float, i32, p,
+            ]
+            so.rdt_dcn_sample.restype = i32
+            _lib = so
+        return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if rc != 0:
+        msg = lib().rdt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
