@@ -1,8 +1,10 @@
-"""Active-site capacities of the radar backbone: the per-stage table sizes.
+"""What the host precompute and the models both read off a backbone config.
 
-The host precompute (``data/``) sizes its rulebooks with them and the
-backbone (``models/``) sizes its site tables with them, so both read them
-from here and neither layer imports the other.
+The active-site capacities of the radar backbone: the host precompute
+(``data/``) sizes its rulebooks with them and the backbone (``models/``) sizes
+its site tables with them. And whether the teacher backbone takes the sparse
+pillar table: the host builds that table, the detector wires it. Both layers
+read these from here and neither imports the other.
 """
 
 from __future__ import annotations
@@ -22,3 +24,8 @@ def as_caps(bk_cfg, grid_size) -> Tuple[int, ...]:
     """The backbone config's capacities (``MAX_ACTIVE``) for a (nx, ny) grid."""
     nx, ny = grid_size
     return stage_caps(bk_cfg.get("MAX_ACTIVE", DEFAULT_CAPS), (ny, nx))
+
+
+def is_table_s2d(bk_cfg) -> bool:
+    """The space-to-depth teacher backbone fed by the VFE's pillar table."""
+    return "_S2D" in bk_cfg.get("NAME", "") and bool(bk_cfg.get("TABLE_INPUT", False))

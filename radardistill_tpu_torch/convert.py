@@ -13,7 +13,11 @@ each leaf by one rule per leaf kind:
   - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
     LayerNorm scale -> weight;
   - GRN gamma/beta (1, 1, 1, C), the DCN's HWIO ``down_weight`` and its
-    ``down_bias`` unchanged.
+    ``down_bias`` unchanged;
+  - the space-to-depth teacher's ``KernelHolder`` kernels
+    (``conv1_0/conv1/conv/kernel``, ``conv2_down/conv/conv/kernel``) stay HWIO
+    under the name ``kernel``, because the packed kernels are assembled from
+    that layout; its ``PackedMaskedBatchNorm`` vectors map like any BatchNorm.
 
 A reference pcdet ``.pth`` loads by composition: ``tools/convert_torch_ckpt.py``'s
 ``Converter`` makes the flax tree from it, and this bridge the ``state_dict``.
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.backbone_s2d import KernelHolder
 from .models.center_head import _BlockDiagConv
 from .models.layers import ConvParams, ConvTranspose2dTorch, Dense
 
@@ -46,7 +51,7 @@ def _walk(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
 
 
 def _layout(module: nn.Module, leaf: str, arr: np.ndarray) -> np.ndarray:
-    if leaf != "kernel":
+    if leaf != "kernel" or isinstance(module, KernelHolder):
         return arr
     if isinstance(module, ConvTranspose2dTorch):
         return arr.transpose(2, 3, 0, 1)
@@ -64,7 +69,8 @@ def state_dict_from_jax(model: nn.Module, variables) -> Dict[str, torch.Tensor]:
         for path, arr in _walk(variables.get(coll, {})):
             *scope, leaf = path
             module = model.get_submodule(".".join(scope))
-            state[".".join([*scope, names[leaf]])] = torch.from_numpy(
+            name = leaf if isinstance(module, KernelHolder) else names[leaf]
+            state[".".join([*scope, name])] = torch.from_numpy(
                 np.array(_layout(module, leaf, arr), dtype=np.float32, order="C"))
     return state
 

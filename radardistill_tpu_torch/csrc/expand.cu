@@ -10,37 +10,34 @@
 //
 // What bounds it on the H100: bytes. Each output row reads one table row and
 // writes one dense row (at the conv4 handoff, 180^2 rows of 256 bf16 = 16.6 MB
-// written, the occupied rows read), far below any compute limit. The design
-// spends one warp per output row and moves the row in 16-byte vectors (the
-// wrapper requires 16-byte rows and base pointers; every caller's rows are
-// 256 or 512 channels wide), so consecutive lanes touch consecutive 16-byte
-// words and every load and store is fully coalesced. The copy is of raw bits,
-// so the result is bit-exact for every dtype.
+// written, the occupied rows read; at the teacher's entry, 2 x 1440^2 int8 rows
+// of 32 bytes = 133 MB written), far below any compute limit. The design moves
+// 16-byte vectors, one per thread, numbered row-major over the output (the
+// wrapper requires 16-byte rows and base pointers), so consecutive lanes touch
+// consecutive 16-byte words of the output whatever the row width, and the
+// reads of one table row coalesce too. A row of 512 bytes takes one warp, a
+// row of 32 bytes two lanes, and 16 such rows share a warp (a warp per row
+// would leave 30 of 32 lanes idle on the teacher's 32-byte rows). The copy is
+// of raw bits, so the result is bit-exact for every dtype.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 256;
 
 __global__ void expand_rows_kernel(const uint4* __restrict__ table,
                                    const int32_t* __restrict__ inv,
-                                   uint4* __restrict__ out, int64_t n_rows_out,
+                                   uint4* __restrict__ out, int64_t n_vecs_out,
                                    int64_t n_rows_table, int64_t vecs_per_row) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row =
-      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows_out) return;
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_vecs_out) return;
+  const int64_t row = i / vecs_per_row, v = i - row * vecs_per_row;
   const int64_t src = inv[row];
-  uint4* dst = out + row * vecs_per_row;
-  if (src < 0 || src >= n_rows_table) {
-    const uint4 zero{};
-    for (int64_t v = lane; v < vecs_per_row; v += 32) dst[v] = zero;
-    return;
-  }
-  const uint4* s = table + src * vecs_per_row;
-  for (int64_t v = lane; v < vecs_per_row; v += 32) dst[v] = s[v];
+  uint4 word{};
+  if (src >= 0 && src < n_rows_table) word = table[src * vecs_per_row + v];
+  out[i] = word;
 }
 
 }  // namespace
@@ -59,10 +56,12 @@ extern "C" int rdt_expand_rows(const void* table, const int32_t* inv,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n_rows_out == 0) return cudaGetLastError();
-  const int64_t blocks = (n_rows_out + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  expand_rows_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
+  const int64_t vecs_per_row = row_bytes / 16;
+  const int64_t n_vecs_out = n_rows_out * vecs_per_row;
+  const int64_t blocks = (n_vecs_out + kThreads - 1) / kThreads;
+  expand_rows_kernel<<<(unsigned)blocks, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(table), inv, static_cast<uint4*>(out),
-      n_rows_out, n_rows_table, row_bytes / 16);
+      n_vecs_out, n_rows_table, vecs_per_row);
   return cudaGetLastError();
 }

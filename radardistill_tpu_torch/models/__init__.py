@@ -1,4 +1,4 @@
-"""Model layer of the port: ``build_network`` for the radar-only detector."""
+"""Model layer of the port: ``build_network`` for the PillarNet detector."""
 
 from __future__ import annotations
 
@@ -12,13 +12,14 @@ DETECTORS = {"PillarNet": PillarNet}
 
 
 def build_network(model_cfg, dataset_info: Dict[str, Any], compute_dtype=torch.float32,
-                  device=None) -> PillarNet:
+                  device="cuda") -> PillarNet:
     """dataset_info: grid_size (nx, ny), voxel_size, point_cloud_range,
-    class_names (as ``radardistill_tpu.utils.production.production_cfg``
-    returns them). Parameters are created empty on ``device``: load them with
+    class_names (as ``utils.production.production_cfg`` returns them). The
+    model is built in eval mode on ``device``: the card unless the caller asks
+    for ``"cpu"``. Parameters are created empty: load them with
     ``convert.load_jax_variables`` or fill them with ``layers.init_random_``."""
     cls = DETECTORS[model_cfg["NAME"]]
     model = cls(model_cfg, tuple(dataset_info["grid_size"]), tuple(dataset_info["voxel_size"]),
                 tuple(dataset_info["point_cloud_range"]), tuple(dataset_info["class_names"]),
                 compute_dtype=compute_dtype)
-    return model.to(device).eval() if device is not None else model.eval()
+    return model.to(device).eval()

@@ -1,0 +1,344 @@
+"""Space-to-depth PillarRes18 backbone of the LiDAR teacher (NHWC, eval).
+
+Counterpart of ``radardistill_tpu/models/backbone_s2d.py`` for the shipped
+teacher: ``PillarRes18BackBone8x_S2D`` with ``TABLE_INPUT``, ``PACKED_TABLE``
+and ``INT8`` false or ``static`` (``INT8_STAGES`` 1). Stage 1 runs on the 2x2
+space-to-depth packing of the stride-1 grid, (B, H/2, W/2, 4*32) with channel
+= phase * C + c and phase = (y%2)*2 + x%2, and every op is built to equal the
+dense-grid stage exactly, on the same parameter tree:
+
+- a 3x3 stride-1 subm conv becomes a 3x3 conv on the packed grid whose
+  (4Cin, 4Cout) kernel is assembled from the original (3, 3, Cin, Cout)
+  weights (``pack_subm_kernel``);
+- the stride-2 conv that consumes stage 1 becomes a 2x2 conv on the packed
+  grid padded (1, 0) per dimension (``pack_down_kernel``), and emits the
+  unpacked stage-2 grid;
+- BN parameters and statistics stay (C,) vectors, tiled over the 4 phases.
+
+With ``INT8: static`` the four stage-1 links run as fused int8 links
+(``ops/conv_block.py``, K1) on an int8 carry ``(q, bound, zero)``; the chain
+ends in the stride-2 conv, which consumes the carry with a stock exact
+integer conv (``layers.int8_conv_affine``) and returns float. Stages 2-4 run
+the masked dense float blocks of ``backbone_sparse2d.py`` on host-built
+occupancy masks, conv5 dense. Every other switch of the JAX module raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import active_site as asx
+from ..ops.conv_block import int8_block
+from ..utils.bitpack import unpack_bool
+from .backbone_sparse2d import DenseBasicBlock, SparseBasicBlock, SparseDownBlock
+from .layers import (BN_EPS_BACKBONE, BatchNormTorch, Conv2dTorch, MaskedBatchNorm, bn_affine,
+                     int8_conv_affine, int8_qkernel, max_pool_mask, q8)
+
+# ---------------------------------------------------------------------------
+# pack / unpack
+# ---------------------------------------------------------------------------
+
+
+def space_to_depth(x):
+    """(B, H, W, C) -> (B, H/2, W/2, 4C), channel = ((y%2)*2 + x%2)*C + c."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // 2, w // 2, 4 * c)
+
+
+def depth_to_space(x, c):
+    """Inverse of space_to_depth for original channel count c."""
+    b, h2, w2, _ = x.shape
+    x = x.reshape(b, h2, w2, 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h2 * 2, w2 * 2, c)
+
+
+def pack_mask(mask):
+    """(B, H, W) occupancy -> (B, H/2, W/2, 4) float32 (phase-major)."""
+    return space_to_depth(mask[..., None].float())
+
+
+def _phase_mask_flat(mask_p, c):
+    """(B, h, w, 4) -> (B, h, w, 4c) per-phase multiplier."""
+    b, h, w, _ = mask_p.shape
+    return mask_p[..., :, None].expand(b, h, w, 4, c).reshape(b, h, w, 4 * c)
+
+
+# ---------------------------------------------------------------------------
+# packed kernel assembly: static tap tables, one gather per kernel
+# ---------------------------------------------------------------------------
+
+
+def _subm_taps() -> np.ndarray:
+    """(3, 3, 4, 4) original tap index of packed tap (du, dv, q -> p), 9 where
+    the packed tap is empty: dy = 2*du + qy - py must lie in {-1, 0, 1}."""
+    taps = np.full((3, 3, 4, 4), 9, np.int64)
+    for p in range(4):
+        for q in range(4):
+            for du in (-1, 0, 1):
+                dy = 2 * du + q // 2 - p // 2
+                for dv in (-1, 0, 1):
+                    dx = 2 * dv + q % 2 - p % 2
+                    if abs(dy) <= 1 and abs(dx) <= 1:
+                        taps[du + 1, dv + 1, q, p] = (dy + 1) * 3 + dx + 1
+    return taps
+
+
+def _down_taps() -> np.ndarray:
+    """(2, 2, 4) original tap index of packed tap (du, dv, q), 9 where empty:
+    dy = 2*du + qy with du in {-1, 0}."""
+    taps = np.full((2, 2, 4), 9, np.int64)
+    for q in range(4):
+        for du in (-1, 0):
+            dy = 2 * du + q // 2
+            for dv in (-1, 0):
+                dx = 2 * dv + q % 2
+                if abs(dy) <= 1 and abs(dx) <= 1:
+                    taps[du + 1, dv + 1, q] = (dy + 1) * 3 + dx + 1
+    return taps
+
+
+@functools.lru_cache(maxsize=None)
+def _taps_on(kind: str, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_subm_taps() if kind == "subm" else _down_taps()).to(device)
+
+
+def _taps_with_zero(k):
+    kh, kw, cin, cout = k.shape
+    return torch.cat([k.reshape(kh * kw, cin, cout), k.new_zeros((1, cin, cout))])
+
+
+def pack_subm_kernel(k, cin, cout):
+    """(3, 3, Cin, Cout) original kernel -> (3, 3, 4Cin, 4Cout) packed kernel."""
+    kp = _taps_with_zero(k)[_taps_on("subm", k.device)]  # (3, 3, q, p, Cin, Cout)
+    return kp.permute(0, 1, 2, 4, 3, 5).reshape(3, 3, 4 * cin, 4 * cout)
+
+
+def pack_down_kernel(k, cin, cout):
+    """(3, 3, Cin, Cout) stride-2 kernel -> (2, 2, 4Cin, Cout) packed stride-1
+    kernel (output grid == packed grid; padding (1, 0) per dimension)."""
+    kp = _taps_with_zero(k)[_taps_on("down", k.device)]  # (2, 2, q, Cin, Cout)
+    return kp.reshape(2, 2, 4 * cin, cout)
+
+
+def _conv(x, kernel, padding, stride=1):
+    """NHWC conv with an HWIO kernel and explicit ((top, bottom), (left,
+    right)) zero padding."""
+    (pt, pb), (pl, pr) = padding
+    xn = x.permute(0, 3, 1, 2)
+    if (pt, pl) != (pb, pr):
+        xn, pt, pl = F.pad(xn, (pl, pr, pt, pb)), 0, 0
+    y = F.conv2d(xn, kernel.permute(3, 2, 0, 1), None, stride, (pt, pl))
+    return y.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# packed modules: the parameter trees of the dense variants
+# ---------------------------------------------------------------------------
+
+
+class KernelHolder(nn.Module):
+    """The original-layout conv parameters: ``kernel`` (3, 3, Cin, Cout) HWIO
+    and an optional ``bias`` (the flax scope an ``nn.Conv`` would create)."""
+
+    def __init__(self, cin, cout, use_bias):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(3, 3, cin, cout))
+        self.bias = nn.Parameter(torch.empty(cout)) if use_bias else None
+
+
+class _PackedSubmConv(nn.Module):
+    """3x3 subm conv on the packed grid; parameters (3, 3, Cin, Cout) + bias
+    under ``conv``."""
+
+    def __init__(self, cin, cout, use_bias):
+        super().__init__()
+        self.cin, self.cout = cin, cout
+        self.conv = KernelHolder(cin, cout, use_bias)
+
+    def forward(self, x):
+        kp = pack_subm_kernel(self.conv.kernel.to(x.dtype), self.cin, self.cout)
+        y = _conv(x, kp, ((1, 1), (1, 1)))
+        if self.conv.bias is not None:
+            y = y + self.conv.bias.repeat(4).to(y.dtype)
+        return y
+
+    def pieces(self):
+        """The int8 chain's view: packed quantized kernel, its per-channel
+        dequant scales, and the phase-tiled bias."""
+        kq, sw = int8_qkernel(pack_subm_kernel(self.conv.kernel.float(), self.cin, self.cout))
+        b = self.conv.bias
+        return kq, sw, (b.repeat(4).float() if b is not None else None)
+
+
+class PackedMaskedBatchNorm(nn.Module):
+    """Eval MaskedBatchNorm on (B, h, w, 4C) packed features; parameters and
+    running statistics are the (C,) vectors of ``MaskedBatchNorm``. Computed
+    in float32, returned in x's dtype."""
+
+    def __init__(self, features, eps=BN_EPS_BACKBONE):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x):
+        inv4 = (torch.rsqrt(self.running_var + self.eps) * self.weight).repeat(4)
+        y = (x.float() - self.running_mean.repeat(4)) * inv4 + self.bias.repeat(4)
+        return y.to(x.dtype)
+
+    def affine(self):
+        """The BN as a packed affine (gt, shift, bound) for the int8 chain."""
+        gt, shift, bound = bn_affine(self.weight, self.bias, self.running_mean,
+                                     self.running_var, self.eps)
+        return gt.repeat(4), shift.repeat(4), bound
+
+
+class S2DBasicBlock(nn.Module):
+    """SparseBasicBlock on the packed grid (the same parameter tree). A
+    tensor input runs the float path; an int8 carry ``(q, bound, zero)`` runs
+    both links as fused int8 links (K1), the residual added on the second
+    link's accumulator, and returns the next carry."""
+
+    def __init__(self, features):
+        super().__init__()
+        self.features = features
+        self.conv1 = _PackedSubmConv(features, features, True)
+        self.bn1 = PackedMaskedBatchNorm(features)
+        self.conv2 = _PackedSubmConv(features, features, True)
+        self.bn2 = PackedMaskedBatchNorm(features)
+
+    def forward(self, x, mask_p):
+        if isinstance(x, tuple):
+            mc = mask_p.to(torch.int8)
+            q1 = int8_block(x, *self.conv1.pieces(), *self.bn1.affine(), mc)
+            return int8_block(q1, *self.conv2.pieces(), *self.bn2.affine(), mc, res=x)
+        m = _phase_mask_flat(mask_p, self.features).to(x.dtype)
+        y = torch.relu(self.bn1(self.conv1(x))) * m
+        y = self.bn2(self.conv2(y))
+        return torch.relu(y + x) * m
+
+
+class _ConvScope(nn.Module):
+    """Extra scope level mirroring Conv2dTorch('x') -> nn.Conv('conv')."""
+
+    def __init__(self, cin, cout):
+        super().__init__()
+        self.conv = KernelHolder(cin, cout, False)
+
+
+class S2DDownBlock(nn.Module):
+    """Stride-2 SparseConv2d consuming the packed stage: a 2x2 packed conv
+    that emits the UNPACKED next-stage tensor in ``dtype``. An int8 carry is
+    consumed here (the chain's terminus): one exact integer conv from stock
+    ops with the dequant and BN affine as its epilogue, float out."""
+
+    def __init__(self, cin, features, dtype=torch.float32):
+        super().__init__()
+        self.cin, self.features, self.dtype = cin, features, dtype
+        self.conv = _ConvScope(cin, features)
+        self.bn = MaskedBatchNorm(features, BN_EPS_BACKBONE)
+
+    def forward(self, x_packed, new_mask):
+        k = self.conv.conv.kernel
+        m = new_mask[..., None]
+        if isinstance(x_packed, tuple):
+            kq, sw = int8_qkernel(pack_down_kernel(k.float(), self.cin, self.features))
+            gt, sh, _ = self.bn.affine()
+            y = int8_conv_affine(x_packed, kq, sw, None, gt, sh, 1, ((1, 0), (1, 0)))
+            return (torch.relu(y) * m.float()).to(self.dtype)
+        kp = pack_down_kernel(k.to(x_packed.dtype), self.cin, self.features)
+        y = torch.relu(self.bn(_conv(x_packed, kp, ((1, 0), (1, 0)))))
+        return y * m.to(y.dtype)
+
+
+class PillarRes18BackBone8xS2D(nn.Module):
+    """PillarRes18BackBone8x with stage 1 space-to-depth packed, fed by the
+    sparse VFE's packed-order pillar table.
+
+    ``forward(table, uids, hp_masks)``: table (B, cap, 32), uids (B, cap)
+    sorted by packed address (sentinel H*W), hp_masks the host-built
+    occupancy masks of the strided stages (``data.host_precompute
+    .mask_pyramid``, bit-packed uint8 or bool) or None, in which case they
+    are dilated here. Returns x_conv2..x_conv5 and mask2..mask4. The packed
+    stage-1 output has no consumer and is not returned (under ``int8_static``
+    it exists only as an int8 carry)."""
+
+    def __init__(self, hw: Tuple[int, int], dtype=torch.float32, int8=False,
+                 int8_static=False, int8_stages=1, fp_stages=0, table_input=True,
+                 packed_table=True, pack_stage2=False):
+        super().__init__()
+        for name, on in (("INT8: true (dynamic per-conv scales)", int8),
+                         ("INT8_STAGES > 1", int8_static and int8_stages != 1),
+                         ("FP_STAGES", fp_stages), ("the _S2D2 backbone (pack_stage2)", pack_stage2),
+                         ("TABLE_INPUT: false (dense input)", not table_input),
+                         ("PACKED_TABLE: false", not packed_table)):
+            if on:
+                raise NotImplementedError(f"PillarRes18BackBone8x_S2D: {name} is not ported")
+        self.hw, self.dtype, self.int8_static = tuple(hw), dtype, int8_static
+        self.conv1_0 = S2DBasicBlock(32)
+        self.conv1_1 = S2DBasicBlock(32)
+        self.conv2_down = S2DDownBlock(32, 64, dtype)
+        self.conv2_0 = SparseBasicBlock(64)
+        self.conv2_1 = SparseBasicBlock(64)
+        for stage, (cin, cout) in ((3, (64, 128)), (4, (128, 256))):
+            self.add_module(f"conv{stage}_down", SparseDownBlock(cin, cout))
+            self.add_module(f"conv{stage}_0", SparseBasicBlock(cout))
+            self.add_module(f"conv{stage}_1", SparseBasicBlock(cout))
+        self.conv5_down_conv = Conv2dTorch(256, 256, 3, 2, 1, use_bias=False)
+        self.conv5_down_bn = BatchNormTorch(256, BN_EPS_BACKBONE)
+        self.conv5_0 = DenseBasicBlock(256)
+        self.conv5_1 = DenseBasicBlock(256)
+
+    def _stage_masks(self, mask_p, hp_masks: Optional[tuple]):
+        """(B, H/2^k, W/2^k) bool occupancy of stages 2-4."""
+        w0 = self.hw[1]
+        if hp_masks is None:
+            masks, m = [], depth_to_space(mask_p, 1)[..., 0] > 0
+            for _ in range(3):
+                m = max_pool_mask(m, 3, 2, 1)
+                masks.append(m)
+            return masks
+        return [unpack_bool(m, w0 >> (i + 1)) if m.dtype == torch.uint8 else m
+                for i, m in enumerate(hp_masks)]
+
+    def forward(self, table, uids, hp_masks=None) -> Dict[str, torch.Tensor]:
+        if self.int8_static:
+            # quantize the COMPACT table, then densify int8 (exact: q8 is
+            # elementwise with q8(0) = 0, so gather(q8(t)) == q8(gather(t))).
+            # The bound is the table's abs-max: it equals the dense grid's
+            # only because unused table rows are exactly zero (the VFE's
+            # -inf max-scatter with its isneginf -> 0 fill guarantees it)
+            bnd0 = torch.clamp(table.abs().max().float(), min=1e-6)
+            table = q8(table.float(), bnd0)
+        x, mask_pb = asx.densify_packed_direct_batch(table, uids, self.hw)
+        if self.int8_static:
+            x = (x, bnd0, 0.0)
+        mask_p = mask_pb.float()
+        mask2, mask3, mask4 = self._stage_masks(mask_p, hp_masks)
+
+        x = self.conv1_0(x, mask_p)
+        x1p = self.conv1_1(x, mask_p)
+        x = self.conv2_down(x1p, mask2)
+        x = self.conv2_0(x, mask2)
+        x2 = self.conv2_1(x, mask2)
+        x = self.conv3_down(x2, mask3)
+        x = self.conv3_0(x, mask3)
+        x3 = self.conv3_1(x, mask3)
+        x = self.conv4_down(x3, mask4)
+        x = self.conv4_0(x, mask4)
+        x4 = self.conv4_1(x, mask4)
+        x = torch.relu(self.conv5_down_bn(self.conv5_down_conv(x4)))
+        x = self.conv5_0(x)
+        x5 = self.conv5_1(x)
+        return {"x_conv2": x2, "x_conv3": x3, "x_conv4": x4, "x_conv5": x5,
+                "mask2": mask2, "mask3": mask3, "mask4": mask4}

@@ -1,15 +1,27 @@
-"""PillarNet, radar-only branch, eval.
+"""PillarNet, the dual-branch teacher/student detector, eval.
 
-Counterpart of ``radardistill_tpu/models/detector.py::PillarNet`` for the
-radar-only serving configuration (``radar_distill_val.yaml``): radar VFE
-table -> active-site backbone (DENSE_FROM 5) -> CMA hourglass -> neck ->
-merged-hidden CenterHead -> decode + NMS. Submodule names are the flax scope
-names (``radar_vfe``, ``radar_backbone_3d``, ``radar_cma``, ``radar_neck``,
-``radar_dense_head``), and the output dict uses the JAX package's keys.
+Counterpart of ``radardistill_tpu/models/detector.py::PillarNet`` run with
+``train=False``, for the two shipped configurations:
+
+- radar-only serving (``radar_distill_val.yaml``): radar VFE table ->
+  active-site backbone (DENSE_FROM 5) -> CMA hourglass -> neck ->
+  merged-hidden CenterHead -> decode + NMS;
+- the distillation forward (``radar_distill_train.yaml``): beside that
+  student, the frozen LiDAR teacher: lidar VFE table (packed order) ->
+  ``PillarRes18BackBone8x_S2D`` (table input, static int8 stage 1) ->
+  ``BaseBEVBackboneV2`` -> ``CenterHead``. Its ``x_conv4``, ``x_conv5``,
+  ``spatial_features_2d``, ``spatial_features_2d_8x`` and ``lidar_preds``
+  are what the distillation losses and the teacher's eval consume.
+
+Submodule names are the flax scope names (``vfe``, ``backbone_3d``,
+``backbone_2d``, ``dense_head`` and their ``radar_`` twins, ``radar_cma``,
+``radar_neck``), and the output dict uses the JAX package's keys. The whole
+forward runs without gradients, so the scopes of ``FREEZE_PIPELINE`` (kept as
+``frozen``) need no extra detach here; a train mode will read them.
 
 The input is a collated batch after ``data.host_precompute.HostPrecompute``
-(sorted points, pillar tables, tap tables), as tensors on the model's device
-(``batch_to_torch``).
+(sorted points, pillar tables, tap tables, occupancy masks), as tensors on the
+model's device (``batch_to_torch``).
 """
 
 from __future__ import annotations
@@ -22,63 +34,121 @@ from torch import nn
 
 from torch.profiler import record_function
 
-from ..caps import as_caps
+from ..caps import as_caps, is_table_s2d
 from .backbone_as import PillarRes18BackBone8xAS
+from .backbone_s2d import PillarRes18BackBone8xS2D
 from .bev_backbone import BaseBEVBackboneV2
 from .center_head import CenterHead, HeadSpec, decode_and_nms
 from .distill import CMAHourglass
 from .vfe import DynamicPillarVFESparse
 
+LIDAR_FEATURES = 5  # x, y, z, intensity, time
 RADAR_FEATURES = 6  # x, y, z, rcs, vx, vy
-STAGES = ("radar_vfe", "radar_backbone_3d", "radar_cma", "radar_neck", "radar_dense_head",
-          "decode_and_nms")
+TEACHER_STAGES = ("vfe", "backbone_3d", "backbone_2d", "dense_head")
+RADAR_STAGES = ("radar_vfe", "radar_backbone_3d", "radar_cma", "radar_neck", "radar_dense_head")
+STAGES = TEACHER_STAGES + RADAR_STAGES + ("decode_and_nms",)
+
+# FREEZE_PIPELINE class names of the reference -> the scopes they freeze
+FREEZE_NAME_TO_SCOPE = {
+    "DynamicPillarVFESimple2D": ("vfe",),
+    "PillarRes18BackBone8x": ("backbone_3d",),
+    "BaseBEVBackboneV2": ("backbone_2d",),
+    "CenterHead": ("dense_head",),
+    "Radar_DynamicPillarVFESimple2D": ("radar_vfe",),
+    "Radar_PillarRes18BackBone8x": ("radar_backbone_3d",),
+    # Radar_Distill = CMA hourglass + inherited neck -> two scopes
+    "Radar_Distill": ("radar_cma", "radar_neck"),
+    "Radar_CenterHead": ("radar_dense_head",),
+}
 
 
 class PillarNet(nn.Module):
-    """Radar-only detector. Build with ``models.build_network``."""
+    """Build with ``models.build_network``."""
 
     def __init__(self, model_cfg, grid_size, voxel_size, point_cloud_range, class_names,
                  compute_dtype=torch.float32):
         super().__init__()
         cfg = model_cfg
-        if "VFE" in cfg or "RADAR_VFE" not in cfg:
-            raise NotImplementedError("the port serves the radar-only configuration")
-        bk = cfg["RADAR_BACKBONE_3D"]
-        if not bk.get("NAME", "").endswith("_AS"):
-            raise NotImplementedError(f"radar backbone {bk.get('NAME')} is not ported")
         self.model_cfg = cfg
         self.grid_size = tuple(grid_size)
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
+        self.has_teacher = "VFE" in cfg
+        self.has_radar = "RADAR_VFE" in cfg
+        self.frozen = {scope for n in cfg.get("FREEZE_PIPELINE", [])
+                       for scope in FREEZE_NAME_TO_SCOPE.get(n, ())}
         nx, ny = self.grid_size
-        caps = as_caps(bk, self.grid_size)
-        vfe = cfg["RADAR_VFE"]
-        self.radar_vfe = DynamicPillarVFESparse(
-            num_filters=tuple(vfe["NUM_FILTERS"]), voxel_size=self.voxel_size,
-            point_cloud_range=self.point_cloud_range, grid_size=self.grid_size,
-            num_point_features=RADAR_FEATURES, capacity=caps[0],
-            use_norm=vfe.get("USE_NORM", True), with_distance=vfe.get("WITH_DISTANCE", False),
-            use_absolute_xyz=vfe.get("USE_ABSLOTE_XYZ", True),
-            use_cluster_xyz=vfe.get("USE_CLUSTER_XYZ", True), dtype=compute_dtype)
-        self.radar_backbone_3d = PillarRes18BackBone8xAS(
-            (ny, nx), caps, int(bk.get("DENSE_FROM", 3)))
-        self.radar_cma = CMAHourglass(256)
-        neck = cfg["RADAR_BACKBONE_2D"]
-        self.radar_neck = BaseBEVBackboneV2(
-            (256, 256), tuple(neck["LAYER_NUMS"]), tuple(neck["NUM_FILTERS"]),
-            tuple(neck["UPSAMPLE_STRIDES"]), tuple(neck["NUM_UPSAMPLE_FILTERS"]))
-        head = cfg["RADAR_DENSE_HEAD"]
-        self.head_spec = HeadSpec(head["CLASS_NAMES_EACH_HEAD"], class_names)
-        self.radar_dense_head = CenterHead(
-            self.head_spec, neck["NUM_FILTERS"][0], head["SHARED_CONV_CHANNEL"],
-            head["NUM_HM_CONV"], head.get("USE_BIAS_BEFORE_NORM", False),
-            with_iou="iou" in head["SEPARATE_HEAD_CFG"]["HEAD_DICT"])
+        dt = compute_dtype
 
-    @torch.no_grad()
-    def forward(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """Each stage runs inside a ``torch.profiler`` span named after it
-        (``STAGES``), so a profile attributes host and device time per stage."""
-        out: Dict[str, Any] = {}
+        def make_vfe(sub, num_point_features, capacity):
+            return DynamicPillarVFESparse(
+                num_filters=tuple(sub["NUM_FILTERS"]), voxel_size=self.voxel_size,
+                point_cloud_range=self.point_cloud_range, grid_size=self.grid_size,
+                num_point_features=num_point_features, capacity=capacity,
+                use_norm=sub.get("USE_NORM", True), with_distance=sub.get("WITH_DISTANCE", False),
+                use_absolute_xyz=sub.get("USE_ABSLOTE_XYZ", True),
+                use_cluster_xyz=sub.get("USE_CLUSTER_XYZ", True), dtype=dt)
+
+        def make_neck(sub):
+            return BaseBEVBackboneV2(
+                (256, 256), tuple(sub["LAYER_NUMS"]), tuple(sub["NUM_FILTERS"]),
+                tuple(sub["UPSAMPLE_STRIDES"]), tuple(sub["NUM_UPSAMPLE_FILTERS"]))
+
+        def make_head(sub, in_ch):
+            spec = HeadSpec(sub["CLASS_NAMES_EACH_HEAD"], class_names)
+            return spec, CenterHead(
+                spec, in_ch, sub["SHARED_CONV_CHANNEL"], sub["NUM_HM_CONV"],
+                sub.get("USE_BIAS_BEFORE_NORM", False),
+                with_iou="iou" in sub["SEPARATE_HEAD_CFG"]["HEAD_DICT"])
+
+        if self.has_teacher:
+            bk = cfg.get("BACKBONE_3D", {})
+            if not is_table_s2d(bk):
+                raise NotImplementedError(
+                    f"teacher backbone {bk.get('NAME')} without TABLE_INPUT is not ported")
+            int8_mode = bk.get("INT8", False)
+            self.vfe = make_vfe(cfg["VFE"], LIDAR_FEATURES, int(bk.get("TABLE_CAPACITY", 163840)))
+            self.backbone_3d = PillarRes18BackBone8xS2D(
+                (ny, nx), dtype=dt, int8=bool(int8_mode) and int8_mode != "static",
+                int8_static=int8_mode == "static", int8_stages=int(bk.get("INT8_STAGES", 1)),
+                fp_stages=int(bk.get("FP_STAGES", 0)), table_input=True,
+                packed_table=bool(bk.get("PACKED_TABLE", True)),
+                pack_stage2=bk["NAME"].endswith("_S2D2"))
+            neck = cfg["BACKBONE_2D"]
+            self.backbone_2d = make_neck(neck)
+            self.head_spec, self.dense_head = make_head(cfg["DENSE_HEAD"], neck["NUM_FILTERS"][0])
+        if self.has_radar:
+            bk = cfg["RADAR_BACKBONE_3D"]
+            if not bk.get("NAME", "").endswith("_AS"):
+                raise NotImplementedError(f"radar backbone {bk.get('NAME')} is not ported")
+            caps = as_caps(bk, self.grid_size)
+            self.radar_vfe = make_vfe(cfg["RADAR_VFE"], RADAR_FEATURES, caps[0])
+            self.radar_backbone_3d = PillarRes18BackBone8xAS(
+                (ny, nx), caps, int(bk.get("DENSE_FROM", 3)))
+            self.radar_cma = CMAHourglass(256)
+            neck = cfg["RADAR_BACKBONE_2D"]
+            self.radar_neck = make_neck(neck)
+            self.radar_head_spec, self.radar_dense_head = make_head(
+                cfg["RADAR_DENSE_HEAD"], neck["NUM_FILTERS"][0])
+            if not self.has_teacher:
+                self.head_spec = self.radar_head_spec
+
+    def _teacher(self, batch, out):
+        with record_function("vfe"):
+            tfeats, tuids, tcnt = self.vfe(batch["points"], batch["points_mask"],
+                                           batch["hp_lidar"])
+        with record_function("backbone_3d"):
+            ms = self.backbone_3d(tfeats, tuids, batch.get("hp_masks"))
+        out["as_overflow"] = out["as_overflow"] + torch.clamp(
+            tcnt - self.vfe.capacity, min=0).sum().to(torch.int32)
+        out["x_conv4"], out["x_conv5"] = ms["x_conv4"], ms["x_conv5"]
+        with record_function("backbone_2d"):
+            sp2d, sp2d_8x = self.backbone_2d(ms["x_conv4"], ms["x_conv5"])
+        out["spatial_features_2d"], out["spatial_features_2d_8x"] = sp2d, sp2d_8x
+        with record_function("dense_head"):
+            out["lidar_preds"] = self.dense_head(sp2d)
+
+    def _radar(self, batch, out):
         # radar-only eval datasets carry the radar returns in `points`
         key = "radar_points" if "radar_points" in batch else "points"
         with record_function("radar_vfe"):
@@ -86,7 +156,7 @@ class PillarNet(nn.Module):
                                                  batch["hp_radar"])
         with record_function("radar_backbone_3d"):
             rms = self.radar_backbone_3d(rfeats, ruids, batch.get("hp_as"))
-        out["as_overflow"] = rms["as_overflow"] + torch.clamp(
+        out["as_overflow"] = out["as_overflow"] + rms["as_overflow"] + torch.clamp(
             rcnt - self.radar_vfe.capacity, min=0).sum().to(torch.int32)
         out["radar_x_conv4"] = rms["x_conv4"]
         with record_function("radar_cma"):
@@ -100,12 +170,29 @@ class PillarNet(nn.Module):
         with record_function("radar_dense_head"):
             out["radar_preds"] = self.radar_dense_head(rsp2d)
 
-        head_cfg = self.model_cfg["RADAR_DENSE_HEAD"]
+    @torch.no_grad()
+    def forward(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """Each stage runs inside a ``torch.profiler`` span named after it
+        (``STAGES``), so a profile attributes host and device time per stage."""
+        points = batch["radar_points" if self.has_radar and "radar_points" in batch else "points"]
+        out: Dict[str, Any] = {
+            "as_overflow": torch.zeros((), dtype=torch.int32, device=points.device)}
+        if self.has_teacher:
+            self._teacher(batch, out)
+        if self.has_radar:
+            self._radar(batch, out)
+
+        # decode: the radar head wins when present, as in the reference
+        side = "RADAR_" if self.has_radar else ""
+        head_cfg = self.model_cfg[f"{side}DENSE_HEAD"]
+        spec = self.radar_head_spec if self.has_radar else self.head_spec
+        preds = out["radar_preds" if self.has_radar else "lidar_preds"]
+        fmap = out["radar_spatial_features_2d" if self.has_radar else "spatial_features_2d"]
         pp = head_cfg["POST_PROCESSING"]
         heads = head_cfg["SEPARATE_HEAD_CFG"]["HEAD_DICT"]
         with record_function("decode_and_nms"):
             out["final_box_dicts"] = decode_and_nms(
-                out["radar_preds"], self.head_spec, (rsp2d.shape[1], rsp2d.shape[2]),
+                preds, spec, (fmap.shape[1], fmap.shape[2]),
                 head_cfg["TARGET_ASSIGNER_CONFIG"]["FEATURE_MAP_STRIDE"],
                 self.voxel_size, self.point_cloud_range, pp["POST_CENTER_LIMIT_RANGE"],
                 k_per_head=pp["MAX_OBJ_PER_SAMPLE"], score_thresh=pp["SCORE_THRESH"],
@@ -117,9 +204,10 @@ class PillarNet(nn.Module):
         return out
 
 
-def batch_to_torch(batch: Dict[str, Any], device):
-    """Collated + host-precomputed numpy batch -> tensors on ``device``
-    (nested dicts and tuples kept, dtypes kept)."""
+def batch_to_torch(batch: Dict[str, Any], device="cuda"):
+    """Collated + host-precomputed numpy batch -> tensors on ``device`` (the
+    card unless the caller asks for the CPU; nested dicts and tuples kept,
+    dtypes kept)."""
     if isinstance(batch, dict):
         return {k: batch_to_torch(v, device) for k, v in batch.items()}
     if isinstance(batch, (tuple, list)):

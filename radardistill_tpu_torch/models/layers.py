@@ -21,13 +21,83 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv_block import int_conv_exact
+
 # reference eps: sparse backbone + neck BNs 1e-3, head / CMA BNs 1e-5
 BN_EPS_BACKBONE = 1e-3
 BN_EPS_DEFAULT = 1e-5
 
 
+# Static-scale int8 chain of the frozen teacher: activation bounds follow
+# analytically from the eval-mode BatchNorm parameters (post-BN activations
+# have mean beta and std gamma under the running statistics, so
+# |y| <= max_c(|beta_c| + K * |gamma_c|)), which makes every quantize a pure
+# elementwise epilogue; activations flow as int8 between convs. No new state:
+# the bounds are derived from the parameters.
+INT8_SIGMA = 6.0  # K in the analytic bound; outliers beyond K sigma saturate
+
+
 def _cast(t, dtype):
     return None if t is None else t.to(dtype)
+
+
+def int8_qkernel(kernel):
+    """Per-output-channel symmetric int8 quantization of an HWIO kernel.
+    Returns (kq int8, sw (Co,) float32 dequant scales)."""
+    kf = kernel.float()
+    sw = torch.clamp(kf.abs().amax(dim=(0, 1, 2)), min=1e-12) / 127.0
+    return torch.round(kf / sw).to(torch.int8), sw
+
+
+def int8_conv_i32(xq, kq, stride, padding, pad_value=0):
+    """int8 x int8 NHWC conv accumulated exactly in int32 (HWIO kernel,
+    explicit ((top, bottom), (left, right)) padding filled with
+    ``pad_value``). PyTorch has no int8 convolution on CUDA; this is one
+    exact float32 matmul per tap (``ops.conv_block.int_conv_exact``)."""
+    return int_conv_exact(xq, kq, stride, padding, pad_value)
+
+
+def q8(y, bound, zero=0.0):
+    """Quantize float32 y to int8 with zero point ``zero`` (0 = symmetric
+    signed; 127 = unsigned-in-signed for post-relu tensors: y in [0, bound]
+    maps to [-127, 127]). Dequant: (q + zero) * bound / (127 + zero)."""
+    s = (127.0 + zero) / torch.clamp(bound, min=1e-8)
+    return torch.clamp(torch.round(y * s) - zero, -127.0, 127.0).to(torch.int8)
+
+
+def deq8(xq, bound, zero=0.0):
+    return (xq.float() + zero) * (torch.clamp(bound, min=1e-8) / (127.0 + zero))
+
+
+def int8_conv_affine(xc, kq, sw, bias, gt, sh, stride, padding):
+    """One chain link from stock ops: the int8 conv and the whole dequant,
+    bias and BN affine as one elementwise epilogue. A carry with a zero point
+    is padded with ``-zero`` (a cell that dequantizes to an exact 0) and the
+    constant ``zero * sum(kq)`` folds into the accumulator. xc = (xq int8
+    NHWC, bound, zero). Returns pre-relu float32."""
+    xq, bnd, zero = xc
+    s_in = torch.clamp(bnd, min=1e-8) / (127.0 + zero)
+    y = int8_conv_i32(xq, kq, stride, padding, pad_value=-int(zero)).float()
+    if zero:
+        y = y + zero * kq.float().sum(dim=(0, 1, 2))
+    alpha = s_in * sw * gt
+    beta = sh if bias is None else bias * gt + sh
+    return y * alpha + beta
+
+
+def bn_affine(scale, bias, mean, var, eps):
+    """Eval-mode BN as (gt, shift, bound): y = gt * x + shift, and the
+    analytic bound max(|bias| + INT8_SIGMA * |scale|) of its output."""
+    gt = torch.rsqrt(var + eps) * scale
+    return gt, bias - mean * gt, torch.max(bias.abs() + INT8_SIGMA * scale.abs())
+
+
+def max_pool_mask(mask, kernel: int = 3, stride: int = 2, padding: int = 1):
+    """Dilate an occupancy mask the way a strided SparseConv2d grows the
+    active set: an output site is active iff any input site of its window is.
+    mask (B, H, W) bool -> (B, H', W') bool."""
+    y = F.max_pool2d(mask[:, None].float(), kernel, stride, padding)
+    return y[:, 0] > 0
 
 
 class ConvParams(nn.Module):
@@ -108,6 +178,11 @@ class BatchNormTorch(nn.Module):
         mul = torch.rsqrt(bn.running_var.to(dt) + self.eps) * bn.weight.to(dt)
         return (x - bn.running_mean.to(dt)) * mul + bn.bias.to(dt)
 
+    def affine(self):
+        """The BN as (gt, shift, bound) for the int8 chain (``bn_affine``)."""
+        bn = self.bn
+        return bn_affine(bn.weight, bn.bias, bn.running_mean, bn.running_var, self.eps)
+
 
 class MaskedBatchNorm(nn.Module):
     """The reference's BN1d over active-site lists, eval mode: the running
@@ -126,6 +201,10 @@ class MaskedBatchNorm(nn.Module):
         y = ((x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
              * self.weight + self.bias)
         return y.to(x.dtype)
+
+    def affine(self):
+        """The BN as (gt, shift, bound) for the int8 chain (``bn_affine``)."""
+        return bn_affine(self.weight, self.bias, self.running_mean, self.running_var, self.eps)
 
 
 class LNParams(nn.Module):
@@ -182,7 +261,7 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if p.dim() >= 2 and leaf not in ("gamma", "beta"):
-                if leaf == "down_weight":  # HWIO
+                if leaf in ("down_weight", "kernel"):  # HWIO
                     fan_in = p.shape[0] * p.shape[1] * p.shape[2]
                 elif p.dim() == 4 and name.endswith("deconv.weight"):
                     fan_in = p.shape[0] * p.shape[2] * p.shape[3]

@@ -2,7 +2,11 @@
 
 Counterpart of ``radardistill_tpu/models/vfe.py``: ``DynamicPillarVFESparse``
 (``encode_table`` with host-sorted points, slots, unique pillar ids and the
-host cluster mean) and ``PFNLayerV2Sparse``. Point features are float32
+host cluster mean) and ``PFNLayerV2Sparse``. It serves the radar student (6
+point features) and the LiDAR teacher (5 features, capacity 163840): the row
+order of the table is the host's, linear for the student and space-to-depth
+packed for the teacher (``packed_order`` of the JAX module), while the id
+values stay linear, so nothing here depends on it. Point features are float32
 (coordinate precision); the pillar table leaves in the compute dtype.
 Layouts: points (B, N, F), table (B, capacity, C).
 """

@@ -5,8 +5,8 @@ fixed-capacity table of sorted linear site ids ``uids`` (sentinel ``H*W``)
 with features ``(B, cap, C)`` beside it; a 3x3 conv reads its neighbours
 through per-stage tap tables ``nb``/``msk`` ``(B, 9, cap_out)`` built on the
 host (``data/host_precompute.py``). Everything here is batched over the
-leading axis; this slice is inference only, so the custom backward passes of
-the JAX functions have no counterpart yet.
+leading axis; the port is forward only so far, so the custom backward passes
+of the JAX functions have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -68,3 +68,38 @@ def densify_batch(feats: torch.Tensor, uids: torch.Tensor, hw: Tuple[int, int]):
     flat_idx = inv + (torch.arange(b, dtype=torch.int32, device=inv.device) * (cap + 1))[:, None]
     rows = expand_rows(feats_z, flat_idx.reshape(-1))
     return rows.reshape(b, h, w, c), (inv < cap).reshape(b, h, w)
+
+
+def packed_addr(uids: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Space-to-depth flat address of linear site ids on the (h, w) grid:
+    parent-major, phase = (y%2)*2 + x%2. The sentinel h*w maps to itself.
+    The address pairs rows and columns, so h and w must be even (an odd grid
+    would alias neighbouring parents)."""
+    if h % 2 or w % 2:
+        raise ValueError(f"packed_addr: the packed layout needs an even grid, not {(h, w)}")
+    y = torch.div(uids, w, rounding_mode="floor")
+    x = uids - y * w
+    addr = (((y >> 1) * (w >> 1) + (x >> 1)) << 2) + ((y & 1) << 1) + (x & 1)
+    return torch.where(uids >= h * w, h * w, addr)
+
+
+def densify_packed_direct_batch(feats: torch.Tensor, uids: torch.Tensor, hw: Tuple[int, int]):
+    """PACKED-ORDER (B, cap, C) tables (rows sorted by ``packed_addr``, id
+    values linear) -> (B, H/2, W/2, 4*C) packed dense + (B, H/2, W/2, 4) bool
+    packed mask (phase-major). The inverse site map is scattered directly at
+    packed addresses, so the row gather lands in the packed layout with no
+    transpose; K5 (``expand_rows``) does the gather, also for int8 tables.
+    Forward only."""
+    h, w = hw
+    b, cap, c = feats.shape
+    feats_z = torch.cat([feats, feats.new_zeros((b, 1, c))], dim=1).reshape(b * (cap + 1), c)
+    addr = packed_addr(uids, h, w)  # (B, cap)
+    inv = torch.full((b * h * w,), cap, dtype=torch.int32, device=uids.device)
+    rows = torch.arange(cap, dtype=torch.int32, device=uids.device).expand(b, cap)
+    keep = addr < h * w
+    flat = addr.long() + (torch.arange(b, device=uids.device) * (h * w))[:, None]
+    inv[flat[keep]] = rows[keep]
+    inv = inv.view(b, h * w)
+    flat_idx = inv + (torch.arange(b, dtype=torch.int32, device=inv.device) * (cap + 1))[:, None]
+    dense = expand_rows(feats_z, flat_idx.reshape(-1))
+    return dense.reshape(b, h // 2, w // 2, 4 * c), (inv < cap).reshape(b, h // 2, w // 2, 4)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The build happens at first
+The sources are compiled with ``nvcc`` for ``sm_90a`` (one compiler process per
+source, run in parallel) into one shared library with a plain C interface,
+loaded with ``ctypes``. The build happens at first
 use, into ``build/radardistill_tpu_torch/`` at the repository root, and is
 redone when a source is newer than the library. Nothing here runs at import
 time, so the CPU tests import every module without a CUDA toolchain.
@@ -17,12 +18,12 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("expand.cu", "dcn_sample.cu")
+SOURCES = ("expand.cu", "dcn_sample.cu", "conv_block.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "radardistill_tpu_torch"
 LIB_PATH = BUILD_DIR / "librdt_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -41,23 +42,37 @@ def nvcc() -> str:
 
 
 def build(ptxas_verbose: bool = False) -> str:
-    """Compile the kernels if the library is missing or stale.
+    """Compile the kernels if the library is missing or stale: one ``nvcc -c``
+    per source, all started together, then one link.
 
-    Returns the compiler's diagnostics (``-Xptxas -v`` register and shared
+    Returns the compilers' diagnostics (``-Xptxas -v`` register and shared
     memory report when asked for), or "" when the library was up to date."""
     srcs = [CSRC / s for s in SOURCES]
     newest = max(s.stat().st_mtime for s in srcs)
     if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest and not ptxas_verbose:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose else ()),
-           "-o", str(tmp), *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return res.stderr
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+    extra = ("-Xptxas", "-v") if ptxas_verbose else ()
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, *extra, "-c", str(s), "-o", str(o)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[1] for p in procs]
+    try:
+        for s, p, log in zip(srcs, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s.name}:\n{log}")
+        tmp = LIB_PATH.with_name(f"{LIB_PATH.stem}.{tag}.so")
+        res = subprocess.run([nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link {LIB_PATH.name}:\n{res.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return "".join(logs)
 
 
 def lib() -> ctypes.CDLL:
@@ -77,6 +92,8 @@ def lib() -> ctypes.CDLL:
                 ctypes.c_float, i32, p,
             ]
             so.rdt_dcn_sample.restype = i32
+            so.rdt_conv_block.argtypes = [p, p, p, p, p, p, *([i32] * 11), p]
+            so.rdt_conv_block.restype = i32
             _lib = so
         return _lib
 

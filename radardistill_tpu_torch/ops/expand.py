@@ -16,7 +16,7 @@ import torch
 
 from . import cuda_lib
 
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
 
 def expand_rows_plain(table: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
@@ -28,8 +28,10 @@ def expand_rows_plain(table: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
 
 
 def expand_rows(table: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
-    """table (R, C) float32 or bfloat16, rows a multiple of 16 bytes (C % 8 == 0
-    in bfloat16, C % 4 == 0 in float32); inv (M,) int32 -> (M, C)."""
+    """table (R, C) float32, bfloat16 or int8, rows a multiple of 16 bytes
+    (C % 4 == 0 in float32, C % 8 == 0 in bfloat16, C % 16 == 0 in int8); inv
+    (M,) int32 -> (M, C). The kernel copies raw 16-byte words, so every dtype
+    is bit-exact."""
     if table.device.type == "cpu":
         return expand_rows_plain(table, inv)
     if table.device.type != "cuda" or inv.device != table.device:

@@ -178,10 +178,10 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_cuda_expand_rows_matches_plain(cuda, dtype):
     rng = np.random.RandomState(7)
-    table = torch.from_numpy(rng.randn(8193, 256).astype(np.float32)).to(cuda, dtype)
+    table = torch.from_numpy((rng.randn(8193, 256) * 40).astype(np.float32)).to(cuda, dtype)
     inv = torch.from_numpy(rng.randint(-5, 8200, size=32400).astype(np.int32)).to(cuda)
     before = expand_rows.launches
     got = expand_rows(table, inv)

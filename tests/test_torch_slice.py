@@ -75,7 +75,7 @@ def slice_run():
                                                    if k in ("params", "batch_stats")}))
     jout = jax.tree.map(np.asarray, jax.jit(lambda v, b: jmodel.apply(v, b, False))(variables, jbatch))
 
-    model = load_jax_variables(build_network(cfg, info), variables)
+    model = load_jax_variables(build_network(cfg, info, device="cpu"), variables)
     tout = model(tbatch)
     return cfg, info, model, jout, tout
 
