@@ -4,7 +4,9 @@ Counterpart of ``radardistill_tpu/models/backbone_as.py::PillarRes18BackBone8xAS
 with ``DENSE_FROM = 5``: stages 1-4 run on fixed-capacity site tables
 (B, cap, C) through the host-built tap tables, conv4's table is densified
 (K5) into the (B, H/8, W/8, 256) map, and conv5 runs dense. Submodule names
-mirror the flax scopes (``conv1_0/conv1/conv``, ``conv2_down/bn``, ...).
+mirror the flax scopes (``conv1_0/conv1/conv``, ``conv2_down/bn``, ...). In
+train mode every BN of the table stages takes its statistics over the valid
+rows of its stage, and the whole backbone is differentiable in the table.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from torch import nn
 from ..caps import DEFAULT_CAPS, stage_caps
 from ..ops import active_site as asx
 from .backbone_sparse2d import DenseBasicBlock
-from .layers import BN_EPS_BACKBONE, BatchNormTorch, Conv2dTorch, ConvParams, MaskedBatchNorm
+from .layers import (BN_EPS_BACKBONE, BN_MOM_BACKBONE, BatchNormTorch, Conv2dTorch, ConvParams,
+                     MaskedBatchNorm)
 
 
 class ASConv(nn.Module):
@@ -44,8 +47,8 @@ class SparseBasicBlockAS(nn.Module):
 
     def forward(self, x, tap, valid):
         m = valid[..., None].to(x.dtype)
-        y = torch.relu(self.bn1(self.conv1(x, tap))) * m
-        y = self.bn2(self.conv2(y, tap))
+        y = torch.relu(self.bn1(self.conv1(x, tap), valid)) * m
+        y = self.bn2(self.conv2(y, tap), valid)
         return torch.relu(y + x) * m
 
 
@@ -58,7 +61,7 @@ class SparseDownBlockAS(nn.Module):
         self.bn = MaskedBatchNorm(features, BN_EPS_BACKBONE)
 
     def forward(self, x, tap, new_valid):
-        y = torch.relu(self.bn(self.conv(x, tap)))
+        y = torch.relu(self.bn(self.conv(x, tap), new_valid))
         return y * new_valid[..., None].to(y.dtype)
 
 
@@ -80,7 +83,7 @@ class PillarRes18BackBone8xAS(nn.Module):
             self.add_module(f"conv{stage}_0", SparseBasicBlockAS(cout))
             self.add_module(f"conv{stage}_1", SparseBasicBlockAS(cout))
         self.conv5_down_conv = Conv2dTorch(256, 256, 3, 2, 1, use_bias=False)
-        self.conv5_down_bn = BatchNormTorch(256, BN_EPS_BACKBONE)
+        self.conv5_down_bn = BatchNormTorch(256, BN_EPS_BACKBONE, BN_MOM_BACKBONE)
         self.conv5_0 = DenseBasicBlock(256)
         self.conv5_1 = DenseBasicBlock(256)
 

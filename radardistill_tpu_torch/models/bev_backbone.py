@@ -2,7 +2,8 @@
 
 Counterpart of ``radardistill_tpu/models/bev_backbone.py`` (the two-level
 neck over x_conv4 @8x and x_conv5 @16x; the level-0 deblock the reference
-builds and discards is never built).
+builds and discards is never built). Its BNs (eps 1e-3, momentum 0.01)
+follow ``nn.Module.training``.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .layers import BN_EPS_BACKBONE, BatchNormTorch, Conv2dTorch, ConvTranspose2dTorch
+from .layers import (BN_EPS_BACKBONE, BN_MOM_BACKBONE, BatchNormTorch, Conv2dTorch,
+                     ConvTranspose2dTorch)
 
 
 class ConvStack(nn.Module):
@@ -22,10 +24,10 @@ class ConvStack(nn.Module):
         super().__init__()
         self.layer_num = layer_num
         self.conv_in = Conv2dTorch(in_ch, features, 3, stride, 1)
-        self.bn_in = BatchNormTorch(features, BN_EPS_BACKBONE)
+        self.bn_in = BatchNormTorch(features, BN_EPS_BACKBONE, BN_MOM_BACKBONE)
         for k in range(layer_num):
             self.add_module(f"conv_{k}", Conv2dTorch(features, features, 3, 1, 1))
-            self.add_module(f"bn_{k}", BatchNormTorch(features, BN_EPS_BACKBONE))
+            self.add_module(f"bn_{k}", BatchNormTorch(features, BN_EPS_BACKBONE, BN_MOM_BACKBONE))
 
     def forward(self, x):
         x = torch.relu(self.bn_in(self.conv_in(x)))
@@ -47,7 +49,7 @@ class BaseBEVBackboneV2(nn.Module):
         s = upsample_strides[1]
         self.block1 = ConvStack(in_channels[1], num_filters[1], layer_nums[1])
         self.deblock1_deconv = ConvTranspose2dTorch(num_filters[1], up_ch, s, s, 0)
-        self.deblock1_bn = BatchNormTorch(up_ch, BN_EPS_BACKBONE)
+        self.deblock1_bn = BatchNormTorch(up_ch, BN_EPS_BACKBONE, BN_MOM_BACKBONE)
         self.block0 = ConvStack(in_channels[0] + up_ch, num_filters[0], layer_nums[0])
 
     def forward(self, x_conv4, x_conv5):

@@ -1,13 +1,13 @@
-"""PillarNet, the dual-branch teacher/student detector, eval.
+"""PillarNet, the dual-branch teacher/student detector.
 
-Counterpart of ``radardistill_tpu/models/detector.py::PillarNet`` run with
-``train=False``, for the two shipped configurations:
+Counterpart of ``radardistill_tpu/models/detector.py::PillarNet`` for the two
+shipped configurations:
 
 - radar-only serving (``radar_distill_val.yaml``): radar VFE table ->
   active-site backbone (DENSE_FROM 5) -> CMA hourglass -> neck ->
   merged-hidden CenterHead -> decode + NMS;
-- the distillation forward (``radar_distill_train.yaml``): beside that
-  student, the frozen LiDAR teacher: lidar VFE table (packed order) ->
+- distillation (``radar_distill_train.yaml``), eval forward and train
+  forward: beside that student, the frozen LiDAR teacher: lidar VFE table (packed order) ->
   ``PillarRes18BackBone8x_S2D`` (table input, static int8 stage 1) ->
   ``BaseBEVBackboneV2`` -> ``CenterHead``. Its ``x_conv4``, ``x_conv5``,
   ``spatial_features_2d``, ``spatial_features_2d_8x`` and ``lidar_preds``
@@ -15,9 +15,20 @@ Counterpart of ``radardistill_tpu/models/detector.py::PillarNet`` run with
 
 Submodule names are the flax scope names (``vfe``, ``backbone_3d``,
 ``backbone_2d``, ``dense_head`` and their ``radar_`` twins, ``radar_cma``,
-``radar_neck``), and the output dict uses the JAX package's keys. The whole
-forward runs without gradients, so the scopes of ``FREEZE_PIPELINE`` (kept as
-``frozen``) need no extra detach here; a train mode will read them.
+``radar_neck``), and the output dict uses the JAX package's keys.
+
+The reference's ``train`` flag is ``nn.Module.training``. ``model.eval()``:
+the whole forward runs without gradients and ends in decode + NMS.
+``model.train()``: the scopes of ``FREEZE_PIPELINE`` (kept as ``frozen``) stay
+in eval mode (running BN statistics); a frozen *teacher* scope also runs
+without gradients, which is the reference's ``stop_gradient`` on its outputs;
+the teacher's head is skipped when a radar branch exists; ``assign_targets``
+puts ``target_dicts`` into the output when the batch has ``gt_boxes``; nothing
+is decoded. One quirk of the reference is kept: the CMA and the radar neck ask
+for the scope ``radar_backbone_2d``, which ``FREEZE_NAME_TO_SCOPE`` never
+yields, so they are in BN train mode whenever the model trains, also under
+``FREEZE_PIPELINE: [Radar_Distill]`` (which still keeps them out of the
+optimizer).
 
 The input is a collated batch after ``data.host_precompute.HostPrecompute``
 (sorted points, pillar tables, tap tables, occupancy masks), as tensors on the
@@ -26,6 +37,7 @@ model's device (``batch_to_torch``).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict
 
 import numpy as np
@@ -38,7 +50,7 @@ from ..caps import as_caps, is_table_s2d
 from .backbone_as import PillarRes18BackBone8xAS
 from .backbone_s2d import PillarRes18BackBone8xS2D
 from .bev_backbone import BaseBEVBackboneV2
-from .center_head import CenterHead, HeadSpec, decode_and_nms
+from .center_head import CenterHead, HeadSpec, assign_targets, decode_and_nms
 from .distill import CMAHourglass
 from .vfe import DynamicPillarVFESparse
 
@@ -46,7 +58,7 @@ LIDAR_FEATURES = 5  # x, y, z, intensity, time
 RADAR_FEATURES = 6  # x, y, z, rcs, vx, vy
 TEACHER_STAGES = ("vfe", "backbone_3d", "backbone_2d", "dense_head")
 RADAR_STAGES = ("radar_vfe", "radar_backbone_3d", "radar_cma", "radar_neck", "radar_dense_head")
-STAGES = TEACHER_STAGES + RADAR_STAGES + ("decode_and_nms",)
+STAGES = TEACHER_STAGES + RADAR_STAGES + ("assign_targets", "decode_and_nms")
 
 # FREEZE_PIPELINE class names of the reference -> the scopes they freeze
 FREEZE_NAME_TO_SCOPE = {
@@ -133,20 +145,44 @@ class PillarNet(nn.Module):
             if not self.has_teacher:
                 self.head_spec = self.radar_head_spec
 
+    def train(self, mode: bool = True):
+        """Frozen scopes stay in eval mode; the CMA and the radar neck follow
+        ``mode`` whatever ``FREEZE_PIPELINE`` says (see the module docstring)."""
+        if mode and self.has_teacher and "backbone_3d" not in self.frozen:
+            raise NotImplementedError(
+                "training the PillarRes18BackBone8x_S2D teacher (BACKBONE_3D outside "
+                "FREEZE_PIPELINE) is not ported: its blocks have no train mode")
+        super().train(mode)
+        for scope in self.frozen - {"radar_cma", "radar_neck"}:
+            if hasattr(self, scope):
+                getattr(self, scope).train(False)
+        return self
+
+    @contextlib.contextmanager
+    def _scope(self, scope: str):
+        """Profiler span of a teacher scope; without gradients when frozen
+        (the reference stops the gradient of a frozen teacher scope's outputs,
+        which cuts everything upstream of them as well)."""
+        grad = torch.is_grad_enabled() and scope not in self.frozen
+        with record_function(scope), torch.set_grad_enabled(grad):
+            yield
+
     def _teacher(self, batch, out):
-        with record_function("vfe"):
+        with self._scope("vfe"):
             tfeats, tuids, tcnt = self.vfe(batch["points"], batch["points_mask"],
                                            batch["hp_lidar"])
-        with record_function("backbone_3d"):
+        with self._scope("backbone_3d"):
             ms = self.backbone_3d(tfeats, tuids, batch.get("hp_masks"))
         out["as_overflow"] = out["as_overflow"] + torch.clamp(
             tcnt - self.vfe.capacity, min=0).sum().to(torch.int32)
         out["x_conv4"], out["x_conv5"] = ms["x_conv4"], ms["x_conv5"]
-        with record_function("backbone_2d"):
+        with self._scope("backbone_2d"):
             sp2d, sp2d_8x = self.backbone_2d(ms["x_conv4"], ms["x_conv5"])
         out["spatial_features_2d"], out["spatial_features_2d_8x"] = sp2d, sp2d_8x
-        with record_function("dense_head"):
-            out["lidar_preds"] = self.dense_head(sp2d)
+        # the teacher's head is dead compute while a student trains
+        if not (self.has_radar and self.training):
+            with self._scope("dense_head"):
+                out["lidar_preds"] = self.dense_head(sp2d)
 
     def _radar(self, batch, out):
         # radar-only eval datasets carry the radar returns in `points`
@@ -170,10 +206,13 @@ class PillarNet(nn.Module):
         with record_function("radar_dense_head"):
             out["radar_preds"] = self.radar_dense_head(rsp2d)
 
-    @torch.no_grad()
     def forward(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """Each stage runs inside a ``torch.profiler`` span named after it
         (``STAGES``), so a profile attributes host and device time per stage."""
+        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
+            return self._forward(batch)
+
+    def _forward(self, batch):
         points = batch["radar_points" if self.has_radar and "radar_points" in batch else "points"]
         out: Dict[str, Any] = {
             "as_overflow": torch.zeros((), dtype=torch.int32, device=points.device)}
@@ -182,18 +221,29 @@ class PillarNet(nn.Module):
         if self.has_radar:
             self._radar(batch, out)
 
-        # decode: the radar head wins when present, as in the reference
+        # the radar head wins when present, as in the reference
         side = "RADAR_" if self.has_radar else ""
         head_cfg = self.model_cfg[f"{side}DENSE_HEAD"]
         spec = self.radar_head_spec if self.has_radar else self.head_spec
-        preds = out["radar_preds" if self.has_radar else "lidar_preds"]
         fmap = out["radar_spatial_features_2d" if self.has_radar else "spatial_features_2d"]
+        ta = head_cfg["TARGET_ASSIGNER_CONFIG"]
+        if self.training:
+            # one assignment shared by the head loss and the PFD loss
+            if "gt_boxes" in batch:
+                with record_function("assign_targets"):
+                    out["target_dicts"] = assign_targets(
+                        batch["gt_boxes"], spec, (fmap.shape[1], fmap.shape[2]),
+                        ta["FEATURE_MAP_STRIDE"], self.voxel_size, self.point_cloud_range,
+                        num_max_objs=ta["NUM_MAX_OBJS"], gaussian_overlap=ta["GAUSSIAN_OVERLAP"],
+                        min_radius=ta["MIN_RADIUS"])
+            return out
+
+        preds = out["radar_preds" if self.has_radar else "lidar_preds"]
         pp = head_cfg["POST_PROCESSING"]
         heads = head_cfg["SEPARATE_HEAD_CFG"]["HEAD_DICT"]
         with record_function("decode_and_nms"):
             out["final_box_dicts"] = decode_and_nms(
-                preds, spec, (fmap.shape[1], fmap.shape[2]),
-                head_cfg["TARGET_ASSIGNER_CONFIG"]["FEATURE_MAP_STRIDE"],
+                preds, spec, (fmap.shape[1], fmap.shape[2]), ta["FEATURE_MAP_STRIDE"],
                 self.voxel_size, self.point_cloud_range, pp["POST_CENTER_LIMIT_RANGE"],
                 k_per_head=pp["MAX_OBJ_PER_SAMPLE"], score_thresh=pp["SCORE_THRESH"],
                 rectifier=head_cfg.get("RECTIFIER", 0.0),

@@ -1,11 +1,15 @@
-"""CMA densification hourglass (forward), NHWC.
+"""CMA densification hourglass and the AFD/PFD distillation losses, NHWC.
 
 Counterpart of ``radardistill_tpu/models/distill.py``: ``ConvNeXtBlock`` (with
 the stride-2 DCNv2 downsample and its frozen ``down_bias``), ``DecoderBlock``,
-``AggBlock`` and ``CMAHourglass``. The three downsamples are the slice's
-three K2 sites (180²->90², 90²->45², 180²->90² at the 1440² grid). The
-distillation losses are not ported yet. GELU is the exact erf form
-(``F.gelu``'s default), as in the reference.
+``AggBlock`` and ``CMAHourglass``, and the loss functions ``afd_low_loss``,
+``pfd_high_loss`` and ``distill_loss``. The three downsamples are the three
+DCN sites (180²->90², 90²->45², 180²->90² at the 1440² grid): K2 forward, K3
+and K4 backward. In train mode each downsample leaves the share of its offsets
+beyond the kernels' clamp in ``dcn_offset_sat`` (the reference's diagnostic;
+the train step reports the mean over the three sites). The BNs follow
+``nn.Module.training``. GELU is the exact erf form (``F.gelu``'s default), as
+in the reference.
 """
 
 from __future__ import annotations
@@ -14,8 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.dcn import modulated_deform_conv
-from .layers import GRN, BatchNormTorch, Conv2dTorch, ConvTranspose2dTorch, Dense, LayerNormTorch
+from ..ops.dcn import DCN_MAX_OFFSET, modulated_deform_conv
+from .layers import (GRN, BatchNormTorch, Conv2dTorch, ConvTranspose2dTorch, Dense,
+                     LayerNormTorch, clip_sigmoid)
 
 
 class ConvNeXtBlock(nn.Module):
@@ -24,6 +29,7 @@ class ConvNeXtBlock(nn.Module):
     def __init__(self, dim: int, downsample: bool = False):
         super().__init__()
         self.downsample = downsample
+        self.dcn_offset_sat = None
         if downsample:
             # offset/mask head: conv3 s2 p1 -> 27 ch = 9 * (2 + 1)
             self.conv_offset_mask1 = Conv2dTorch(dim, 27, 3, 2, 1, use_bias=True)
@@ -42,6 +48,9 @@ class ConvNeXtBlock(nn.Module):
             om = self.conv_offset_mask1(x)
             o1, o2, m = torch.split(om, 9, dim=-1)
             offset = torch.cat([o1, o2], dim=-1)  # read as [dy_k, dx_k] pairs
+            if self.training:
+                with torch.no_grad():
+                    self.dcn_offset_sat = (offset.float().abs() > DCN_MAX_OFFSET).float().mean()
             x = modulated_deform_conv(x, offset, torch.sigmoid(m), self.down_weight,
                                       stride=2, padding=1)
             x = x + self.down_bias.to(x.dtype)
@@ -95,3 +104,79 @@ class CMAHourglass(nn.Module):
             [self.decoder_2(en_32x), self.encoder_3_1(self.encoder_3_0(de_8x))], dim=-1))
         x = self.agg_3(torch.cat([self.decoder_3(de_16x), de_8x], dim=-1))
         return x, de_8x
+
+
+# ------------------------------------------------------ distillation losses
+
+
+def afd_low_loss(lidar_bev: torch.Tensor, radar_bev: torch.Tensor):
+    """Activation-based feature distillation: masked MSE between the densified
+    radar BEV and the teacher's x_conv4, plus an L1 occupancy loss. NHWC
+    inputs (B, H, W, C). Returns (feature_loss, mask_loss)."""
+    B = radar_bev.shape[0]
+    lidar_act = lidar_bev.sum(dim=-1, keepdim=True)
+    lidar_mask = (lidar_act > 0).float()
+    radar_act = radar_bev.sum(dim=-1, keepdim=True)
+
+    activate = (radar_act > 0).float() + lidar_mask * 0.5
+    m_rl = (activate == 1.5).float()  # radar and lidar active
+    m_rd = (activate == 1.0).float()  # radar active, lidar not
+    m_rd = m_rd * (m_rl.sum() / torch.clamp(m_rd.sum(), min=1.0))
+
+    sq = (radar_bev.float() - lidar_bev.float()) ** 2
+    loss_rl = (sq * m_rl).sum() / B
+    loss_rd = (sq * m_rd).sum() / B
+    feature_loss = 3e-4 * loss_rl + 5e-5 * loss_rd
+
+    mask_loss = torch.mean(torch.abs(torch.sigmoid(radar_act.float()) - lidar_mask))
+    return feature_loss, mask_loss
+
+
+def pfd_high_loss(radar_bev, radar_bev_8x, lidar_bev, lidar_bev_8x, gt_heatmap_max,
+                  radar_heatmap_max):
+    """Proposal-based feature distillation: TP/FN/FP-weighted L1 between the
+    channel-softmaxed neck features of teacher and student at both scales.
+    gt_heatmap_max / radar_heatmap_max: (B, H, W, 1), the max over all classes
+    of the GT heatmap / the clip-sigmoided radar hm predictions."""
+    thres = gt_thres = 0.1
+    fp = (gt_heatmap_max < gt_thres) & (radar_heatmap_max > thres)
+    fn = (gt_heatmap_max > gt_thres) & (radar_heatmap_max < thres)
+    tp = (gt_heatmap_max > gt_thres) & (radar_heatmap_max > thres)
+    tp_fn = tp | fn
+    weight = (tp_fn.float() * (5.0 / torch.clamp(tp_fn.sum().float(), min=1.0))
+              + fp.float() * (1.0 / torch.clamp(fp.sum().float(), min=1.0)))
+
+    def scaled_l1(a, b):
+        sa = torch.softmax(a.float(), dim=-1)
+        sb = torch.softmax(b.float(), dim=-1)
+        return (torch.abs(sa - sb) * weight).sum()
+
+    return 0.5 * (scaled_l1(radar_bev, lidar_bev) + scaled_l1(radar_bev_8x, lidar_bev_8x))
+
+
+def distill_loss(outputs: dict):
+    """Total distillation loss 5·low + 25·high. ``outputs`` carries (NHWC) the
+    teacher's 'x_conv4', the student's 'radar_spatial_features_8x_2'/'_8x_1',
+    both necks' 'spatial_features_2d{,_8x}' and their radar twins, the GT
+    'heatmaps' (B, H, W, ncls over all heads) and 'radar_hm_preds' (logits)."""
+    feat_l, mask_l = afd_low_loss(outputs["x_conv4"], outputs["radar_spatial_features_8x_2"])
+    feat_l8, mask_l8 = afd_low_loss(outputs["x_conv4"], outputs["radar_spatial_features_8x_1"])
+
+    gt_hm_max = outputs["heatmaps"].amax(dim=-1, keepdim=True)
+    radar_hm_max = clip_sigmoid(outputs["radar_hm_preds"]).amax(dim=-1, keepdim=True)
+    high = pfd_high_loss(
+        outputs["radar_spatial_features_2d"], outputs["radar_spatial_features_2d_8x"],
+        outputs["spatial_features_2d"], outputs["spatial_features_2d_8x"],
+        gt_hm_max, radar_hm_max) * 25.0
+    low = (0.5 * (feat_l + feat_l8) + 0.5 * (mask_l + mask_l8)) * 5.0
+    total = low + high
+    tb = {
+        "low_feature_loss": low,
+        "high_distill_loss": high,
+        "distll_loss": total,
+        "low_distill_de_8x_loss": feat_l8,
+        "low_distill_loss": feat_l,
+        "mask_loss": mask_l,
+        "mask_de_8x_loss": mask_l8,
+    }
+    return total, tb

@@ -1,4 +1,4 @@
-"""Shared building blocks, eval only, NHWC at every interface.
+"""Shared building blocks, NHWC at every interface.
 
 Counterpart of ``radardistill_tpu/models/layers.py``. Each module's submodule
 and parameter names mirror the flax scopes (``conv``, ``bn``, ``ln``, ...) so
@@ -8,8 +8,10 @@ NCHW view of the NHWC tensor (``permute``, no copy): PyTorch treats it as
 
 Parameters are kept in float32 and cast to the activation's dtype where they
 are used, so one model serves the float32 reference and the bfloat16 path.
-BatchNorm runs on its running statistics (this slice has no train mode).
-Parameters are created empty; ``init_random_`` fills a model from an explicit
+The BatchNorms follow ``nn.Module.training``: in eval mode they read their
+running statistics, in train mode they normalize with the batch's statistics
+and update the running ones in place (the detector keeps frozen scopes in
+eval mode). Parameters are created empty; ``init_random_`` fills a model from an explicit
 ``torch.Generator``.
 """
 
@@ -23,9 +25,11 @@ from torch import nn
 
 from ..ops.conv_block import int_conv_exact
 
-# reference eps: sparse backbone + neck BNs 1e-3, head / CMA BNs 1e-5
-BN_EPS_BACKBONE = 1e-3
-BN_EPS_DEFAULT = 1e-5
+# reference eps and momentum (torch convention: the share of the batch's
+# statistic in the update): sparse backbone + neck BNs 1e-3 / 0.01, head and
+# CMA BNs 1e-5 / 0.1
+BN_EPS_BACKBONE, BN_MOM_BACKBONE = 1e-3, 0.01
+BN_EPS_DEFAULT, BN_MOM_DEFAULT = 1e-5, 0.1
 
 
 # Static-scale int8 chain of the frozen teacher: activation bounds follow
@@ -164,46 +168,89 @@ class BNParams(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
 
-class BatchNormTorch(nn.Module):
-    """Eval BatchNorm over the last axis, flax's order of operations:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in x's dtype."""
+def batch_stats(x32: torch.Tensor):
+    """Per-channel mean and *biased* variance over every axis but the last,
+    single pass in float32: ``var = max(E[x²] - E[x]², 0)`` (flax's
+    ``nn.BatchNorm``)."""
+    axes = tuple(range(x32.dim() - 1))
+    mean = x32.mean(dim=axes)
+    var = torch.clamp((x32 * x32).mean(dim=axes) - mean * mean, min=0.0)
+    return mean, var
 
-    def __init__(self, features, eps=BN_EPS_DEFAULT):
+
+@torch.no_grad()
+def update_running_(running: torch.Tensor, value: torch.Tensor, momentum: float):
+    """``running <- (1 - momentum) * running + momentum * value``, in place."""
+    running.mul_(1.0 - momentum).add_(value.to(running.dtype), alpha=momentum)
+
+
+class BatchNormTorch(nn.Module):
+    """BatchNorm over the last axis, flax's order of operations:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in x's dtype. Eval: the
+    running statistics. Train: the batch's mean and biased variance, computed
+    in float32, which also update the running statistics (flax's
+    ``nn.BatchNorm`` updates with the *biased* variance, unlike
+    ``F.batch_norm``)."""
+
+    def __init__(self, features, eps=BN_EPS_DEFAULT, momentum=BN_MOM_DEFAULT):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.bn = BNParams(features)
 
     def forward(self, x):
         bn, dt = self.bn, x.dtype
-        mul = torch.rsqrt(bn.running_var.to(dt) + self.eps) * bn.weight.to(dt)
-        return (x - bn.running_mean.to(dt)) * mul + bn.bias.to(dt)
+        if self.training:
+            mean, var = batch_stats(x.float())
+            update_running_(bn.running_mean, mean, self.momentum)
+            update_running_(bn.running_var, var, self.momentum)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        mul = torch.rsqrt(var.to(dt) + self.eps) * bn.weight.to(dt)
+        return (x - mean.to(dt)) * mul + bn.bias.to(dt)
 
     def affine(self):
-        """The BN as (gt, shift, bound) for the int8 chain (``bn_affine``)."""
+        """The eval BN as (gt, shift, bound) for the int8 chain (``bn_affine``)."""
         bn = self.bn
         return bn_affine(bn.weight, bn.bias, bn.running_mean, bn.running_var, self.eps)
 
 
 class MaskedBatchNorm(nn.Module):
-    """The reference's BN1d over active-site lists, eval mode: the running
-    statistics normalize every row; callers re-mask inactive rows. Computed
-    in float32, returned in x's dtype."""
+    """The reference's BN1d over active-site lists: every row is normalized and
+    callers re-mask inactive rows. Computed in float32, returned in x's dtype.
+    Eval: the running statistics. Train: statistics over the rows that
+    ``mask`` (broadcastable to ``x[..., 0]``) marks active, single pass
+    (Σx, Σx²) with ``n = max(Σmask, 1)``; the running variance is updated with
+    the *unbiased* batch variance, as torch's BN1d does."""
 
-    def __init__(self, features, eps=BN_EPS_BACKBONE):
+    def __init__(self, features, eps=BN_EPS_BACKBONE, momentum=BN_MOM_BACKBONE):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x):
-        y = ((x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-             * self.weight + self.bias)
+    def forward(self, x, mask=None):
+        x32 = x.float()
+        if self.training:
+            if mask is None:
+                raise ValueError("MaskedBatchNorm in train mode needs the active mask")
+            m = mask.to(torch.float32)
+            n = torch.clamp(m.sum(), min=1.0)
+            axes = tuple(range(x.dim() - 1))
+            xm = x32 * m[..., None]
+            mean = xm.sum(dim=axes) / n
+            var = torch.clamp((xm * x32).sum(dim=axes) / n - mean * mean, min=0.0)
+            update_running_(self.running_mean, mean, self.momentum)
+            update_running_(self.running_var, var * n / torch.clamp(n - 1.0, min=1.0),
+                            self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(x.dtype)
 
     def affine(self):
-        """The BN as (gt, shift, bound) for the int8 chain (``bn_affine``)."""
+        """The eval BN as (gt, shift, bound) for the int8 chain (``bn_affine``)."""
         return bn_affine(self.weight, self.bias, self.running_mean, self.running_var, self.eps)
 
 

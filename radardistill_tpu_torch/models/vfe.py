@@ -22,9 +22,11 @@ from .layers import Dense, MaskedBatchNorm
 
 
 class PFNLayerV2Sparse(nn.Module):
-    """Linear -> BN1d -> ReLU -> per-pillar max into a (B, capacity, C) table
-    (segment max through a junk row ``capacity`` that absorbs invalid and
-    overflowed points)."""
+    """Linear -> BN1d (over the valid points in train mode) -> ReLU ->
+    per-pillar max into a (B, capacity, C) table (segment max through a junk
+    row ``capacity`` that absorbs invalid and overflowed points). The gradient
+    of the max is shared evenly among tied points (``scatter_reduce`` with
+    ``amax``), as the reference's ``scatter_max`` shares it."""
 
     def __init__(self, in_channels, out_channels, capacity, use_norm=True,
                  last_layer=False, dtype=None):
@@ -37,7 +39,7 @@ class PFNLayerV2Sparse(nn.Module):
     def forward(self, feats, slot, point_mask):
         x = self.linear(feats)
         if self.norm is not None:
-            x = self.norm(x)
+            x = self.norm(x, point_mask)
         x = torch.relu(x)
         x = torch.where(point_mask[..., None], x, 0.0)
         if self.dtype is not None:
@@ -46,8 +48,8 @@ class PFNLayerV2Sparse(nn.Module):
         cap1 = self.capacity + 1
         flat = (slot.long() + (torch.arange(b, device=slot.device) * cap1)[:, None]).reshape(-1)
         t = torch.full((b * cap1, ch), float("-inf"), dtype=x.dtype, device=x.device)
-        t.scatter_reduce_(0, flat[:, None].expand(-1, ch), x.reshape(-1, ch),
-                          reduce="amax", include_self=True)
+        t = t.scatter_reduce(0, flat[:, None].expand(-1, ch), x.reshape(-1, ch),
+                             reduce="amax", include_self=True)
         t = torch.where(torch.isneginf(t), 0.0, t)
         table = t.reshape(b, cap1, ch)[:, : self.capacity]
         if self.last_layer:

@@ -1,12 +1,18 @@
-"""Active-site sparse 2D convolution primitives (forward, host rulebooks).
+"""Active-site sparse 2D convolution primitives (host rulebooks).
 
 Counterpart of ``radardistill_tpu/ops/active_site.py``. An active set is a
 fixed-capacity table of sorted linear site ids ``uids`` (sentinel ``H*W``)
 with features ``(B, cap, C)`` beside it; a 3x3 conv reads its neighbours
 through per-stage tap tables ``nb``/``msk`` ``(B, 9, cap_out)`` built on the
-host (``data/host_precompute.py``). Everything here is batched over the
-leading axis; the port is forward only so far, so the custom backward passes
-of the JAX functions have no counterpart yet.
+host (``data/host_precompute.py``) with their per-tap inverses ``inv``/``imsk``
+``(B, 9, cap_in)`` beside them. Everything here is batched over the leading
+axis. What the student crosses is differentiable in the features, with the
+reference's gather-formulated backward passes: ``gather_taps_inv_b`` (a gather
+of the cotangent through ``inv``/``imsk``) and ``densify_batch`` (a row gather
+at the site ids). Both are deterministic; plain autograd of the index ops
+would give the same numbers through ``index_add_``, whose order of additions
+on CUDA changes from run to run. The teacher's ``densify_packed_direct_batch``
+runs under ``no_grad`` and has no backward.
 """
 
 from __future__ import annotations
@@ -30,30 +36,80 @@ def site_index_grid(uids: torch.Tensor, hw: int, cap: int) -> torch.Tensor:
     return grid.view(b, hw)
 
 
-def gather_taps_inv_b(feats: torch.Tensor, nb: torch.Tensor, msk: torch.Tensor) -> torch.Tensor:
-    """feats (B, cap_in, C), nb/msk (B, 9, cap_out) -> (B, 9, cap_out, C);
-    missing neighbours are zero. The forward of the JAX function; its
-    gather-formulated backward (through ``inv``/``imsk``) is not ported."""
-    b, cap_in, c = feats.shape
-    k, cap_out = nb.shape[1], nb.shape[2]
-    flat = nb.long() + (torch.arange(b, device=nb.device) * cap_in)[:, None, None]
-    g = feats.reshape(-1, c)[flat.reshape(-1).clamp(0, b * cap_in - 1)]
-    return g.reshape(b, k, cap_out, c) * msk[..., None].to(feats.dtype)
+def _flat_tap_gather(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """rows (B, R, C), idx (B, K, N) row numbers within each sample's R rows
+    -> (B, K, N, C): one flat gather."""
+    b, r, c = rows.shape
+    flat = idx.long() + (torch.arange(b, device=idx.device) * r)[:, None, None]
+    g = rows.reshape(-1, c)[flat.reshape(-1).clamp(0, b * r - 1)]
+    return g.reshape(*idx.shape, c)
+
+
+class _GatherTapsInv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, nb, msk, inv, imsk):
+        ctx.save_for_backward(inv, imsk)
+        return _flat_tap_gather(feats, nb) * msk[..., None].to(feats.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # each tap is injective, so its transpose is a gather of the cotangent
+        # rows at the inverse map, masked and summed over the taps
+        inv, imsk = ctx.saved_tensors
+        b, k, cap_out, c = grad.shape
+        seg = (torch.arange(k, device=inv.device) * cap_out)[None, :, None]
+        g = _flat_tap_gather(grad.reshape(b, k * cap_out, c), inv.long() + seg)
+        g = (g * imsk[..., None].to(grad.dtype)).sum(dim=1)
+        return g, None, None, None, None
+
+
+def gather_taps_inv_b(feats: torch.Tensor, nb: torch.Tensor, msk: torch.Tensor,
+                      inv: torch.Tensor, imsk: torch.Tensor) -> torch.Tensor:
+    """feats (B, cap_in, C), nb/msk (B, 9, cap_out), inv/imsk (B, 9, cap_in)
+    -> (B, 9, cap_out, C); missing neighbours are zero. Both directions are one
+    flat gather: forward of the neighbour rows, backward of the cotangent rows
+    at the per-tap inverse maps."""
+    return _GatherTapsInv.apply(feats, nb, msk, inv, imsk)
 
 
 def conv3x3_as_b(feats: torch.Tensor, tap, kernel: torch.Tensor, bias=None) -> torch.Tensor:
     """3x3 conv on active sites: feats (B, cap_in, Ci), tap = (nb, msk, inv,
     imsk), kernel HWIO (3, 3, Ci, Co) -> (B, cap_out, Co) in feats' dtype:
     one flat gather and one matmul over the (tap, Ci) axis."""
-    nb, msk = tap[0], tap[1]
     ci, co = kernel.shape[2], kernel.shape[3]
-    g = gather_taps_inv_b(feats, nb, msk)  # (B, 9, n, Ci)
+    g = gather_taps_inv_b(feats, *tap)  # (B, 9, n, Ci)
     b, k, n, _ = g.shape
     y = torch.matmul(g.permute(0, 2, 1, 3).reshape(b, n, k * ci),
                      kernel.reshape(k * ci, co).to(g.dtype))
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
+
+
+class _DensifyRows(torch.autograd.Function):
+    """(B, cap, C) tables -> (B*hw, C) dense rows through K5; the backward is
+    the row gather of the cotangent at each table row's own cell (site ids are
+    unique, so no two rows share a cell)."""
+
+    @staticmethod
+    def forward(ctx, feats, uids, inv, hw_flat):
+        b, cap, c = feats.shape
+        ctx.save_for_backward(uids)
+        ctx.hw_flat = hw_flat
+        feats_z = torch.cat([feats, feats.new_zeros((b, 1, c))], dim=1).reshape(b * (cap + 1), c)
+        flat_idx = inv + (torch.arange(b, dtype=torch.int32, device=inv.device) * (cap + 1))[:, None]
+        return expand_rows(feats_z, flat_idx.reshape(-1))
+
+    @staticmethod
+    def backward(ctx, g_dense):
+        (uids,) = ctx.saved_tensors
+        hw_flat = ctx.hw_flat
+        b, cap = uids.shape
+        valid = uids < hw_flat
+        flat_u = uids.long().clamp(0, hw_flat - 1) + (
+            torch.arange(b, device=uids.device) * hw_flat)[:, None]
+        g = g_dense[flat_u.reshape(-1)].reshape(b, cap, -1)
+        return g * valid[..., None].to(g.dtype), None, None, None
 
 
 def densify_batch(feats: torch.Tensor, uids: torch.Tensor, hw: Tuple[int, int]):
@@ -63,10 +119,8 @@ def densify_batch(feats: torch.Tensor, uids: torch.Tensor, hw: Tuple[int, int]):
     per sample is zero; K5 (``expand_rows``) does the row gather."""
     h, w = hw
     b, cap, c = feats.shape
-    feats_z = torch.cat([feats, feats.new_zeros((b, 1, c))], dim=1).reshape(b * (cap + 1), c)
     inv = site_index_grid(uids, h * w, cap)  # (B, hw)
-    flat_idx = inv + (torch.arange(b, dtype=torch.int32, device=inv.device) * (cap + 1))[:, None]
-    rows = expand_rows(feats_z, flat_idx.reshape(-1))
+    rows = _DensifyRows.apply(feats, uids, inv, h * w)
     return rows.reshape(b, h, w, c), (inv < cap).reshape(b, h, w)
 
 
@@ -89,7 +143,7 @@ def densify_packed_direct_batch(feats: torch.Tensor, uids: torch.Tensor, hw: Tup
     packed mask (phase-major). The inverse site map is scattered directly at
     packed addresses, so the row gather lands in the packed layout with no
     transpose; K5 (``expand_rows``) does the gather, also for int8 tables.
-    Forward only."""
+    No backward: only the frozen teacher takes it, without gradients."""
     h, w = hw
     b, cap, c = feats.shape
     feats_z = torch.cat([feats, feats.new_zeros((b, 1, c))], dim=1).reshape(b * (cap + 1), c)

@@ -18,7 +18,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("expand.cu", "dcn_sample.cu", "conv_block.cu")
+SOURCES = ("expand.cu", "dcn_sample.cu", "dcn_offset_grad.cu", "dcn_input_grad.cu",
+           "conv_block.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "radardistill_tpu_torch"
 LIB_PATH = BUILD_DIR / "librdt_kernels.so"
 NVCC_FLAGS = (
@@ -92,6 +93,14 @@ def lib() -> ctypes.CDLL:
                 ctypes.c_float, i32, p,
             ]
             so.rdt_dcn_sample.restype = i32
+            so.rdt_dcn_offset_grad.argtypes = [
+                p, p, p, p, p, p, *([i32] * 10), ctypes.c_float, i32, p,
+            ]
+            so.rdt_dcn_offset_grad.restype = i32
+            so.rdt_dcn_input_grad.argtypes = [
+                p, p, p, p, *([i32] * 10), ctypes.c_float, i32, p,
+            ]
+            so.rdt_dcn_input_grad.restype = i32
             so.rdt_conv_block.argtypes = [p, p, p, p, p, p, *([i32] * 11), p]
             so.rdt_conv_block.restype = i32
             _lib = so

@@ -38,16 +38,18 @@ def _check(x, offset, mask, kernel_size):
             f"mask {tuple(mask.shape)} for kernel_size {kernel_size}")
 
 
-def dcn_sample_plain(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-                     stride: int = 2, padding: int = 1, kernel_size: int = 3,
-                     max_offset: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same arithmetic, same order)."""
-    _check(x, offset, mask, kernel_size)
-    B, H, W, C = x.shape
+def corner_terms(x_shape, offset: torch.Tensor, mask: torch.Tensor, stride: int,
+                 padding: int, kernel_size: int, max_offset: Optional[float]):
+    """The geometry that the forward and both backward functions share, in
+    float32: ``(dh, dw, m, corners)`` with dh, dw, m of shape (B, Ho, Wo, K²)
+    and ``corners`` a list of ``(a, bb, ok, rows)`` for the four corners:
+    ``ok`` says whether the corner lies on the grid and ``rows`` is its flat
+    row index into ``x.reshape(B*H*W, C)`` (0 where it does not)."""
+    B, H, W, _ = x_shape
     Ho, Wo = offset.shape[1], offset.shape[2]
     K = kernel_size
     KK = K * K
-    dev = x.device
+    dev = offset.device
     off = offset.float().reshape(B, Ho, Wo, KK, 2)
     if max_offset is not None:
         off = off.clamp(-max_offset, max_offset)
@@ -59,23 +61,36 @@ def dcn_sample_plain(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     pw = base_w.float()[None, None, :, :] + off[..., 1]
     h0 = torch.floor(ph)
     w0 = torch.floor(pw)
-    dh = ph - h0
-    dw = pw - w0
-    m = mask.float().reshape(B, Ho, Wo, KK)
-    x_flat = x.reshape(B * H * W, C)
     b_off = (torch.arange(B, device=dev) * (H * W)).view(B, 1, 1, 1)
-    acc = torch.zeros((B, Ho, Wo, KK, C), dtype=torch.float32, device=dev)
+    corners = []
     for a in (0, 1):
         for bb in (0, 1):
-            fh = dh if a else 1.0 - dh
-            fw = dw if bb else 1.0 - dw
-            r = h0 + a
-            q = w0 + bb
+            r = (h0 + a).detach()
+            q = (w0 + bb).detach()
             ok = (r >= 0) & (r <= H - 1) & (q >= 0) & (q <= W - 1)
-            wt = torch.where(ok, fh * fw * m, 0.0)
-            rq = torch.where(ok, r * W + q, 0.0).long() + b_off
-            vals = x_flat[rq.reshape(-1)].reshape(B, Ho, Wo, KK, C)
-            acc = acc + wt[..., None] * vals.float()
+            rows = torch.where(ok, r * W + q, 0.0).long() + b_off
+            corners.append((a, bb, ok, rows))
+    return ph - h0, pw - w0, mask.float().reshape(B, Ho, Wo, KK), corners
+
+
+def dcn_sample_plain(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                     stride: int = 2, padding: int = 1, kernel_size: int = 3,
+                     max_offset: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (same arithmetic, same order)."""
+    _check(x, offset, mask, kernel_size)
+    B, H, W, C = x.shape
+    Ho, Wo = offset.shape[1], offset.shape[2]
+    KK = kernel_size * kernel_size
+    dh, dw, m, corners = corner_terms(x.shape, offset, mask, stride, padding, kernel_size,
+                                      max_offset)
+    x_flat = x.reshape(B * H * W, C)
+    acc = torch.zeros((B, Ho, Wo, KK, C), dtype=torch.float32, device=x.device)
+    for a, bb, ok, rows in corners:
+        fh = dh if a else 1.0 - dh
+        fw = dw if bb else 1.0 - dw
+        wt = torch.where(ok, fh * fw * m, 0.0)
+        vals = x_flat[rows.reshape(-1)].reshape(B, Ho, Wo, KK, C)
+        acc = acc + wt[..., None] * vals.float()
     return acc.reshape(B, Ho, Wo, KK * C).to(x.dtype)
 
 

@@ -1,7 +1,9 @@
-"""Rotated BEV box overlap and IoU (the part of the geometry the decode uses).
+"""Box geometry: rotated BEV overlap and IoU (decode), aligned 3D IoU, the
+axis-aligned DIoU and the gaussian radius (losses and targets).
 
-Counterpart of ``radardistill_tpu/ops/geometry.py`` (``boxes_iou_bev`` and
-what it needs). Boxes are ``[x, y, z, dx, dy, dz, heading, ...]``. The
+Counterpart of ``radardistill_tpu/ops/geometry.py`` (``boxes_iou_bev``,
+``boxes_aligned_iou3d``, ``bbox3d_overlaps_diou``, ``center_to_corner2d``,
+``gaussian_radius`` and what they need). Boxes are ``[x, y, z, dx, dy, dz, heading, ...]``. The
 intersection clips one box by the other's four half-planes on a fixed
 8-vertex ring (Sutherland-Hodgman), branch-free over any batch shape.
 """
@@ -99,3 +101,73 @@ def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     area_a = (boxes_a[:, 3] * boxes_a[:, 4])[:, None]
     area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
     return inter / torch.clamp(area_a + area_b - inter, min=1e-6)
+
+
+def boxes_overlap_bev_aligned(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """(N, 7) x (N, 7) -> (N,) pairwise rotated BEV intersection areas."""
+    return _intersection_area_batched(boxes_to_corners_bev(boxes_a), boxes_to_corners_bev(boxes_b))
+
+
+def boxes_aligned_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """(N, 7) x (N, 7) -> (N,) elementwise 3D IoU."""
+    inter_bev = boxes_overlap_bev_aligned(boxes_a, boxes_b)
+    a_max = boxes_a[:, 2] + boxes_a[:, 5] / 2
+    a_min = boxes_a[:, 2] - boxes_a[:, 5] / 2
+    b_max = boxes_b[:, 2] + boxes_b[:, 5] / 2
+    b_min = boxes_b[:, 2] - boxes_b[:, 5] / 2
+    hov = torch.clamp(torch.minimum(a_max, b_max) - torch.maximum(a_min, b_min), min=0)
+    overlaps_3d = inter_bev * hov
+    vol_a = boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5]
+    vol_b = boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5]
+    return overlaps_3d / torch.clamp(vol_a + vol_b - overlaps_3d, min=1e-6)
+
+
+def center_to_corner2d(center: torch.Tensor, dim: torch.Tensor) -> torch.Tensor:
+    """(N, 2) centres and sizes -> (N, 4, 2) axis-aligned corners."""
+    corners_norm = torch.tensor([[-0.5, -0.5], [-0.5, 0.5], [0.5, 0.5], [0.5, -0.5]],
+                                dtype=dim.dtype, device=dim.device)
+    return dim[:, None, :] * corners_norm[None] + center[:, None, :]
+
+
+def bbox3d_overlaps_diou(pred_boxes: torch.Tensor, gt_boxes: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned-in-BEV DIoU, (N, 7) x (N, 7) -> (N,); differentiable."""
+    qc = center_to_corner2d(pred_boxes[:, :2], pred_boxes[:, 3:5])
+    gc = center_to_corner2d(gt_boxes[:, :2], gt_boxes[:, 3:5])
+    inter_max = torch.minimum(qc[:, 2], gc[:, 2])
+    inter_min = torch.maximum(qc[:, 0], gc[:, 0])
+    out_max = torch.maximum(qc[:, 2], gc[:, 2])
+    out_min = torch.minimum(qc[:, 0], gc[:, 0])
+
+    p_lo, p_hi = pred_boxes[:, 2] - 0.5 * pred_boxes[:, 5], pred_boxes[:, 2] + 0.5 * pred_boxes[:, 5]
+    g_lo, g_hi = gt_boxes[:, 2] - 0.5 * gt_boxes[:, 5], gt_boxes[:, 2] + 0.5 * gt_boxes[:, 5]
+    vol_p = pred_boxes[:, 3] * pred_boxes[:, 4] * pred_boxes[:, 5]
+    vol_g = gt_boxes[:, 3] * gt_boxes[:, 4] * gt_boxes[:, 5]
+    inter_h = torch.clamp(torch.minimum(p_hi, g_hi) - torch.maximum(p_lo, g_lo), min=0)
+    inter = torch.clamp(inter_max - inter_min, min=0)
+    vol_inter = inter[:, 0] * inter[:, 1] * inter_h
+    vol_union = vol_g + vol_p - vol_inter
+
+    inter_diag = torch.sum((gt_boxes[:, 0:3] - pred_boxes[:, 0:3]) ** 2, dim=-1)
+    outer_h = torch.clamp(torch.maximum(g_hi, p_hi) - torch.minimum(g_lo, p_lo), min=0)
+    outer = torch.clamp(out_max - out_min, min=0)
+    outer_diag = outer[:, 0] ** 2 + outer[:, 1] ** 2 + outer_h ** 2
+    dious = (vol_inter / torch.clamp(vol_union, min=1e-6)
+             - inter_diag / torch.clamp(outer_diag, min=1e-6))
+    return torch.clamp(dious, -1.0, 1.0)
+
+
+def gaussian_radius(height: torch.Tensor, width: torch.Tensor, min_overlap: float = 0.5):
+    """CenterNet gaussian radius, elementwise."""
+    b1 = height + width
+    c1 = width * height * (1 - min_overlap) / (1 + min_overlap)
+    r1 = (b1 + torch.sqrt(torch.clamp(b1 ** 2 - 4 * c1, min=0))) / 2
+
+    b2 = 2 * (height + width)
+    c2 = (1 - min_overlap) * width * height
+    r2 = (b2 + torch.sqrt(torch.clamp(b2 ** 2 - 16 * c2, min=0))) / 2
+
+    a3 = 4 * min_overlap
+    b3 = -2 * min_overlap * (height + width)
+    c3 = (min_overlap - 1) * width * height
+    r3 = (b3 + torch.sqrt(torch.clamp(b3 ** 2 - 4 * a3 * c3, min=0))) / 2
+    return torch.minimum(torch.minimum(r1, r2), r3)

@@ -22,6 +22,7 @@ from radardistill_tpu.ops import pallas_expand as jpe
 from radardistill_tpu.ops.dcn import _modulated_deform_conv_xla
 from radardistill_tpu_torch.ops import active_site as asx
 from radardistill_tpu_torch.ops import dcn
+from radardistill_tpu_torch.ops import dcn_grad
 from radardistill_tpu_torch.ops.dcn_sample import dcn_sample, dcn_sample_plain
 from radardistill_tpu_torch.ops.expand import expand_rows, expand_rows_plain
 
@@ -220,3 +221,67 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # the kernel samples 3x3 taps only
         dcn_sample(x.float(), torch.zeros(1, 4, 4, 50, device=cuda),
                    torch.zeros(1, 4, 4, 25, device=cuda), 2, 2, 5)
+
+
+def _max_err_ratio(got, want):
+    return (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_offset", [5.0, None])
+@pytest.mark.parametrize("stride", [2, 1])
+def test_cuda_dcn_grad_kernels_match_plain(cuda, dtype, max_offset, stride):
+    """K3 and K4 against their plain versions: float32 within 1e-5 x max|ref|
+    (summation order; K4 adds with atomics), bfloat16 inputs within 1e-2."""
+    x, offset, mask, _ = _dcn_case(4, 40, 40, 128, off_scale=3.0, stride=stride)
+    rng = np.random.RandomState(5)
+    ho = 40 // stride
+    ds = torch.from_numpy(rng.randn(1, ho, ho, 9 * 128).astype(np.float32)).to(cuda, dtype)
+    x = torch.from_numpy(x).to(cuda, dtype)
+    offset, mask = torch.from_numpy(offset).to(cuda), torch.from_numpy(mask).to(cuda)
+    args = (stride, 1, 3, max_offset)
+    before = dcn_grad.dcn_offset_grad.launches, dcn_grad.dcn_input_grad.launches
+    g18, dm9 = dcn_grad.dcn_offset_grad(x, offset, ds, mask, *args)
+    dx = dcn_grad.dcn_input_grad(ds, offset, mask, 40, 40, *args)
+    torch.cuda.synchronize()
+    assert (dcn_grad.dcn_offset_grad.launches, dcn_grad.dcn_input_grad.launches) == (
+        before[0] + 1, before[1] + 1)
+    g18_p, dm9_p = dcn_grad.dcn_offset_grad_plain(x, offset, ds, mask, *args)
+    dx_p = dcn_grad.dcn_input_grad_plain(ds, offset, mask, 40, 40, *args)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert dx.dtype == dtype and g18.dtype == dm9.dtype == torch.float32
+    for got, want in ((g18, g18_p), (dm9, dm9_p), (dx, dx_p)):
+        assert _max_err_ratio(got, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(40, 128), (24, 64)], ids=["clamped", "unclamped"])
+def test_cuda_dcn_backward_matches_cpu(cuda, shape):
+    """All four gradients of ``modulated_deform_conv`` through the kernels on
+    the card against the same through the plain versions on the CPU."""
+    h, c = shape
+    case = _dcn_case(6, h, h, c, off_scale=3.0)
+    rng = np.random.RandomState(8)
+    cot = torch.from_numpy(rng.randn(1, h // 2, h // 2, 32).astype(np.float32))
+
+    def grads(dev):
+        leaves = [torch.from_numpy(a).to(dev).requires_grad_() for a in case]
+        y = dcn.modulated_deform_conv(*leaves, stride=2, padding=1)
+        return [g.cpu() for g in torch.autograd.grad(y, leaves, cot.to(dev))]
+
+    for got, want in zip(grads(cuda), grads("cpu")):
+        assert _max_err_ratio(got, want) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_dcn_grad_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(1, 8, 8, 16, device=cuda)
+    off, msk = torch.zeros(1, 4, 4, 18, device=cuda), torch.zeros(1, 4, 4, 9, device=cuda)
+    ds = torch.zeros(1, 4, 4, 144, device=cuda)
+    with pytest.raises(TypeError):  # x and dsampled share one dtype
+        dcn_grad.dcn_offset_grad(x.bfloat16(), off, ds, msk)
+    with pytest.raises(ValueError):  # on another device than dsampled
+        dcn_grad.dcn_input_grad(ds, off.cpu(), msk, 8, 8)
+    with pytest.raises(ValueError):  # C = 6 is not a multiple of 4
+        dcn_grad.dcn_input_grad(torch.zeros(1, 4, 4, 54, device=cuda), off, msk, 8, 8)

@@ -1,7 +1,7 @@
 """The port runs without the JAX package: a fresh interpreter imports
 ``radardistill_tpu_torch``, builds the synthetic batches and drives both
 forwards (radar-only val at grid 256, the distillation forward at grid 128)
-on the CPU with random weights from a seeded generator; afterwards neither
+and one distillation train step on the CPU with random weights from a seeded generator; afterwards neither
 ``jax`` nor ``flax`` nor any module of ``radardistill_tpu`` may be in
 ``sys.modules``. An AST walk over every file of the port and over the card
 scripts finds no import of them either. Also: the port's data layer loads none
@@ -36,6 +36,13 @@ fin = out["final_box_dicts"]
 cfg2, info2, batch2 = make_batch(TRAIN_YAML, grid=128, num_lidar=4000, num_radar=300, num_boxes=10)
 model2 = init_random_(build_network(cfg2, info2, device="cpu"), torch.Generator().manual_seed(0))
 out2 = model2(batch_to_torch(batch2, "cpu"))
+from radardistill_tpu_torch.train.optim import build_optimizer
+from radardistill_tpu_torch.train.train_step import make_train_step
+from radardistill_tpu_torch.utils.production import production_cfg
+full2, _ = production_cfg(TRAIN_YAML, grid=128)
+opt, _ = build_optimizer(full2.OPTIMIZATION, model2, 100, model2.frozen)
+metrics = make_train_step(model2, opt, cfg2, info2["class_names"], info2["voxel_size"],
+                          info2["point_cloud_range"])(batch_to_torch(batch2, "cpu"))
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "radardistill_tpu"))
 print(json.dumps({
@@ -50,6 +57,8 @@ print(json.dumps({
     "teacher_hm_shape": list(out2["lidar_preds"]["hm"].shape),
     "int8_mode": cfg2["BACKBONE_3D"]["INT8"],
     "as_overflow2": int(out2["as_overflow"]),
+    "train_loss_finite": bool(torch.isfinite(metrics["loss"])),
+    "train_updates": opt.count,
 }))
 """
 
@@ -68,6 +77,7 @@ def test_port_slice_runs_without_jax():
     assert rec["as_overflow"] == 0
     assert rec["teacher_finite"] and rec["teacher_hm_shape"] == [2, 16, 16, 6, 2]
     assert rec["int8_mode"] == "static" and rec["as_overflow2"] == 0
+    assert rec["train_loss_finite"] and rec["train_updates"] == 1
 
 
 def _imported_modules(path):
