@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (an H100): ``python3 chip_smoke.py``.
 
-Drives the three paths of ``radardistill_tpu_torch`` through the entry points
+Drives the paths of ``radardistill_tpu_torch`` through the entry points
 a user calls, ``data.synthetic.make_batch`` (scenes, collation,
 ``HostPrecompute``) -> ``build_network`` -> ``PillarNet.forward``, and for
 training ``train.optim.build_optimizer`` -> ``train.train_step.make_train_step``,
@@ -14,7 +14,11 @@ at full width and the full 1440² grid, with random weights from a seeded
     LiDAR teacher with its static int8 stage 1 beside the radar student;
   - the distillation train step on the same batch: teacher forward without
     gradients, student forward in train mode, targets, head + AFD/PFD losses,
-    backward, clip, AdamW with the one-cycle schedules.
+    backward, clip, AdamW with the one-cycle schedules;
+  - the distillation forward under two deeper configurations of the teacher,
+    built from the same yaml with ``BACKBONE_3D`` overrides: ``INT8_STAGES: 5``
+    (the int8 chain through every stage) and ``FP_STAGES: 5`` (stages 2-5 as
+    fused float links); and one train step with the ``INT8_STAGES: 5`` teacher.
 
 It imports only ``torch`` and ``radardistill_tpu_torch``. Phases:
 
@@ -68,20 +72,61 @@ It imports only ``torch`` and ``radardistill_tpu_torch``. Phases:
      train-mode BatchNorm (and two more leaves, ``ZERO_GRAD``) has a true
      gradient of zero, all noise, and is held to the elementwise bound only.
 
+Phases 12-19, the deep chains of the teacher:
+
+ 12. K1's streamed variant vs its plain version at every link shape of the
+     ``INT8_STAGES: 5`` chain beyond stage 1, among them (2, 180, 180, 256) x
+     (3, 3, 256, 256) and (2, 180, 180, 512) x (2, 2, 512, 256) whose weights
+     do not fit in shared memory: every int8 code equal;
+ 13. K7 ``chain_conv`` vs its plain version at the conv5 link, pre-padded
+     (2, 91, 90, 1024) x (2, 2, 1024, 256) with an all-ones lane mask, and at a
+     3x3 link with a per-channel mask and a residual: every code equal, and
+     equal to K1's on the same link;
+ 14. K6 ``conv_block_fp`` vs its plain version at the seven link shapes of the
+     ``FP_STAGES: 5`` chain in bfloat16 (within 1e-2 x max|ref|: one bfloat16
+     rounding of a differently ordered float32 sum), with and without a
+     residual, and in float32 at two of them (within 1e-5 x max|ref|), plus a
+     4-phase mask and an odd 45 x 77 grid;
+ 15. K9 ``conv3x3_wide`` at (2, 180, 180, 256) -> 256, bfloat16 and float32:
+     forward and both gradients vs autograd through ``F.conv2d`` (TF32 off),
+     the same tolerances; ``F.conv2d``'s time as its library call;
+ 16. distillation forward, bfloat16, 1440², ``INT8_STAGES: 5``: K1 x 23,
+     K7 x 1, K6 x 0, K5 x 2, K2 x 3; finite outputs, p50;
+ 17. the same with ``INT8_STAGES: 1`` + ``FP_STAGES: 5``: K1 x 4, K6 x 19,
+     K7 x 0, K5 x 2, K2 x 3;
+ 18. both configurations in float32 at grid 512, card vs CPU (teacher features
+     1e-3, ``radar_preds`` 1e-4; under ``INT8_STAGES: 5`` the teacher's bound
+     is 5e-2, see below), and the ``INT8_STAGES: 5`` teacher once more with
+     ``CONV_BLOCK_V1=1`` (every link through K7): features bit-equal;
+ 19. one warm and three timed train steps with the ``INT8_STAGES: 5`` teacher:
+     finite losses, K3 x 3 and K4 x 3 per step as before.
+
+Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
+float32 scales alike, but not every stock op around it (the VFE's sums); one
+flipped input code flips a few percent of the 9 x Co codes it reaches in the
+next link, and from stage 2 on a code is a coarse step (the BN bound is many
+times the activations), so two correct runs drift apart with depth (measured
+6e-3 to 1e-2). The kernels themselves are held code for code in phases 12
+and 13.
+
 Kernel times are CUDA-event means over repeated launches on warm inputs,
 measured plain, kernel, kernel, plain. ``bound_ms`` is the least time the card
 could take: the larger of the bytes the function must move (each input read
 once, each output written once) over 3.35 TB/s and its operations over the
-peak rate of their type (K1: int8 tensor cores, 1979 TOP/s; K2: nine float32
+peak rate of their type (K1, K7: int8 tensor cores, 1979 TOP/s; K6, K9:
+bfloat16 tensor cores, 989 TFLOP/s; K2: nine float32
 operations per sampled value at 67 TFLOP/s; K3 and K4: 2 x 9 x 4 x C float32
 operations per output site; K5 copies and does none). K4's float32 scratch
 buffer is not counted: the function reads dsampled, offsets and mask and
 writes dx.
 ``library_ms`` times the one PyTorch call that computes the same function
-where there is one (``index_select`` for K5); the port never calls it. In the
+where there is one (``index_select`` for K5, ``F.conv2d`` for K9); the port
+never calls it. In the
 kernels record each time is the sum over that kernel's launches in one
 train step (K5, K2 and K1 launch as often there as in one distillation
-forward), and ``launches`` is the count of one train step. Any failed phase exits non-zero. The line before the
+forward), and ``launches`` is the count of one train step; for K7 and K6 it
+is one forward of their configuration (``INT8_STAGES: 5``, ``FP_STAGES: 5``),
+for K9, which no model calls, one forward and backward of ``conv3x3_wide``. Any failed phase exits non-zero. The line before the
 last is the kernels record ``{"kernels": [{"name", "route", "source",
 "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 "bound_by", "library_ms"}]}``; the last line is
@@ -103,7 +148,17 @@ ROOT = Path(__file__).resolve().parent
 # operations)
 PEAK_BYTES = 3.35e12
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_OPS = 989e12
 PEAK_F32_OPS = 67e12
+
+# the link shapes of the teacher's deep chains at the 1440² grid, batch 2:
+# (H = W, C, Co, kh, launches without a residual, launches with one)
+INT8_DEEP_LINKS = ((720, 128, 64, 2, 1, 0), (720, 64, 64, 3, 2, 2), (360, 256, 128, 2, 1, 0),
+                   (360, 128, 128, 3, 2, 2), (180, 512, 256, 2, 1, 0), (180, 256, 256, 3, 2, 2),
+                   (90, 256, 256, 3, 2, 2))  # + 4 stage-1 links, + K7 into conv5: 23 + 1
+FP_LINKS = ((720, 64, 64, 3, 2, 2), (360, 256, 128, 2, 1, 0), (360, 128, 128, 3, 2, 2),
+            (180, 512, 256, 2, 1, 0), (180, 256, 256, 3, 2, 2), (90, 1024, 256, 2, 1, 0),
+            (90, 256, 256, 3, 2, 2))  # 19 launches
 
 
 def bound_of(rec):
@@ -349,27 +404,31 @@ def phase_k34(torch, dev):
     return bound_of(dict(k3, library_ms=None)), bound_of(dict(k4, library_ms=None))
 
 
-def k1_inputs(torch, dev, b=2, hw=720, c=128, seed=1):
-    """Two links at the teacher's stage-1 shape, random codes from a seed: a
-    chain's first link (zero 0, no residual) and a later one (zero 127, with
-    a residual carry). Scales are chosen so the outputs spread over the whole
-    code range and some saturate."""
-    gen = torch.Generator().manual_seed(seed)
-
+def int8_link(torch, dev, gen, b, h, w, c, co, kh, nph, zero, with_res):
+    """Random operands of one int8 link; the weight scale shrinks with C so
+    that the output codes spread over the range at every width."""
     def codes(*shape):
         return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
 
-    mask = (torch.rand(b, hw, hw, 4, generator=gen) < 0.5).to(torch.int8).to(dev)
-    per_ch = lambda lo, hi: (torch.rand(c, generator=gen) * (hi - lo) + lo).to(dev)  # noqa: E731
-    links = []
-    for zero, with_res in ((0.0, False), (127.0, True)):
-        links.append(dict(
-            xc=(codes(b, hw, hw, c), torch.tensor(4.0, device=dev), zero),
-            kq=codes(3, 3, c, c), sw=per_ch(2e-4, 6e-4) / (2.0 if zero else 1.0),
-            bias=per_ch(-0.1, 0.1), gt=per_ch(0.75, 1.25), sh=per_ch(-0.5, 0.5),
-            bound=torch.tensor(6.0, device=dev), mask_c=mask,
-            res=(codes(b, hw, hw, c), torch.tensor(3.0, device=dev), 127.0) if with_res else None))
-    return links
+    per_ch = lambda lo, hi: (torch.rand(co, generator=gen) * (hi - lo) + lo).to(dev)  # noqa: E731
+    return dict(
+        xc=(codes(b, h, w, c), torch.tensor(4.0, device=dev), zero), kq=codes(kh, kh, c, co),
+        sw=per_ch(2e-4, 6e-4) * (128.0 / c) / (2.0 if zero else 1.0),
+        bias=per_ch(-0.1, 0.1), gt=per_ch(0.75, 1.25), sh=per_ch(-0.5, 0.5),
+        bound=torch.tensor(6.0, device=dev),
+        mask_c=(torch.rand(b, h, w, nph, generator=gen) < 0.6).to(torch.int8).to(dev),
+        res=(codes(b, h, w, co), torch.tensor(3.0, device=dev), 127.0) if with_res else None)
+
+
+def int8_link_bound(link, mask_numel):
+    """(operations ms, bytes ms) of one int8 link."""
+    xq, kq, res = link["xc"][0], link["kq"], link["res"]
+    b, h, w, c = xq.shape
+    kh, co = kq.shape[0], kq.shape[3]
+    ops = 2.0 * b * h * w * kh * kh * c * co
+    nbytes = (xq.numel() + kq.numel() + mask_numel + b * h * w * co + 8 * co * 4
+              + (res[0].numel() if res else 0))
+    return ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
 def phase_k1(torch, dev):
@@ -377,7 +436,11 @@ def phase_k1(torch, dev):
                                                        int8_block_conv_v2)
 
     rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
-    for link in k1_inputs(torch, dev):
+    gen = torch.Generator().manual_seed(1)
+    # the teacher's stage-1 shape: a chain's first link (zero 0, no residual)
+    # and a later one (zero 127, with a residual carry)
+    for zero, with_res in ((0.0, False), (127.0, True)):
+        link = int8_link(torch, dev, gen, 2, 720, 720, 128, 128, 3, 4, zero, with_res)
         run = lambda block: int8_block_conv_v2(block=block, **link)  # noqa: E731
         got, want = run(conv_block)[0], run(conv_block_plain)[0]
         torch.cuda.synchronize()
@@ -385,12 +448,7 @@ def phase_k1(torch, dev):
         n_bad, err = int((diff != 0).sum()), int(diff.max())
         spread = [int((want == v).sum()) for v in (-127, 127)]
         xq, kq, res = link["xc"][0], link["kq"], link["res"]
-        b, h, w, c = xq.shape
-        kh, co = kq.shape[0], kq.shape[3]
-        ops = 2.0 * b * h * w * kh * kh * c * co
-        nbytes = (xq.numel() + kq.numel() + link["mask_c"].numel() + got.numel()
-                  + 8 * co * 4 + (res[0].numel() if res else 0))
-        bound_ops, bound_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound_ops, bound_bytes = int8_link_bound(link, link["mask_c"].numel())
         ms, plain_ms = paired_ms(torch, lambda: run(conv_block), lambda: run(conv_block_plain),
                                  iters=20, plain_iters=2)
         print(f"K1 conv_block x {tuple(xq.shape)} k {tuple(kq.shape)} zero {link['xc'][2]:.0f} "
@@ -410,15 +468,234 @@ def phase_k1(torch, dev):
     return bound_of(rec)
 
 
+def phase_k1_deep(torch, dev):
+    """K1 at the link shapes of the ``INT8_STAGES: 5`` chain beyond stage 1
+    (the streamed variant wherever the weight does not fit). Prints the sums
+    over those 19 launches."""
+    from radardistill_tpu_torch.ops.conv_block import (conv_block, conv_block_plain,
+                                                       int8_block_conv_v2, resident_fits)
+
+    gen = torch.Generator().manual_seed(6)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for hw, c, co, kh, n_plain, n_res in INT8_DEEP_LINKS:
+        for with_res, count in ((False, n_plain), (True, n_res)):
+            if not count:
+                continue
+            link = int8_link(torch, dev, gen, 2, hw, hw, c, co, kh, 1, 127.0, with_res)
+            run = lambda block: int8_block_conv_v2(block=block, **link)  # noqa: E731
+            got, want = run(conv_block)[0], run(conv_block_plain)[0]
+            torch.cuda.synchronize()
+            n_bad = int((got != want).sum())
+            ops_ms, bytes_ms = int8_link_bound(link, link["mask_c"].numel())
+            ms, plain_ms = paired_ms(torch, lambda: run(conv_block),
+                                     lambda: run(conv_block_plain), iters=10, plain_iters=2)
+            variant = "resident" if resident_fits(kh, c, co, 1) else "streamed"
+            print(f"K1 conv_block ({variant}) x (2, {hw}, {hw}, {c}) k ({kh}, {kh}, {c}, {co}) "
+                  f"res {with_res}: {n_bad} of {got.numel()} codes differ; "
+                  f"{100 * float((want > -127).float().mean()):.0f}% of codes above -127; kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
+                  f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
+            if n_bad:
+                raise RuntimeError(f"K1 at {hw}² C {c}: kernel and plain differ in {n_bad} codes")
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain_ms
+            tot["bound_ms"] += count * max(ops_ms, bytes_ms)
+    print(f"K1 over the 19 links of the INT8_STAGES: 5 chain beyond stage 1: kernel "
+          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+
+
+def phase_k7(torch, dev):
+    """K7 at the conv5 link of the ``INT8_STAGES: 5`` chain and at a 3x3 link
+    with a per-channel mask and a residual: equal to plain, and to K1."""
+    from radardistill_tpu_torch.ops.conv_block import conv_block, int8_block_conv_v2
+    from radardistill_tpu_torch.ops.int8_conv import (chain_conv, chain_conv_plain,
+                                                      int8_block_conv)
+
+    gen = torch.Generator().manual_seed(7)
+    rec = None
+    for name, (h, c, co, kh, with_res) in (("conv5 link", (90, 1024, 256, 2, False)),
+                                           ("3x3 link", (90, 256, 256, 3, True))):
+        link = int8_link(torch, dev, gen, 2, h, h, c, co, kh, 1, 127.0, with_res)
+        args = {k: v for k, v in link.items() if k != "mask_c"}
+        if with_res:  # a mask that differs from channel to channel
+            mq = (torch.rand(2, h, h, co, generator=gen) < 0.6).to(torch.int8).to(dev)
+        else:
+            mq = torch.ones((2, h, h, co), dtype=torch.int8, device=dev)
+        run = lambda block: int8_block_conv(mask_q=mq, block=block, **args)[0]  # noqa: E731
+        got, want = run(chain_conv), run(chain_conv_plain)
+        # K1 on the same link: a lane mask it can take is constant per pixel
+        ones = torch.ones((2, h, h, co), dtype=torch.int8, device=dev)
+        k7_ones = int8_block_conv(mask_q=ones, **args)[0]
+        k1_ones = int8_block_conv_v2(mask_c=ones[..., :1].contiguous(), block=conv_block,
+                                     **args)[0]
+        torch.cuda.synchronize()
+        n_bad, n_k1 = int((got != want).sum()), int((k7_ones != k1_ones).sum())
+        ops_ms, bytes_ms = int8_link_bound(link, mq.numel())
+        ms, plain_ms = paired_ms(torch, lambda: run(chain_conv), lambda: run(chain_conv_plain),
+                                 iters=20, plain_iters=2)
+        print(f"K7 chain_conv {name} x (2, {h + kh - 1}, {h}, {c}) pre-padded, k ({kh}, {kh}, "
+              f"{c}, {co}), lane mask {tuple(mq.shape)}, res {with_res}: {n_bad} of "
+              f"{got.numel()} codes differ from plain, {n_k1} from K1; "
+              f"{100 * float((want > -127).float().mean()):.0f}% of codes above -127; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
+              f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
+        if n_bad or n_k1:
+            raise RuntimeError(f"K7 {name}: {n_bad} codes differ from plain, {n_k1} from K1")
+        if rec is None:  # the main path's launch
+            rec = bound_of({"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "library_ms": None})
+    return rec
+
+
+def fp_link(torch, dev, gen, dtype, b, h, w, c, co, kh, nph, with_res):
+    return dict(
+        x=torch.randn(b, h, w, c, generator=gen).to(dev, dtype),
+        kernel=(torch.randn(kh, kh, c, co, generator=gen) / (kh * kh * c) ** 0.5).to(dev),
+        bias=(torch.randn(co, generator=gen) * 0.1).to(dev),
+        gt=(torch.rand(co, generator=gen) + 0.5).to(dev),
+        sh=(torch.randn(co, generator=gen) * 0.1).to(dev),
+        mask_c=(torch.rand(b, h, w, nph, generator=gen) < 0.6).to(torch.int8).to(dev),
+        res=torch.randn(b, h, w, co, generator=gen).to(dev, dtype) if with_res else None)
+
+
+def phase_k6(torch, dev):
+    """K6 at the link shapes of the ``FP_STAGES: 5`` chain; returns the sums
+    over its 19 launches (bfloat16)."""
+    from radardistill_tpu_torch.ops.conv_block import (conv_block_fp, conv_block_fp_plain,
+                                                       fp_block_conv)
+
+    gen = torch.Generator().manual_seed(8)
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+
+    def check(link, tag, tol):
+        got = fp_block_conv(block=conv_block_fp, **link)
+        want = fp_block_conv(block=conv_block_fp_plain, **link)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        if not err <= tol * ref:
+            raise RuntimeError(f"K6 {tag}: error {err} over {tol} x {ref}")
+        return err, ref, got
+
+    for hw, c, co, kh, n_plain, n_res in FP_LINKS:
+        for with_res, count in ((False, n_plain), (True, n_res)):
+            if not count:
+                continue
+            link = fp_link(torch, dev, gen, torch.bfloat16, 2, hw, hw, c, co, kh, 1, with_res)
+            tag = f"bfloat16 x (2, {hw}, {hw}, {c}) k ({kh}, {kh}, {c}, {co}) res {with_res}"
+            err, ref, got = check(link, tag, 1e-2)
+            ops_ms = 2.0 * got.numel() * kh * kh * c / PEAK_BF16_OPS * 1e3
+            nbytes = (2 * (link["x"].numel() + link["kernel"].numel() + got.numel()
+                           + (got.numel() if with_res else 0))
+                      + link["mask_c"].numel() + 2 * co * 4)
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            ms, plain_ms = paired_ms(torch, lambda: fp_block_conv(block=conv_block_fp, **link),
+                                     lambda: fp_block_conv(block=conv_block_fp_plain, **link),
+                                     iters=10, plain_iters=2)
+            print(f"K6 conv_block_fp {tag}: max_abs_err {err:.3e} (limit {1e-2 * ref:.3e}); "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes "
+                  f"{bytes_ms:.4f}, {nbytes / 1e6:.1f} MB)")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["ms"] += count * ms
+            rec["plain_ms"] += count * plain_ms
+            rec["bytes_ms"] += count * bytes_ms
+            rec["ops_ms"] += count * ops_ms
+    # float32 at two of the shapes, a 4-phase and a 2-phase mask, an odd grid
+    for dtype, tol, (b, h, w, c, co, kh, nph, with_res) in (
+            (torch.float32, 1e-5, (2, 180, 180, 256, 256, 3, 1, True)),
+            (torch.float32, 1e-5, (2, 90, 90, 1024, 256, 2, 1, False)),
+            (torch.bfloat16, 1e-2, (2, 90, 90, 256, 256, 3, 4, True)),
+            (torch.bfloat16, 1e-2, (1, 45, 77, 128, 128, 3, 2, True)),
+            (torch.float32, 1e-5, (1, 45, 77, 128, 128, 3, 2, False))):
+        link = fp_link(torch, dev, gen, dtype, b, h, w, c, co, kh, nph, with_res)
+        tag = (f"{str(dtype)[6:]} x ({b}, {h}, {w}, {c}) k ({kh}, {kh}, {c}, {co}) nph {nph} "
+               f"res {with_res}")
+        err, ref, _ = check(link, tag, tol)
+        print(f"K6 conv_block_fp {tag}: max_abs_err {err:.3e} (limit {tol * ref:.3e})")
+    rec["library_ms"] = None  # no single PyTorch call fuses the conv with this epilogue
+    return bound_of(rec)
+
+
+def phase_k9(torch, dev):
+    """K9 at (2, 180, 180, 256) -> 256: forward and both gradients against
+    autograd through ``F.conv2d`` (TF32 off). The record is one forward and
+    backward in bfloat16: two launches of the kernel (y and dx); the library
+    call is ``F.conv2d`` on the same operands, for y and for dx."""
+    import torch.nn.functional as F
+
+    from radardistill_tpu_torch.ops.conv_block import conv_block_fp_plain
+    from radardistill_tpu_torch.ops.wide_conv import conv3x3_wide
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(9)
+    b, hw, c = 2, 180, 256
+    rec = None
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        x = torch.randn(b, hw, hw, c, generator=gen).to(dev, dtype).requires_grad_()
+        k = (torch.randn(3, 3, c, c, generator=gen) / (9 * c) ** 0.5).to(dev).requires_grad_()
+        ct = torch.randn(b, hw, hw, c, generator=gen).to(dev, dtype)
+        conv3x3_wide.launches = 0
+        y = conv3x3_wide(x, k)
+        got = (y, *torch.autograd.grad(y, (x, k), ct))
+        launches = conv3x3_wide.launches
+        yr = F.conv2d(x.permute(0, 3, 1, 2), k.to(dtype).permute(3, 2, 0, 1),
+                      padding=1).permute(0, 2, 3, 1)
+        want = (yr, *torch.autograd.grad(yr, (x, k), ct))
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, r in zip(("y", "dx", "dW"), got, want):
+            err = (g.float() - r.float()).abs().max().item()
+            ref = r.float().abs().max().item()
+            errs.append(f"{name} {err:.3e} (limit {tol * ref:.3e})")
+            if not err <= tol * ref or g.dtype != r.dtype:
+                raise RuntimeError(f"K9 {dtype} {name}: error {err} over {tol} x {ref}")
+        print(f"K9 conv3x3_wide {str(dtype)[6:]} x (2, {hw}, {hw}, {c}) k (3, 3, {c}, {c}), "
+              f"{launches} launches for forward + backward: max_abs_err " + ", ".join(errs))
+        if launches != 2:
+            raise RuntimeError(f"K9: {launches} launches for one forward and backward, not 2")
+        if dtype != torch.bfloat16:
+            continue
+        xd, kd, kt = x.detach(), k.detach().to(dtype), k.detach().flip(0, 1).transpose(2, 3)
+        kt = kt.to(dtype).contiguous()
+        from radardistill_tpu_torch.ops.conv_block import conv_block_fp
+
+        kern = lambda: (conv_block_fp(xd, kd, identity=True),  # noqa: E731
+                        conv_block_fp(ct, kt, identity=True))
+        plain = lambda: (conv_block_fp_plain(xd, kd, identity=True),  # noqa: E731
+                         conv_block_fp_plain(ct, kt, identity=True))
+        xn, cn = (t.permute(0, 3, 1, 2) for t in (xd, ct))
+        wn, wtn = (t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                   for t in (kd, kt))
+        ms, plain_ms = paired_ms(torch, kern, plain, iters=10, plain_iters=2)
+        lib_ms = cuda_ms(torch, lambda: (F.conv2d(xn, wn, padding=1),
+                                         F.conv2d(cn, wtn, padding=1)), 10)
+        ops_ms = 2 * 2.0 * b * hw * hw * 9 * c * c / PEAK_BF16_OPS * 1e3
+        bytes_ms = 2 * 2.0 * (2 * xd.numel() + kd.numel()) / PEAK_BYTES * 1e3
+        print(f"K9 conv3x3_wide bfloat16, y and dx: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, F.conv2d {lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms (operations "
+              f"{ops_ms:.4f}, bytes {bytes_ms:.4f})")
+        rec = bound_of({"max_abs_err": max((g.float() - r.float()).abs().max().item()
+                                           for g, r in zip(got[:2], want[:2])),
+                        "ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                        "library_ms": lib_ms})
+    torch.backends.cudnn.allow_tf32 = True
+    return rec, launches
+
+
 def reset_launches():
     """Set every kernel wrapper's count to 0; returns a reader of the counts."""
-    from radardistill_tpu_torch.ops.conv_block import conv_block
+    from radardistill_tpu_torch.ops.conv_block import conv_block, conv_block_fp
     from radardistill_tpu_torch.ops.dcn_grad import dcn_input_grad, dcn_offset_grad
     from radardistill_tpu_torch.ops.dcn_sample import dcn_sample
     from radardistill_tpu_torch.ops.expand import expand_rows
+    from radardistill_tpu_torch.ops.int8_conv import chain_conv
+    from radardistill_tpu_torch.ops.wide_conv import conv3x3_wide
 
     fns = {"expand_rows": expand_rows, "dcn_sample": dcn_sample, "conv_block": conv_block,
-           "dcn_offset_grad": dcn_offset_grad, "dcn_input_grad": dcn_input_grad}
+           "dcn_offset_grad": dcn_offset_grad, "dcn_input_grad": dcn_input_grad,
+           "chain_conv": chain_conv, "conv_block_fp": conv_block_fp,
+           "conv3x3_wide": conv3x3_wide}
     for fn in fns.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in fns.items()}
@@ -451,6 +728,7 @@ def phase_forward_bf16(torch, dev, name, cfg, info, batch, expect_launches, runs
     torch.cuda.synchronize()
     launches = read()
     print(f"{name} bf16 launches in one forward: {launches}")
+    expect_launches = {**dict.fromkeys(launches, 0), **expect_launches}
     if launches != expect_launches:
         raise RuntimeError(f"{name}: main path launches {launches}, expected {expect_launches}")
 
@@ -495,10 +773,15 @@ def phase_forward_bf16(torch, dev, name, cfg, info, batch, expect_launches, runs
     return launches
 
 
-def phase_forward_f32(torch, dev, name, cfg, info, batch, tol):
+def phase_forward_f32(torch, dev, name, cfg, info, batch, tol, v1_equal=()):
     """One path in float32 with TF32 off: the kernel path on the card against
     the plain path (the same model on the CPU). ``tol`` maps an output key to
-    its rel-L2 limit; a key naming a dict of predictions holds each head."""
+    its rel-L2 limit; a key naming a dict of predictions holds each head. The
+    keys of ``v1_equal`` must come out bit-equal when the same model runs on
+    the card once more with ``CONV_BLOCK_V1=1`` (every int8 link through the
+    first-generation kernel)."""
+    import os
+
     from radardistill_tpu_torch.models import build_network
     from radardistill_tpu_torch.models.detector import batch_to_torch
     from radardistill_tpu_torch.models.layers import init_random_
@@ -527,6 +810,24 @@ def phase_forward_f32(torch, dev, name, cfg, info, batch, tol):
     if bad or int(got["as_overflow"]) != int(ref["as_overflow"]):
         raise RuntimeError(f"{name} f32 kernel path vs plain: {bad}, as_overflow "
                            f"{int(got['as_overflow'])} vs {int(ref['as_overflow'])}")
+    if v1_equal:
+        v2_launches = read()
+        os.environ["CONV_BLOCK_V1"] = "1"
+        try:
+            read = reset_launches()
+            got_v1 = model(batch_to_torch(batch, dev))
+            torch.cuda.synchronize()
+        finally:
+            del os.environ["CONV_BLOCK_V1"]
+        v1_launches = read()
+        differ = [k for k in v1_equal if not torch.equal(got_v1[k], got[k])]
+        print(f"{name} f32 with CONV_BLOCK_V1=1: conv_block x {v1_launches['conv_block']}, "
+              f"chain_conv x {v1_launches['chain_conv']} (v2 route: "
+              f"{v2_launches['conv_block']}, {v2_launches['chain_conv']}); "
+              f"{', '.join(v1_equal)} bit-equal to the v2 route's: {not differ}")
+        links = v2_launches["conv_block"] + v2_launches["chain_conv"]
+        if differ or v1_launches["conv_block"] != 0 or v1_launches["chain_conv"] != links:
+            raise RuntimeError(f"{name}: v1 route differs in {differ}, launches {v1_launches}")
 
 
 def build_trainer(torch, yaml_name, cfg, info, dtype, device):
@@ -567,6 +868,7 @@ def phase_train_bf16(torch, dev, yaml_name, cfg, info, batch, expect_launches, r
     torch.cuda.synchronize()
     launches = read()
     print(f"train step bf16 launches in one step: {launches}")
+    expect_launches = {**dict.fromkeys(launches, 0), **expect_launches}
     if launches != expect_launches:
         raise RuntimeError(f"train step: launches {launches}, expected {expect_launches}")
 
@@ -714,6 +1016,10 @@ def main() -> int:
     k3, k4 = phase_k34(torch, dev)
     k1 = phase_k1(torch, dev)
     cudnn_bf16_conv_aside(torch, dev)
+    phase_k1_deep(torch, dev)
+    k7 = phase_k7(torch, dev)
+    k6 = phase_k6(torch, dev)
+    k9, k9_launches = phase_k9(torch, dev)
 
     cfg, info, batch = make_batch()
     none = {"dcn_offset_grad": 0, "dcn_input_grad": 0}  # no backward in a forward
@@ -737,29 +1043,66 @@ def main() -> int:
          "dcn_input_grad": 3}, 10)
     del batch
     torch.cuda.empty_cache()
-    cfg, info, batch = make_batch(TRAIN_YAML, grid=512, num_lidar=20000, num_radar=400,
-                                  num_boxes=10)
+
+    # the teacher's deep chains: the same yaml with BACKBONE_3D overrides
+    deep = {"int8_stages5": {"INT8_STAGES": 5}, "fp_stages5": {"INT8_STAGES": 1, "FP_STAGES": 5}}
+    chain_expect = {
+        "int8_stages5": {"expand_rows": 2, "dcn_sample": 3, "conv_block": 23, "chain_conv": 1},
+        "fp_stages5": {"expand_rows": 2, "dcn_sample": 3, "conv_block": 4, "conv_block_fp": 19}}
+    chain_launches = {}
+    for name, over in deep.items():
+        cfg, info, batch = make_batch(TRAIN_YAML, backbone_3d=over)
+        chain_launches[name] = phase_forward_bf16(
+            torch, dev, f"distillation forward {over}", cfg, info, batch, chain_expect[name], 10)
+        if name == "int8_stages5":
+            phase_train_bf16(torch, dev, TRAIN_YAML, cfg, info, batch,
+                             {**chain_expect[name], "dcn_offset_grad": 3, "dcn_input_grad": 3}, 3)
+        del batch
+        torch.cuda.empty_cache()
+
+    small = dict(grid=512, num_lidar=20000, num_radar=400, num_boxes=10)
+    cfg, info, batch = make_batch(TRAIN_YAML, **small)
     teacher = ("x_conv4", "x_conv5", "spatial_features_2d", "spatial_features_2d_8x",
                "lidar_preds")
     phase_forward_f32(torch, dev, "distillation forward", cfg, info, batch,
                       {**{k: 1e-3 for k in teacher}, "radar_preds": 1e-4})
     phase_train_f32(torch, dev, TRAIN_YAML, cfg, info, batch)
+    for name, over in deep.items():
+        cfg, info, batch = make_batch(TRAIN_YAML, backbone_3d=over, **small)
+        t_tol = 5e-2 if name == "int8_stages5" else 1e-3  # see the module docstring
+        phase_forward_f32(torch, dev, f"distillation forward {over}", cfg, info, batch,
+                          {**{k: t_tol for k in teacher}, "radar_preds": 1e-4},
+                          v1_equal=teacher[:4] if name == "int8_stages5" else ())
 
     dcn_py = "radardistill_tpu/ops/pallas_dcn.py"
+    block_py = "radardistill_tpu/ops/pallas_conv_block.py"
     table = [
         ("expand_rows", "expand.cu", "radardistill_tpu/ops/pallas_expand.py:39", k5),
         ("dcn_sample", "dcn_sample.cu", f"{dcn_py}:213", k2),
-        ("conv_block", "conv_block.cu", "radardistill_tpu/ops/pallas_conv_block.py:81", k1),
+        ("conv_block", "conv_block.cu", f"{block_py}:81", k1),
         ("dcn_offset_grad", "dcn_offset_grad.cu", f"{dcn_py}:283", k3),
         ("dcn_input_grad", "dcn_input_grad.cu", f"{dcn_py}:378", k4),
+        ("conv_block_fp", "conv_block_fp.cu", f"{block_py}:81", k6),
+        ("chain_conv", "conv_block.cu", "radardistill_tpu/ops/pallas_int8_conv.py:64", k7),
+        ("conv3x3_wide", "conv_block_fp.cu", "radardistill_tpu/ops/pallas_wide_conv.py:57", k9),
     ]
+    # `launches`: the train step for the first five; one forward of its own
+    # configuration for K6 and K7; one forward + backward of the wrapper for K9
+    own = {"conv_block_fp": chain_launches["fp_stages5"]["conv_block_fp"],
+           "chain_conv": chain_launches["int8_stages5"]["chain_conv"],
+           "conv3x3_wide": k9_launches}
     kernels = [{"name": name, "route": "cuda", "source": f"radardistill_tpu_torch/csrc/{src}",
-                "replaces": replaces, "launches": launches[name],
-                "launches_val": val_launches[name], "launches_forward": fwd_launches[name], **rec}
+                "replaces": replaces, "launches": own.get(name, launches[name]),
+                "launches_val": val_launches[name], "launches_forward": fwd_launches[name],
+                "launches_int8_stages5": chain_launches["int8_stages5"][name],
+                "launches_fp_stages5": chain_launches["fp_stages5"][name], **rec}
                for name, src, replaces, rec in table]
+    if any(k["launches"] < 1 for k in kernels):
+        raise RuntimeError("a kernel was launched on no path: "
+                           + str([k["name"] for k in kernels if k["launches"] < 1]))
     keys = ("name", "route", "source", "replaces", "launches", "launches_val",
-            "launches_forward", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "launches_forward", "launches_int8_stages5", "launches_fp_stages5", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -42,10 +42,30 @@
 //     the half-to-even rounding, and writes two adjacent channels at a time.
 // Shared memory holds weight + tile: 157 KB + 26 KB at C = Co = 128, kh = 3,
 // so one block of 256 threads per SM.
+//
+// That is the resident variant, for weights that fit. The deeper links of the
+// chain do not: (3, 3, 256, 256) is 590 KB, (2, 2, 512, 256) 512 KB,
+// (2, 2, 1024, 256) 1 MB. The streamed variant (conv_stream_kernel) tiles Co
+// by 128 and walks over C in chunks, staging the weight slice and the input
+// tile of each chunk in shared memory (csrc/conv_tile.cuh); two blocks share
+// an SM so one loads while the other multiplies. Same mma, same epilogue.
+//
+// K7, the first-generation chain link (rdt_chain_conv): the math of K1 on
+// other operands. It replaces radardistill_tpu/ops/pallas_int8_conv.py
+// (_chain_kernel, entered through int8_block_conv -> _chain_call): the input
+// arrives pre-padded in H with rows of zpad, (1, kh - 2) of them, the mask is
+// a full (B, H, W, Co) int8 tensor read per output channel, and the output is
+// int8 only. It runs the streamed kernel with that addressing; the product
+// and the epilogue are the device code K1 uses. The TPU kernel's W padding to
+// 8, its lane padding of C and Co to 128 and its ky-stacked operand are not
+// carried over. Operation-bound like K1: (2, 90, 90, 1024) x (2, 2, 1024,
+// 256) is 34 G operations over 20 MB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "conv_tile.cuh"
 
 namespace {
 
@@ -76,6 +96,25 @@ __device__ __forceinline__ float epilogue(int acc, float alpha, float beta,
 __device__ __forceinline__ int requant(float y, float s_out) {
   float q = rintf(__fmul_rn(y, s_out)) - 127.0f;
   return (int)fminf(fmaxf(q, -127.0f), 127.0f);
+}
+
+// two adjacent channels of one pixel: requantized to int8 (out_kind 0), or
+// the float values as float32 (1) or bfloat16 (2)
+__device__ __forceinline__ void write_pair(void* out, size_t o, int out_kind, float v0,
+                                           float v1, float s_out) {
+  if (out_kind == 0) {
+    char2 q;
+    q.x = (signed char)requant(v0, s_out);
+    q.y = (signed char)requant(v1, s_out);
+    *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + o) = q;
+  } else if (out_kind == 1) {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v0, v1);
+  } else {
+    __nv_bfloat162 h;
+    h.x = __float2bfloat16_rn(v0);
+    h.y = __float2bfloat16_rn(v1);
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) = h;
+  }
 }
 
 // NT: n-tiles (8 channels each) per warp, Co = 16 * NT. KH: window (2 or 3).
@@ -205,22 +244,7 @@ conv_block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ k,
                                     s_beta[co], has_res, r0, rs, rsh, m);
           const float v1 = epilogue(acc[mt][nt][2 * half + 1], s_alpha[co + 1],
                                     s_beta[co + 1], has_res, r1, rs, rsh, m);
-          const size_t o = pix * CO + co;
-          if (out_kind == 0) {
-            char2 q;
-            q.x = (signed char)requant(v0, s_out);
-            q.y = (signed char)requant(v1, s_out);
-            *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + o) = q;
-          } else if (out_kind == 1) {
-            *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
-                make_float2(v0, v1);
-          } else {
-            __nv_bfloat162 h;
-            h.x = __float2bfloat16_rn(v0);
-            h.y = __float2bfloat16_rn(v1);
-            *reinterpret_cast<__nv_bfloat162*>(
-                static_cast<__nv_bfloat16*>(out) + o) = h;
-          }
+          write_pair(out, pix * CO + co, out_kind, v0, v1, s_out);
         }
       }
     }
@@ -247,21 +271,121 @@ cudaError_t launch(const int8_t* x, const int8_t* k, const float* ab,
   return cudaGetLastError();
 }
 
+// The streamed variant. x has Hin rows per image and the tile's input row iy
+// is read at row iy + row_off: (H, 0) for K1's operands, (H + kh - 1, 1) for
+// K7's pre-padded input. The mask has nph bytes per pixel, each covering
+// Co / nph channels (nph = Co: one byte per channel, K7's mask).
+template <int NT, int KH>
+__global__ void __launch_bounds__(rdt::NTHREADS, 2)
+conv_stream_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ k,
+                   const float* __restrict__ ab, const int8_t* __restrict__ mask,
+                   const int8_t* __restrict__ res, void* __restrict__ out, int B,
+                   int H, int W, int C, int Co, int nph, int Hin, int row_off,
+                   int zpad, int out_kind, int kcw) {
+  constexpr int COT = 16 * NT;
+  extern __shared__ __align__(16) uint32_t smem_u[];
+  const int n_cot = Co / COT;
+  const int cot = blockIdx.x % n_cot, tile = blockIdx.x / n_cot;
+  const int tiles_x = (W + rdt::TW - 1) / rdt::TW, tiles_y = (H + rdt::TH - 1) / rdt::TH;
+  const int b = tile / (tiles_y * tiles_x);
+  const int y0 = ((tile / tiles_x) % tiles_y) * rdt::TH, x0 = (tile % tiles_x) * rdt::TW;
+  const int co0 = cot * COT;
+
+  int acc[2][NT][4];
+  rdt::conv_tile<rdt::S8, NT, KH>(acc, x, k, smem_u, b, y0, x0, co0, Hin, row_off, W, C,
+                                  Co, kcw, 0x01010101u * (uint32_t)(uint8_t)zpad);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  const float s_out = ab[2 * Co], rs = ab[3 * Co], rsh = ab[4 * Co];
+  const bool has_res = res != nullptr;
+  const int cpp = Co / nph;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int yy = y0 + 2 * wm + mt;
+    if (yy >= H) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int xx = x0 + g + 8 * half;
+      if (xx >= W) continue;
+      const size_t pix = ((size_t)b * H + yy) * W + xx;
+      const int8_t* mrow = mask + pix * nph;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int co = co0 + wn * 8 * NT + nt * 8 + 2 * t;
+        const float m0 = (float)mrow[co / cpp], m1 = (float)mrow[(co + 1) / cpp];
+        int r0 = 0, r1 = 0;
+        if (has_res) {
+          const char2 rr = *reinterpret_cast<const char2*>(res + pix * Co + co);
+          r0 = rr.x;
+          r1 = rr.y;
+        }
+        const float v0 = epilogue(acc[mt][nt][2 * half], __ldg(ab + co), __ldg(ab + Co + co),
+                                  has_res, r0, rs, rsh, m0);
+        const float v1 = epilogue(acc[mt][nt][2 * half + 1], __ldg(ab + co + 1),
+                                  __ldg(ab + Co + co + 1), has_res, r1, rs, rsh, m1);
+        write_pair(out, pix * Co + co, out_kind, v0, v1, s_out);
+      }
+    }
+  }
+}
+
+template <int NT, int KH>
+cudaError_t launch_stream(const int8_t* x, const int8_t* k, const float* ab,
+                          const int8_t* mask, const int8_t* res, void* out, int B,
+                          int H, int W, int C, int Co, int nph, int Hin, int row_off,
+                          int zpad, int out_kind, cudaStream_t stream) {
+  const int kcw = (C / 4) % 16 == 0 ? 16 : 8;
+  const int smem = 4 * rdt::tile_smem_words(KH, kcw, 16 * NT);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_stream_kernel<NT, KH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * ((H + rdt::TH - 1) / rdt::TH) *
+                           ((W + rdt::TW - 1) / rdt::TW) * (Co / (16 * NT));
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  conv_stream_kernel<NT, KH><<<(int)blocks, rdt::NTHREADS, smem, stream>>>(
+      x, k, ab, mask, res, out, B, H, W, C, Co, nph, Hin, row_off, zpad, out_kind, kcw);
+  return cudaGetLastError();
+}
+
+// Co 16, 32, 64 or a multiple of 128 (tiled by 128)
+cudaError_t dispatch_stream(const int8_t* x, const int8_t* k, const float* ab,
+                            const int8_t* mask, const int8_t* res, void* out, int B,
+                            int H, int W, int C, int Co, int kh, int nph, int Hin,
+                            int row_off, int zpad, int out_kind, cudaStream_t st) {
+#define RDT_STREAM(NT)                                                         \
+  return kh == 3 ? launch_stream<NT, 3>(x, k, ab, mask, res, out, B, H, W, C,  \
+                                        Co, nph, Hin, row_off, zpad, out_kind, \
+                                        st)                                    \
+                 : launch_stream<NT, 2>(x, k, ab, mask, res, out, B, H, W, C,  \
+                                        Co, nph, Hin, row_off, zpad, out_kind, \
+                                        st)
+  if (Co == 16) RDT_STREAM(1);
+  if (Co == 32) RDT_STREAM(2);
+  if (Co == 64) RDT_STREAM(4);
+  if (Co % 128 == 0) RDT_STREAM(8);
+  return cudaErrorInvalidValue;
+#undef RDT_STREAM
+}
+
 }  // namespace
 
 // x (B, H, W, C) int8; k (kh, kh, C, Co) int8; ab (8, Co) float32, rows
 // alpha, beta, s_out, rs, rsh; mask (B, H, W, nph) int8; res (B, H, W, Co)
 // int8 or null; out (B, H, W, Co) int8 (out_kind 0), float32 (1) or bfloat16
-// (2). x is 16-byte aligned, C % 32 == 0, Co in {16, 32, 64, 128}, kh in {2, 3}, nph divides Co
-// into an even number of channels; smem is the dynamic shared memory the
-// Python wrapper computed for these shapes (it checks them all).
+// (2). x is 16-byte aligned, C % 32 == 0, kh in {2, 3}, nph divides Co.
+// streamed 0: the resident variant, Co in {16, 32, 64, 128}, nph divides Co
+// into an even number of channels, smem the dynamic shared memory the Python
+// wrapper computed for these shapes (it checks them all). streamed 1: the
+// streamed variant, Co in {16, 32, 64} or a multiple of 128, k 4-byte aligned.
 extern "C" int rdt_conv_block(const void* x, const void* k, const void* ab,
                               const void* mask, const void* res, void* out,
                               int B, int H, int W, int C, int Co, int kh,
-                              int nph, int zpad, int out_kind, int smem,
-                              int device, void* stream) {
+                              int nph, int zpad, int out_kind, int streamed,
+                              int smem, int device, void* stream) {
   if (C % 32 != 0 || (kh != 2 && kh != 3) || nph <= 0 || Co % nph != 0 ||
-      (Co / nph) % 2 != 0 || out_kind < 0 || out_kind > 2)
+      (!streamed && (Co / nph) % 2 != 0) || out_kind < 0 || out_kind > 2)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -272,6 +396,9 @@ extern "C" int rdt_conv_block(const void* x, const void* k, const void* ab,
   auto ms = static_cast<const int8_t*>(mask);
   auto rs = static_cast<const int8_t*>(res);
   auto st = static_cast<cudaStream_t>(stream);
+  if (streamed)
+    return dispatch_stream(xs, ks, abs_, ms, rs, out, B, H, W, C, Co, kh, nph, H, 0,
+                           zpad, out_kind, st);
 #define RDT_LAUNCH(NT)                                                        \
   return kh == 3 ? launch<NT, 3>(xs, ks, abs_, ms, rs, out, B, H, W, C, nph,  \
                                  zpad, out_kind, smem, device, st)            \
@@ -285,4 +412,24 @@ extern "C" int rdt_conv_block(const void* x, const void* k, const void* ab,
     default: return cudaErrorInvalidValue;
   }
 #undef RDT_LAUNCH
+}
+
+// K7. xp (B, H + kh - 1, W, C) int8: the input padded in H by the caller with
+// (1, kh - 2) rows of zpad; k (kh, kh, C, Co) int8; ab (8, Co) float32 as
+// above; mask (B, H, W, Co) int8, one byte per output channel; res (B, H, W,
+// Co) int8 or null; out (B, H, W, Co) int8. xp is 16-byte aligned, k 4-byte
+// aligned, C % 32 == 0, Co in {16, 32, 64} or a multiple of 128.
+extern "C" int rdt_chain_conv(const void* xp, const void* k, const void* ab,
+                              const void* mask, const void* res, void* out,
+                              int B, int H, int W, int C, int Co, int kh,
+                              int zpad, int device, void* stream) {
+  if (C % 32 != 0 || (kh != 2 && kh != 3)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if ((long long)B * H * W == 0) return cudaGetLastError();
+  return dispatch_stream(static_cast<const int8_t*>(xp), static_cast<const int8_t*>(k),
+                         static_cast<const float*>(ab), static_cast<const int8_t*>(mask),
+                         static_cast<const int8_t*>(res), out, B, H, W, C, Co, kh,
+                         /*nph=*/Co, /*Hin=*/H + kh - 1, /*row_off=*/1, zpad,
+                         /*out_kind=*/0, static_cast<cudaStream_t>(stream));
 }

@@ -82,14 +82,19 @@ def make_scene(
     }
 
 
-def make_batch(yaml_name=VAL_YAML, grid=None, seed=0, **sizes):
+def make_batch(yaml_name=VAL_YAML, grid=None, seed=0, backbone_3d=None, **sizes):
     """(model cfg, dataset info, host-precomputed numpy batch) for a shipped
-    yaml. ``grid`` rescales the range, for small runs; ``sizes`` override the
-    yaml's entry of ``BATCH_SIZES`` (e.g. ``num_lidar=4000`` for a small
-    grid). Scene ``i`` of the batch is ``make_scene(seed + i, ...)``."""
+    yaml. ``grid`` rescales the range, for small runs; ``backbone_3d``
+    overrides keys of the yaml's ``MODEL.BACKBONE_3D`` (another configuration
+    of the teacher, e.g. ``{"INT8_STAGES": 5}`` or ``{"FP_STAGES": 5}``);
+    ``sizes`` override the yaml's entry of ``BATCH_SIZES`` (e.g.
+    ``num_lidar=4000`` for a small grid). Scene ``i`` of the batch is
+    ``make_scene(seed + i, ...)``."""
     sz = dict(BATCH_SIZES[yaml_name], **sizes)
     full, info = production_cfg(yaml_name, grid=grid)
     cfg = full.MODEL
+    if backbone_3d:
+        cfg.BACKBONE_3D.update(backbone_3d)
     scenes = []
     for i in range(sz["batch_size"]):
         scene = make_scene(seed + i, num_lidar=sz["num_lidar"] or 100,

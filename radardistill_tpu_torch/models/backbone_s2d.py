@@ -1,8 +1,9 @@
 """Space-to-depth PillarRes18 backbone of the LiDAR teacher (NHWC, eval).
 
-Counterpart of ``radardistill_tpu/models/backbone_s2d.py`` for the shipped
-teacher: ``PillarRes18BackBone8x_S2D`` with ``TABLE_INPUT``, ``PACKED_TABLE``
-and ``INT8`` false or ``static`` (``INT8_STAGES`` 1). Stage 1 runs on the 2x2
+Counterpart of ``radardistill_tpu/models/backbone_s2d.py`` for the frozen
+teacher: ``PillarRes18BackBone8x_S2D`` with ``TABLE_INPUT``, ``PACKED_TABLE``,
+``INT8`` false, true or ``static``, ``INT8_STAGES`` 1-5 and ``FP_STAGES`` 0-5.
+Stage 1 runs on the 2x2
 space-to-depth packing of the stride-1 grid, (B, H/2, W/2, 4*32) with channel
 = phase * C + c and phase = (y%2)*2 + x%2, and every op is built to equal the
 dense-grid stage exactly, on the same parameter tree:
@@ -16,12 +17,21 @@ dense-grid stage exactly, on the same parameter tree:
 - BN parameters and statistics stay (C,) vectors, tiled over the 4 phases.
 
 With ``INT8: static`` the four stage-1 links run as fused int8 links
-(``ops/conv_block.py``, K1) on an int8 carry ``(q, bound, zero)``; the chain
-ends in the stride-2 conv, which consumes the carry with a stock exact
-integer conv (``layers.int8_conv_affine``) and returns float. Stages 2-4 run
-the masked dense float blocks of ``backbone_sparse2d.py`` on host-built
-occupancy masks, conv5 dense. Every other switch of the JAX module raises
-``NotImplementedError``.
+(``ops/conv_block.py``, K1) on an int8 carry ``(q, bound, zero)``. With
+``INT8_STAGES`` 1 the chain ends in the stride-2 conv, which consumes the
+carry with a stock exact integer conv (``layers.int8_conv_affine``) and
+returns float; with 2-5 it runs on through the later stages, unpacked, as
+fused links: a strided conv as a 2x2 link on the space-to-depth packing of the
+carry, the ``x_conv2..5`` taps dequantized on exit, and the dense conv5 stage
+entered through the first-generation link (``ops/int8_conv.py``, K7) with an
+all-ones lane mask. ``FP_STAGES: n`` runs the stages 2..n that the int8 chain
+does not cover as fused float links (``ops.conv_block.fp_block_conv``, K6).
+``INT8: true`` quantizes every conv's input on the fly (``layers.int8_conv``).
+All of it is eval-only, as in the JAX module: a frozen teacher stays in eval
+mode. Stages 2-4 otherwise run the masked dense float blocks of
+``backbone_sparse2d.py`` on host-built occupancy masks, conv5 dense. Still
+raising ``NotImplementedError``: ``pack_stage2`` (the ``_S2D2`` backbone),
+``TABLE_INPUT: false`` and ``PACKED_TABLE: false``.
 """
 
 from __future__ import annotations
@@ -35,11 +45,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import active_site as asx
-from ..ops.conv_block import int8_block
+from ..ops.conv_block import fp_block_conv, int8_block
+from ..ops.int8_conv import int8_block_conv
 from ..utils.bitpack import unpack_bool
 from .backbone_sparse2d import DenseBasicBlock, SparseBasicBlock, SparseDownBlock
 from .layers import (BN_EPS_BACKBONE, BatchNormTorch, Conv2dTorch, MaskedBatchNorm, bn_affine,
-                     int8_conv_affine, int8_qkernel, max_pool_mask, q8)
+                     deq8, int8_conv, int8_conv_affine, int8_qkernel, max_pool_mask, q8)
 
 # ---------------------------------------------------------------------------
 # pack / unpack
@@ -128,6 +139,26 @@ def pack_down_kernel(k, cin, cout):
     return kp.reshape(2, 2, 4 * cin, cout)
 
 
+def wpair_kernel(k):
+    """(3, 3, C, Co) stride-1 kernel -> (3, 3, 2C, 2Co) stride-1 kernel on the
+    W-paired layout ((B, H, W, C) -> (B, H, W/2, 2C), a contiguous reshape:
+    channel index = (w % 2) * C + c). Packed tap (du, p -> q) carries the
+    original tap dx = 2*du + p - q where that lies in {-1, 0, 1}, else zero.
+    The JAX package pairs its C = 64 float links this way to fill TPU lanes;
+    nothing in the port calls it (the conv it equals is the plain one)."""
+    kh, kw, ci, co = k.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"wpair_kernel: kernel {tuple(k.shape)}")
+    kp = k.new_zeros((3, 3, 2 * ci, 2 * co))
+    for du in (-1, 0, 1):
+        for p in range(2):
+            for q in range(2):
+                dx = 2 * du + p - q
+                if abs(dx) <= 1:
+                    kp[:, du + 1, p * ci:(p + 1) * ci, q * co:(q + 1) * co] = k[:, dx + 1]
+    return kp
+
+
 def _conv(x, kernel, padding, stride=1):
     """NHWC conv with an HWIO kernel and explicit ((top, bottom), (left,
     right)) zero padding."""
@@ -158,16 +189,21 @@ class _PackedSubmConv(nn.Module):
     """3x3 subm conv on the packed grid; parameters (3, 3, Cin, Cout) + bias
     under ``conv``."""
 
-    def __init__(self, cin, cout, use_bias):
+    def __init__(self, cin, cout, use_bias, int8=False):
         super().__init__()
-        self.cin, self.cout = cin, cout
+        self.cin, self.cout, self.int8 = cin, cout, int8
         self.conv = KernelHolder(cin, cout, use_bias)
 
     def forward(self, x):
+        b = self.conv.bias
+        if self.int8:
+            kp = pack_subm_kernel(self.conv.kernel, self.cin, self.cout)
+            return int8_conv(x, kp, 1, ((1, 1), (1, 1)), None if b is None else b.repeat(4),
+                             out_dtype=x.dtype)
         kp = pack_subm_kernel(self.conv.kernel.to(x.dtype), self.cin, self.cout)
         y = _conv(x, kp, ((1, 1), (1, 1)))
-        if self.conv.bias is not None:
-            y = y + self.conv.bias.repeat(4).to(y.dtype)
+        if b is not None:
+            y = y + b.repeat(4).to(y.dtype)
         return y
 
     def pieces(self):
@@ -209,12 +245,12 @@ class S2DBasicBlock(nn.Module):
     both links as fused int8 links (K1), the residual added on the second
     link's accumulator, and returns the next carry."""
 
-    def __init__(self, features):
+    def __init__(self, features, int8=False):
         super().__init__()
         self.features = features
-        self.conv1 = _PackedSubmConv(features, features, True)
+        self.conv1 = _PackedSubmConv(features, features, True, int8)
         self.bn1 = PackedMaskedBatchNorm(features)
-        self.conv2 = _PackedSubmConv(features, features, True)
+        self.conv2 = _PackedSubmConv(features, features, True, int8)
         self.bn2 = PackedMaskedBatchNorm(features)
 
     def forward(self, x, mask_p):
@@ -238,13 +274,15 @@ class _ConvScope(nn.Module):
 
 class S2DDownBlock(nn.Module):
     """Stride-2 SparseConv2d consuming the packed stage: a 2x2 packed conv
-    that emits the UNPACKED next-stage tensor in ``dtype``. An int8 carry is
-    consumed here (the chain's terminus): one exact integer conv from stock
-    ops with the dequant and BN affine as its epilogue, float out."""
+    that emits the UNPACKED next-stage tensor in ``dtype``. An int8 carry
+    either goes on (``int8_carry``: one fused int8 link, the next carry out)
+    or is consumed here (the chain's terminus): one exact integer conv from
+    stock ops with the dequant and BN affine as its epilogue, float out."""
 
-    def __init__(self, cin, features, dtype=torch.float32):
+    def __init__(self, cin, features, dtype=torch.float32, int8=False, int8_carry=False):
         super().__init__()
         self.cin, self.features, self.dtype = cin, features, dtype
+        self.int8, self.int8_carry = int8, int8_carry
         self.conv = _ConvScope(cin, features)
         self.bn = MaskedBatchNorm(features, BN_EPS_BACKBONE)
 
@@ -253,11 +291,18 @@ class S2DDownBlock(nn.Module):
         m = new_mask[..., None]
         if isinstance(x_packed, tuple):
             kq, sw = int8_qkernel(pack_down_kernel(k.float(), self.cin, self.features))
+            if self.int8_carry:
+                return int8_block(x_packed, kq, sw, None, *self.bn.affine(), m.to(torch.int8))
             gt, sh, _ = self.bn.affine()
             y = int8_conv_affine(x_packed, kq, sw, None, gt, sh, 1, ((1, 0), (1, 0)))
             return (torch.relu(y) * m.float()).to(self.dtype)
-        kp = pack_down_kernel(k.to(x_packed.dtype), self.cin, self.features)
-        y = torch.relu(self.bn(_conv(x_packed, kp, ((1, 0), (1, 0)))))
+        if self.int8:
+            kp = pack_down_kernel(k, self.cin, self.features)
+            y = int8_conv(x_packed, kp, 1, ((1, 0), (1, 0)), out_dtype=x_packed.dtype)
+        else:
+            kp = pack_down_kernel(k.to(x_packed.dtype), self.cin, self.features)
+            y = _conv(x_packed, kp, ((1, 0), (1, 0)))
+        y = torch.relu(self.bn(y))
         return y * m.to(y.dtype)
 
 
@@ -277,27 +322,33 @@ class PillarRes18BackBone8xS2D(nn.Module):
                  int8_static=False, int8_stages=1, fp_stages=0, table_input=True,
                  packed_table=True, pack_stage2=False):
         super().__init__()
-        for name, on in (("INT8: true (dynamic per-conv scales)", int8),
-                         ("INT8_STAGES > 1", int8_static and int8_stages != 1),
-                         ("FP_STAGES", fp_stages), ("the _S2D2 backbone (pack_stage2)", pack_stage2),
+        for name, on in (("the _S2D2 backbone (pack_stage2)", pack_stage2),
                          ("TABLE_INPUT: false (dense input)", not table_input),
                          ("PACKED_TABLE: false", not packed_table)):
             if on:
                 raise NotImplementedError(f"PillarRes18BackBone8x_S2D: {name} is not ported")
         self.hw, self.dtype, self.int8_static = tuple(hw), dtype, int8_static
-        self.conv1_0 = S2DBasicBlock(32)
-        self.conv1_1 = S2DBasicBlock(32)
-        self.conv2_down = S2DDownBlock(32, 64, dtype)
-        self.conv2_0 = SparseBasicBlock(64)
-        self.conv2_1 = SparseBasicBlock(64)
-        for stage, (cin, cout) in ((3, (64, 128)), (4, (128, 256))):
-            self.add_module(f"conv{stage}_down", SparseDownBlock(cin, cout))
-            self.add_module(f"conv{stage}_0", SparseBasicBlock(cout))
-            self.add_module(f"conv{stage}_1", SparseBasicBlock(cout))
-        self.conv5_down_conv = Conv2dTorch(256, 256, 3, 2, 1, use_bias=False)
+        # chain depth per stage, and the JAX module's precedence: a stage the
+        # int8 chain covers is not a fused float stage. All of it is eval-only
+        # (the blocks fall back to the plain path in train mode).
+        qs = {n: int8_static and int8_stages >= n for n in (2, 3, 4, 5)}
+        fp = {n: fp_stages >= n and not qs[n] for n in (2, 3, 4, 5)}
+        self.qs, self.fp = qs, fp
+        q = int8  # the dynamic int8 path, on every conv
+        self.conv1_0 = S2DBasicBlock(32, q)
+        self.conv1_1 = S2DBasicBlock(32, q)
+        self.conv2_down = S2DDownBlock(32, 64, dtype, q, int8_carry=qs[2])
+        self.conv2_0 = SparseBasicBlock(64, dtype, q, qs[2], fp[2])
+        self.conv2_1 = SparseBasicBlock(64, dtype, q, qs[2], fp[2])
+        for n, (cin, cout) in ((3, (64, 128)), (4, (128, 256))):
+            self.add_module(f"conv{n}_down", SparseDownBlock(
+                cin, cout, dtype, q, int8_static=qs[n - 1], int8_carry=qs[n], fp_block=fp[n]))
+            self.add_module(f"conv{n}_0", SparseBasicBlock(cout, dtype, q, qs[n], fp[n]))
+            self.add_module(f"conv{n}_1", SparseBasicBlock(cout, dtype, q, qs[n], fp[n]))
+        self.conv5_down_conv = Conv2dTorch(256, 256, 3, 2, 1, use_bias=False, int8=q)
         self.conv5_down_bn = BatchNormTorch(256, BN_EPS_BACKBONE)
-        self.conv5_0 = DenseBasicBlock(256)
-        self.conv5_1 = DenseBasicBlock(256)
+        self.conv5_0 = DenseBasicBlock(256, dtype, q, qs[5], fp[5])
+        self.conv5_1 = DenseBasicBlock(256, dtype, q, qs[5], fp[5])
 
     def _stage_masks(self, mask_p, hp_masks: Optional[tuple]):
         """(B, H/2^k, W/2^k) bool occupancy of stages 2-4."""
@@ -311,8 +362,30 @@ class PillarRes18BackBone8xS2D(nn.Module):
         return [unpack_bool(m, w0 >> (i + 1)) if m.dtype == torch.uint8 else m
                 for i, m in enumerate(hp_masks)]
 
+    def _conv5_down(self, x4c):
+        """The dense stride-2 conv into stage 5, on the stage-4 output as the
+        chains left it (an int8 carry under ``INT8_STAGES: 5``)."""
+        if self.qs[5] and not self.training:
+            # the int8 chain: a 2x2 link on the space-to-depth packing of the
+            # carry through the first-generation kernel, all-ones lane mask
+            x4q, b4, z4 = x4c
+            k5 = pack_down_kernel(self.conv5_down_conv.raw()[0].float(), 256, 256)
+            kq5, sw5 = int8_qkernel(k5)
+            b, h, w, _ = x4q.shape
+            mq5 = torch.ones((b, h // 2, w // 2, 256), dtype=torch.int8, device=x4q.device)
+            return int8_block_conv((space_to_depth(x4q), b4, z4), kq5, sw5, None,
+                                   *self.conv5_down_bn.affine(), mq5)
+        if self.fp[5] and not self.training:
+            k5 = pack_down_kernel(self.conv5_down_conv.raw()[0].float(), 256, 256)
+            gt5, sh5, _ = self.conv5_down_bn.affine()
+            b, h, w, _ = x4c.shape
+            ones5 = torch.ones((b, h // 2, w // 2, 1), dtype=torch.int8, device=x4c.device)
+            return fp_block_conv(space_to_depth(x4c.to(self.dtype)), k5, None, gt5, sh5, ones5)
+        return torch.relu(self.conv5_down_bn(self.conv5_down_conv(x4c)))
+
     def forward(self, table, uids, hp_masks=None) -> Dict[str, torch.Tensor]:
-        if self.int8_static:
+        static = self.int8_static and not self.training
+        if static:
             # quantize the COMPACT table, then densify int8 (exact: q8 is
             # elementwise with q8(0) = 0, so gather(q8(t)) == q8(gather(t))).
             # The bound is the table's abs-max: it equals the dense grid's
@@ -321,24 +394,28 @@ class PillarRes18BackBone8xS2D(nn.Module):
             bnd0 = torch.clamp(table.abs().max().float(), min=1e-6)
             table = q8(table.float(), bnd0)
         x, mask_pb = asx.densify_packed_direct_batch(table, uids, self.hw)
-        if self.int8_static:
+        if static:
             x = (x, bnd0, 0.0)
         mask_p = mask_pb.float()
         mask2, mask3, mask4 = self._stage_masks(mask_p, hp_masks)
+
+        def dq(t):
+            """A stage's output as a float tensor: an int8 carry dequantized."""
+            return deq8(*t).to(self.dtype) if isinstance(t, tuple) else t
 
         x = self.conv1_0(x, mask_p)
         x1p = self.conv1_1(x, mask_p)
         x = self.conv2_down(x1p, mask2)
         x = self.conv2_0(x, mask2)
-        x2 = self.conv2_1(x, mask2)
-        x = self.conv3_down(x2, mask3)
+        x2c = self.conv2_1(x, mask2)
+        x = self.conv3_down(x2c, mask3)
         x = self.conv3_0(x, mask3)
-        x3 = self.conv3_1(x, mask3)
-        x = self.conv4_down(x3, mask4)
+        x3c = self.conv3_1(x, mask3)
+        x = self.conv4_down(x3c, mask4)
         x = self.conv4_0(x, mask4)
-        x4 = self.conv4_1(x, mask4)
-        x = torch.relu(self.conv5_down_bn(self.conv5_down_conv(x4)))
+        x4c = self.conv4_1(x, mask4)
+        x = self._conv5_down(x4c)
         x = self.conv5_0(x)
-        x5 = self.conv5_1(x)
-        return {"x_conv2": x2, "x_conv3": x3, "x_conv4": x4, "x_conv5": x5,
+        x5 = dq(self.conv5_1(x))
+        return {"x_conv2": dq(x2c), "x_conv3": dq(x3c), "x_conv4": dq(x4c), "x_conv5": x5,
                 "mask2": mask2, "mask3": mask3, "mask4": mask4}

@@ -1,13 +1,24 @@
-"""Masked-dense blocks of the PillarRes18 backbone (NHWC, float).
+"""Masked-dense blocks of the PillarRes18 backbone (NHWC).
 
 Counterpart of ``radardistill_tpu/models/backbone_sparse2d.py``:
 ``SparseDownBlock`` and ``SparseBasicBlock`` (exact sparse semantics on dense
 tensors: a submanifold conv is a dense conv times the occupancy mask, a
 strided sparse conv grows the active set to the dilated mask, which the
-caller passes in) and ``DenseBasicBlock`` (conv5). The float branches only:
-the int8 and fused-bf16 variants of stages 2-5 are not ported. The masked
-blocks pass their mask to the BN, which reads it in train mode; the dense
-block's BNs follow ``nn.Module.training`` on their own.
+caller passes in) and ``DenseBasicBlock`` (conv5). The masked blocks pass
+their mask to the BN, which reads it in train mode; the dense block's BNs
+follow ``nn.Module.training`` on their own.
+
+Each block has the JAX module's switches. In eval mode (a frozen teacher)
+``int8_static`` runs its links as fused int8 links on an int8 carry
+``(q, bound, zero)`` (``ops.conv_block.int8_block``: K1, or K7 under
+``CONV_BLOCK_V1=1``) and ``fp_block`` as fused float links
+(``ops.conv_block.fp_block_conv``, K6); a strided conv runs either as a 2x2
+conv on the space-to-depth packing of its input. ``int8`` is the dynamic
+per-conv int8 path of ``layers.int8_conv``. The precedence is the JAX
+module's: int8_static, then fp_block, then the plain path with or without
+``int8``. In train mode every block takes the plain path. The float links
+run each conv at its real width: the JAX package's lane padding and its
+W pairing of the C = 64 links exist only to fill TPU lanes.
 """
 
 from __future__ import annotations
@@ -15,20 +26,55 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.conv_block import fp_block_conv, int8_block
 from .layers import (BN_EPS_BACKBONE, BN_MOM_BACKBONE, BatchNormTorch, Conv2dTorch,
-                     MaskedBatchNorm)
+                     MaskedBatchNorm, deq8, int8_qkernel)
+
+
+def _int8_links(x, conv1, bn1, conv2, bn2, mc):
+    """Two chained int8 links, the residual carry x added on the second
+    link's accumulator; returns the next carry."""
+    q1 = int8_block(x, *conv1.qpieces(), *bn1.affine(), mc)
+    return int8_block(q1, *conv2.qpieces(), *bn2.affine(), mc, res=x)
+
+
+def _fp_links(x, conv1, bn1, conv2, bn2, mc):
+    """Two chained float links, the residual x added on the second link's
+    accumulator."""
+    y = fp_block_conv(x, *conv1.raw(), *bn1.affine()[:2], mc)
+    return fp_block_conv(y, *conv2.raw(), *bn2.affine()[:2], mc, res=x)
 
 
 class SparseDownBlock(nn.Module):
     """Strided SparseConv2d + BN1d + ReLU; ``new_mask`` (B, H/2, W/2) bool is
-    the dilated occupancy of the output grid."""
+    the dilated occupancy of the output grid. With ``int8_static`` the input
+    is an int8 carry and the output the next carry (``int8_carry``) or its
+    dequantized float tensor in ``dtype`` (the chain's terminus: it
+    requantizes and then dequantizes, as the JAX module does)."""
 
-    def __init__(self, in_ch, features):
+    def __init__(self, in_ch, features, dtype=torch.float32, int8=False, int8_static=False,
+                 int8_carry=False, fp_block=False):
         super().__init__()
-        self.conv = Conv2dTorch(in_ch, features, 3, 2, 1, use_bias=False)
+        self.in_ch, self.features, self.dtype = in_ch, features, dtype
+        self.int8_static, self.int8_carry, self.fp_block = int8_static, int8_carry, fp_block
+        self.conv = Conv2dTorch(in_ch, features, 3, 2, 1, use_bias=False, int8=int8)
         self.bn = MaskedBatchNorm(features, BN_EPS_BACKBONE)
 
     def forward(self, x, new_mask):
+        from .backbone_s2d import pack_down_kernel, space_to_depth
+
+        if self.int8_static and not self.training:
+            xq, bnd, zero = x
+            kq, sw = int8_qkernel(pack_down_kernel(self.conv.raw()[0].float(), self.in_ch,
+                                                   self.features))
+            out = int8_block((space_to_depth(xq), bnd, zero), kq, sw, None, *self.bn.affine(),
+                             new_mask[..., None].to(torch.int8))
+            return out if self.int8_carry else deq8(*out).to(self.dtype)
+        if self.fp_block and not self.training:
+            kp = pack_down_kernel(self.conv.raw()[0].float(), self.in_ch, self.features)
+            gt, sh, _ = self.bn.affine()
+            return fp_block_conv(space_to_depth(x.to(self.dtype)), kp, None, gt, sh,
+                                 new_mask[..., None].to(torch.int8))
         y = torch.relu(self.bn(self.conv(x), new_mask))
         return y * new_mask[..., None].to(y.dtype)
 
@@ -38,14 +84,22 @@ class SparseBasicBlock(nn.Module):
     relu, all on the active set ``mask`` (B, H, W) bool. The convs carry a
     bias, as in the reference."""
 
-    def __init__(self, features):
+    def __init__(self, features, dtype=torch.float32, int8=False, int8_static=False,
+                 fp_block=False):
         super().__init__()
-        self.conv1 = Conv2dTorch(features, features, 3, 1, 1, use_bias=True)
+        self.dtype, self.int8_static, self.fp_block = dtype, int8_static, fp_block
+        self.conv1 = Conv2dTorch(features, features, 3, 1, 1, use_bias=True, int8=int8)
         self.bn1 = MaskedBatchNorm(features, BN_EPS_BACKBONE)
-        self.conv2 = Conv2dTorch(features, features, 3, 1, 1, use_bias=True)
+        self.conv2 = Conv2dTorch(features, features, 3, 1, 1, use_bias=True, int8=int8)
         self.bn2 = MaskedBatchNorm(features, BN_EPS_BACKBONE)
 
     def forward(self, x, mask):
+        if (self.int8_static or self.fp_block) and not self.training:
+            links = _int8_links if self.int8_static else _fp_links
+            if not self.int8_static:
+                x = x.to(self.dtype)
+            return links(x, self.conv1, self.bn1, self.conv2, self.bn2,
+                         mask[..., None].to(torch.int8))
         m = mask[..., None].to(x.dtype)
         y = torch.relu(self.bn1(self.conv1(x), mask)) * m
         y = self.bn2(self.conv2(y), mask)
@@ -53,16 +107,26 @@ class SparseBasicBlock(nn.Module):
 
 
 class DenseBasicBlock(nn.Module):
-    """conv3-BN-ReLU-conv3-BN + identity -> ReLU (conv5 stage)."""
+    """conv3-BN-ReLU-conv3-BN + identity -> ReLU (conv5 stage). The fused
+    links take an all-ones mask: the stage is dense."""
 
-    def __init__(self, features):
+    def __init__(self, features, dtype=torch.float32, int8=False, int8_static=False,
+                 fp_block=False):
         super().__init__()
-        self.conv1 = Conv2dTorch(features, features, 3, 1, 1, use_bias=True)
+        self.dtype, self.int8_static, self.fp_block = dtype, int8_static, fp_block
+        self.conv1 = Conv2dTorch(features, features, 3, 1, 1, use_bias=True, int8=int8)
         self.bn1 = BatchNormTorch(features, BN_EPS_BACKBONE, BN_MOM_BACKBONE)
-        self.conv2 = Conv2dTorch(features, features, 3, 1, 1, use_bias=True)
+        self.conv2 = Conv2dTorch(features, features, 3, 1, 1, use_bias=True, int8=int8)
         self.bn2 = BatchNormTorch(features, BN_EPS_BACKBONE, BN_MOM_BACKBONE)
 
     def forward(self, x):
+        if (self.int8_static or self.fp_block) and not self.training:
+            links = _int8_links if self.int8_static else _fp_links
+            if not self.int8_static:
+                x = x.to(self.dtype)
+            first = x[0] if self.int8_static else x
+            ones = torch.ones((*first.shape[:3], 1), dtype=torch.int8, device=first.device)
+            return links(x, self.conv1, self.bn1, self.conv2, self.bn2, ones)
         y = torch.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         return torch.relu(y + x)

@@ -89,6 +89,23 @@ def int8_conv_affine(xc, kq, sw, bias, gt, sh, stride, padding):
     return y * alpha + beta
 
 
+def int8_conv(x, kernel, stride, padding, bias=None, out_dtype=None):
+    """Dynamic symmetric int8 conv (``INT8: true`` on a frozen teacher): one
+    per-tensor activation scale ``max|x| / 127``, per-output-channel weight
+    scales, an exact int8 x int8 -> int32 product from stock ops
+    (``int_conv_exact``; the JAX package has no kernel here either),
+    dequantized in float32, the bias added there. x NHWC, kernel HWIO,
+    explicit ((top, bottom), (left, right)) padding. Not differentiable."""
+    xf = x.float()
+    sx = torch.clamp(xf.abs().max(), min=1e-8) / 127.0
+    xq = torch.round(xf / sx).to(torch.int8)
+    kq, sw = int8_qkernel(kernel)
+    y = int_conv_exact(xq, kq, stride, padding).float() * (sx * sw)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype or x.dtype)
+
+
 def bn_affine(scale, bias, mean, var, eps):
     """Eval-mode BN as (gt, shift, bound): y = gt * x + shift, and the
     analytic bound max(|bias| + INT8_SIGMA * |scale|) of its output."""
@@ -114,15 +131,34 @@ class ConvParams(nn.Module):
 
 
 class Conv2dTorch(nn.Module):
-    """NHWC conv with torch-style symmetric padding (params under ``conv``)."""
+    """NHWC conv with torch-style symmetric padding (params under ``conv``).
+    With ``int8`` the forward is the dynamic int8 conv (``int8_conv``). The
+    teacher's fused chains read the parameters instead of calling the module:
+    ``raw()`` and ``qpieces()``."""
 
     def __init__(self, in_ch, features, kernel_size=3, stride=1, padding=0,
-                 use_bias=False, groups=1):
+                 use_bias=False, groups=1, int8=False):
         super().__init__()
-        self.stride, self.padding, self.groups = stride, padding, groups
+        if int8 and groups != 1:
+            raise ValueError("Conv2dTorch: the int8 path takes groups == 1")
+        self.stride, self.padding, self.groups, self.int8 = stride, padding, groups, int8
         self.conv = ConvParams(in_ch, features, kernel_size, groups, use_bias)
 
+    def raw(self):
+        """(kernel in HWIO layout, bias or None): the float parameters, for a
+        caller that packs or casts the kernel itself."""
+        return self.conv.weight.permute(2, 3, 1, 0).contiguous(), self.conv.bias
+
+    def qpieces(self):
+        """(kq int8 HWIO, sw, float32 bias or None): the int8 chain's view."""
+        kernel, bias = self.raw()
+        return (*int8_qkernel(kernel), _cast(bias, torch.float32))
+
     def forward(self, x):
+        if self.int8:
+            kernel, bias = self.raw()
+            pad = (self.padding, self.padding)
+            return int8_conv(x, kernel, self.stride, (pad, pad), bias, out_dtype=x.dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), self.conv.weight.to(x.dtype),
                      _cast(self.conv.bias, x.dtype), self.stride, self.padding,
                      groups=self.groups)

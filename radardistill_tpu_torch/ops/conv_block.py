@@ -1,4 +1,4 @@
-"""K1: the fused int8 conv link of the frozen LiDAR teacher.
+"""K1 and K6: the fused int8 and float conv links of the frozen LiDAR teacher.
 
 Counterpart of ``radardistill_tpu/ops/pallas_conv_block.py`` (``_block_kernel``
 in int8 mode, entered through ``int8_block`` -> ``int8_block_conv_v2``). One
@@ -27,12 +27,36 @@ stays on the device (the bounds are device scalars; nothing syncs).
 ``conv_block`` on a CPU tensor takes ``conv_block_plain``, the plain PyTorch
 version (an exact integer convolution, then the same float32 epilogue one
 operation at a time). On a CUDA tensor it launches the kernel
-(``csrc/conv_block.cu``), or raises if it cannot.
+(``csrc/conv_block.cu``), or raises if it cannot. The kernel has two variants:
+the resident one keeps the whole weight in shared memory (Co up to 128 and a
+weight that fits, the stage-1 links); the streamed one tiles Co by 128 and
+walks over C in chunks, for the deeper links ((3, 3, 256, 256),
+(2, 2, 512, 256)) whose weight does not fit.
+
+``int8_block`` is the dispatcher the backbone calls: the link above, or with
+``CONV_BLOCK_V1=1`` in the environment the first-generation link of
+``ops/int8_conv.py`` (K7) on the lane-expanded mask.
+
+K6, the float link (counterpart of ``_block_kernel`` in bf16 mode, entered
+through ``fp_block_conv``), for the stages a ``FP_STAGES`` teacher runs fused:
+
+    acc = conv(x, k)                       x's dtype, float32 accumulation
+    y   = acc * gt + (bias * gt + shift)   float32, the eval-BN affine
+    y   = y + r                            with a residual r, as float32
+    out = relu(y) * mask                   rounded once to x's dtype
+
+``fp_block_conv`` casts the kernel to x's dtype and builds the affine;
+``conv_block_fp`` launches ``csrc/conv_block_fp.cu`` on a CUDA tensor
+(bfloat16 on the tensor cores, float32 in plain FFMA) and takes
+``conv_block_fp_plain`` on a CPU tensor. With ``identity`` it returns the bare
+convolution (``ops/wide_conv.py``, K9). The TPU kernel's lane padding, W
+padding and W pairing have no counterpart: every tensor keeps its real shape.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -49,13 +73,14 @@ TILE_H, TILE_W = 8, 16  # output pixels of one block tile (csrc/conv_block.cu)
 
 @contextlib.contextmanager
 def _full_float32_matmul():
-    """float32 matmuls in full float32 (no TF32) while the body runs."""
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """float32 matmuls and convolutions in full float32 (no TF32) while the
+    body runs."""
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
 def int_conv_exact(xq: torch.Tensor, kq: torch.Tensor, stride: int,
@@ -124,45 +149,68 @@ def conv_block_plain(xq, kq, ab, mask_c, res=None, zpad: int = 0, out_dtype=torc
 
 
 def smem_bytes(kh: int, c: int, co: int) -> int:
-    """Dynamic shared memory of one block of the kernel: the whole repacked
-    weight and one input tile with its halo (strides as in the .cu)."""
+    """Dynamic shared memory of one block of the resident variant: the whole
+    repacked weight and one input tile with its halo (strides as in the .cu)."""
     c4 = c // 4
     return 4 * (kh * kh * c4 * (co + 8) + (TILE_H + kh - 1) * (TILE_W + kh - 1) * (c4 + 4))
 
 
-def conv_block(xq, kq, ab, mask_c, res=None, zpad: int = 0, out_dtype=torch.int8):
+def resident_fits(kh: int, c: int, co: int, nph: int) -> bool:
+    """Whether the resident variant takes the link: Co up to 128, mask phases
+    of an even number of channels, weight and tile within shared memory."""
+    return (co in (16, 32, 64, 128) and (co // nph) % 2 == 0
+            and smem_bytes(kh, c, co) <= SMEM_LIMIT)
+
+
+def _check_on_card(name, tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors on {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: every tensor must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the kernel loads 16 bytes at a time; a tensor is not "
+                         "16-byte aligned")
+
+
+def streamed_co(co: int) -> bool:
+    """Output widths the tiled kernels take: one tile of 16, 32 or 64
+    channels, or tiles of 128."""
+    return co in (16, 32, 64) or (co > 0 and co % 128 == 0)
+
+
+def conv_block(xq, kq, ab, mask_c, res=None, zpad: int = 0, out_dtype=torch.int8,
+               variant: Optional[str] = None):
     """x (B, H, W, C) int8, kernel (kh, kh, C, Co) int8 in its natural HWIO
     layout, ab (8, Co) float32 (rows: alpha, beta, s_out, rs, rsh), mask
     (B, H, W, nph) int8, res (B, H, W, Co) int8 or None -> (B, H, W, Co) in
     ``out_dtype`` (int8, float32 or bfloat16). The CUDA kernel takes C a
-    multiple of 32, Co in {16, 32, 64, 128}, and a weight that fits in shared
-    memory beside one input tile; the plain version any shape."""
+    multiple of 32 and Co in {16, 32, 64} or a multiple of 128: the resident
+    variant where the weight fits in shared memory beside one input tile
+    (``resident_fits``), else the streamed one; ``variant`` ("resident",
+    "streamed") forces one. The plain version takes any shape."""
     if xq.device.type == "cpu":
         return conv_block_plain(xq, kq, ab, mask_c, res, zpad, out_dtype)
     _check(xq, kq, ab, mask_c, res, out_dtype)
-    tensors = [xq, kq, ab, mask_c] + ([res] if res is not None else [])
-    if xq.device.type != "cuda" or any(t.device != xq.device for t in tensors):
-        raise ValueError(f"conv_block: tensors on {[str(t.device) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("conv_block: every tensor must be contiguous")
+    _check_on_card("conv_block", [xq, kq, ab, mask_c] + ([res] if res is not None else []))
     kh, _, c, co = kq.shape
     b, h, w, _ = xq.shape
     nph = mask_c.shape[-1]
-    if c % 32 or co not in (16, 32, 64, 128):
-        raise ValueError(f"conv_block: the kernel takes C % 32 == 0 and Co in "
-                         f"(16, 32, 64, 128), not C {c}, Co {co}")
-    smem = smem_bytes(kh, c, co)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"conv_block: a ({kh}, {kh}, {c}, {co}) weight and one input tile "
-                         f"need {smem} bytes of shared memory, over {SMEM_LIMIT}")
-    if xq.data_ptr() % 16:
-        raise ValueError("conv_block: the kernel loads x 16 bytes at a time; x at "
-                         f"{xq.data_ptr():#x}")
+    if c % 32 or not streamed_co(co):
+        raise ValueError(f"conv_block: the kernel takes C % 32 == 0 and Co in (16, 32, 64) "
+                         f"or a multiple of 128, not C {c}, Co {co}")
+    fits = resident_fits(kh, c, co, nph)
+    if variant is None:
+        variant = "resident" if fits else "streamed"
+    if variant not in ("resident", "streamed") or (variant == "resident" and not fits):
+        raise ValueError(f"conv_block: variant {variant!r} does not take a ({kh}, {kh}, {c}, "
+                         f"{co}) weight with {nph} mask phases")
     out = torch.empty((b, h, w, co), dtype=out_dtype, device=xq.device)
     rc = cuda_lib.lib().rdt_conv_block(
         xq.data_ptr(), kq.data_ptr(), ab.data_ptr(), mask_c.data_ptr(),
         res.data_ptr() if res is not None else None, out.data_ptr(),
-        b, h, w, c, co, kh, nph, int(zpad), OUT_CODES[out_dtype], smem,
+        b, h, w, c, co, kh, nph, int(zpad), OUT_CODES[out_dtype],
+        int(variant == "streamed"), smem_bytes(kh, c, co) if fits else 0,
         xq.device.index, cuda_lib.stream_of(xq))
     cuda_lib.check(rc, "conv_block")
     conv_block.launches += 1
@@ -170,6 +218,34 @@ def conv_block(xq, kq, ab, mask_c, res=None, zpad: int = 0, out_dtype=torch.int8
 
 
 conv_block.launches = 0
+
+
+def link_constants(xc, kq, sw, bias, gt, sh, bound, res=None):
+    """The epilogue's constants of one int8 link as one (8, Co) float32 tensor
+    (rows: alpha, beta, s_out, rs, rsh) and the output carry's bound, in the
+    JAX package's order of float32 operations. Both generations of the link
+    build them the same way."""
+    xq, bnd, zero = xc
+    co = kq.shape[-1]
+    f32 = torch.float32
+    s_in = torch.clamp(bnd.to(f32), min=1e-8) / (127.0 + zero)
+    alpha = (s_in * sw * gt).to(f32)
+    ksum = kq.to(f32).sum(dim=(0, 1, 2))
+    beta = zero * ksum * alpha
+    if bias is not None:
+        beta = beta + bias * gt
+    beta = (beta + sh).to(f32)
+    ab = torch.zeros((8, co), dtype=f32, device=xq.device)
+    ab[0], ab[1] = alpha, beta
+    if res is not None:
+        _, rb, rz = res
+        rs = torch.clamp(rb.to(f32), min=1e-8) / (127.0 + rz)
+        b_out = bound + rb
+        ab[3], ab[4] = rs, rz * rs
+    else:
+        b_out = bound
+    ab[2] = 254.0 / torch.clamp(b_out, min=1e-8)
+    return ab, b_out
 
 
 def int8_block_conv_v2(xc, kq, sw, bias, gt, sh, bound, mask_c, res=None,
@@ -186,27 +262,9 @@ def int8_block_conv_v2(xc, kq, sw, bias, gt, sh, bound, mask_c, res=None,
     with ``deq_out`` the link's float output in that dtype. ``block`` is the
     convolution (``conv_block``, or ``conv_block_plain`` to force the plain
     version on any device)."""
-    xq, bnd, zero = xc
-    co = kq.shape[-1]
-    f32 = torch.float32
-    s_in = torch.clamp(bnd.to(f32), min=1e-8) / (127.0 + zero)
-    alpha = (s_in * sw * gt).to(f32)
-    ksum = kq.to(f32).sum(dim=(0, 1, 2))
-    beta = zero * ksum * alpha
-    if bias is not None:
-        beta = beta + bias * gt
-    beta = (beta + sh).to(f32)
-    ab = torch.zeros((8, co), dtype=f32, device=xq.device)
-    ab[0], ab[1] = alpha, beta
-    if res is not None:
-        resq, rb, rz = res
-        rs = torch.clamp(rb.to(f32), min=1e-8) / (127.0 + rz)
-        b_out = bound + rb
-        ab[3], ab[4] = rs, rz * rs
-    else:
-        resq, b_out = None, bound
-    ab[2] = 254.0 / torch.clamp(b_out, min=1e-8)
-    out = block(xq, kq, ab, mask_c, resq, zpad=-int(zero),
+    xq, _, zero = xc
+    ab, b_out = link_constants(xc, kq, sw, bias, gt, sh, bound, res)
+    out = block(xq, kq, ab, mask_c, None if res is None else res[0], zpad=-int(zero),
                 out_dtype=deq_out if deq_out is not None else torch.int8)
     if deq_out is not None:
         return out
@@ -215,7 +273,119 @@ def int8_block_conv_v2(xc, kq, sw, bias, gt, sh, bound, mask_c, res=None,
 
 def int8_block(xc, kq, sw, bias, gt, sh, bound, mask_c, res=None, deq_out=None):
     """The chain link the backbone calls (the JAX package's dispatcher of the
-    same name; its other route, the pre-padded first-generation kernel, is
-    not ported)."""
+    same name): the link above, or with ``CONV_BLOCK_V1=1`` in the environment
+    the first-generation link (``ops/int8_conv.py``) on the lane-expanded mask.
+    That link has no float output: with ``deq_out`` its int8 carry is
+    dequantized, one requantization more than the link above makes."""
+    if os.environ.get("CONV_BLOCK_V1") == "1":
+        from .int8_conv import int8_block_conv
+
+        co = kq.shape[-1]
+        mq = mask_c.repeat_interleave(co // mask_c.shape[-1], dim=-1)
+        q, b_out, zero = int8_block_conv(xc, kq, sw, bias, gt, sh, bound, mq, res=res)
+        if deq_out is not None:
+            # layers.deq8, written out (layers imports this module)
+            return ((q.float() + zero) * (torch.clamp(b_out, min=1e-8) / (127.0 + zero))
+                    ).to(deq_out)
+        return q, b_out, zero
     return int8_block_conv_v2(xc, kq, sw, bias, gt, sh, bound, mask_c, res=res,
                               deq_out=deq_out)
+
+
+# ------------------------------------------------------------------ K6
+
+
+def _check_fp(x, k, ab, mask_c, res, identity):
+    if x.dim() != 4 or k.dim() != 4:
+        raise ValueError("conv_block_fp: x and kernel must be 4-D")
+    kh, kw, c, co = k.shape
+    b, h, w, cx = x.shape
+    if kh != kw or kh not in (2, 3) or cx != c:
+        raise ValueError(f"conv_block_fp: kernel {tuple(k.shape)} on x {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or k.dtype != x.dtype:
+        raise TypeError(f"conv_block_fp: x {x.dtype}, kernel {k.dtype}")
+    if identity:
+        if ab is not None or mask_c is not None or res is not None:
+            raise ValueError("conv_block_fp: the bare convolution takes no epilogue operand")
+        return
+    if mask_c.dim() != 4 or tuple(mask_c.shape[:3]) != (b, h, w) or co % mask_c.shape[-1]:
+        raise ValueError(f"conv_block_fp: mask {tuple(mask_c.shape)} for out (.., {co})")
+    if tuple(ab.shape) != (2, co):
+        raise ValueError(f"conv_block_fp: ab {tuple(ab.shape)}, want (2, {co})")
+    if res is not None and tuple(res.shape) != (b, h, w, co):
+        raise ValueError(f"conv_block_fp: residual {tuple(res.shape)}, want {(b, h, w, co)}")
+    if (mask_c.dtype != torch.int8 or ab.dtype != torch.float32
+            or (res is not None and res.dtype != x.dtype)):
+        raise TypeError(f"conv_block_fp: mask {mask_c.dtype}, ab {ab.dtype}, "
+                        f"res {None if res is None else res.dtype}")
+
+
+def conv_block_fp_plain(x, k, ab=None, mask_c=None, res=None, identity=False):
+    """Plain PyTorch version of the float kernel: the convolution of x and k
+    (values of x's dtype) accumulated in float32 without TF32, then the
+    float32 epilogue one operation at a time, rounded once to x's dtype."""
+    _check_fp(x, k, ab, mask_c, res, identity)
+    kh, co = k.shape[0], k.shape[3]
+    lo, hi = 1, kh - 2
+    xn = F.pad(x.float().permute(0, 3, 1, 2), (lo, hi, lo, hi))
+    with _full_float32_matmul():
+        acc = F.conv2d(xn, k.float().permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    if identity:
+        return acc.to(x.dtype).contiguous()
+    y = acc * ab[0] + ab[1]
+    if res is not None:
+        y = y + res.float()
+    y = torch.relu(y)
+    y = y * mask_c.to(torch.float32).repeat_interleave(co // mask_c.shape[-1], dim=-1)
+    return y.to(x.dtype).contiguous()
+
+
+def conv_block_fp(x, k, ab=None, mask_c=None, res=None, identity=False):
+    """x (B, H, W, C) bfloat16 or float32, kernel (kh, kh, C, Co) in x's dtype
+    and its natural HWIO layout, ab (2, Co) float32 (rows: alpha, beta), mask
+    (B, H, W, nph) int8, res (B, H, W, Co) in x's dtype or None -> (B, H, W,
+    Co) in x's dtype; with ``identity`` the bare convolution of x and k. The
+    CUDA kernel takes, in bfloat16, C a multiple of 16 and Co in {16, 32, 64}
+    or a multiple of 128; in float32, C a multiple of 8 and Co of 4. The plain
+    version takes any shape."""
+    if x.device.type == "cpu":
+        return conv_block_fp_plain(x, k, ab, mask_c, res, identity)
+    _check_fp(x, k, ab, mask_c, res, identity)
+    _check_on_card("conv_block_fp", [t for t in (x, k, ab, mask_c, res) if t is not None])
+    kh, _, c, co = k.shape
+    b, h, w, _ = x.shape
+    if x.dtype == torch.bfloat16 and (c % 16 or not streamed_co(co)):
+        raise ValueError(f"conv_block_fp: the bfloat16 kernel takes C % 16 == 0 and Co in "
+                         f"(16, 32, 64) or a multiple of 128, not C {c}, Co {co}")
+    if x.dtype == torch.float32 and (c % 8 or co % 4):
+        raise ValueError(f"conv_block_fp: the float32 kernel takes C % 8 == 0 and "
+                         f"Co % 4 == 0, not C {c}, Co {co}")
+    out = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = cuda_lib.lib().rdt_conv_block_fp(
+        x.data_ptr(), k.data_ptr(), ptr(ab), ptr(mask_c), ptr(res), out.data_ptr(),
+        b, h, w, c, co, kh, 1 if identity else mask_c.shape[-1], OUT_CODES[x.dtype],
+        int(identity), x.device.index, cuda_lib.stream_of(x))
+    cuda_lib.check(rc, "conv_block_fp")
+    conv_block_fp.launches += 1
+    return out
+
+
+conv_block_fp.launches = 0
+
+
+def fp_block_conv(x, kernel, bias, gt, sh, mask_c, res=None, block=conv_block_fp):
+    """One fused float chain link, the JAX function's contract:
+    ``relu(conv(x) * gt + (bias * gt + sh) [+ res]) * mask`` in x's dtype.
+
+    x (B, H, W, C) bfloat16 or float32; kernel (kh, kh, C, Co) the raw float
+    parameters, cast to x's dtype before the product (the BN affine is not
+    folded into them); ``bias`` (Co,) or None; ``gt``, ``sh`` the eval-BN
+    affine, applied in float32 on the accumulator; mask_c (B, H, W, nph) int8;
+    res an optional residual in x's dtype, added before the relu. ``block`` is
+    the convolution (``conv_block_fp``, or ``conv_block_fp_plain`` to force
+    the plain version on any device)."""
+    f32 = torch.float32
+    beta = sh if bias is None else bias * gt + sh
+    ab = torch.stack([gt.to(f32), beta.to(f32)])
+    return block(x, kernel.to(x.dtype).contiguous(), ab, mask_c.contiguous(), res)

@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("expand.cu", "dcn_sample.cu", "dcn_offset_grad.cu", "dcn_input_grad.cu",
-           "conv_block.cu")
+           "conv_block.cu", "conv_block_fp.cu")
+HEADERS = ("conv_tile.cuh",)  # included by the conv sources
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "radardistill_tpu_torch"
 LIB_PATH = BUILD_DIR / "librdt_kernels.so"
 NVCC_FLAGS = (
@@ -49,7 +50,7 @@ def build(ptxas_verbose: bool = False) -> str:
     Returns the compilers' diagnostics (``-Xptxas -v`` register and shared
     memory report when asked for), or "" when the library was up to date."""
     srcs = [CSRC / s for s in SOURCES]
-    newest = max(s.stat().st_mtime for s in srcs)
+    newest = max(s.stat().st_mtime for s in srcs + [CSRC / h for h in HEADERS])
     if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest and not ptxas_verbose:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -101,8 +102,12 @@ def lib() -> ctypes.CDLL:
                 p, p, p, p, *([i32] * 10), ctypes.c_float, i32, p,
             ]
             so.rdt_dcn_input_grad.restype = i32
-            so.rdt_conv_block.argtypes = [p, p, p, p, p, p, *([i32] * 11), p]
+            so.rdt_conv_block.argtypes = [p, p, p, p, p, p, *([i32] * 12), p]
             so.rdt_conv_block.restype = i32
+            so.rdt_chain_conv.argtypes = [p, p, p, p, p, p, *([i32] * 8), p]
+            so.rdt_chain_conv.restype = i32
+            so.rdt_conv_block_fp.argtypes = [p, p, p, p, p, p, *([i32] * 10), p]
+            so.rdt_conv_block_fp.restype = i32
             _lib = so
         return _lib
 

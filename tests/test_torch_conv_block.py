@@ -235,5 +235,12 @@ def test_kernel_raises_on_shapes_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         _run_torch(link, None, cuda)
     link = _link(9, c=512, co=128, h=8, w=8)  # weight over the shared memory
+    resident = lambda *a, **k: cb.conv_block(*a, variant="resident", **k)  # noqa: E731
+    with pytest.raises(ValueError):
+        _run_torch(link, None, cuda, block=resident)
+    # the streamed variant takes it
+    got = _run_torch(link, None, cuda)[0]
+    assert torch.equal(got, _run_torch(link, None, cuda, block=cb.conv_block_plain)[0])
+    link = _link(9, c=32, co=48, h=8, w=8)  # Co 48: no tile of either variant
     with pytest.raises(ValueError):
         _run_torch(link, None, cuda)

@@ -177,9 +177,8 @@ def test_teacher_backbone_stage1_and_masks_match_jax(backbone_run):
     assert (want_codes > -127).mean() > 0.01
 
 
-@pytest.mark.parametrize("kwargs", [dict(int8=True), dict(int8_static=True, int8_stages=2),
-                                    dict(fp_stages=2), dict(pack_stage2=True),
-                                    dict(table_input=False), dict(packed_table=False)],
+@pytest.mark.parametrize("kwargs", [dict(pack_stage2=True), dict(table_input=False),
+                                    dict(packed_table=False)],
                          ids=lambda k: "-".join(k))
 def test_unported_switches_raise(kwargs):
     with pytest.raises(NotImplementedError):

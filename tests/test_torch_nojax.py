@@ -1,6 +1,8 @@
 """The port runs without the JAX package: a fresh interpreter imports
 ``radardistill_tpu_torch``, builds the synthetic batches and drives both
-forwards (radar-only val at grid 256, the distillation forward at grid 128)
+forwards (radar-only val at grid 256, the distillation forward at grid 128,
+and at grid 64 under each deep-chain configuration of the teacher: ``INT8_STAGES: 5``,
+``FP_STAGES: 5``, ``INT8: true``, and the wide conv once)
 and one distillation train step on the CPU with random weights from a seeded generator; afterwards neither
 ``jax`` nor ``flax`` nor any module of ``radardistill_tpu`` may be in
 ``sys.modules``. An AST walk over every file of the port and over the card
@@ -43,6 +45,17 @@ full2, _ = production_cfg(TRAIN_YAML, grid=128)
 opt, _ = build_optimizer(full2.OPTIMIZATION, model2, 100, model2.frozen)
 metrics = make_train_step(model2, opt, cfg2, info2["class_names"], info2["voxel_size"],
                           info2["point_cloud_range"])(batch_to_torch(batch2, "cpu"))
+chains = {}
+for over in ({"INT8_STAGES": 5}, {"INT8_STAGES": 1, "FP_STAGES": 5}, {"INT8": True}):
+    cfg3, info3, batch3 = make_batch(TRAIN_YAML, grid=64, num_lidar=1500, num_radar=100,
+                                     num_boxes=5, backbone_3d=over)
+    model3 = init_random_(build_network(cfg3, info3, device="cpu"), torch.Generator().manual_seed(0))
+    out3 = model3(batch_to_torch(batch3, "cpu"))
+    chains[json.dumps(over)] = bool(torch.isfinite(out3["x_conv5"]).all()
+                                    and torch.isfinite(out3["lidar_preds"]["hm"]).all()
+                                    and out3["x_conv5"].abs().max() > 0)
+from radardistill_tpu_torch.ops.wide_conv import conv3x3_wide
+wide = conv3x3_wide(torch.ones(1, 4, 4, 8), torch.ones(3, 3, 8, 8))
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "radardistill_tpu"))
 print(json.dumps({
@@ -57,6 +70,8 @@ print(json.dumps({
     "teacher_hm_shape": list(out2["lidar_preds"]["hm"].shape),
     "int8_mode": cfg2["BACKBONE_3D"]["INT8"],
     "as_overflow2": int(out2["as_overflow"]),
+    "chains": chains,
+    "wide_corner": float(wide[0, 0, 0, 0]),
     "train_loss_finite": bool(torch.isfinite(metrics["loss"])),
     "train_updates": opt.count,
 }))
@@ -78,6 +93,8 @@ def test_port_slice_runs_without_jax():
     assert rec["teacher_finite"] and rec["teacher_hm_shape"] == [2, 16, 16, 6, 2]
     assert rec["int8_mode"] == "static" and rec["as_overflow2"] == 0
     assert rec["train_loss_finite"] and rec["train_updates"] == 1
+    assert len(rec["chains"]) == 3 and all(rec["chains"].values()), rec["chains"]
+    assert rec["wide_corner"] == 4 * 8.0
 
 
 def _imported_modules(path):

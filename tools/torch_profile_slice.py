@@ -3,6 +3,7 @@
 CUDA card.
 
     python3 tools/torch_profile_slice.py [--cfg val|train] [--step] [--trace DIR]
+                                         [--set KEY=VALUE ...]
 
 Builds a path as ``chip_smoke.py`` does (``--cfg val``: the radar-only serving
 path, ``radar_distill_val.yaml``, batch 1; ``--cfg train``: the distillation
@@ -24,6 +25,13 @@ busy time and its share of the unprofiled p50, kernel time of each of the four
 phases, of each stage's forward (the spans of ``PillarNet.forward``) and of
 each stage's backward (autograd nodes are matched to the forward ops of a
 stage by their sequence numbers; what cannot be matched is listed as such).
+
+``--set KEY=VALUE`` (repeatable, with ``--cfg train``) overrides a key of the
+yaml's ``MODEL.BACKBONE_3D`` before the model is built, as the JAX package's
+tools take dotted ``--set`` overrides: another configuration of the teacher,
+e.g. ``--set INT8_STAGES=5`` (the int8 chain through every stage) or ``--set
+FP_STAGES=5`` (stages 2-5 as fused float links). Values parse as JSON where
+they can (``5``, ``true``), else as strings (``static``).
 
 The profiler adds host time to every op, so the profiled wall is longer than
 an unprofiled forward: the device busy share is the busy time over the
@@ -287,9 +295,22 @@ def main() -> int:
     ap.add_argument("--step", action="store_true",
                     help="with --cfg train: profile the train step, not the eval forward")
     ap.add_argument("--trace", default=None, help="directory for a chrome trace")
+    ap.add_argument("--set", dest="overrides", action="append", default=[], metavar="KEY=VALUE",
+                    help="with --cfg train: override a key of MODEL.BACKBONE_3D (repeatable)")
     args = ap.parse_args()
     if args.step and args.cfg != "train":
         ap.error("--step needs --cfg train")
+    if args.overrides and args.cfg != "train":
+        ap.error("--set needs --cfg train (the val path has no teacher)")
+    backbone_3d = {}
+    for item in args.overrides:
+        key, sep, value = item.partition("=")
+        if not sep:
+            ap.error(f"--set {item}: want KEY=VALUE")
+        try:
+            backbone_3d[key.rsplit(".", 1)[-1]] = json.loads(value)
+        except ValueError:
+            backbone_3d[key.rsplit(".", 1)[-1]] = value
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -305,7 +326,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    cfg, info, batch = make_batch(TRAIN_YAML if args.cfg == "train" else VAL_YAML)
+    cfg, info, batch = make_batch(TRAIN_YAML if args.cfg == "train" else VAL_YAML,
+                                  backbone_3d=backbone_3d)
+    if backbone_3d:
+        print(f"BACKBONE_3D overrides: {backbone_3d}")
     if args.step:
         return main_step(torch, args, cfg, info, batch_to_torch(batch, dev))
     model = init_random_(build_network(cfg, info, compute_dtype=torch.bfloat16, device=dev),
@@ -325,7 +349,7 @@ def main() -> int:
     print(f"{args.cfg}: unprofiled p50 {p50:.3f} ms over 10 synced forwards "
           f"(min {times[0]:.3f}, max {times[-1]:.3f})")
     rec = profile_forward(model, batch, args.trace)
-    rec.update(cfg=args.cfg, unprofiled_p50_ms=p50,
+    rec.update(cfg=args.cfg, backbone_3d=backbone_3d, unprofiled_p50_ms=p50,
                device_busy_share=rec["device_busy_ms"] / p50)
     print(f"profiled forward: wall under the profiler {rec['profiled_wall_ms']:.3f} ms, "
           f"device busy {rec['device_busy_ms']:.3f} ms "
