@@ -101,6 +101,32 @@ Phases 12-19, the deep chains of the teacher:
  19. one warm and three timed train steps with the ``INT8_STAGES: 5`` teacher:
      finite losses, K3 x 3 and K4 x 3 per step as before.
 
+Phases 20-24, the route without host tables and the last three kernels:
+
+ 20. device-built tables at full width, val yaml (batch 1) and train yaml
+     (batch 2), from ``make_batch(..., host_precompute=False)``: ``uids``,
+     ``slot``, ``count`` of each VFE and every table of ``hp_as`` bit-equal to
+     what ``HostPrecompute`` ships for the same scenes; float32 (TF32 off)
+     ``radar_preds`` and ``radar_x_conv4`` of the two routes within 1e-4
+     rel-L2 (only the cluster means differ, by summation order); bfloat16
+     finite, ``as_overflow == 0``, the host route's launch counts; p50 of 10
+     synced forwards of each route and of the device build alone;
+ 21. one train step in float32 through each route from the same weights:
+     losses within 1e-4 relative;
+ 22. ``DENSE_FROM: 3`` against 5 on the raw val batch, float32, one set of
+     parameters loaded into both: ``radar_preds`` within 1e-4 rel-L2, peak
+     memory of each;
+ 23. K8 ``gather_rows_windowed`` on the seven tap tables of the batch-2 train
+     batch, forward (``nb``) and backward (``inv``), bfloat16: the least
+     ``n_win`` without overflow per table, kernel == plain windowed version ==
+     unwindowed gather and count 0; one table with ``n_win`` one too small:
+     rows and count equal to the plain version's, count > 0;
+ 24. P2 ``mma_rate`` (two routes, three types) and P1 ``conv_probe`` (three
+     modes, ``conv`` and ``dots`` on two routes, five shapes): each case
+     within tolerance of its plain version
+     (bfloat16 1e-2, TF32 1e-3 x max|ref|, int8 equal), then its rate beside
+     the library call's. (They run first, right after the build.)
+
 Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
 float32 scales alike, but not every stock op around it (the VFE's sums); one
 flipped input code flips a few percent of the 9 x Co codes it reaches in the
@@ -126,9 +152,13 @@ kernels record each time is the sum over that kernel's launches in one
 train step (K5, K2 and K1 launch as often there as in one distillation
 forward), and ``launches`` is the count of one train step; for K7 and K6 it
 is one forward of their configuration (``INT8_STAGES: 5``, ``FP_STAGES: 5``),
-for K9, which no model calls, one forward and backward of ``conv3x3_wide``. Any failed phase exits non-zero. The line before the
-last is the kernels record ``{"kernels": [{"name", "route", "source",
-"replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+for K9, which no model calls, one forward and backward of ``conv3x3_wide``;
+for K8 one pass over its 14 gathers (times summed), for P1 the ``conv`` mode at
+(2, 720, 720, 128) -> 128 on the ``mma.sync`` route and for P2 the bfloat16 (2048, 512, 512) product on
+the ``wgmma`` route, with ``launches`` counting every case of their tables
+(bound of P1, P2: operations at the bfloat16 peak). Any failed phase exits
+non-zero. The line before the last is the kernels record ``{"kernels":
+[{"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 "bound_by", "library_ms"}]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -688,14 +718,16 @@ def reset_launches():
     from radardistill_tpu_torch.ops.conv_block import conv_block, conv_block_fp
     from radardistill_tpu_torch.ops.dcn_grad import dcn_input_grad, dcn_offset_grad
     from radardistill_tpu_torch.ops.dcn_sample import dcn_sample
-    from radardistill_tpu_torch.ops.expand import expand_rows
+    from radardistill_tpu_torch.ops.expand import expand_rows, gather_rows_windowed
     from radardistill_tpu_torch.ops.int8_conv import chain_conv
+    from radardistill_tpu_torch.ops.probes import conv_probe, mma_rate
     from radardistill_tpu_torch.ops.wide_conv import conv3x3_wide
 
     fns = {"expand_rows": expand_rows, "dcn_sample": dcn_sample, "conv_block": conv_block,
            "dcn_offset_grad": dcn_offset_grad, "dcn_input_grad": dcn_input_grad,
            "chain_conv": chain_conv, "conv_block_fp": conv_block_fp,
-           "conv3x3_wide": conv3x3_wide}
+           "conv3x3_wide": conv3x3_wide, "gather_rows_windowed": gather_rows_windowed,
+           "conv_probe": conv_probe, "mma_rate": mma_rate}
     for fn in fns.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in fns.items()}
@@ -971,6 +1003,278 @@ def phase_train_f32(torch, dev, yaml_name, cfg, info, batch, steps=2):
                            f"{reach}), rel-L2 {bad}, cosine {cos[least]} at {least}")
 
 
+def p50_ms(torch, fn, runs):
+    """p50 of ``runs`` host-clock times of ``fn()`` + synchronize, in ms."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return (times[(runs - 1) // 2] + times[runs // 2]) / 2 * 1e3
+
+
+def equal_tree(torch, got, want):
+    """Bit-equality of two tables or tuples of tables, after a cast to the
+    wider integer type (the host may ship narrower indices)."""
+    if isinstance(want, (tuple, list)):
+        return len(got) == len(want) and all(equal_tree(torch, g, w) for g, w in zip(got, want))
+    if got.dtype != want.dtype:
+        got, want = got.long(), want.long()
+    return got.shape == want.shape and torch.equal(got, want)
+
+
+def phase_device_tables(torch, dev, name, cfg, info, host_batch, raw_batch, expect_launches,
+                        runs=10):
+    """The route with no host tables: the same scenes collated with and without
+    ``HostPrecompute`` through one model. Device-built tables bit-equal to the
+    host's; float32 outputs of the two routes within 1e-4 rel-L2; bfloat16
+    finite, no overflow, the host route's launch counts; p50 of both routes and
+    of the device build alone. Returns (launches, device-built tables)."""
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+    from radardistill_tpu_torch.models.layers import init_random_
+
+    if any(k.startswith("hp_") for k in raw_batch):
+        raise RuntimeError(f"{name}: the raw batch carries host tables")
+    bh, br = batch_to_torch(host_batch), batch_to_torch(raw_batch)
+    model = init_random_(build_network(cfg, info, compute_dtype=torch.float32),
+                         torch.Generator().manual_seed(0))
+    rkey = "radar_points" if "radar_points" in br else "points"
+    vfes = [(model.radar_vfe, rkey, "hp_radar")]
+    if model.has_teacher:
+        vfes.append((model.vfe, "points", "hp_lidar"))
+
+    def build():
+        built = {}
+        for vfe, key, hp in vfes:
+            built[hp] = vfe.sort_and_compact(br[key], br[f"{key}_mask"])[1]
+        built["hp_as"] = model.radar_backbone_3d.build_tables(built["hp_radar"]["uids"])
+        return built
+
+    with torch.no_grad():
+        built = build()
+        torch.cuda.synchronize()
+        checked = []
+        for _, _, hp in vfes:
+            for k in ("uids", "slot", "count"):
+                if not equal_tree(torch, built[hp][k], bh[hp][k]):
+                    raise RuntimeError(f"{name}: device-built {hp}.{k} differs from the host's")
+                checked.append(f"{hp}.{k}")
+        if set(built["hp_as"]) != set(bh["hp_as"]):
+            raise RuntimeError(f"{name}: device tables {sorted(built['hp_as'])}, host tables "
+                               f"{sorted(bh['hp_as'])}")
+        for k, want in bh["hp_as"].items():
+            if not equal_tree(torch, built["hp_as"][k], want):
+                raise RuntimeError(f"{name}: device-built hp_as.{k} differs from the host's")
+            checked.append(k)
+        build_ms = p50_ms(torch, build, runs)
+        print(f"{name} device-built tables bit-equal to the host's: {', '.join(checked)}; the "
+              f"build alone p50 {build_ms:.3f} ms over {runs} synced runs")
+
+        # float32, TF32 off: the two routes differ only in the cluster means
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out_h, out_d = model(bh), model(br)
+        torch.cuda.synchronize()
+        errs = {f"radar_preds.{k}": rel_l2(torch, out_d["radar_preds"][k], v)
+                for k, v in out_h["radar_preds"].items()}
+        errs["radar_x_conv4"] = rel_l2(torch, out_d["radar_x_conv4"], out_h["radar_x_conv4"])
+        print(f"{name} f32 (TF32 off), device route vs host route on the card, rel-L2: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        bad = {k: v for k, v in errs.items() if not v <= 1e-4}
+        if bad or int(out_d["as_overflow"]) != int(out_h["as_overflow"]):
+            raise RuntimeError(f"{name}: device route vs host route {bad}, as_overflow "
+                               f"{int(out_d['as_overflow'])} vs {int(out_h['as_overflow'])}")
+        torch.backends.cudnn.allow_tf32 = True
+        del out_h, out_d
+
+        model = init_random_(build_network(cfg, info, compute_dtype=torch.bfloat16),
+                             torch.Generator().manual_seed(0))
+        model(br)  # warm-up
+        read = reset_launches()
+        out = model(br)
+        torch.cuda.synchronize()
+        launches = read()
+        want = {**dict.fromkeys(launches, 0), **expect_launches}
+        fin = out.pop("final_box_dicts")
+        if launches != want or not all_finite(torch, out) or int(out["as_overflow"]) != 0 \
+                or int(fin["valid"].sum()) == 0:
+            raise RuntimeError(f"{name} device route bf16: launches {launches} (want {want}), "
+                               f"finite {all_finite(torch, out)}, as_overflow "
+                               f"{int(out['as_overflow'])}, {int(fin['valid'].sum())} boxes")
+        t_host = p50_ms(torch, lambda: model(bh), runs)
+        t_dev = p50_ms(torch, lambda: model(br), runs)
+        t_host2 = p50_ms(torch, lambda: model(bh), runs)
+        print(f"{name} bf16: launches {launches}, finite, as_overflow 0; forward p50 over {runs} "
+              f"synced runs: host tables {t_host:.3f} ms, device-built {t_dev:.3f} ms, host "
+              f"tables again {t_host2:.3f} ms")
+    return launches, built
+
+
+def phase_device_train(torch, dev, yaml_name, cfg, info, host_batch, raw_batch):
+    """One train step in float32 (TF32 off) through each route from the same
+    weights: the losses agree to 1e-4 relative."""
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    losses = {}
+    for route, batch in (("host", host_batch), ("device", raw_batch)):
+        model, step, _ = build_trainer(torch, yaml_name, cfg, info, torch.float32, None)
+        metrics = step(batch_to_torch(batch))
+        torch.cuda.synchronize()
+        losses[route] = float(metrics["loss"])
+        if int(metrics["as_overflow"]) != 0:
+            raise RuntimeError(f"train step, {route} route: as_overflow {metrics['as_overflow']}")
+        del model, step
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    rel = abs(losses["device"] - losses["host"]) / abs(losses["host"])
+    print(f"train step f32 (TF32 off), 1440², bs2, one step from the same weights: loss "
+          f"{losses['device']:.6f} through the device-built tables, {losses['host']:.6f} through "
+          f"the host's, rel {rel:.3e} (limit 1e-4)")
+    if not rel <= 1e-4 or losses["device"] != losses["device"]:
+        raise RuntimeError(f"train step: device route loss {losses['device']} vs host route "
+                           f"{losses['host']}")
+
+
+def phase_dense_from(torch, dev, yaml_name, dense_from=3):
+    """``DENSE_FROM: dense_from`` against the shipped 5 on one raw val batch in
+    float32 (TF32 off): the table stages and the masked-dense stages are the
+    same function, and share their parameters."""
+    from radardistill_tpu_torch.data.synthetic import make_batch
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+    from radardistill_tpu_torch.models.layers import init_random_
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    outs, peaks = {}, {}
+    state = None
+    for df in (5, dense_from):
+        cfg, info, batch = make_batch(yaml_name, radar_backbone_3d={"DENSE_FROM": df},
+                                      host_precompute=False)
+        model = build_network(cfg, info, compute_dtype=torch.float32)
+        if state is None:
+            state = init_random_(model, torch.Generator().manual_seed(0)).state_dict()
+        else:
+            model.load_state_dict(state, strict=True)
+        b = batch_to_torch(batch)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            outs[df] = model(b)
+        torch.cuda.synchronize()
+        peaks[df] = torch.cuda.max_memory_allocated() / 2**30
+    torch.backends.cudnn.allow_tf32 = True
+    errs = {k: rel_l2(torch, outs[dense_from]["radar_preds"][k], v)
+            for k, v in outs[5]["radar_preds"].items()}
+    print(f"val path f32 (TF32 off), 1440², DENSE_FROM {dense_from} vs 5 (same parameters, "
+          f"device-built tables), radar_preds rel-L2: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; peak device memory {peaks[dense_from]:.2f} GiB vs {peaks[5]:.2f} GiB")
+    bad = {k: v for k, v in errs.items() if not v <= 1e-4}
+    if bad or int(outs[dense_from]["as_overflow"]) != 0:
+        raise RuntimeError(f"DENSE_FROM {dense_from} vs 5: {bad}")
+
+
+# input channels of the conv that reads each tap table
+TAP_CHANNELS = {"tap1": 32, "dtap2": 32, "tap2": 64, "dtap3": 64, "tap3": 128, "dtap4": 128,
+                "tap4": 256}
+
+
+def phase_k8(torch, dev, tables):
+    """K8 on the student's tap tables of the bs2 train batch, as the
+    active-site convs would use it: forward (rows of the feature table at
+    ``nb``) and backward (rows of the cotangent at ``inv``), bfloat16. Per
+    table the least window without overflow, then kernel == plain windowed ==
+    unwindowed gather and count 0; one table with the window one too small.
+    Returns the record summed over the 14 gathers."""
+    from radardistill_tpu_torch.ops.expand import (gather_rows_windowed,
+                                                   gather_rows_windowed_plain, window_overflow)
+
+    gen = torch.Generator().manual_seed(18)
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
+           "ops_ms": 0.0}
+    cases, small = [], None
+    for name, c in TAP_CHANNELS.items():
+        nb, _, inv, _ = tables[name]
+        b, k, cap_out = nb.shape
+        cap_in = inv.shape[2]
+        fwd_idx = (nb + (torch.arange(b, device=dev, dtype=torch.int32) * cap_in)[:, None, None])
+        seg = (torch.arange(b * k, device=dev, dtype=torch.int32) * cap_out).reshape(b, k, 1)
+        for direction, idx, rows in (("forward", fwd_idx, b * cap_in),
+                                     ("backward", inv + seg, b * k * cap_out)):
+            idx = idx.reshape(-1).to(torch.int32).contiguous()
+            table = torch.randn(rows, c, generator=gen).to(dev, torch.bfloat16)
+            n_win = next(n for n in range(1, rows // 512 + 2)
+                         if int(window_overflow(idx, rows, n)) == 0)
+            got, over = gather_rows_windowed(table, idx, n_win)
+            want, over_p = gather_rows_windowed_plain(table, idx, n_win)
+            lib = torch.index_select(table, 0, idx.long())  # no window: every idx is a row
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(got, lib)) or int(over) or int(over_p):
+                raise RuntimeError(f"K8 {name} {direction}: kernel, plain and unwindowed gather "
+                                   f"differ at n_win {n_win} (counts {int(over)}, {int(over_p)})")
+            cases.append((table, idx, n_win))
+            if small is None and n_win > 1:
+                small = (name, direction, table, idx, n_win - 1)
+            ms, plain_ms = paired_ms(
+                torch, lambda: gather_rows_windowed(table, idx, n_win),
+                lambda: gather_rows_windowed_plain(table, idx, n_win), iters=20)
+            idx64 = idx.long()
+            lib_ms = cuda_ms(torch, lambda: torch.index_select(table, 0, idx64), 20)
+            # idx and the table read once (no more of it than the rows asked
+            # for), the rows written once
+            nbytes = (idx.numel() * 4 + got.numel() * 2
+                      + min(table.numel(), got.numel()) * 2)
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            print(f"K8 gather_rows_windowed {name} {direction}: table ({rows}, {c}) bf16, idx "
+                  f"({idx.numel()},), least n_win {n_win}: kernel == plain == unwindowed gather, "
+                  f"overflow 0; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select (no "
+                  f"window) {lib_ms:.4f} ms, bound {bytes_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                           ("bytes_ms", bytes_ms)):
+                rec[key] += v
+    if small is None:
+        raise RuntimeError("K8: no tap table needs a window above one block")
+    name, direction, table, idx, n_win = small
+    got, over = gather_rows_windowed(table, idx, n_win)
+    want, over_p = gather_rows_windowed_plain(table, idx, n_win)
+    torch.cuda.synchronize()
+    zeroed = int((got == 0).all(dim=1).sum())
+    print(f"K8 {name} {direction} with n_win {n_win}, one too small: kernel rows == plain rows "
+          f"{torch.equal(got, want)}, {zeroed} zero rows, overflow count kernel {int(over)}, "
+          f"plain {int(over_p)}")
+    if not torch.equal(got, want) or int(over) != int(over_p) or int(over) <= 0:
+        raise RuntimeError("K8: the too-small window differs from the plain version")
+    read = reset_launches()
+    for table, idx, n_win in cases:
+        gather_rows_windowed(table, idx, n_win)
+    torch.cuda.synchronize()
+    return bound_of(rec), read()["gather_rows_windowed"]
+
+
+def phase_probes(torch, dev):
+    """P2 then P1: every case against its plain version, then its rate. The
+    records of the kernels line: the bfloat16 (2048, 512, 512) product on the
+    ``wgmma`` route, and the ``conv`` mode at (2, 720, 720, 128) -> 128."""
+    from radardistill_tpu_torch.ops.probe_bench import conv_probe_table, mma_rate_table
+
+    read = reset_launches()
+    rates = mma_rate_table(dev, target_ops=4e11)
+    convs = conv_probe_table(dev, iters=3)
+    launches = read()
+    p2 = next(r for r in rates if r["shape"] == (2048, 512, 512) and r["type"] == "bfloat16"
+              and r["route"] == "wgmma")
+    p1 = next(r for r in convs if r["shape"] == (2, 720, 720, 128, 128) and r["mode"] == "conv"
+              and r["route"] == "mma_sync")
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
+    return (bound_of({k: p1[k] for k in keys}), launches["conv_probe"],
+            bound_of({k: p2[k] for k in keys}), launches["mma_rate"])
+
+
 def cudnn_bf16_conv_aside(torch, dev):
     """Labelled aside, not a yardstick of K1 (another type, no epilogue): a
     cuDNN bfloat16 3x3 conv of the link's shape."""
@@ -992,6 +1296,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -1009,8 +1314,9 @@ def main() -> int:
             print(f"  {line.strip()}")
 
     from radardistill_tpu_torch.data.synthetic import make_batch
-    from radardistill_tpu_torch.utils.production import TRAIN_YAML
+    from radardistill_tpu_torch.utils.production import TRAIN_YAML, VAL_YAML
 
+    p1, p1_launches, p2, p2_launches = phase_probes(torch, dev)
     k5 = phase_k5(torch, dev)
     k2 = phase_k2(torch, dev)
     k3, k4 = phase_k34(torch, dev)
@@ -1029,6 +1335,10 @@ def main() -> int:
     phase_forward_f32(torch, dev, "val path", cfg, info, batch,
                       {"radar_preds": 1e-4, "radar_x_conv4": 1e-4})
     torch.backends.cudnn.allow_tf32 = True
+    raw = make_batch(host_precompute=False)[2]  # the same scene, no host tables
+    phase_device_tables(torch, dev, "val path", cfg, info, batch, raw,
+                        {"expand_rows": 1, "dcn_sample": 3})
+    phase_dense_from(torch, dev, VAL_YAML)
 
     t0 = time.perf_counter()
     cfg, info, batch = make_batch(TRAIN_YAML)
@@ -1041,7 +1351,13 @@ def main() -> int:
         torch, dev, TRAIN_YAML, cfg, info, batch,
         {"expand_rows": 2, "dcn_sample": 3, "conv_block": 4, "dcn_offset_grad": 3,
          "dcn_input_grad": 3}, 10)
-    del batch
+    raw = make_batch(TRAIN_YAML, host_precompute=False)[2]
+    dev_launches, built = phase_device_tables(
+        torch, dev, "distillation forward", cfg, info, batch, raw,
+        {"expand_rows": 2, "dcn_sample": 3, "conv_block": 4})
+    phase_device_train(torch, dev, TRAIN_YAML, cfg, info, batch, raw)
+    k8, k8_launches = phase_k8(torch, dev, built["hp_as"])
+    del batch, raw, built
     torch.cuda.empty_cache()
 
     # the teacher's deep chains: the same yaml with BACKBONE_3D overrides
@@ -1053,7 +1369,7 @@ def main() -> int:
     for name, over in deep.items():
         cfg, info, batch = make_batch(TRAIN_YAML, backbone_3d=over)
         chain_launches[name] = phase_forward_bf16(
-            torch, dev, f"distillation forward {over}", cfg, info, batch, chain_expect[name], 10)
+            torch, dev, f"distillation forward {over}", cfg, info, batch, chain_expect[name], 5)
         if name == "int8_stages5":
             phase_train_bf16(torch, dev, TRAIN_YAML, cfg, info, batch,
                              {**chain_expect[name], "dcn_offset_grad": 3, "dcn_input_grad": 3}, 3)
@@ -1085,24 +1401,34 @@ def main() -> int:
         ("conv_block_fp", "conv_block_fp.cu", f"{block_py}:81", k6),
         ("chain_conv", "conv_block.cu", "radardistill_tpu/ops/pallas_int8_conv.py:64", k7),
         ("conv3x3_wide", "conv_block_fp.cu", "radardistill_tpu/ops/pallas_wide_conv.py:57", k9),
+        ("gather_rows_windowed", "gather_win.cu", "radardistill_tpu/ops/pallas_expand.py:130", k8),
+        ("conv_probe", "conv_probe.cu", "tools/pallas_conv_proto.py:65", p1),
+        ("mma_rate", "mma_rate.cu", "tools/mxu_rate.py:53", p2),
     ]
     # `launches`: the train step for the first five; one forward of its own
-    # configuration for K6 and K7; one forward + backward of the wrapper for K9
+    # configuration for K6 and K7; one forward + backward of the wrapper for
+    # K9; for K8, P1 and P2, which no model calls, the launches of their phase
+    # (K8: one pass over the 14 tap gathers; P1, P2: every case of the tables)
     own = {"conv_block_fp": chain_launches["fp_stages5"]["conv_block_fp"],
            "chain_conv": chain_launches["int8_stages5"]["chain_conv"],
-           "conv3x3_wide": k9_launches}
+           "conv3x3_wide": k9_launches, "gather_rows_windowed": k8_launches,
+           "conv_probe": p1_launches, "mma_rate": p2_launches}
     kernels = [{"name": name, "route": "cuda", "source": f"radardistill_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": own.get(name, launches[name]),
                 "launches_val": val_launches[name], "launches_forward": fwd_launches[name],
                 "launches_int8_stages5": chain_launches["int8_stages5"][name],
-                "launches_fp_stages5": chain_launches["fp_stages5"][name], **rec}
+                "launches_fp_stages5": chain_launches["fp_stages5"][name],
+                "launches_device_tables": dev_launches[name], **rec}
                for name, src, replaces, rec in table]
     if any(k["launches"] < 1 for k in kernels):
         raise RuntimeError("a kernel was launched on no path: "
                            + str([k["name"] for k in kernels if k["launches"] < 1]))
     keys = ("name", "route", "source", "replaces", "launches", "launches_val",
-            "launches_forward", "launches_int8_stages5", "launches_fp_stages5", "max_abs_err",
+            "launches_forward", "launches_int8_stages5", "launches_fp_stages5",
+            "launches_device_tables", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(f"chip_smoke.py: every phase passed; {time.perf_counter() - t_start:.1f} s in all, the "
+          f"build included, on {smi}")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -95,8 +95,10 @@ __host__ __device__ constexpr int tile_smem_words(int kh, int kcw, int cot) {
 // co0..co0+COT-1 into acc. Afterwards acc[mt][nt][2*half + e] is the pixel
 // (y0 + 2*wm + mt, x0 + g + 8*half) and the channel
 // co0 + wn*8*NT + nt*8 + 2*t + e, with lane = 4*g + t, warp = wm + 4*wn.
-// Every thread of the block must call it (it synchronizes).
-template <class T, int NT, int KH>
+// Every thread of the block must call it (it synchronizes). With SHIFT false
+// every tap reads the window's centre column of its first row (no shifted
+// views): the conv probe's "dots" mode, nine products of one pixel.
+template <class T, int NT, int KH, bool SHIFT = true>
 __device__ __forceinline__ void conv_tile(
     typename T::acc_t (&acc)[2][NT][4], const typename T::elem* __restrict__ x,
     const typename T::elem* __restrict__ k, uint32_t* smem, int b, int y0, int x0,
@@ -150,7 +152,7 @@ __device__ __forceinline__ void conv_tile(
 
 #pragma unroll 1
     for (int tap = 0; tap < KH * KH; ++tap) {
-      const int ky = tap / KH, kx = tap - ky * KH;
+      const int ky = SHIFT ? tap / KH : 0, kx = SHIFT ? tap - ky * KH : 1;
       const uint32_t* wt = ws + tap * kcw * WS + wn * 8 * NT + g;
       const uint32_t* xa0 = xs + ((2 * wm + ky) * XC + kx + g) * XS + t;
 #pragma unroll 2

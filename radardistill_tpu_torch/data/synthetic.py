@@ -3,7 +3,8 @@
 ``make_scene`` is the port's copy of ``radardistill_tpu/data/synthetic.py``
 (deterministic scenes from a seed). ``make_batch`` builds, for a shipped yaml,
 the collated and host-precomputed batch that the JAX package's ``bench.py``
-feeds its model:
+feeds its model (or, with ``host_precompute=False``, the collated batch alone,
+whose tables the model then builds on the device):
 
   - ``radar_distill_val.yaml`` (the default): one scene, 3000 radar returns,
     40 boxes, the lidar points dropped, 8192 radar slots;
@@ -82,7 +83,8 @@ def make_scene(
     }
 
 
-def make_batch(yaml_name=VAL_YAML, grid=None, seed=0, backbone_3d=None, **sizes):
+def make_batch(yaml_name=VAL_YAML, grid=None, seed=0, backbone_3d=None, radar_backbone_3d=None,
+               host_precompute=True, **sizes):
     """(model cfg, dataset info, host-precomputed numpy batch) for a shipped
     yaml. ``grid`` rescales the range, for small runs; ``backbone_3d``
     overrides keys of the yaml's ``MODEL.BACKBONE_3D`` (another configuration
@@ -95,6 +97,8 @@ def make_batch(yaml_name=VAL_YAML, grid=None, seed=0, backbone_3d=None, **sizes)
     cfg = full.MODEL
     if backbone_3d:
         cfg.BACKBONE_3D.update(backbone_3d)
+    if radar_backbone_3d:
+        cfg.RADAR_BACKBONE_3D.update(radar_backbone_3d)
     scenes = []
     for i in range(sz["batch_size"]):
         scene = make_scene(seed + i, num_lidar=sz["num_lidar"] or 100,
@@ -108,6 +112,7 @@ def make_batch(yaml_name=VAL_YAML, grid=None, seed=0, backbone_3d=None, **sizes)
         caps["MAX_LIDAR_POINTS"] = sz["num_lidar"]
     batch = collate_batch(scenes, caps)
     batch.pop("_host", None)
-    batch = HostPrecompute(cfg, info["grid_size"], info["voxel_size"],
-                           info["point_cloud_range"])(batch)
+    if host_precompute:
+        batch = HostPrecompute(cfg, info["grid_size"], info["voxel_size"],
+                               info["point_cloud_range"])(batch)
     return cfg, info, batch

@@ -4,7 +4,7 @@ Counterpart of ``radardistill_tpu/models/detector.py::PillarNet`` for the two
 shipped configurations:
 
 - radar-only serving (``radar_distill_val.yaml``): radar VFE table ->
-  active-site backbone (DENSE_FROM 5) -> CMA hourglass -> neck ->
+  active-site backbone (``DENSE_FROM`` 2..5; the yaml ships 5) -> CMA hourglass -> neck ->
   merged-hidden CenterHead -> decode + NMS;
 - distillation (``radar_distill_train.yaml``), eval forward and train
   forward: beside that student, the frozen LiDAR teacher: lidar VFE table (packed order) ->
@@ -30,9 +30,13 @@ yields, so they are in BN train mode whenever the model trains, also under
 ``FREEZE_PIPELINE: [Radar_Distill]`` (which still keeps them out of the
 optimizer).
 
-The input is a collated batch after ``data.host_precompute.HostPrecompute``
-(sorted points, pillar tables, tap tables, occupancy masks), as tensors on the
-model's device (``batch_to_torch``).
+The input is a collated batch as tensors on the model's device
+(``batch_to_torch``), with or without the keys that
+``data.host_precompute.HostPrecompute`` adds (``hp_radar``, ``hp_as``,
+``hp_lidar``, ``hp_masks``: sorted points, pillar tables, tap tables,
+occupancy masks). Whatever is absent is built on the device: the VFEs sort the
+points and compact the pillar ids, the active-site backbone builds its tap
+tables, the teacher dilates its masks.
 """
 
 from __future__ import annotations
@@ -92,14 +96,15 @@ class PillarNet(nn.Module):
         nx, ny = self.grid_size
         dt = compute_dtype
 
-        def make_vfe(sub, num_point_features, capacity):
+        def make_vfe(sub, num_point_features, capacity, packed_order=False):
             return DynamicPillarVFESparse(
                 num_filters=tuple(sub["NUM_FILTERS"]), voxel_size=self.voxel_size,
                 point_cloud_range=self.point_cloud_range, grid_size=self.grid_size,
                 num_point_features=num_point_features, capacity=capacity,
                 use_norm=sub.get("USE_NORM", True), with_distance=sub.get("WITH_DISTANCE", False),
                 use_absolute_xyz=sub.get("USE_ABSLOTE_XYZ", True),
-                use_cluster_xyz=sub.get("USE_CLUSTER_XYZ", True), dtype=dt)
+                use_cluster_xyz=sub.get("USE_CLUSTER_XYZ", True), dtype=dt,
+                packed_order=packed_order)
 
         def make_neck(sub):
             return BaseBEVBackboneV2(
@@ -119,7 +124,8 @@ class PillarNet(nn.Module):
                 raise NotImplementedError(
                     f"teacher backbone {bk.get('NAME')} without TABLE_INPUT is not ported")
             int8_mode = bk.get("INT8", False)
-            self.vfe = make_vfe(cfg["VFE"], LIDAR_FEATURES, int(bk.get("TABLE_CAPACITY", 163840)))
+            self.vfe = make_vfe(cfg["VFE"], LIDAR_FEATURES, int(bk.get("TABLE_CAPACITY", 163840)),
+                                packed_order=bool(bk.get("PACKED_TABLE", True)))
             self.backbone_3d = PillarRes18BackBone8xS2D(
                 (ny, nx), dtype=dt, int8=bool(int8_mode) and int8_mode != "static",
                 int8_static=int8_mode == "static", int8_stages=int(bk.get("INT8_STAGES", 1)),
@@ -170,7 +176,7 @@ class PillarNet(nn.Module):
     def _teacher(self, batch, out):
         with self._scope("vfe"):
             tfeats, tuids, tcnt = self.vfe(batch["points"], batch["points_mask"],
-                                           batch["hp_lidar"])
+                                           batch.get("hp_lidar"))
         with self._scope("backbone_3d"):
             ms = self.backbone_3d(tfeats, tuids, batch.get("hp_masks"))
         out["as_overflow"] = out["as_overflow"] + torch.clamp(
@@ -189,7 +195,7 @@ class PillarNet(nn.Module):
         key = "radar_points" if "radar_points" in batch else "points"
         with record_function("radar_vfe"):
             rfeats, ruids, rcnt = self.radar_vfe(batch[key], batch[f"{key}_mask"],
-                                                 batch["hp_radar"])
+                                                 batch.get("hp_radar"))
         with record_function("radar_backbone_3d"):
             rms = self.radar_backbone_3d(rfeats, ruids, batch.get("hp_as"))
         out["as_overflow"] = out["as_overflow"] + rms["as_overflow"] + torch.clamp(
@@ -255,7 +261,7 @@ class PillarNet(nn.Module):
 
 
 def batch_to_torch(batch: Dict[str, Any], device="cuda"):
-    """Collated + host-precomputed numpy batch -> tensors on ``device`` (the
+    """Collated numpy batch, host-precomputed or not -> tensors on ``device`` (the
     card unless the caller asks for the CPU; nested dicts and tuples kept,
     dtypes kept)."""
     if isinstance(batch, dict):

@@ -1,12 +1,14 @@
-"""Dynamic pillar VFE, host-precomputed table path.
+"""Dynamic pillar VFE on a sorted pillar table.
 
 Counterpart of ``radardistill_tpu/models/vfe.py``: ``DynamicPillarVFESparse``
-(``encode_table`` with host-sorted points, slots, unique pillar ids and the
-host cluster mean) and ``PFNLayerV2Sparse``. It serves the radar student (6
-point features) and the LiDAR teacher (5 features, capacity 163840): the row
-order of the table is the host's, linear for the student and space-to-depth
-packed for the teacher (``packed_order`` of the JAX module), while the id
-values stay linear, so nothing here depends on it. Point features are float32
+(``encode_table``) and ``PFNLayerV2Sparse``. The points arrive either sorted
+by the host with their slots, unique pillar ids and cluster means (``pre``),
+or raw (``pre=None``): then the device computes the pillar ids, sorts the
+points (stable), compacts the unique ids and takes the cluster means itself.
+It serves the radar student (6 point features) and the LiDAR teacher (5
+features, capacity 163840): the row order of the table is linear for the
+student and space-to-depth packed for the teacher (``packed_order``), while
+the id values stay linear. Point features are float32
 (coordinate precision); the pillar table leaves in the compute dtype.
 Layouts: points (B, N, F), table (B, capacity, C).
 """
@@ -18,6 +20,8 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops import active_site as asx
+from ..ops import voxelize
 from .layers import Dense, MaskedBatchNorm
 
 
@@ -61,12 +65,13 @@ class PFNLayerV2Sparse(nn.Module):
 
 class DynamicPillarVFESparse(nn.Module):
     """Pillar encoder emitting a sorted pillar table (feats (B, cap, C), uids
-    (B, cap), count (B,)) from host-precomputed inputs (``pre``)."""
+    (B, cap), count (B,)) from host-precomputed inputs (``pre``) or from the
+    raw points."""
 
     def __init__(self, num_filters: Sequence[int], voxel_size, point_cloud_range,
                  grid_size: Tuple[int, int], num_point_features: int, capacity: int,
                  use_norm=True, with_distance=False, use_absolute_xyz=True,
-                 use_cluster_xyz=True, dtype=None):
+                 use_cluster_xyz=True, dtype=None, packed_order=False):
         super().__init__()
         if with_distance:
             raise NotImplementedError("WITH_DISTANCE is not in the ported configs")
@@ -76,6 +81,7 @@ class DynamicPillarVFESparse(nn.Module):
         self.capacity = capacity
         self.use_absolute_xyz = use_absolute_xyz
         self.use_cluster_xyz = use_cluster_xyz
+        self.packed_order = packed_order
         in_ch = 3 + (num_point_features if use_absolute_xyz else num_point_features - 3)
         in_ch += 3 * int(use_cluster_xyz) + 3  # + f_cluster, f_relative
         self.n_layers = len(num_filters)
@@ -111,13 +117,55 @@ class DynamicPillarVFESparse(nn.Module):
         out = torch.cat(feats, dim=-1)
         return torch.where(valid[..., None], out, 0.0)
 
-    def forward(self, points, point_mask, pre):
-        """points (B, N, F) sorted by pillar id on the host; ``pre`` =
-        dict(slot, uids, count, mean[, ids]). ``point_mask`` is implied by the
-        sentinel ids and kept for the reference's signature."""
-        del point_mask
+    def _slot_mean(self, xyz, valid, slot):
+        """Cluster mean of each point's pillar: a float32 ``index_add_`` of
+        [xyz, 1] into a (B * (cap + 1), 4) table and a gather back. The
+        reference takes the same sums with two segmented scans, so the means
+        agree to summation order (about 1e-6 m). Points with slot ==
+        capacity (invalid, or in a pillar beyond the capacity) share one junk
+        row, as they share one trailing segment there."""
+        b, n, _ = xyz.shape
+        cap1 = self.capacity + 1
+        xyz1 = torch.cat([torch.where(valid[..., None], xyz, 0.0),
+                          valid[..., None].to(xyz.dtype)], dim=-1).reshape(b * n, 4)
+        flat = (slot.long() + (torch.arange(b, device=slot.device) * cap1)[:, None]).reshape(-1)
+        sums = torch.zeros((b * cap1, 4), dtype=xyz.dtype, device=xyz.device)
+        total = sums.index_add_(0, flat, xyz1)[flat].reshape(b, n, 4)
+        return total[..., :3] / total[..., 3:].clamp(min=1.0)
+
+    def sort_and_compact(self, points, point_mask):
+        """The device twin of ``data/host_precompute.pillar_encode``: points
+        (B, N, F) in any order -> (points sorted by pillar id, or by the
+        packed key under ``packed_order``; ``pre`` = dict(ids, slot, uids,
+        count) with the host's values). The sort is stable: the max's tie
+        rule and the mean's summation order follow the point order."""
+        coords, in_range = voxelize.compute_pillar_coords(
+            points[..., :2], self.point_cloud_range, self.voxel_size, self.grid_size)
+        ids = voxelize.pillar_ids(coords, point_mask & in_range, self.grid_size)
+        key = voxelize.packed_key(ids, self.grid_size) if self.packed_order else ids
+        order = torch.sort(key, dim=-1, stable=True).indices
+        ids = torch.gather(ids, 1, order)
+        points = torch.gather(points, 1, order[..., None].expand(-1, -1, points.shape[-1]))
+        nx, ny = self.grid_size
+        uids, slot, count = asx.compact_unique_sorted(ids, self.capacity, nx * ny)
+        return points, {"ids": ids, "slot": slot, "uids": uids, "count": count}
+
+    def forward(self, points, point_mask, pre=None):
+        """points (B, N, F). With ``pre`` = dict(slot, uids, count[, ids, mean])
+        they are already sorted by pillar id on the host and ``point_mask`` is
+        implied by the sentinel ids. Without it the device builds the same
+        table (:meth:`sort_and_compact`) and takes the cluster means itself.
+
+        The host's mean and the device's agree only for points of pillars
+        within the capacity: a point of an overflowed pillar gets its true
+        pillar mean from the host but the merged junk-row mean here, and such
+        points feed the BatchNorm statistics before the junk row is dropped.
+        So train and eval must both use host tables or neither, unless
+        ``as_overflow`` is 0 for the capacities in use."""
         nx, ny = self.grid_size
         sent = nx * ny
+        if pre is None:
+            points, pre = self.sort_and_compact(points, point_mask)
         slot, uids, count = pre["slot"], pre["uids"], pre["count"]
         if "ids" in pre:
             ids = pre["ids"]
@@ -130,7 +178,10 @@ class DynamicPillarVFESparse(nn.Module):
             flat = slot.long() + (torch.arange(b, device=slot.device) * (cap + 1))[:, None]
             ids = uids_z.reshape(-1)[flat]
         valid = ids < sent
-        mean = pre["mean"].to(points.dtype) if self.use_cluster_xyz else None
+        mean = None
+        if self.use_cluster_xyz:
+            mean = (pre["mean"].to(points.dtype) if "mean" in pre
+                    else self._slot_mean(points[..., 0:3], valid, slot))
         feats = self._assemble_features(points, valid, ids, mean)
         table = None
         for i in range(self.n_layers):

@@ -1,12 +1,15 @@
-"""Active-site sparse 2D convolution primitives (host rulebooks).
+"""Active-site sparse 2D convolution primitives.
 
 Counterpart of ``radardistill_tpu/ops/active_site.py``. An active set is a
 fixed-capacity table of sorted linear site ids ``uids`` (sentinel ``H*W``)
 with features ``(B, cap, C)`` beside it; a 3x3 conv reads its neighbours
-through per-stage tap tables ``nb``/``msk`` ``(B, 9, cap_out)`` built on the
-host (``data/host_precompute.py``) with their per-tap inverses ``inv``/``imsk``
-``(B, 9, cap_in)`` beside them. Everything here is batched over the leading
-axis. What the student crosses is differentiable in the features, with the
+through per-stage tap tables ``nb``/``msk`` ``(B, 9, cap_out)`` with their
+per-tap inverses ``inv``/``imsk`` ``(B, 9, cap_in)`` beside them. The tables
+come from the host (``data/host_precompute.py``) or, for a batch without them,
+from the device-side functions here (``compact_unique_sorted``,
+``downsample_active``, ``conv_neighbor_table_b``, ``invert_taps_b``), which
+give the same int32 tables bit for bit. Everything here is batched over the
+leading axis. What the student crosses is differentiable in the features, with the
 reference's gather-formulated backward passes: ``gather_taps_inv_b`` (a gather
 of the cotangent through ``inv``/``imsk``) and ``densify_batch`` (a row gather
 at the site ids). Both are deterministic; plain autograd of the index ops
@@ -34,6 +37,116 @@ def site_index_grid(uids: torch.Tensor, hw: int, cap: int) -> torch.Tensor:
     flat = uids.long() + (torch.arange(b, device=uids.device) * hw)[:, None]
     grid[flat[keep]] = rows[keep]
     return grid.view(b, hw)
+
+
+def compact_unique_sorted(ids_s: torch.Tensor, cap: int, sentinel: int):
+    """Sorted ids (B, N) int32 (invalid entries == ``sentinel``, which sorts
+    last) -> a fixed-capacity table of the unique ids.
+
+    Returns ``uids`` (B, cap) sorted unique ids with empty slots = sentinel
+    (beyond ``cap`` the largest ids are dropped), ``slot`` (B, N) the row of
+    each input id in ``uids`` (``cap`` for invalid and dropped ids) and
+    ``count`` (B,) the number of unique valid ids before capping. Only the
+    first occurrence of an id writes its row; everything else lands in a junk
+    column ``cap`` that is cut off (the reference's ``mode="drop"``)."""
+    b = ids_s.shape[0]
+    prev = torch.cat([ids_s.new_full((b, 1), -1), ids_s[:, :-1]], dim=1)
+    valid = ids_s < sentinel
+    first = (ids_s != prev) & valid
+    pos = torch.cumsum(first, dim=1, dtype=torch.int32) - 1
+    slot = torch.where(valid & (pos < cap), pos, cap)
+    write_idx = torch.where(first, slot, cap)
+    uids = torch.full((b, cap + 1), sentinel, dtype=torch.int32, device=ids_s.device)
+    uids.scatter_(1, write_idx.long(), ids_s.to(torch.int32))
+    return uids[:, :cap].contiguous(), slot, first.sum(dim=1, dtype=torch.int32)
+
+
+def compact_unique(ids: torch.Tensor, cap: int, sentinel: int):
+    """:func:`compact_unique_sorted` after a sort; ``slot`` is aligned with the
+    sorted ids, not with the input order."""
+    return compact_unique_sorted(torch.sort(ids, dim=1).values, cap, sentinel)
+
+
+_KY = (0, 0, 0, 1, 1, 1, 2, 2, 2)
+_KX = (0, 1, 2, 0, 1, 2, 0, 1, 2)
+
+
+def conv_neighbor_table_b(out_uids: torch.Tensor, in_grid: torch.Tensor,
+                          in_hw: Tuple[int, int], out_w: int, stride: int, cap_in: int):
+    """Neighbour tables of a 3x3 pad-1 conv (stride 1 submanifold, 2 down):
+    out_uids (B, cap_out) sorted output site ids, in_grid (B, H_in*W_in) from
+    :func:`site_index_grid` of the input set -> ``nb`` (B, 9, cap_out) int32
+    rows of the input table, monotone per tap (holes filled forward, clipped
+    to [0, cap_in-1]) and ``msk`` (B, 9, cap_out) bool, true where the
+    neighbour exists. Tap k = (ky, kx) of output (oy, ox) reads input
+    (oy*stride - 1 + ky, ox*stride - 1 + kx)."""
+    h_in, w_in = in_hw
+    b = out_uids.shape[0]
+    dev = out_uids.device
+    oy = torch.div(out_uids, out_w, rounding_mode="floor")
+    ox = out_uids - oy * out_w
+    out_valid = oy < (h_in // stride)  # sentinel rows have oy == H_out
+    ky = torch.tensor(_KY, dtype=torch.int32, device=dev)[None, :, None]
+    kx = torch.tensor(_KX, dtype=torch.int32, device=dev)[None, :, None]
+    iy = oy[:, None, :] * stride - 1 + ky  # (B, 9, cap_out)
+    ix = ox[:, None, :] * stride - 1 + kx
+    ok = out_valid[:, None, :] & (iy >= 0) & (iy < h_in) & (ix >= 0) & (ix < w_in)
+    hw = h_in * w_in
+    q = (iy * w_in + ix).clamp(0, hw - 1).long()
+    q_flat = q + (torch.arange(b, device=dev) * hw)[:, None, None]
+    nb = in_grid.reshape(-1)[q_flat]
+    exists = ok & (nb < cap_in)
+    nb_ff = torch.cummax(torch.where(exists, nb, -1), dim=2).values
+    return nb_ff.clamp(0, cap_in - 1), exists
+
+
+def invert_taps_b(nb: torch.Tensor, msk: torch.Tensor, cap_in: int):
+    """Invert per-tap neighbour tables: nb/msk (B, 9, cap_out) -> ``inv``
+    (B, 9, cap_in) int32, the output position that reads input row r through
+    tap k (holes filled forward, clipped to [0, cap_out-1]) and ``imsk``
+    (B, 9, cap_in) bool, true where row r is really read. For a fixed tap the
+    valid entries are injective, so one flat scatter-min over all samples and
+    taps finds them: masked entries write ``cap_out``, which any valid
+    position beats."""
+    b, k, cap_out = nb.shape
+    dev = nb.device
+    o_idx = torch.arange(cap_out, dtype=torch.int32, device=dev).expand(b, k, cap_out)
+    seg = (torch.arange(b * k, device=dev) * cap_in).reshape(b, k, 1)
+    flat_pos = (seg + nb.long()).reshape(-1)
+    vals = torch.where(msk, o_idx, cap_out).reshape(-1)
+    tgt = torch.full((b * k * cap_in,), cap_out, dtype=torch.int32, device=dev)
+    tgt = tgt.scatter_reduce(0, flat_pos, vals, reduce="amin", include_self=True)
+    tgt = tgt.reshape(b, k, cap_in)
+    imsk = tgt < cap_out
+    inv_ff = torch.cummax(torch.where(imsk, tgt, -1), dim=2).values
+    return inv_ff.clamp(0, cap_out - 1), imsk
+
+
+def downsample_active(uids: torch.Tensor, in_hw: Tuple[int, int], cap_out: int):
+    """Output active set of a 3x3 stride-2 pad-1 sparse conv: uids (B, cap)
+    -> (out_uids (B, cap_out), count (B,) before capping). An output site is
+    active iff its window touches an active input: input (y, x) touches rows
+    {y//2, (y+1)//2} x columns {x//2, (x+1)//2}; the candidates are sorted,
+    deduplicated and compacted."""
+    h, w = in_hw
+    h2, w2 = h // 2, w // 2
+    sent_out = h2 * w2
+    valid = uids < h * w
+    y = torch.div(uids, w, rounding_mode="floor")
+    x = uids - y * w
+    cy0, cy1 = y >> 1, (y + 1) >> 1
+    cx0, cx1 = x >> 1, (x + 1) >> 1
+    cands = []
+    for cy, dup_y in ((cy0, False), (cy1, True)):
+        for cx, dup_x in ((cx0, False), (cx1, True)):
+            ok = valid & (cy < h2) & (cx < w2)
+            if dup_y:
+                ok = ok & (cy1 != cy0)
+            if dup_x:
+                ok = ok & (cx1 != cx0)
+            cands.append(torch.where(ok, cy * w2 + cx, sent_out))
+    out_uids, _, count = compact_unique(torch.cat(cands, dim=1), cap_out, sent_out)
+    return out_uids, count
 
 
 def _flat_tap_gather(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

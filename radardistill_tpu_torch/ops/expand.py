@@ -1,10 +1,17 @@
-"""K5: expand a row table to dense rows, ``dense[m] = table[inv[m]]``.
+"""K5 and K8: row gathers from a table, ``dense[m] = table[inv[m]]``.
 
 Counterpart of ``radardistill_tpu/ops/pallas_expand.py`` (``expand_rows``
 dispatching to the Pallas ``expand_sorted_rows``). Entries of ``inv`` outside
 ``[0, R)`` give exact zero rows. The TPU kernel needed ``inv`` monotone within
 each 512-cell block and the cells padded to that block; the CUDA kernel
 (``csrc/expand.cu``) is a plain row gather with neither precondition.
+
+``gather_rows_windowed`` (K8, ``csrc/gather_win.cu``) is the counterpart of
+``gather_rows_windowed`` + ``window_overflow`` of the same JAX module: the same
+gather, but an entry also yields a zero row when it falls outside the window
+of its aligned block of 512 entries, and such entries are counted. On the TPU
+the window made the gather affordable; here it is only the function to
+reproduce. Nothing in the model calls it, as in the JAX package.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 kernel, or raises if it cannot.
@@ -57,3 +64,84 @@ def expand_rows(table: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
 
 
 expand_rows.launches = 0
+
+
+BLK = 512  # entries per window block
+
+
+def _window(idx: torch.Tensor, r: int, n_win: int):
+    """(active (M/BLK, BLK) bool, rel (M/BLK, BLK): idx minus its block's
+    window start), with the table padded as the reference pads it."""
+    if idx.shape[0] % BLK:
+        raise ValueError(f"windowed gather: {idx.shape[0]} entries are not a multiple of {BLK}")
+    r_full = _padded_rows(r, n_win)
+    idx_b = idx.reshape(-1, BLK)
+    active = (idx_b >= 0) & (idx_b < r)
+    row_min = torch.where(active, idx_b, r_full).amin(dim=1)
+    start = torch.div(row_min, BLK, rounding_mode="floor").clamp(0, r_full // BLK - n_win)
+    return active, idx_b - start[:, None] * BLK
+
+
+def _padded_rows(r: int, n_win: int) -> int:
+    """Rows of the table after the reference's padding: to a multiple of BLK,
+    and to at least (n_win + 1) blocks."""
+    return max(r + (-r) % BLK, (n_win + 1) * BLK)
+
+
+def window_overflow(idx: torch.Tensor, r: int, n_win: int) -> torch.Tensor:
+    """Number of active entries of ``idx`` (in [0, r)) that fall outside their
+    block's window of ``n_win`` blocks: the plain version of K8's count."""
+    active, rel = _window(idx, r, n_win)
+    return (active & (rel >= n_win * BLK)).sum().to(torch.int32)
+
+
+def gather_rows_windowed_plain(table: torch.Tensor, idx: torch.Tensor, n_win: int):
+    """Plain PyTorch K8: (rows (M, C), overflow count). Unlike
+    ``expand_rows_plain`` it zeroes the rows outside the window: for K8 the
+    window is the function."""
+    r = table.shape[0]
+    active, rel = _window(idx, r, n_win)
+    ok = (active & (rel >= 0) & (rel < n_win * BLK)).reshape(-1)
+    rows = table[idx.clamp(0, r - 1).long()]
+    rows = torch.where(ok[:, None], rows, torch.zeros((), dtype=table.dtype, device=table.device))
+    return rows, window_overflow(idx, r, n_win)
+
+
+def gather_rows_windowed(table: torch.Tensor, idx: torch.Tensor, n_win: int):
+    """table (R, C) float32, bfloat16 or int8 with rows a multiple of 16
+    bytes; idx (M,) int32, M a multiple of 512 -> (rows (M, C), overflow () int32).
+    ``rows[m] = table[idx[m]]`` where idx[m] is in [0, R) and inside the
+    window of its aligned block of 512 entries (``n_win`` blocks of the table
+    from the block of the least active index, clipped to the padded table);
+    exact zero rows elsewhere. ``overflow`` counts the active entries outside
+    their window (what ``window_overflow`` computes); the kernel counts them
+    in the same pass. Bit-exact in every dtype."""
+    if table.device.type == "cpu":
+        return gather_rows_windowed_plain(table, idx, n_win)
+    if table.device.type != "cuda" or idx.device != table.device:
+        raise ValueError(f"gather_rows_windowed: table on {table.device}, idx on {idx.device}")
+    if table.dtype not in DTYPES or idx.dtype != torch.int32:
+        raise TypeError(f"gather_rows_windowed: table {table.dtype}, idx {idx.dtype}")
+    if table.dim() != 2 or idx.dim() != 1:
+        raise ValueError(f"gather_rows_windowed: table {tuple(table.shape)}, idx "
+                         f"{tuple(idx.shape)}")
+    if not (table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("gather_rows_windowed: table and idx must be contiguous")
+    m, (r, c) = idx.shape[0], table.shape
+    row_bytes = c * table.element_size()
+    if m % BLK or n_win < 1:
+        raise ValueError(f"gather_rows_windowed: {m} entries (a multiple of {BLK}), n_win {n_win}")
+    if row_bytes % 16 or table.data_ptr() % 16:
+        raise ValueError(f"gather_rows_windowed: the kernel moves 16-byte words; rows of "
+                         f"{row_bytes} bytes at address {table.data_ptr():#x}")
+    out = torch.empty((m, c), dtype=table.dtype, device=table.device)
+    overflow = torch.zeros((), dtype=torch.int32, device=table.device)
+    rc = cuda_lib.lib().rdt_gather_rows_windowed(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), overflow.data_ptr(), m, r,
+        _padded_rows(r, n_win), n_win, row_bytes, table.device.index, cuda_lib.stream_of(table))
+    cuda_lib.check(rc, "gather_rows_windowed")
+    gather_rows_windowed.launches += 1
+    return out, overflow
+
+
+gather_rows_windowed.launches = 0

@@ -3,7 +3,9 @@
 forwards (radar-only val at grid 256, the distillation forward at grid 128,
 and at grid 64 under each deep-chain configuration of the teacher: ``INT8_STAGES: 5``,
 ``FP_STAGES: 5``, ``INT8: true``, and the wide conv once)
-and one distillation train step on the CPU with random weights from a seeded generator; afterwards neither
+and one distillation train step, a val forward without host tables under
+``DENSE_FROM: 3`` and the plain versions of the three probe kernels on the CPU
+with random weights from a seeded generator; afterwards neither
 ``jax`` nor ``flax`` nor any module of ``radardistill_tpu`` may be in
 ``sys.modules``. An AST walk over every file of the port and over the card
 scripts finds no import of them either. Also: the port's data layer loads none
@@ -56,6 +58,16 @@ for over in ({"INT8_STAGES": 5}, {"INT8_STAGES": 1, "FP_STAGES": 5}, {"INT8": Tr
                                     and out3["x_conv5"].abs().max() > 0)
 from radardistill_tpu_torch.ops.wide_conv import conv3x3_wide
 wide = conv3x3_wide(torch.ones(1, 4, 4, 8), torch.ones(3, 3, 8, 8))
+# no host tables: the device builds them; DENSE_FROM 3 runs stages 3-4 masked-dense
+cfg4, info4, batch4 = make_batch(grid=128, num_radar=600, host_precompute=False,
+                                 radar_backbone_3d={"DENSE_FROM": 3})
+model4 = init_random_(build_network(cfg4, info4, device="cpu"), torch.Generator().manual_seed(0))
+out4 = model4(batch_to_torch(batch4, "cpu"))
+from radardistill_tpu_torch.ops.expand import gather_rows_windowed
+from radardistill_tpu_torch.ops.probes import conv_probe, mma_rate
+rows, over = gather_rows_windowed(torch.ones(600, 4), torch.arange(512, dtype=torch.int32), 1)
+dots = conv_probe(torch.ones(1, 4, 4, 8), torch.ones(9, 8, 8), "dots")
+rate = mma_rate(torch.ones(4, 8), torch.ones(8, 4), reps=2)
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "radardistill_tpu"))
 print(json.dumps({
@@ -72,6 +84,10 @@ print(json.dumps({
     "as_overflow2": int(out2["as_overflow"]),
     "chains": chains,
     "wide_corner": float(wide[0, 0, 0, 0]),
+    "raw_batch_keys": sorted(k for k in batch4 if k.startswith("hp_")),
+    "raw_finite": bool(all(torch.isfinite(v).all() for v in out4["radar_preds"].values())),
+    "raw_overflow": int(out4["as_overflow"]),
+    "probes": [float(rows.sum()), int(over), float(dots[0, 0, 0, 0]), float(rate[0, 0])],
     "train_loss_finite": bool(torch.isfinite(metrics["loss"])),
     "train_updates": opt.count,
 }))
@@ -95,6 +111,9 @@ def test_port_slice_runs_without_jax():
     assert rec["train_loss_finite"] and rec["train_updates"] == 1
     assert len(rec["chains"]) == 3 and all(rec["chains"].values()), rec["chains"]
     assert rec["wide_corner"] == 4 * 8.0
+    assert rec["raw_batch_keys"] == [] and rec["raw_finite"] and rec["raw_overflow"] == 0
+    # 512 rows of 4 ones, no overflow; 9 taps x 8 channels; (1 + 2) x 8
+    assert rec["probes"] == [2048.0, 0, 72.0, 24.0]
 
 
 def _imported_modules(path):
@@ -113,7 +132,8 @@ PORT_FILES = sorted(
     for p in glob.glob(os.path.join(REPO, "radardistill_tpu_torch", "**", "*.py"), recursive=True))
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/torch_profile_slice.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/torch_profile_slice.py",
+                                    "tools/torch_mma_rate.py", "tools/torch_conv_probe.py"])
 def test_card_scripts_import_only_torch_and_the_port(script):
     names = _imported_modules(os.path.join(REPO, script))
     roots = {n.split(".")[0] for n in names}

@@ -1,0 +1,344 @@
+"""K8, P1 and P2 of the port against the JAX package's kernels and tools, CPU.
+
+On the CPU a wrapper takes its plain PyTorch version; the JAX side runs its
+Pallas kernels in interpret mode. Inputs come from a numpy seed.
+
+- K8 ``gather_rows_windowed`` / ``window_overflow``: the cases of
+  ``tests/test_pallas_expand.py`` (four windows, the span violation, the
+  full-table window) and random windows that are too small: rows bit-equal,
+  counts equal.
+- P1 ``conv_probe``: ``conv`` against ``conv3x3_pallas`` and
+  ``conv3x3_shiftout`` of ``tools/pallas_conv_proto.py``; ``dots`` and ``int8``
+  against that file's kernel bodies ``_kernel_dots``, ``_kernel_int8`` and
+  ``_kernel_int8_n512``, each wrapped here in a ``pallas_call`` like the one
+  its ``main_*`` builds, at H 16, W 24, C 8-32. float32 within 1e-5 x
+  max|ref| (summation order), int8 codes equal.
+- P2 ``mma_rate``: against the formula of ``tools/mxu_rate.py`` (``kern``)
+  evaluated with ``jnp``: bfloat16 within 1e-2 x max|ref| (one bfloat16
+  rounding of a differently ordered float32 sum), float32 within 1e-5, int8
+  against numpy's int32 sum, equal.
+
+The card-only twins (marker ``gpu``) hold each CUDA kernel against its plain
+version at small shapes; ``chip_smoke.py`` does so at the production shapes.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from radardistill_tpu.ops import pallas_expand as jexp
+from radardistill_tpu_torch.ops import expand, probes
+from tools import pallas_conv_proto as proto
+
+BLK = 512
+PAD = -(2 ** 30)  # the segment-pad sentinel of the JAX tests
+
+
+# ----------------------------------------------------------------------- K8
+
+
+def _windowed_case(n_win, r, seed, c=24, widen=0):
+    """The generator of ``tests/test_pallas_expand.py``: 6 blocks, each with a
+    random number of sorted entries inside a span of n_win - 1 blocks (plus
+    ``widen`` blocks, to break the window)."""
+    rng = np.random.RandomState(seed)
+    m = 6 * BLK
+    table = rng.randn(r, c).astype(np.float32)
+    idx = np.full((m,), PAD, np.int32)
+    for blk in range(m // BLK):
+        k = rng.randint(0, BLK + 1)
+        if not k:
+            continue
+        cells = np.sort(rng.choice(BLK, k, replace=False)) + blk * BLK
+        lo = rng.randint(0, max(r - 1, 1))
+        hi = min(lo + (n_win - 1 + widen) * BLK - 1, r - 1)
+        idx[cells] = np.sort(rng.randint(lo, hi + 1, size=k))
+    return table, idx
+
+
+def _k8_both(table, idx, n_win):
+    jt, ji = jnp.asarray(table), jnp.asarray(idx)
+    want = np.asarray(jexp.gather_rows_windowed(jt, ji, n_win, interpret=True))
+    want_n = int(jexp.window_overflow(ji, table.shape[0], n_win))
+    tt, ti = torch.from_numpy(table), torch.from_numpy(idx)
+    got, got_n = expand.gather_rows_windowed(tt, ti, n_win)
+    assert got_n.dtype == torch.int32 and int(got_n) == want_n
+    assert int(expand.window_overflow(ti, table.shape[0], n_win)) == want_n
+    np.testing.assert_array_equal(got.numpy(), want)
+    return got, want_n
+
+
+@pytest.mark.parametrize("n_win,r", [(2, 700), (4, 1800), (8, 4096), (3, 300)])
+def test_gather_rows_windowed_matches_pallas(n_win, r):
+    table, idx = _windowed_case(n_win, r, seed=n_win)
+    got, n_over = _k8_both(table, idx, n_win)
+    assert n_over == 0
+    # with no overflow the window is invisible: the plain unwindowed gather
+    plain = expand.expand_rows_plain(torch.from_numpy(table), torch.from_numpy(idx).clamp(0))
+    ok = torch.from_numpy((idx >= 0) & (idx < r))
+    assert torch.equal(got, plain * ok[:, None])
+
+
+@pytest.mark.parametrize("n_win,r", [(2, 4096), (3, 1800), (1, 700)])
+def test_gather_rows_windowed_too_small_a_window_matches_pallas(n_win, r):
+    """Entries beyond the window come out as zero rows on both sides and are
+    counted alike."""
+    table, idx = _windowed_case(n_win, r, seed=10 + n_win, widen=2)
+    got, n_over = _k8_both(table, idx, n_win)
+    assert n_over > 0
+    dropped = (got == 0).all(dim=1) & torch.from_numpy((idx >= 0) & (idx < r))
+    assert int(dropped.sum()) >= n_over  # (a real row of zeros has measure zero)
+
+
+def test_gather_rows_windowed_span_violation_is_counted():
+    r, c, n_win = 4096, 8, 2
+    table = np.ones((r, c), np.float32)
+    idx = np.full((BLK,), PAD, np.int32)
+    idx[0], idx[-1] = 0, 3000
+    got, n_over = _k8_both(table, idx, n_win)
+    assert n_over == 1 and got[0].sum() == c and got[-1].sum() == 0
+
+
+def test_gather_rows_windowed_full_table_window():
+    rng = np.random.RandomState(3)
+    r, c = 900, 16
+    n_win = -(-r // BLK) + 1
+    table = rng.randn(r, c).astype(np.float32)
+    idx = np.sort(rng.randint(-5, r + 5, size=4 * BLK)).astype(np.int32)
+    idx = np.where(idx < 0, PAD, idx).astype(np.int32)
+    _, n_over = _k8_both(table, idx, n_win)
+    assert n_over == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+def test_gather_rows_windowed_plain_is_a_bit_copy(dtype):
+    table, idx = _windowed_case(3, 1800, seed=5, c=32)
+    tt = torch.from_numpy(table * 20).to(dtype)
+    got, n_over = expand.gather_rows_windowed(tt, torch.from_numpy(idx), 3)
+    ok = (idx >= 0) & (idx < 1800)
+    assert int(n_over) == 0 and got.dtype == dtype
+    assert torch.equal(got[torch.from_numpy(ok)], tt[torch.from_numpy(idx[ok]).long()])
+    assert not got[torch.from_numpy(~ok)].any()
+
+
+def test_gather_rows_windowed_rejects_a_ragged_length():
+    with pytest.raises(ValueError, match="multiple of 512"):
+        expand.gather_rows_windowed(torch.zeros(8, 4), torch.zeros(100, dtype=torch.int32), 2)
+
+
+# ----------------------------------------------------------------------- P1
+
+B, H, W = 2, 16, 24
+
+
+def _pad_h(x):
+    return np.pad(x, ((0, 0), (1, 1), (0, 0), (0, 0)))
+
+
+def _call_body(kern, xp, k, co, out_dtype, a=None):
+    """``kern`` of ``tools/pallas_conv_proto.py`` in a ``pallas_call`` shaped
+    like the one its ``main_*`` builds, interpreted."""
+    bsz, hp, w, c = xp.shape
+    h = hp - 2
+    in_specs = [pl.BlockSpec(memory_space=pltpu.ANY),
+                pl.BlockSpec(k.shape, lambda b, i: (0,) * k.ndim)]
+    args = [xp, k]
+    if a is not None:
+        in_specs.append(pl.BlockSpec((1, co), lambda b, i: (0, 0)))
+        args.append(a)
+    return pl.pallas_call(
+        functools.partial(kern, w=w, c=c, co=co),
+        grid=(bsz, h // proto.BH),
+        in_specs=in_specs,
+        out_specs=pl.BlockSpec((1, proto.BH, w, co), lambda b, i: (b, i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((bsz, h, w, co), out_dtype),
+        scratch_shapes=[pltpu.VMEM((proto.BH + 2, w, c), xp.dtype), pltpu.SemaphoreType.DMA],
+        interpret=True,
+    )(*args)
+
+
+def _close(got, want, tol=1e-5):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("c,co", [(8, 16), (32, 8)])
+def test_conv_probe_conv_matches_the_pallas_probes(c, co):
+    rng = np.random.RandomState(c)
+    xp = _pad_h(rng.randn(B, H, W, c).astype(np.float32))
+    k = (rng.randn(3, 3, c, co) * 0.1).astype(np.float32)
+    got = probes.conv_probe(torch.from_numpy(xp), torch.from_numpy(k), "conv").numpy()
+    _close(got, proto.conv3x3_pallas(jnp.asarray(xp), jnp.asarray(k), interpret=True))
+    k9 = np.transpose(k, (2, 0, 1, 3)).reshape(c, -1)  # the tool's pack_k
+    _close(got, proto.conv3x3_shiftout(jnp.asarray(xp), jnp.asarray(k9), False, interpret=True))
+    # the padding rows count: a probe input with data in them gives another answer
+    xq = xp.copy()
+    xq[:, 0] = 1.0
+    assert not np.allclose(probes.conv_probe(torch.from_numpy(xq), torch.from_numpy(k),
+                                             "conv").numpy()[:, 0], got[:, 0])
+
+
+@pytest.mark.parametrize("c,co,kshape", [(8, 16, "33"), (32, 8, "9")])
+def test_conv_probe_dots_matches_the_pallas_kernel_body(c, co, kshape):
+    rng = np.random.RandomState(c + 1)
+    xp = rng.randn(B, H + 2, W, c).astype(np.float32)  # dots reads the rows as they are
+    k = (rng.randn(3, 3, c, co) * 0.1).astype(np.float32)
+    if kshape == "9":
+        k = k.reshape(9, c, co)
+        want = _call_body(proto._kernel_n512, jnp.asarray(xp), jnp.asarray(k), co, jnp.float32)
+    else:
+        want = _call_body(proto._kernel_dots, jnp.asarray(xp), jnp.asarray(k), co, jnp.float32)
+    got = probes.conv_probe(torch.from_numpy(xp), torch.from_numpy(k), "dots")
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kern,relu", [("_kernel_int8", True), ("_kernel_int8_n512", False)])
+def test_conv_probe_int8_matches_the_pallas_kernel_body(kern, relu):
+    c, co = 32, 16
+    rng = np.random.RandomState(7)
+    xp = rng.randint(-127, 128, (B, H + 2, W, c)).astype(np.int8)
+    k = rng.randint(-127, 128, (9, c, co)).astype(np.int8)
+    a = (np.abs(rng.randn(1, co)) * 2e-3).astype(np.float32)
+    if relu:  # signs on both sides of the relu
+        a[0, ::2] *= -1.0
+    want = np.asarray(_call_body(getattr(proto, kern), jnp.asarray(xp), jnp.asarray(k), co,
+                                 jnp.int8, jnp.asarray(a)))
+    got = probes.conv_probe(torch.from_numpy(xp), torch.from_numpy(k), "int8",
+                            torch.from_numpy(a), relu=relu).numpy()
+    assert got.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(got)) > 50 and (got == -127).mean() < 0.9  # the codes spread
+
+
+def test_conv_probe_relu_defaults_to_the_two_tpu_probes():
+    """Co 128 is the probe with a relu, any other width the one without."""
+    rng = np.random.RandomState(9)
+    xp = rng.randint(-127, 128, (1, 10, 8, 32)).astype(np.int8)
+    for co in (128, 256):
+        k = rng.randint(-127, 128, (9, 32, co)).astype(np.int8)
+        a = torch.full((co,), -1e-3)
+        args = (torch.from_numpy(xp), torch.from_numpy(k), "int8", a)
+        assert torch.equal(probes.conv_probe(*args), probes.conv_probe(*args, relu=co == 128))
+
+
+@pytest.mark.parametrize("bad", ["mode", "dtype", "taps", "scale"])
+def test_conv_probe_rejects(bad):
+    xp, k = torch.zeros(1, 10, 8, 16), torch.zeros(3, 3, 16, 8)
+    with pytest.raises((ValueError, TypeError)):
+        if bad == "mode":
+            probes.conv_probe(xp, k, "im2col")
+        elif bad == "dtype":
+            probes.conv_probe(xp, k.to(torch.bfloat16), "conv")
+        elif bad == "taps":
+            probes.conv_probe(xp, k[:2], "conv")
+        else:
+            probes.conv_probe(xp.to(torch.int8), k.to(torch.int8), "int8")
+
+
+# ----------------------------------------------------------------------- P2
+
+
+def _mxu_formula(a, b, reps=8):
+    """``kern`` of ``tools/mxu_rate.py``."""
+    acc = jnp.zeros((a.shape[0], b.shape[1]), jnp.float32)
+    for r in range(reps):
+        acc += jnp.dot(a + jnp.float32(r).astype(a.dtype), b, preferred_element_type=jnp.float32)
+    return acc.astype(a.dtype)
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 128, 32), (128, 64, 96)])
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 1e-2), ("float32", 1e-5)])
+def test_mma_rate_matches_the_mxu_formula(m, k, n, dtype, tol):
+    rng = np.random.RandomState(m + n)
+    a = (rng.randn(m, k) * 0.05).astype(np.float32)
+    b = (rng.randn(k, n) * 0.05).astype(np.float32)
+    want = _mxu_formula(jnp.asarray(a, dtype), jnp.asarray(b, dtype))
+    tdt = getattr(torch, dtype)
+    got = probes.mma_rate(torch.from_numpy(a).to(tdt), torch.from_numpy(b).to(tdt))
+    assert got.dtype == tdt
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), tol)
+
+
+def test_mma_rate_int8_is_exact():
+    rng = np.random.RandomState(4)
+    a = rng.randint(-127, 128, (64, 128)).astype(np.int8)  # a + r wraps where a > 120
+    b = rng.randint(-127, 128, (128, 32)).astype(np.int8)
+    want = sum((a + np.int8(r)).astype(np.int8).astype(np.int32) @ b.astype(np.int32)
+               for r in range(8))
+    got = probes.mma_rate(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(TypeError):
+        probes.mma_rate(torch.from_numpy(a), torch.from_numpy(b).float())
+
+
+# ------------------------------------------------------- card-only (gpu)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 24), (torch.bfloat16, 64), (torch.int8, 32)])
+@pytest.mark.parametrize("n_win,widen", [(2, 0), (3, 2), (1, 2)])
+def test_gather_rows_windowed_kernel_matches_plain_on_card(cuda, dtype, c, n_win, widen):
+    table, idx = _windowed_case(n_win, 4096, seed=n_win, c=c, widen=widen)
+    tt, ti = torch.from_numpy(table * 20).to(cuda, dtype), torch.from_numpy(idx).to(cuda)
+    before = expand.gather_rows_windowed.launches
+    got, n_over = expand.gather_rows_windowed(tt, ti, n_win)
+    assert expand.gather_rows_windowed.launches == before + 1
+    want, want_n = expand.gather_rows_windowed_plain(tt, ti, n_win)
+    assert torch.equal(got, want) and int(n_over) == int(want_n)
+    assert (int(n_over) > 0) == (widen > 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,route,c,co", [
+    ("conv", "mma_sync", 64, 128), ("dots", "mma_sync", 64, 128), ("int8", "mma_sync", 64, 128),
+    ("conv", "wgmma", 64, 128), ("dots", "wgmma", 64, 128), ("conv", "wgmma", 128, 256)])
+def test_conv_probe_kernel_matches_plain_on_card(cuda, mode, route, c, co):
+    gen = torch.Generator().manual_seed(1)
+    if mode == "int8":
+        xp = torch.randint(-127, 128, (2, 21, 37, c), generator=gen, dtype=torch.int8).to(cuda)
+        k = torch.randint(-127, 128, (3, 3, c, co), generator=gen, dtype=torch.int8).to(cuda)
+        args = (xp, k, mode, (torch.randn(co, generator=gen) * 2e-4).to(cuda))
+    else:
+        xp = torch.randn(2, 21, 37, c, generator=gen).to(cuda, torch.bfloat16)
+        args = (xp, (torch.randn(3, 3, c, co, generator=gen) * 0.05).to(cuda, torch.bfloat16), mode)
+    before = probes.conv_probe.launches
+    got, want = probes.conv_probe(*args, route=route), probes.conv_probe_plain(*args)
+    assert probes.conv_probe.launches == before + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= (0.0 if mode == "int8" else 1e-2 * want.float().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", probes.ROUTES)
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2), (torch.int8, 0.0),
+                                       (torch.float32, 1e-3)], ids=["bf16", "int8", "tf32"])
+@pytest.mark.parametrize("m,k,n", [(64, 128, 32), (128, 512, 256), (192, 256, 192)])
+def test_mma_rate_kernel_matches_plain_on_card(cuda, route, dtype, tol, m, k, n):
+    gen = torch.Generator().manual_seed(m + n)
+    if dtype == torch.int8:
+        a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).to(cuda)
+        b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8).to(cuda)
+    else:
+        a = (torch.randn(m, k, generator=gen) * 0.05).to(cuda, dtype)
+        b = (torch.randn(k, n, generator=gen) * 0.05).to(cuda, dtype)
+    before = probes.mma_rate.launches
+    got = probes.mma_rate(a, b, route=route, grid_reps=2)
+    assert probes.mma_rate.launches == before + 1
+    want = probes.mma_rate_plain(a, b)
+    err = (got.double() - want.double()).abs().max().item()
+    assert got.dtype == want.dtype and err <= tol * want.double().abs().max().item()
