@@ -87,9 +87,14 @@ Phases 12-19, the deep chains of the teacher:
      rounding of a differently ordered float32 sum), with and without a
      residual, and in float32 at two of them (within 1e-5 x max|ref|), plus a
      4-phase mask and an odd 45 x 77 grid;
- 15. K9 ``conv3x3_wide`` at (2, 180, 180, 256) -> 256, bfloat16 and float32:
-     forward and both gradients vs autograd through ``F.conv2d`` (TF32 off),
-     the same tolerances; ``F.conv2d``'s time as its library call;
+ 15. K9 ``conv3x3_wide`` at (2, 180, 180, 256) -> 256, bfloat16 (the TMA +
+     ``wgmma`` conv mainloop of ``csrc/conv3x3_wgmma.cu``) and float32 (the
+     float link's kernel): forward and both gradients vs autograd through
+     ``F.conv2d`` (TF32 off), the same tolerances; y + dx timed as the wrapper
+     runs them (weights prepared from the float32 parameter) and as the two
+     bare launches on prepared weights and preallocated outputs, whose
+     results must equal the wrapper's; ``F.conv2d``'s time as its library
+     call;
  16. distillation forward, bfloat16, 1440², ``INT8_STAGES: 5``: K1 x 23,
      K7 x 1, K6 x 0, K5 x 2, K2 x 3; finite outputs, p50;
  17. the same with ``INT8_STAGES: 1`` + ``FP_STAGES: 5``: K1 x 4, K6 x 19,
@@ -122,10 +127,11 @@ Phases 20-24, the route without host tables and the last three kernels:
      unwindowed gather and count 0; one table with ``n_win`` one too small:
      rows and count equal to the plain version's, count > 0;
  24. P2 ``mma_rate`` (two routes, three types) and P1 ``conv_probe`` (three
-     modes, ``conv`` and ``dots`` on two routes, five shapes): each case
-     within tolerance of its plain version
+     modes on two routes, ``mma.sync`` and the ``wgmma`` conv mainloop, five
+     shapes): each case within tolerance of its plain version
      (bfloat16 1e-2, TF32 1e-3 x max|ref|, int8 equal), then its rate beside
-     the library call's. (They run first, right after the build.)
+     the library call's; the ``wgmma`` route also by its launch alone. (They
+     run first, right after the build.)
 
 Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
 float32 scales alike, but not every stock op around it (the VFE's sums); one
@@ -154,12 +160,14 @@ forward), and ``launches`` is the count of one train step; for K7 and K6 it
 is one forward of their configuration (``INT8_STAGES: 5``, ``FP_STAGES: 5``),
 for K9, which no model calls, one forward and backward of ``conv3x3_wide``;
 for K8 one pass over its 14 gathers (times summed), for P1 the ``conv`` mode at
-(2, 720, 720, 128) -> 128 on the ``mma.sync`` route and for P2 the bfloat16 (2048, 512, 512) product on
+(2, 720, 720, 128) -> 128 on the ``wgmma`` route and for P2 the bfloat16 (2048, 512, 512) product on
 the ``wgmma`` route, with ``launches`` counting every case of their tables
-(bound of P1, P2: operations at the bfloat16 peak). Any failed phase exits
+(bound of P1, P2: operations at the bfloat16 peak). ``launch_ms`` (K9 and P1;
+null for the others) is the time of the bare launches on prepared inputs and
+preallocated outputs, ``ms`` that of the wrapper. Any failed phase exits
 non-zero. The line before the last is the kernels record ``{"kernels":
-[{"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-"bound_by", "library_ms"}]}``; the last line is
+[{"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "launch_ms", "plain_ms",
+"bound_ms", "bound_by", "library_ms"}]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -654,8 +662,9 @@ def phase_k9(torch, dev):
     call is ``F.conv2d`` on the same operands, for y and for dx."""
     import torch.nn.functional as F
 
-    from radardistill_tpu_torch.ops.conv_block import conv_block_fp_plain
-    from radardistill_tpu_torch.ops.wide_conv import conv3x3_wide
+    from radardistill_tpu_torch.ops import conv3x3_wgmma
+    from radardistill_tpu_torch.ops.wide_conv import (conv3x3_wide, conv3x3_wide_plain, conv_or_dx,
+                                                      wgmma_weights)
 
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(9)
@@ -686,29 +695,37 @@ def phase_k9(torch, dev):
             raise RuntimeError(f"K9: {launches} launches for one forward and backward, not 2")
         if dtype != torch.bfloat16:
             continue
-        xd, kd, kt = x.detach(), k.detach().to(dtype), k.detach().flip(0, 1).transpose(2, 3)
-        kt = kt.to(dtype).contiguous()
-        from radardistill_tpu_torch.ops.conv_block import conv_block_fp
-
-        kern = lambda: (conv_block_fp(xd, kd, identity=True),  # noqa: E731
-                        conv_block_fp(ct, kt, identity=True))
-        plain = lambda: (conv_block_fp_plain(xd, kd, identity=True),  # noqa: E731
-                         conv_block_fp_plain(ct, kt, identity=True))
+        # y and dx as the autograd wrapper runs them, from the float32 parameter
+        xd, kd = x.detach(), k.detach()
+        kt = kd.flip(0, 1).transpose(2, 3)
+        kern = lambda: (conv_or_dx(xd, kd), conv_or_dx(ct, kd, backward=True))  # noqa: E731
+        plain = lambda: (conv3x3_wide_plain(xd, kd), conv3x3_wide_plain(ct, kt))  # noqa: E731
+        # the launches alone: prepared K-major weights, preallocated outputs
+        wf, wb = wgmma_weights(kd), wgmma_weights(kd, backward=True)
+        yo, dxo = torch.empty_like(xd), torch.empty_like(ct)
+        alone = lambda: (conv3x3_wgmma.launch(xd, wf, yo, "conv", padded=False),  # noqa: E731
+                         conv3x3_wgmma.launch(ct, wb, dxo, "conv", padded=False, flip=True))
+        alone()
+        if not (torch.equal(yo, got[0]) and torch.equal(dxo, got[1])):
+            raise RuntimeError("K9: the bare launches differ from the wrapper's y and dx")
         xn, cn = (t.permute(0, 3, 1, 2) for t in (xd, ct))
-        wn, wtn = (t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        wn, wtn = (t.to(dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                    for t in (kd, kt))
-        ms, plain_ms = paired_ms(torch, kern, plain, iters=10, plain_iters=2)
+        ms, plain_ms = paired_ms(torch, kern, plain, iters=20, plain_iters=2)
+        launch_ms = (cuda_ms(torch, alone, 20) + cuda_ms(torch, alone, 20)) / 2
         lib_ms = cuda_ms(torch, lambda: (F.conv2d(xn, wn, padding=1),
-                                         F.conv2d(cn, wtn, padding=1)), 10)
+                                         F.conv2d(cn, wtn, padding=1)), 20)
         ops_ms = 2 * 2.0 * b * hw * hw * 9 * c * c / PEAK_BF16_OPS * 1e3
         bytes_ms = 2 * 2.0 * (2 * xd.numel() + kd.numel()) / PEAK_BYTES * 1e3
-        print(f"K9 conv3x3_wide bfloat16, y and dx: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, F.conv2d {lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms (operations "
-              f"{ops_ms:.4f}, bytes {bytes_ms:.4f})")
+        print(f"K9 conv3x3_wide bfloat16, y and dx (TMA + wgmma mainloop): wrapper {ms:.4f} ms, "
+              f"launches alone {launch_ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d "
+              f"{lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, "
+              f"bytes {bytes_ms:.4f}); {ops_ms * PEAK_BF16_OPS / 1e12 / launch_ms:.1f} TFLOP/s "
+              "launched alone")
         rec = bound_of({"max_abs_err": max((g.float() - r.float()).abs().max().item()
                                            for g, r in zip(got[:2], want[:2])),
-                        "ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-                        "library_ms": lib_ms})
+                        "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+                        "bytes_ms": bytes_ms, "ops_ms": ops_ms, "library_ms": lib_ms})
     torch.backends.cudnn.allow_tf32 = True
     return rec, launches
 
@@ -917,7 +934,8 @@ def phase_train_bf16(torch, dev, yaml_name, cfg, info, batch, expect_launches, r
     print("train step bf16 loss per step: " + ", ".join(f"{v:.4f}" for v in vals))
     last = losses[-1]
     print(f"  last step: rpn_loss {float(last['rpn_loss']):.4f}, distll_loss "
-          f"{float(last['distll_loss']):.4f}, grad_norm {float(last['grad_norm']):.4f}, "
+          f"{float(last['distll_loss']):.4f}, grad_norm "
+          f"{float(step.state.optimizer.grad_norm):.4f}, "
           f"dcn_offset_sat {float(last['dcn_offset_sat']):.4f}")
     if not all(v == v and abs(v) != float("inf") for v in vals):
         raise RuntimeError("train step: a loss is not finite")
@@ -1259,7 +1277,8 @@ def phase_k8(torch, dev, tables):
 def phase_probes(torch, dev):
     """P2 then P1: every case against its plain version, then its rate. The
     records of the kernels line: the bfloat16 (2048, 512, 512) product on the
-    ``wgmma`` route, and the ``conv`` mode at (2, 720, 720, 128) -> 128."""
+    ``wgmma`` route, and the ``conv`` mode at (2, 720, 720, 128) -> 128 on the
+    ``wgmma`` route (the TMA + ``wgmma`` conv mainloop)."""
     from radardistill_tpu_torch.ops.probe_bench import conv_probe_table, mma_rate_table
 
     read = reset_launches()
@@ -1269,9 +1288,10 @@ def phase_probes(torch, dev):
     p2 = next(r for r in rates if r["shape"] == (2048, 512, 512) and r["type"] == "bfloat16"
               and r["route"] == "wgmma")
     p1 = next(r for r in convs if r["shape"] == (2, 720, 720, 128, 128) and r["mode"] == "conv"
-              and r["route"] == "mma_sync")
+              and r["route"] == "wgmma")
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
-    return (bound_of({k: p1[k] for k in keys}), launches["conv_probe"],
+    return (bound_of({"launch_ms": p1["launch_ms"], **{k: p1[k] for k in keys}}),
+            launches["conv_probe"],
             bound_of({k: p2[k] for k in keys}), launches["mma_rate"])
 
 
@@ -1400,9 +1420,9 @@ def main() -> int:
         ("dcn_input_grad", "dcn_input_grad.cu", f"{dcn_py}:378", k4),
         ("conv_block_fp", "conv_block_fp.cu", f"{block_py}:81", k6),
         ("chain_conv", "conv_block.cu", "radardistill_tpu/ops/pallas_int8_conv.py:64", k7),
-        ("conv3x3_wide", "conv_block_fp.cu", "radardistill_tpu/ops/pallas_wide_conv.py:57", k9),
+        ("conv3x3_wide", "conv3x3_wgmma.cu", "radardistill_tpu/ops/pallas_wide_conv.py:57", k9),
         ("gather_rows_windowed", "gather_win.cu", "radardistill_tpu/ops/pallas_expand.py:130", k8),
-        ("conv_probe", "conv_probe.cu", "tools/pallas_conv_proto.py:65", p1),
+        ("conv_probe", "conv3x3_wgmma.cu", "tools/pallas_conv_proto.py:65", p1),
         ("mma_rate", "mma_rate.cu", "tools/mxu_rate.py:53", p2),
     ]
     # `launches`: the train step for the first five; one forward of its own
@@ -1418,7 +1438,7 @@ def main() -> int:
                 "launches_val": val_launches[name], "launches_forward": fwd_launches[name],
                 "launches_int8_stages5": chain_launches["int8_stages5"][name],
                 "launches_fp_stages5": chain_launches["fp_stages5"][name],
-                "launches_device_tables": dev_launches[name], **rec}
+                "launches_device_tables": dev_launches[name], "launch_ms": None, **rec}
                for name, src, replaces, rec in table]
     if any(k["launches"] < 1 for k in kernels):
         raise RuntimeError("a kernel was launched on no path: "
@@ -1426,7 +1446,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "launches_val",
             "launches_forward", "launches_int8_stages5", "launches_fp_stages5",
             "launches_device_tables", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke.py: every phase passed; {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included, on {smi}")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

@@ -19,7 +19,7 @@
 // only in how the TPU's compiler schedules the same sums on its matrix unit;
 // on this card they are one function and one kernel.
 //
-// (The second route, with wgmma, is described further down.)
+// (The second route, with wgmma, is the conv mainloop of csrc/conv3x3_wgmma.cu.)
 //
 // The three modes share one load path, the tiled loop of csrc/conv_tile.cuh
 // that K6, K9 and K1's streamed variant run: a block of 256 threads owns 8 x 16
@@ -42,7 +42,6 @@
 #include <type_traits>
 
 #include "conv_tile.cuh"
-#include "wgmma_ops.cuh"
 
 namespace {
 
@@ -126,150 +125,7 @@ cudaError_t launch(const void* xp, const void* k, const float* a, void* out, int
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------------ the wgmma route
-//
-// conv and dots once more, with wgmma.mma_async (m64n128k16, both operands
-// read from shared memory through descriptors). One warpgroup owns 8 x 8
-// output pixels by 128 output channels. Per chunk of 64 input channels it
-// stages the input tile with its halo once, 10 rows of 16 pixel slots (10
-// used) of 128 bytes in the 128-byte-swizzle layout, and per kernel row the
-// three taps' weights [128 output channels][64 input channels]. A tap's A
-// operand is a VIEW of the staged tile, not a copy: the 8 pixels of output
-// row ty are the rows (ty + ky) * 16 + kx ... + 7 of the tile, so the
-// descriptor starts (ky * 16 + kx) rows into it, with 8-row groups 16 rows
-// (2048 bytes) apart (wgmma_desc_sw128_rows). kx moves the start off the
-// 1024-byte pattern; that needs nothing more, because the tensor core takes
-// the swizzle from the bits of the address it reads, which is how the tile
-// was stored. The weight arrives transposed, (9, Co, C): wgmma wants both
-// operands K-major.
-//
-// Products and staging alternate within a block; 69 KB of shared memory and
-// 64 accumulators a thread let three blocks share an SM, and one block's
-// staging overlaps another's products. No TMA, no ring: a first version.
-
-constexpr int WG_THREADS = 128;
-constexpr int WG_T = 8;                     // the tile is WG_T x WG_T pixels
-constexpr int WG_SLOTS = 16;                // pixel slots per staged row
-constexpr int WG_BN = 128;                  // output channels per block
-constexpr int WG_A_BYTES = (WG_T + 2) * WG_SLOTS * 128;
-constexpr int WG_B_BYTES = 3 * WG_BN * 128;
-constexpr int WG_SMEM = WG_A_BYTES + WG_B_BYTES + 1024;
-
-template <bool SHIFT>
-__global__ void __launch_bounds__(WG_THREADS, 3)
-conv_probe_wgmma_kernel(const __nv_bfloat16* __restrict__ xp, const __nv_bfloat16* __restrict__ kt,
-                        __nv_bfloat16* __restrict__ out, int B, int H, int W, int C, int Co) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* as = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
-                                           ~(uintptr_t)1023);
-  uint8_t* bs = as + WG_A_BYTES;
-  const int n_cot = Co / WG_BN;
-  const int cot = blockIdx.x % n_cot, tile = blockIdx.x / n_cot;
-  const int tiles_x = (W + WG_T - 1) / WG_T, tiles_y = (H + WG_T - 1) / WG_T;
-  const int b = tile / (tiles_y * tiles_x);
-  const int y0 = ((tile / tiles_x) % tiles_y) * WG_T, x0 = (tile % tiles_x) * WG_T;
-  const int co0 = cot * WG_BN;
-  const int tid = threadIdx.x;
-  const uint32_t as_addr = (uint32_t)__cvta_generic_to_shared(as);
-  const uint32_t bs_addr = (uint32_t)__cvta_generic_to_shared(bs);
-
-  float acc[WG_BN / 2];
-#pragma unroll
-  for (int i = 0; i < WG_BN / 2; ++i) acc[i] = 0.0f;
-
-#pragma unroll 1
-  for (int c0 = 0; c0 < C; c0 += 64) {
-    // the input tile with its halo: padded rows y0 .. y0 + 9, columns
-    // x0 - 1 .. x0 + 8, 64 channels = 8 vectors of 16 bytes a pixel
-    for (int v = tid; v < (WG_T + 2) * (WG_T + 2) * 8; v += WG_THREADS) {
-      const int chunk = v & 7, p = v >> 3;
-      const int slot = p % (WG_T + 2), rh = p / (WG_T + 2);
-      const int iy = y0 + rh, ix = x0 - 1 + slot;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (iy < H + 2 && ix >= 0 && ix < W)
-        val = *reinterpret_cast<const uint4*>(
-            xp + (((size_t)b * (H + 2) + iy) * W + ix) * C + c0 + chunk * 8);
-      const int row = rh * WG_SLOTS + slot;
-      *reinterpret_cast<uint4*>(as + row * 128 + ((chunk ^ (row & 7)) << 4)) = val;
-    }
-#pragma unroll 1
-    for (int ky = 0; ky < 3; ++ky) {
-      for (int v = tid; v < 3 * WG_BN * 8; v += WG_THREADS) {
-        const int chunk = v & 7, r = v >> 3;
-        const int co = r % WG_BN, kx = r / WG_BN;
-        const uint4 val = *reinterpret_cast<const uint4*>(
-            kt + ((size_t)(ky * 3 + kx) * Co + co0 + co) * C + c0 + chunk * 8);
-        *reinterpret_cast<uint4*>(bs + kx * (WG_BN * 128) + co * 128 +
-                                  ((chunk ^ (co & 7)) << 4)) = val;
-      }
-      rdt::fence_proxy_async();
-      __syncthreads();
-      rdt::wgmma_fence();
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        const int ay = SHIFT ? ky : 0, ax = SHIFT ? kx : 1;
-        const uint32_t a_view = as_addr + (ay * WG_SLOTS + ax) * 128;
-        const uint32_t b_tap = bs_addr + kx * (WG_BN * 128);
-#pragma unroll
-        for (int ks = 0; ks < 128; ks += 32)  // one instruction: 16 channels
-          rdt::wgmma_bf16_n128(acc, rdt::wgmma_desc_sw128_rows(a_view + ks, WG_SLOTS * 128),
-                               rdt::wgmma_desc_sw128(b_tap + ks));
-      }
-      rdt::wgmma_commit();
-      rdt::wgmma_wait_all();
-      __syncthreads();  // the products are over: both tiles may be restaged
-    }
-  }
-
-  // thread (warp w, lane 4g + t): rows 16w + g and + 8 of the 64, columns
-  // 8j + 2t, + 1; row m is the pixel (m / 8, m % 8) of the tile
-  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int m = 16 * warp + g + 8 * half;
-    const int yy = y0 + m / WG_T, xx = x0 + m % WG_T;
-    if (yy >= H || xx >= W) continue;
-    __nv_bfloat16* dst = out + (((size_t)b * H + yy) * W + xx) * Co + co0 + 2 * t;
-#pragma unroll
-    for (int j = 0; j < WG_BN / 8; ++j) {
-      __nv_bfloat162 h;
-      h.x = __float2bfloat16_rn(acc[4 * j + 2 * half]);
-      h.y = __float2bfloat16_rn(acc[4 * j + 2 * half + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = h;
-    }
-  }
-}
-
-template <bool SHIFT>
-cudaError_t launch_wgmma(const void* xp, const void* kt, void* out, int B, int H, int W, int C,
-                         int Co, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(conv_probe_wgmma_kernel<SHIFT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * ((H + WG_T - 1) / WG_T) * ((W + WG_T - 1) / WG_T) *
-                           (Co / WG_BN);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  conv_probe_wgmma_kernel<SHIFT><<<(int)blocks, WG_THREADS, WG_SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(xp), static_cast<const __nv_bfloat16*>(kt),
-      static_cast<__nv_bfloat16*>(out), B, H, W, C, Co);
-  return cudaGetLastError();
-}
-
 }  // namespace
-
-// The wgmma route of conv (mode 0) and dots (mode 1): xp (B, H + 2, W, C)
-// bfloat16, kt (9, Co, C) bfloat16, the nine taps transposed; out (B, H, W,
-// Co). C a multiple of 64, Co of 128; all 16-byte aligned.
-extern "C" int rdt_conv_probe_wgmma(const void* xp, const void* kt, void* out, int B, int H,
-                                    int W, int C, int Co, int mode, int device, void* stream) {
-  if (mode < 0 || mode > 1 || C % 64 != 0 || Co % WG_BN != 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if ((long long)B * H * W == 0) return cudaGetLastError();
-  auto st = static_cast<cudaStream_t>(stream);
-  return mode == 0 ? launch_wgmma<true>(xp, kt, out, B, H, W, C, Co, st)
-                   : launch_wgmma<false>(xp, kt, out, B, H, W, C, Co, st);
-}
 
 // xp (B, H + 2, W, C) and k (3, 3, C, Co) contiguous and 16-byte aligned, out
 // (B, H, W, Co). mode 0 = conv, 1 = dots (both bfloat16 in and out, a unused),

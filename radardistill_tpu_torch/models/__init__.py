@@ -11,25 +11,31 @@ from .center_head import (HeadSpec, centerhead_loss, flatten_class_channels,
                           flatten_target_heatmaps)
 from .detector import PillarNet
 from .distill import distill_loss
+from .layers import init_reference_
 
 DETECTORS = {"PillarNet": PillarNet}
 ANCHOR_DETECTORS = ("PointPillar", "SECONDNet")
 
 
 def build_network(model_cfg, dataset_info: Dict[str, Any], compute_dtype=torch.float32,
-                  device="cuda", remat=False) -> PillarNet:
+                  device="cuda", remat=False, generator: torch.Generator | None = None
+                  ) -> PillarNet:
     """dataset_info: grid_size (nx, ny), voxel_size, point_cloud_range,
     class_names (as ``utils.production.production_cfg`` returns them). The
     model is built in eval mode on ``device``: the card unless the caller asks
     for ``"cpu"``; ``model.train()`` switches it to the train forward.
-    Parameters are created empty: load them with
-    ``convert.load_jax_variables`` or fill them with ``layers.init_random_``."""
+    With ``generator`` every parameter is drawn from the reference's
+    initializers (``layers.init_reference_``); without, parameters are created
+    empty: load them with ``convert.load_jax_variables`` (or, in a test, fill
+    them with ``layers.init_random_``)."""
     if remat:
         raise NotImplementedError("remat (activation rematerialization) is not ported")
     cls = DETECTORS[model_cfg["NAME"]]
     model = cls(model_cfg, tuple(dataset_info["grid_size"]), tuple(dataset_info["voxel_size"]),
                 tuple(dataset_info["point_cloud_range"]), tuple(dataset_info["class_names"]),
                 compute_dtype=compute_dtype)
+    if generator is not None:
+        init_reference_(model, generator)
     return model.to(device).eval()
 
 

@@ -50,10 +50,16 @@ class HeadSpec:
         self.total_classes = sum(len(h) for h in self.heads)
 
 
+HM_INIT_BIAS = -2.19  # the heatmap's prior (reference center_head.py:230)
+
+
 class _BlockDiagConv(nn.Module):
     """3x3 conv with ``num_heads`` groups: weight (n·co, cin/n, 3, 3), bias
     (n·co,). The JAX package runs it as a dense conv with a block-diagonal
-    kernel; the numbers are the same."""
+    kernel; the numbers are the same. ``kernel_init`` and ``bias_init`` name
+    the reference's laws (``layers.init_reference_``)."""
+
+    kernel_init, bias_init = "conv", 0.0
 
     def __init__(self, in_ch: int, num_heads: int, out_per_head: int):
         super().__init__()
@@ -69,16 +75,23 @@ class _BlockDiagConv(nn.Module):
 
 class StackedSubHead(nn.Module):
     """One subhead type across all task heads: conv_0 (shared -> n·shared) +
-    bn_0, then conv_out (grouped). Run through ``CenterHead``'s merged form."""
+    bn_0, then conv_out (grouped). Run through ``CenterHead``'s merged form.
+    ``init_bias`` is the reference's field: set (``hm``, -2.19), the output
+    bias starts there and both kernels keep the conv default; unset, both
+    kernels are kaiming-normal and the bias 0."""
 
     def __init__(self, shared_channels: int, num_heads: int, out_channels: int,
-                 use_bias: bool = True):
+                 use_bias: bool = True, init_bias=None):
         super().__init__()
         self.num_heads, self.out_channels = num_heads, out_channels
         self.conv_0 = Conv2dTorch(shared_channels, num_heads * shared_channels, 3, 1, 1,
                                   use_bias=use_bias)
         self.bn_0 = BatchNormTorch(num_heads * shared_channels)
         self.conv_out = _BlockDiagConv(num_heads * shared_channels, num_heads, out_channels)
+        if init_bias is None:
+            self.conv_0.conv.kernel_init = self.conv_out.kernel_init = "kaiming"
+        else:
+            self.conv_out.bias_init = init_bias
 
     def tail(self, hidden):
         y = self.conv_out(hidden)
@@ -105,7 +118,8 @@ class CenterHead(nn.Module):
         out_ch = dict(REG_HEADS, hm=spec.max_cls)
         for name in self.sub_names:
             self.add_module(name, StackedSubHead(shared_channels, n, out_ch[name],
-                                                 use_bias_before_norm))
+                                                 use_bias_before_norm,
+                                                 HM_INIT_BIAS if name == "hm" else None))
 
     def forward(self, spatial_features_2d) -> Dict[str, torch.Tensor]:
         x = torch.relu(self.shared_bn(self.shared_conv(spatial_features_2d)))

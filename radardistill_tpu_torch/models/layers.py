@@ -11,8 +11,10 @@ are used, so one model serves the float32 reference and the bfloat16 path.
 The BatchNorms follow ``nn.Module.training``: in eval mode they read their
 running statistics, in train mode they normalize with the batch's statistics
 and update the running ones in place (the detector keeps frozen scopes in
-eval mode). Parameters are created empty; ``init_random_`` fills a model from an explicit
-``torch.Generator``.
+eval mode). Parameters are created empty; ``init_reference_`` draws them
+from the reference's initializers (``build_network(..., generator=g)`` calls
+it), ``init_random_`` fills a test model with values away from the defaults;
+both take an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -122,7 +124,11 @@ def max_pool_mask(mask, kernel: int = 3, stride: int = 2, padding: int = 1):
 
 
 class ConvParams(nn.Module):
-    """Conv weight (O, I/groups, k, k) and optional bias — the ``conv`` scope."""
+    """Conv weight (O, I/groups, k, k) and optional bias — the ``conv`` scope.
+    ``kernel_init``: the reference's law for the weight, ``"conv"`` (torch's
+    Conv2d default) or ``"kaiming"`` (the head's regression subheads)."""
+
+    kernel_init = "conv"
 
     def __init__(self, in_ch, out_ch, kernel_size, groups=1, use_bias=False):
         super().__init__()
@@ -364,4 +370,65 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif name.endswith("running_var"):
                 uni(b, 0.25)
                 b.add_(1.0)
+    return model
+
+
+# ------------------------------------------------- the reference's initializers
+
+
+def _fan_in(mod: nn.Module, leaf: str, p: torch.Tensor) -> int:
+    """fan_in as the reference computes it from its HWIO kernel (k, k, I, O)
+    (a Dense kernel: (I, O)), read off the port's layout of the same leaf."""
+    if leaf in ("kernel", "down_weight"):  # HWIO already
+        return p.shape[0] * p.shape[1] * p.shape[2]
+    if isinstance(mod, ConvTranspose2dTorch):  # (I, O, k, k)
+        return p.shape[0] * p.shape[2] * p.shape[3]
+    return math.prod(p.shape[1:])  # (O, I/groups, k, k) or Dense (O, I)
+
+
+def init_reference_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter from the law the JAX package's ``model.init``
+    draws it from, using ``generator`` (the numbers differ from JAX's; the
+    laws are the same):
+
+    - conv kernels (``Conv2dTorch``, ``ConvTranspose2dTorch``, the HWIO
+      ``kernel`` holders, the DCN's ``down_weight``): torch's Conv2d default,
+      uniform on +-1/sqrt(fan_in) (``conv_kernel_init_torch``);
+    - the head's regression subheads (``conv_0``, ``conv_out``):
+      ``kaiming_normal_torch``, normal with std sqrt(2 / fan_in); ``hm`` keeps
+      the conv default;
+    - ``Dense`` kernels: flax's default, lecun normal (a normal truncated at
+      +-2 std with std sqrt(1 / fan_in) after the truncation);
+    - biases 0, except the ``hm`` output bias -2.19; BN and LayerNorm scales 1
+      and shifts 0, running means 0 and variances 1; GRN gamma and beta 0; the
+      DCN's frozen ``down_bias`` 0.
+
+    fan_in is the reference's: kernel height x width x input channels (per
+    group). Returns ``model``."""
+    with torch.no_grad():
+        for mod in model.modules():
+            for leaf, p in mod.named_parameters(recurse=False):
+                if p.dim() >= 2 and leaf not in ("gamma", "beta"):
+                    fan_in = _fan_in(mod, leaf, p)
+                    if isinstance(mod, Dense):
+                        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                        v = nn.init.trunc_normal_(torch.empty(p.shape), 0.0, std, -2 * std,
+                                                  2 * std, generator=generator)
+                    elif getattr(mod, "kernel_init", "conv") == "kaiming":
+                        v = torch.randn(p.shape, generator=generator) * math.sqrt(2.0 / fan_in)
+                    else:
+                        bound = 1.0 / math.sqrt(fan_in)
+                        v = torch.rand(p.shape, generator=generator) * (2 * bound) - bound
+                    p.copy_(v)
+                elif leaf == "weight":  # BN / LayerNorm scale
+                    p.fill_(1.0)
+                elif leaf == "bias":
+                    p.fill_(getattr(mod, "bias_init", 0.0))
+                else:  # GRN gamma / beta, the DCN's down_bias
+                    p.zero_()
+        for name, b in model.named_buffers():
+            if name.endswith("running_mean"):
+                b.zero_()
+            elif name.endswith("running_var"):
+                b.fill_(1.0)
     return model

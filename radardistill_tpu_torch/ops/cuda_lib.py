@@ -19,8 +19,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("expand.cu", "dcn_sample.cu", "dcn_offset_grad.cu", "dcn_input_grad.cu",
-           "conv_block.cu", "conv_block_fp.cu", "gather_win.cu", "conv_probe.cu", "mma_rate.cu")
-HEADERS = ("conv_tile.cuh", "wgmma_ops.cuh")  # included by the conv and probe sources
+           "conv_block.cu", "conv_block_fp.cu", "gather_win.cu", "conv_probe.cu", "mma_rate.cu",
+           "conv3x3_wgmma.cu")
+# included by the conv and probe sources
+HEADERS = ("conv_tile.cuh", "wgmma_ops.cuh", "tma_ops.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "radardistill_tpu_torch"
 LIB_PATH = BUILD_DIR / "librdt_kernels.so"
 NVCC_FLAGS = (
@@ -112,8 +114,8 @@ def lib() -> ctypes.CDLL:
             so.rdt_gather_rows_windowed.restype = i32
             so.rdt_conv_probe.argtypes = [p, p, p, p, *([i32] * 8), p]
             so.rdt_conv_probe.restype = i32
-            so.rdt_conv_probe_wgmma.argtypes = [p, p, p, *([i32] * 7), p]
-            so.rdt_conv_probe_wgmma.restype = i32
+            so.rdt_conv3x3_wgmma.argtypes = [p, p, p, p, *([i32] * 11), p]
+            so.rdt_conv3x3_wgmma.restype = i32
             so.rdt_mma_rate_bn.argtypes = [i32] * 4
             so.rdt_mma_rate_bn.restype = i32
             so.rdt_mma_rate.argtypes = [p, p, p, i32, i32, i32, ctypes.c_longlong,

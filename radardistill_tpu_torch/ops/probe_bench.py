@@ -18,7 +18,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .probes import (ROUTES, conv_probe, conv_probe_plain, mma_rate, mma_rate_plain)
+from . import conv3x3_wgmma
+from .probes import (ROUTES, conv_probe, conv_probe_plain, mma_rate, mma_rate_plain,
+                     prepare_taps)
 
 PEAK_BYTES = 3.35e12
 # operations/s of the tensor cores, dense
@@ -143,11 +145,24 @@ def _conv_operands(shape, int8, dev, gen):
     return F.pad(x, (0, 0, 0, 0, 1, 1)).to(dev), k.to(dev), a
 
 
+def _launch_alone_ms(xp, k, mode, a, got, iters):
+    """The ``wgmma`` route's launch alone: the taps prepared and the output
+    allocated outside the timed loop (which the wrapper's time includes)."""
+    kt, out = prepare_taps(k), torch.empty_like(got)
+    relu = k.shape[-1] == 128  # the wrapper's default
+    fn = lambda: conv3x3_wgmma.launch(xp, kt, out, mode, padded=True, scale=a,  # noqa: E731
+                                      relu=relu)
+    fn()
+    if not torch.equal(out, got):
+        raise RuntimeError(f"conv_probe {mode}: the bare launch differs from the wrapper")
+    return cuda_ms(fn, iters)
+
+
 def conv_probe_table(dev, iters=5):
-    """``dots`` and ``conv`` on both routes and ``int8`` at every shape:
-    compared with the plain version, then timed; cuDNN's bfloat16
-    channels-last ``F.conv2d`` beside ``conv``. Prints one line and returns one record per
-    (shape, mode, route)."""
+    """The three modes on both routes at every shape: compared with the plain
+    version, then timed (the ``wgmma`` route also by its launch alone);
+    cuDNN's bfloat16 channels-last ``F.conv2d`` beside ``conv``. Prints one
+    line and returns one record per (shape, mode, route)."""
     gen = torch.Generator().manual_seed(21)
     recs = []
     for shape in CONV_SHAPES:
@@ -155,36 +170,42 @@ def conv_probe_table(dev, iters=5):
         ops = 2.0 * b * h * w * 9 * c * co
         operands = {False: _conv_operands(shape, False, dev, gen),
                     True: _conv_operands(shape, True, dev, gen)}
-        for mode, route in (("dots", "mma_sync"), ("dots", "wgmma"), ("conv", "mma_sync"),
-                            ("conv", "wgmma"), ("int8", "mma_sync")):
+        for mode in ("dots", "conv", "int8"):
             xp, k, a = operands[mode == "int8"]
             tname = "int8" if mode == "int8" else "bfloat16"
             args = (xp, k, mode, a) if mode == "int8" else (xp, k, mode)
-            got, want = conv_probe(*args, route=route), conv_probe_plain(*args)
-            torch.cuda.synchronize()
-            err, ref = _max_err(got, want, f"conv_probe {mode} {route} {shape}", TOL[tname])
-            del want
-            ms = cuda_ms(lambda: conv_probe(*args, route=route), iters)
+            want = conv_probe_plain(*args)
             plain_ms = cuda_ms(lambda: conv_probe_plain(*args), 1)
             lib_ms = None
             if mode == "conv":
                 xn = xp[:, 1:-1].contiguous().permute(0, 3, 1, 2)  # NCHW view, channels last
                 wn = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                 lib_ms = cuda_ms(lambda: F.conv2d(xn, wn, padding=1), iters)
-            rate = ops / ms / 1e9
-            nbytes = (xp.numel() + k.numel() + got.numel()) * xp.element_size()
-            rec = {"shape": shape, "mode": mode, "route": route, "type": tname,
-                   "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain_ms, "library_ms": lib_ms, "tops": rate,
-                   "share_of_peak": rate * 1e12 / PEAK_OPS[tname],
-                   "ops_ms": ops / PEAK_OPS[tname] * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3}
-            recs.append(rec)
-            unit = "TOP/s" if mode == "int8" else "TFLOP/s"
-            spread = (f", {100 * float((got > -127).float().mean()):.0f}% of codes above -127"
-                      if mode == "int8" else "")
-            lib = "" if lib_ms is None else f", cuDNN F.conv2d {lib_ms:.4f} ms"
-            print(f"P1 conv_probe {mode:4s} {route:8s} xp (2, {h}+2, {w}, {c}) Co {co:3d}: "
-                  f"{ms:8.4f} ms, {rate:6.1f} {unit} ({100 * rec['share_of_peak']:4.1f}% of peak), "
-                  f"max_abs_err {err:.3e} (limit {TOL[tname] * ref:.3e}){spread}; plain "
-                  f"{plain_ms:.3f} ms{lib}")
+            for route in ROUTES:
+                got = conv_probe(*args, route=route)
+                torch.cuda.synchronize()
+                err, ref = _max_err(got, want, f"conv_probe {mode} {route} {shape}", TOL[tname])
+                ms = cuda_ms(lambda: conv_probe(*args, route=route), iters)
+                launch_ms = (_launch_alone_ms(xp, k, mode, a, got, iters) if route == "wgmma"
+                             else None)
+                rate = ops / ms / 1e9
+                nbytes = (xp.numel() + k.numel() + got.numel()) * xp.element_size()
+                rec = {"shape": shape, "mode": mode, "route": route, "type": tname,
+                       "max_abs_err": err, "ms": ms, "launch_ms": launch_ms,
+                       "plain_ms": plain_ms, "library_ms": lib_ms, "tops": rate,
+                       "share_of_peak": rate * 1e12 / PEAK_OPS[tname],
+                       "ops_ms": ops / PEAK_OPS[tname] * 1e3,
+                       "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+                recs.append(rec)
+                unit = "TOP/s" if mode == "int8" else "TFLOP/s"
+                spread = (f", {100 * float((got > -127).float().mean()):.0f}% of codes above -127"
+                          if mode == "int8" else "")
+                alone = ("" if launch_ms is None else
+                         f", launch alone {launch_ms:.4f} ms ({ops / launch_ms / 1e9:.1f} {unit})")
+                lib = "" if lib_ms is None else f", cuDNN F.conv2d {lib_ms:.4f} ms"
+                print(f"P1 conv_probe {mode:4s} {route:8s} xp ({b}, {h}+2, {w}, {c}) Co {co:3d}: "
+                      f"{ms:8.4f} ms, {rate:6.1f} {unit} ({100 * rec['share_of_peak']:4.1f}% of "
+                      f"peak){alone}, max_abs_err {err:.3e} (limit {TOL[tname] * ref:.3e}){spread};"
+                      f" plain {plain_ms:.3f} ms{lib}")
+            del want
     return recs

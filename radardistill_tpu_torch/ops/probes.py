@@ -7,9 +7,10 @@ resident on chip). No model calls them; ``tools/torch_conv_probe.py`` and
 ``tools/torch_mma_rate.py`` drive them and print the rate tables.
 
 ``mma_rate`` (``csrc/mma_rate.cu``) computes ``sum_r round(A + r) @ B`` on two
-routes, ``mma.sync`` and ``wgmma.mma_async``; ``conv_probe``
-(``csrc/conv_probe.cu``) computes one of three functions of a pre-padded
-activation (``conv``, ``dots``, ``int8``) through one load path. A CPU tensor
+routes, ``mma.sync`` and ``wgmma.mma_async``; ``conv_probe`` computes one
+of three functions of a pre-padded activation (``conv``, ``dots``, ``int8``)
+on two routes as well: ``csrc/conv_probe.cu`` (``mma.sync``, one load path for
+the three) and the conv mainloop of ``csrc/conv3x3_wgmma.cu``. A CPU tensor
 takes the plain PyTorch version beside each; a CUDA tensor launches the kernel,
 or raises if it cannot.
 """
@@ -19,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import cuda_lib
+from . import conv3x3_wgmma, cuda_lib
 from .conv_block import _check_on_card, _full_float32_matmul
 
 ROUTES = ("mma_sync", "wgmma")
@@ -140,6 +141,13 @@ def conv_probe_plain(xp, k, mode, a=None, relu=None):
     return torch.clamp(torch.round(y * 0.37) - 127.0, -127.0, 127.0).to(torch.int8)
 
 
+def prepare_taps(k):
+    """The nine taps (3, 3, C, Co) or (9, C, Co) as the ``wgmma`` route reads
+    them, K-major (9, Co, C): one transposing copy."""
+    c, co = k.shape[-2:]
+    return k.reshape(9, c, co).transpose(1, 2).contiguous()
+
+
 def conv_probe(xp, k, mode, a=None, relu=None, route="mma_sync"):
     """xp (B, H + 2, W, C), the activation with one zero row above and one
     below; k (3, 3, C, Co) or (9, C, Co), the nine taps -> (B, H, W, Co).
@@ -155,9 +163,11 @@ def conv_probe(xp, k, mode, a=None, relu=None, route="mma_sync"):
 
     The CUDA kernel takes bfloat16 (C a multiple of 16) or, for ``"int8"``,
     int8 (C a multiple of 32), and Co a multiple of 128; the plain version
-    also takes float32 and any width. ``route="wgmma"`` runs ``conv`` and
-    ``dots`` through ``wgmma.mma_async`` instead of ``mma.sync`` (C a multiple
-    of 64; the taps are transposed to (9, Co, C) first, by a stock op)."""
+    also takes float32 and any width. ``route="wgmma"`` runs the three modes
+    on the TMA + ``wgmma.mma_async`` conv mainloop (``ops/conv3x3_wgmma.py``)
+    instead of ``mma.sync``: C a multiple of 64 (int8: 128), Co of 128; the
+    taps are transposed to (9, Co, C) first, by a stock op
+    (:func:`prepare_taps`)."""
     if xp.device.type == "cpu":
         return conv_probe_plain(xp, k, mode, a, relu)
     _check_probe(xp, k, mode, a)
@@ -166,23 +176,21 @@ def conv_probe(xp, k, mode, a=None, relu=None, route="mma_sync"):
         raise ValueError(f"conv_probe: route {route!r} is not one of {ROUTES}")
     b, hp, w, c = xp.shape
     co = k.shape[-1]
+    relu = co == 128 if relu is None else relu
     if route == "wgmma":
-        if mode == "int8" or xp.dtype != torch.bfloat16 or c % 64 or co % 128:
-            raise ValueError(f"conv_probe {mode}: the wgmma route takes conv and dots in bfloat16 "
-                             f"with C % 64 == 0 and Co % 128 == 0, not {xp.dtype}, C {c}, Co {co}")
-        kt = k.reshape(9, c, co).transpose(1, 2).contiguous()
+        if xp.dtype == torch.float32 or not conv3x3_wgmma.takes(c, co, mode == "int8"):
+            raise ValueError(f"conv_probe {mode}: the wgmma route takes bfloat16 with C % 64 == 0 "
+                             f"(int8 with C % 128 == 0) and Co % 128 == 0, not {xp.dtype}, C {c}, "
+                             f"Co {co}")
+        kt = prepare_taps(k)
         out = torch.empty((b, hp - 2, w, co), dtype=xp.dtype, device=xp.device)
-        rc = cuda_lib.lib().rdt_conv_probe_wgmma(
-            xp.data_ptr(), kt.data_ptr(), out.data_ptr(), b, hp - 2, w, c, co, MODES.index(mode),
-            xp.device.index, cuda_lib.stream_of(xp))
-        cuda_lib.check(rc, "conv_probe (wgmma)")
+        conv3x3_wgmma.launch(xp, kt, out, mode, padded=True, scale=a, relu=relu)
         conv_probe.launches += 1
         return out
     if xp.dtype == torch.float32 or c % (32 if mode == "int8" else 16) or co % 128:
         raise ValueError(f"conv_probe {mode}: the kernel takes bfloat16 with C % 16 == 0 (int8 "
                          f"with C % 32 == 0) and Co % 128 == 0, not {xp.dtype}, C {c}, Co {co}")
     out = torch.empty((b, hp - 2, w, co), dtype=xp.dtype, device=xp.device)
-    relu = co == 128 if relu is None else relu
     rc = cuda_lib.lib().rdt_conv_probe(
         xp.data_ptr(), k.data_ptr(), None if a is None else a.data_ptr(), out.data_ptr(), b, hp - 2,
         w, c, co, MODES.index(mode), int(relu), xp.device.index, cuda_lib.stream_of(xp))

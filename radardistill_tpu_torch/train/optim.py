@@ -72,13 +72,16 @@ def freeze_mask(params: Iterable[Tuple[str, nn.Parameter]], frozen_scopes=()) ->
 
 class OneCycleAdamW:
     """``clip_by_global_norm(clip) -> AdamW(lr(t), b1(t), b2, wd)`` over the
-    trainable parameters. ``count`` is the number of updates made."""
+    trainable parameters. ``count`` is the number of updates made,
+    ``grad_norm`` the gradients' global norm before the clip in the last one
+    (a tensor on the parameters' device; None before the first)."""
 
     def __init__(self, params, lr_sched, mom_sched, b2: float, weight_decay: float,
                  clip=None, eps: float = 1e-8):
         self.params = list(params)
         self.lr_sched, self.mom_sched, self.clip = lr_sched, mom_sched, clip
         self.count = 0
+        self.grad_norm = None
         self.adamw = torch.optim.AdamW(self.params, lr=lr_sched(0), betas=(mom_sched(0), b2),
                                        eps=eps, weight_decay=weight_decay)
 
@@ -103,6 +106,7 @@ class OneCycleAdamW:
         group["betas"] = (self.mom_sched(self.count), group["betas"][1])
         self.adamw.step()
         self.count += 1
+        self.grad_norm = norm
         return norm
 
 

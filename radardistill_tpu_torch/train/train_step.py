@@ -44,8 +44,9 @@ def make_train_step(model: nn.Module, optimizer: OneCycleAdamW, model_cfg, class
                     voxel_size, point_cloud_range, mesh=None, sync_bn=True
                     ) -> Callable[[Dict[str, Any]], Dict[str, torch.Tensor]]:
     """Returns ``step(batch) -> metrics`` (``loss``, the loss terms,
-    ``grad_norm``, ``dcn_offset_sat``, ``as_overflow``), every value a tensor
-    on the model's device: nothing in the step waits for the device. It runs
+    ``dcn_offset_sat``, ``as_overflow``: the reference's keys), every value a
+    tensor on the model's device: nothing in the step waits for the device.
+    The gradients' global norm is ``optimizer.grad_norm``. It runs
     where ``model`` and ``batch`` live: the card unless the model was built
     with ``device="cpu"``. ``step.state`` is the ``TrainState``."""
     if mesh is not None:
@@ -65,7 +66,7 @@ def make_train_step(model: nn.Module, optimizer: OneCycleAdamW, model_cfg, class
         if sat is not None:
             tb["dcn_offset_sat"] = sat
         loss.backward()
-        tb["grad_norm"] = optimizer.step()
+        optimizer.step()
         state.step += 1
         return {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}
 

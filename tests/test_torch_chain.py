@@ -46,6 +46,11 @@ from radardistill_tpu_torch.ops import int8_conv as ic
 from radardistill_tpu_torch.utils.production import TRAIN_YAML
 from tests.test_torch_conv_block import CODE_SHARE_LIMIT, _link
 
+# Six xdist workers share the machine's cores: one intra-op thread per worker
+# keeps torch's thread pools from oversubscribing them (the suite is bound by
+# its total CPU time). The tolerances here hold for any thread count.
+torch.set_num_threads(1)
+
 GRID = 64
 J_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 

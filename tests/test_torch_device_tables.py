@@ -54,6 +54,11 @@ from radardistill_tpu_torch.train.train_step import make_train_step
 from radardistill_tpu_torch.utils.production import TRAIN_YAML, VAL_YAML, production_cfg
 from tests.test_torch_slice import _perturb, _rel_l2, assert_same_detections
 
+# Six xdist workers share the machine's cores: one intra-op thread per worker
+# keeps torch's thread pools from oversubscribing them (the suite is bound by
+# its total CPU time). The tolerances here hold for any thread count.
+torch.set_num_threads(1)
+
 PC_RANGE = (-8.0, -6.0, -3.0, 8.0, 6.0, 3.0)
 VOXEL = (0.25, 0.25, 6.0)
 GRID_XY = (64, 48)  # (nx, ny)

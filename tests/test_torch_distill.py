@@ -41,6 +41,11 @@ from radardistill_tpu_torch.models.detector import batch_to_torch
 from radardistill_tpu_torch.utils.production import TRAIN_YAML, production_cfg
 from tests.test_torch_slice import _perturb, _rel_l2, assert_same_detections
 
+# Six xdist workers share the machine's cores: one intra-op thread per worker
+# keeps torch's thread pools from oversubscribing them (the suite is bound by
+# its total CPU time). The tolerances here hold for any thread count.
+torch.set_num_threads(1)
+
 GRID = 128
 TOL = {False: 1e-4, "static": 1e-3}
 TEACHER_FEATURES = ("x_conv4", "x_conv5", "spatial_features_2d", "spatial_features_2d_8x")

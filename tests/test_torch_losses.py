@@ -32,6 +32,11 @@ from radardistill_tpu_torch.ops import geometry as tgeo
 from radardistill_tpu_torch.train import optim as toptim
 from radardistill_tpu_torch.utils.production import TRAIN_YAML, production_cfg
 
+# Six xdist workers share the machine's cores: one intra-op thread per worker
+# keeps torch's thread pools from oversubscribing them (the suite is bound by
+# its total CPU time). The tolerances here hold for any thread count.
+torch.set_num_threads(1)
+
 HEADS = [["car"], ["truck", "construction_vehicle"], ["bus", "trailer"], ["barrier"],
          ["motorcycle", "bicycle"], ["pedestrian", "traffic_cone"]]
 CLASSES = ["car", "truck", "construction_vehicle", "bus", "trailer", "barrier", "motorcycle",

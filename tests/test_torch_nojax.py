@@ -27,6 +27,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import json, sys
 import torch
+torch.set_num_threads(1)  # beside the other test workers, as they run
 from radardistill_tpu_torch.data.synthetic import make_batch
 from radardistill_tpu_torch.models import build_network
 from radardistill_tpu_torch.models.detector import batch_to_torch

@@ -306,7 +306,8 @@ def test_gather_rows_windowed_kernel_matches_plain_on_card(cuda, dtype, c, n_win
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode,route,c,co", [
     ("conv", "mma_sync", 64, 128), ("dots", "mma_sync", 64, 128), ("int8", "mma_sync", 64, 128),
-    ("conv", "wgmma", 64, 128), ("dots", "wgmma", 64, 128), ("conv", "wgmma", 128, 256)])
+    ("conv", "wgmma", 64, 128), ("dots", "wgmma", 64, 128), ("conv", "wgmma", 128, 256),
+    ("int8", "wgmma", 128, 128)])
 def test_conv_probe_kernel_matches_plain_on_card(cuda, mode, route, c, co):
     gen = torch.Generator().manual_seed(1)
     if mode == "int8":
@@ -342,3 +343,51 @@ def test_mma_rate_kernel_matches_plain_on_card(cuda, route, dtype, tol, m, k, n)
     want = probes.mma_rate_plain(a, b)
     err = (got.double() - want.double()).abs().max().item()
     assert got.dtype == want.dtype and err <= tol * want.double().abs().max().item()
+
+
+# (mode, B, H, W, C, Co) on the wgmma route: ragged H and W (tiles are 4 x 64
+# pixels), C 64-256 (int8: 128, 256), Co 128 and 512, B 1 and 2
+WGMMA_CASES = [("conv", 1, 19, 37, 64, 128), ("conv", 2, 13, 130, 128, 512),
+               ("conv", 2, 6, 64, 256, 128), ("dots", 1, 7, 90, 64, 512),
+               ("dots", 2, 21, 70, 256, 128), ("int8", 1, 19, 37, 128, 128),
+               ("int8", 2, 5, 130, 256, 512), ("int8", 2, 22, 66, 128, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,b,h,w,c,co", WGMMA_CASES)
+def test_conv_probe_wgmma_route_matches_plain_on_card(cuda, mode, b, h, w, c, co):
+    """bfloat16 within 1e-2 x max|ref|; int8 every code equal, with and
+    without the relu."""
+    gen = torch.Generator().manual_seed(b * h + w + c)
+    if mode == "int8":
+        xp = torch.randint(-127, 128, (b, h + 2, w, c), generator=gen, dtype=torch.int8).to(cuda)
+        k = torch.randint(-127, 128, (3, 3, c, co), generator=gen, dtype=torch.int8).to(cuda)
+        a = (torch.randn(co, generator=gen) * 2e-4 * 128 / c).to(cuda)
+        cases = [(xp, k, mode, a, relu) for relu in (True, False)]
+    else:
+        xp = torch.randn(b, h + 2, w, c, generator=gen).to(cuda, torch.bfloat16)
+        k = (torch.randn(3, 3, c, co, generator=gen) * 0.05).to(cuda, torch.bfloat16)
+        cases = [(xp, k, mode)]
+    for args in cases:
+        before = probes.conv_probe.launches
+        got, want = probes.conv_probe(*args, route="wgmma"), probes.conv_probe_plain(*args)
+        assert probes.conv_probe.launches == before + 1
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if mode == "int8":
+            assert torch.equal(got, want)
+            assert len(torch.unique(got)) > 50  # the codes spread
+        else:
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,c,co", [("conv", 32, 128), ("dots", 64, 64), ("int8", 64, 128)])
+def test_conv_probe_wgmma_route_rejects_other_widths_on_card(cuda, mode, c, co):
+    dtype = torch.int8 if mode == "int8" else torch.bfloat16
+    xp = torch.zeros(1, 6, 8, c, device=cuda, dtype=dtype)
+    k = torch.zeros(3, 3, c, co, device=cuda, dtype=dtype)
+    a = torch.ones(co, device=cuda) if mode == "int8" else None
+    with pytest.raises(ValueError, match="wgmma route"):
+        probes.conv_probe(xp, k, mode, a, route="wgmma")

@@ -34,6 +34,11 @@ from radardistill_tpu_torch.models import build_network
 from radardistill_tpu_torch.models.center_head import decode_and_nms
 from radardistill_tpu_torch.models.detector import batch_to_torch
 
+# Six xdist workers share the machine's cores: one intra-op thread per worker
+# keeps torch's thread pools from oversubscribing them (the suite is bound by
+# its total CPU time). The tolerances here hold for any thread count.
+torch.set_num_threads(1)
+
 FEATURES = ("radar_x_conv4", "radar_spatial_features_8x_2", "radar_spatial_features_8x_1",
             "radar_spatial_features_2d", "radar_spatial_features_2d_8x")
 PREDS = ("center", "center_z", "dim", "rot", "vel", "iou", "hm")

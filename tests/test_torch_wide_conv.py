@@ -110,6 +110,11 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+def _bf16_on_card(ci, co):
+    """Shapes the bfloat16 card kernel takes for y and dx (else it raises)."""
+    return ci % 128 == 0 and co % 128 == 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)],
                          ids=["f32", "bf16"])
@@ -120,6 +125,10 @@ def test_kernel_matches_plain_and_autograd_on_card(cuda, h, w, ci, co, dtype, to
     xt = torch.from_numpy(x).to(cuda, dtype).requires_grad_()
     kt = torch.from_numpy(k).to(cuda).requires_grad_()
     ctt = torch.from_numpy(ct).to(cuda, dtype)
+    if dtype == torch.bfloat16 and not _bf16_on_card(ci, co):
+        with pytest.raises(ValueError, match="conv3x3_wide"):
+            torch.autograd.grad(wc.conv3x3_wide(xt, kt), (xt, kt), ctt)
+        return
     before = wc.conv3x3_wide.launches, cb.conv_block_fp.launches
     y = wc.conv3x3_wide(xt, kt)
     gx, gk = torch.autograd.grad(y, (xt, kt), ctt)
@@ -134,3 +143,44 @@ def test_kernel_matches_plain_and_autograd_on_card(cuda, h, w, ci, co, dtype, to
                                  ("dW", gk, rk, max(tol, 1e-4))):
         err, ref = (got.float() - want.float()).abs().max(), want.float().abs().max()
         assert err <= t * ref, (name, float(err), float(ref))
+
+
+# (B, H, W, C, Co): ragged H and W (tiles are 4 x 64 pixels), C 64-256, Co
+# 128-512, B 1 and 2; C 64 takes the forward only (dx would have N = 64)
+WGMMA_SHAPES = [(1, 19, 37, 64, 128), (2, 21, 70, 128, 128), (1, 6, 130, 256, 512),
+                (2, 9, 64, 128, 256), (1, 3, 200, 256, 128), (2, 45, 45, 256, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,ci,co", WGMMA_SHAPES)
+def test_wgmma_route_matches_autograd_of_conv2d_on_card(cuda, b, h, w, ci, co):
+    """bfloat16 y and dx on the TMA + wgmma mainloop against autograd through
+    ``F.conv2d`` in float32 of the same bfloat16 values (TF32 off): within
+    1e-2 x max|ref|, one bfloat16 rounding of a differently ordered sum."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, k, ct = _inputs(b * h + w + ci, h, w, ci, co, b=b)
+    with_dx = ci % 128 == 0
+    xt = torch.from_numpy(x).to(cuda, torch.bfloat16).requires_grad_(with_dx)
+    kt = torch.from_numpy(k).to(cuda, torch.bfloat16)
+    ctt = torch.from_numpy(ct).to(cuda, torch.bfloat16)
+    before = wc.conv3x3_wide.launches
+    y = wc.conv3x3_wide(xt, kt)
+    got = [y] + ([torch.autograd.grad(y, xt, ctt)[0]] if with_dx else [])
+    assert wc.conv3x3_wide.launches == before + len(got)
+    xr = xt.detach().float().requires_grad_()
+    yr = F.conv2d(xr.permute(0, 3, 1, 2), kt.float().permute(3, 2, 0, 1),
+                  padding=1).permute(0, 2, 3, 1)
+    want = [yr] + ([torch.autograd.grad(yr, xr, ctt.float())[0]] if with_dx else [])
+    torch.cuda.synchronize()
+    for name, g, r in zip(("y", "dx"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        err, ref = (g.float() - r).abs().max().item(), r.abs().max().item()
+        assert err <= 1e-2 * ref, (name, err, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ci,co", [(32, 128), (128, 64), (96, 128)])
+def test_wgmma_route_rejects_other_widths_on_card(cuda, ci, co):
+    x = torch.zeros(1, 8, 8, ci, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C % 64 == 0 and Co % 128 == 0"):
+        wc.conv3x3_wide(x, torch.zeros(3, 3, ci, co, device=cuda))

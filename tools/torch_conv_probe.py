@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """What a 3x3 convolution costs beyond its nine products, on one NVIDIA GPU.
 
-The PyTorch + CUDA counterpart of ``tools/pallas_conv_proto.py``: the kernel
-``radardistill_tpu_torch/csrc/conv_probe.cu`` in its three modes (``dots``:
-nine tap products without shifted views; ``conv``: the convolution; ``int8``:
-the nine products in int8 with a quantizing epilogue) at the TPU tool's shape,
+The PyTorch + CUDA counterpart of ``tools/pallas_conv_proto.py``: P1's three
+modes (``dots``: nine tap products without shifted views; ``conv``: the
+convolution; ``int8``: the nine products in int8 with a quantizing epilogue)
+on its two routes, ``mma.sync`` (``radardistill_tpu_torch/csrc/conv_probe.cu``)
+and the TMA + ``wgmma`` conv mainloop (``csrc/conv3x3_wgmma.cu``, also timed
+by its launch alone), at the TPU tool's shape,
 (2, 720 + 2, 720, 128) x 128 and x 512, and at the other 3x3 links of the
 teacher's float chain. Each case is first held against its plain PyTorch
 version; then one line per case gives the time, the rate and its share of the
