@@ -37,7 +37,11 @@ It imports only ``torch`` and ``radardistill_tpu_torch``. Phases:
   5. K1 ``conv_block`` vs its plain version at the teacher's stage-1 link,
      x (2, 720, 720, 128) int8, kernel (3, 3, 128, 128), 4 mask phases: a
      chain's first link (zero 0, no residual) and a later one (zero 127, with
-     residual); every int8 code equal;
+     residual), on the route the dispatch rule gives it (the ``wgmma`` conv
+     mainloop, its counter moved); every int8 code equal, and equal to the
+     old resident ``mma.sync`` variant's; the bfloat16 output within 1e-2 x
+     max|ref|; the wrapper, the bare launch, the resident variant and the
+     plain version timed in one run;
   6. val path, bfloat16: launch counts reset just before one forward and read
      just after (K5 x 1, K2 x 3); outputs finite and of the expected shapes,
      ``as_overflow == 0``; p50 latency over 20 synced runs;
@@ -45,7 +49,8 @@ It imports only ``torch`` and ``radardistill_tpu_torch``. Phases:
      path (the same model on the CPU, where every wrapper takes its plain
      version), ``radar_preds`` rel-L2 <= 1e-4 per head;
   8. distillation forward, bfloat16: counts reset and read the same way
-     (K1 x 4, K5 x 2: the teacher's entry and the student's handoff, K2 x 3);
+     (K1 x 4, all four on the ``wgmma`` route; K5 x 2: the teacher's entry and
+     the student's handoff, K2 x 3);
      every output finite, ``as_overflow == 0``; p50 over 10 synced runs;
   9. distillation forward, float32 with TF32 off, kernel path on the card vs
      plain path on the CPU. The plain K1 on a CPU at 720² x 2 is far too slow,
@@ -54,7 +59,7 @@ It imports only ``torch`` and ``radardistill_tpu_torch``. Phases:
      ``lidar_preds`` rel-L2 <= 1e-3 (the int8 chain: a code may flip where the
      card and the CPU round a scale differently), ``radar_preds`` <= 1e-4;
  10. train step, bfloat16, 1440², batch 2: counts reset, one warm step, counts
-     read (K1 x 4, K5 x 2, K2 x 3, K3 x 3, K4 x 3 per step), then 10 timed
+     read (K1 x 4 on ``wgmma``, K5 x 2, K2 x 3, K3 x 3, K4 x 3 per step), then 10 timed
      steps with one synchronize each; the loss finite on every step,
      ``as_overflow == 0``, every trainable parameter changed and every frozen
      parameter and statistic bit-equal afterwards; p50, samples/s, peak memory;
@@ -74,10 +79,11 @@ It imports only ``torch`` and ``radardistill_tpu_torch``. Phases:
 
 Phases 12-19, the deep chains of the teacher:
 
- 12. K1's streamed variant vs its plain version at every link shape of the
-     ``INT8_STAGES: 5`` chain beyond stage 1, among them (2, 180, 180, 256) x
-     (3, 3, 256, 256) and (2, 180, 180, 512) x (2, 2, 512, 256) whose weights
-     do not fit in shared memory: every int8 code equal;
+ 12. K1 vs its plain version at every link shape of the ``INT8_STAGES: 5``
+     chain beyond stage 1, each on the route the dispatch gives it (printed;
+     14 links on ``wgmma``, the five Co-64 links on the resident ``mma.sync``
+     variant): every int8 code equal; each timed as the wrapper and on the
+     device alone, the ``wgmma`` links also on their ``mma.sync`` variant;
  13. K7 ``chain_conv`` vs its plain version at the conv5 link, pre-padded
      (2, 91, 90, 1024) x (2, 2, 1024, 256) with an all-ones lane mask, and at a
      3x3 link with a per-channel mask and a residual: every code equal, and
@@ -95,16 +101,17 @@ Phases 12-19, the deep chains of the teacher:
      bare launches on prepared weights and preallocated outputs, whose
      results must equal the wrapper's; ``F.conv2d``'s time as its library
      call;
- 16. distillation forward, bfloat16, 1440², ``INT8_STAGES: 5``: K1 x 23,
-     K7 x 1, K6 x 0, K5 x 2, K2 x 3; finite outputs, p50;
- 17. the same with ``INT8_STAGES: 1`` + ``FP_STAGES: 5``: K1 x 4, K6 x 19,
+ 16. distillation forward, bfloat16, 1440², ``INT8_STAGES: 5``: K1 x 23
+     (18 on ``wgmma``, 5 on ``mma.sync``), K7 x 1, K6 x 0, K5 x 2, K2 x 3;
+     finite outputs, p50;
+ 17. the same with ``INT8_STAGES: 1`` + ``FP_STAGES: 5``: K1 x 4 (``wgmma``), K6 x 19,
      K7 x 0, K5 x 2, K2 x 3;
  18. both configurations in float32 at grid 512, card vs CPU (teacher features
      1e-3, ``radar_preds`` 1e-4; under ``INT8_STAGES: 5`` the teacher's bound
      is 5e-2, see below), and the ``INT8_STAGES: 5`` teacher once more with
      ``CONV_BLOCK_V1=1`` (every link through K7): features bit-equal;
  19. one warm and three timed train steps with the ``INT8_STAGES: 5`` teacher:
-     finite losses, K3 x 3 and K4 x 3 per step as before.
+     finite losses, K1 x 23 (18 + 5), K3 x 3 and K4 x 3 per step as before.
 
 Phases 20-24, the route without host tables and the last three kernels:
 
@@ -164,10 +171,17 @@ for K8 one pass over its 14 gathers (times summed), for P1 the ``conv`` mode at
 the ``wgmma`` route, with ``launches`` counting every case of their tables
 (bound of P1, P2: operations at the bfloat16 peak). ``launch_ms`` (K9 and P1;
 null for the others) is the time of the bare launches on prepared inputs and
-preallocated outputs, ``ms`` that of the wrapper. Any failed phase exits
-non-zero. The line before the last is the kernels record ``{"kernels":
-[{"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "launch_ms", "plain_ms",
-"bound_ms", "bound_by", "library_ms"}]}``; the last line is
+preallocated outputs, ``ms`` that of the wrapper (``launch_ms`` also for K1).
+``mma`` names the tensor-core instruction of a kernel that has one (K1: its
+stage-1 route). K1's record also carries ``old_route_ms``, the stage-1 links
+on the resident ``mma.sync`` variant in the same run, and ``deep_*``, the
+sums over the 19 deeper links of ``INT8_STAGES: 5`` on their routes
+(``deep_old_route_ms``: all 19 on ``mma.sync``; ``deep_device_*``: their
+device time with the host's enqueue hidden, as the wrappers of the links
+below 720² cost the host more than the card). Any failed phase exits non-zero. The line before the
+last is the kernels record ``{"kernels": [{"name", "route", "mma", "source",
+"replaces", "launches", "max_abs_err", "ms", "launch_ms", "plain_ms",
+"bound_ms", "bound_by", "library_ms", ...}]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -194,6 +208,13 @@ PEAK_F32_OPS = 67e12
 INT8_DEEP_LINKS = ((720, 128, 64, 2, 1, 0), (720, 64, 64, 3, 2, 2), (360, 256, 128, 2, 1, 0),
                    (360, 128, 128, 3, 2, 2), (180, 512, 256, 2, 1, 0), (180, 256, 256, 3, 2, 2),
                    (90, 256, 256, 3, 2, 2))  # + 4 stage-1 links, + K7 into conv5: 23 + 1
+# the tensor-core instruction of each kernel that has one (K1: its route at
+# the stage-1 links; the Co-64 links of INT8_STAGES: 5 stay on mma.sync)
+MMA_ROUTES = {"conv_block": "wgmma", "conv3x3_wide": "wgmma", "conv_probe": "wgmma",
+              "mma_rate": "wgmma", "conv_block_fp": "mma.sync", "chain_conv": "mma.sync"}
+# K1's launches in one distillation forward: the four stage-1 links, all on
+# the wgmma route
+K1_STAGE1 = {"conv_block": 4, "conv_block.wgmma": 4, "conv_block.mma_sync": 0}
 FP_LINKS = ((720, 64, 64, 3, 2, 2), (360, 256, 128, 2, 1, 0), (360, 128, 128, 3, 2, 2),
             (180, 512, 256, 2, 1, 0), (180, 256, 256, 3, 2, 2), (90, 1024, 256, 2, 1, 0),
             (90, 256, 256, 3, 2, 2))  # 19 launches
@@ -222,13 +243,32 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def paired_ms(torch, kernel_fn, plain_fn, iters=100, plain_iters=None):
+def device_ms(torch, fn, iters):
+    """Mean device time of one ``fn()`` with the host's enqueue hidden: the
+    stream sleeps first (about 30 ms) while the host enqueues all ``iters``
+    calls, so the events time the device's work back to back. A wrapper whose
+    launches cost the host more than its kernels cost the card reads its
+    device time here and its host time in :func:`cuda_ms`."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(60_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def paired_ms(torch, kernel_fn, plain_fn, iters=100, plain_iters=None, timer=cuda_ms):
     """(kernel ms, plain ms), measured plain, kernel, kernel, plain."""
     plain_iters = plain_iters or iters
-    p1 = cuda_ms(torch, plain_fn, plain_iters)
-    k1 = cuda_ms(torch, kernel_fn, iters)
-    k2 = cuda_ms(torch, kernel_fn, iters)
-    p2 = cuda_ms(torch, plain_fn, plain_iters)
+    p1 = timer(torch, plain_fn, plain_iters)
+    k1 = timer(torch, kernel_fn, iters)
+    k2 = timer(torch, kernel_fn, iters)
+    p2 = timer(torch, plain_fn, plain_iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -470,76 +510,143 @@ def int8_link_bound(link, mask_numel):
 
 
 def phase_k1(torch, dev):
+    """K1 at the teacher's stage-1 link on the route the dispatch gives it
+    (the ``wgmma`` conv mainloop), both link kinds: every int8 code equal to
+    the plain version, and to the old resident ``mma.sync`` variant's on the
+    same operands; the bfloat16 output within 1e-2 x max|ref|. Timed: the
+    wrapper, the bare launch on prepared operands, the resident variant and
+    the plain version, in one run."""
+    from radardistill_tpu_torch.ops import conv3x3_wgmma
     from radardistill_tpu_torch.ops.conv_block import (conv_block, conv_block_plain,
-                                                       int8_block_conv_v2)
+                                                       int8_block_conv_v2, link_constants,
+                                                       route_of, tap_sums)
 
-    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "launch_ms": 0.0, "old_route_ms": 0.0,
+           "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
     gen = torch.Generator().manual_seed(1)
+    resident = lambda *a, **k: conv_block(*a, variant="resident", **k)  # noqa: E731
+    if route_of(3, 128, 128, 4, torch.int8) != "wgmma":
+        raise RuntimeError("K1: the stage-1 link is not dispatched to the wgmma route")
     # the teacher's stage-1 shape: a chain's first link (zero 0, no residual)
     # and a later one (zero 127, with a residual carry)
     for zero, with_res in ((0.0, False), (127.0, True)):
         link = int8_link(torch, dev, gen, 2, 720, 720, 128, 128, 3, 4, zero, with_res)
-        run = lambda block: int8_block_conv_v2(block=block, **link)  # noqa: E731
-        got, want = run(conv_block)[0], run(conv_block_plain)[0]
+        run = lambda block, **kw: int8_block_conv_v2(block=block, **link, **kw)  # noqa: E731
+        read = reset_launches()
+        got = run(conv_block)[0]
+        routes = read()
+        old, want = run(resident)[0], run(conv_block_plain)[0]
         torch.cuda.synchronize()
+        if routes["conv_block.wgmma"] != 1 or routes["conv_block.mma_sync"] != 0:
+            raise RuntimeError(f"K1: the stage-1 link ran on {routes}")
         diff = (got.int() - want.int()).abs()
-        n_bad, err = int((diff != 0).sum()), int(diff.max())
+        n_bad, err, n_old = int((diff != 0).sum()), int(diff.max()), int((old != want).sum())
         spread = [int((want == v).sum()) for v in (-127, 127)]
+        got_bf = run(conv_block, deq_out=torch.bfloat16)
+        want_bf = run(conv_block_plain, deq_out=torch.bfloat16)
+        torch.cuda.synchronize()
+        err_bf = (got_bf.float() - want_bf.float()).abs().max().item()
+        ref_bf = want_bf.float().abs().max().item()
+        n_bf = int((got_bf != want_bf).sum())
+        # the bare launch on prepared operands and a preallocated output
         xq, kq, res = link["xc"][0], link["kq"], link["res"]
+        ab = link_constants(link["xc"], kq, link["sw"], link["bias"], link["gt"], link["sh"],
+                            link["bound"], res)[0]
+        wk, wsum, out = conv3x3_wgmma.wgmma_taps(kq), tap_sums(kq), torch.empty_like(got)
+        alone = lambda: conv3x3_wgmma.launch_link(  # noqa: E731
+            xq, wk, ab, link["mask_c"], None if res is None else res[0], wsum, out, -int(zero))
+        alone()
+        torch.cuda.synchronize()
+        if not torch.equal(out, got):
+            raise RuntimeError("K1: the bare launch differs from the wrapper's codes")
         bound_ops, bound_bytes = int8_link_bound(link, link["mask_c"].numel())
-        ms, plain_ms = paired_ms(torch, lambda: run(conv_block), lambda: run(conv_block_plain),
-                                 iters=20, plain_iters=2)
-        print(f"K1 conv_block x {tuple(xq.shape)} k {tuple(kq.shape)} zero {link['xc'][2]:.0f} "
-              f"res {res is not None}: {n_bad} of {got.numel()} codes differ (max {err}); "
-              f"codes at -127/127: {spread}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {max(bound_ops, bound_bytes):.4f} ms (operations {bound_ops:.4f}, "
-              f"bytes {bound_bytes:.4f})")
-        if n_bad:
-            raise RuntimeError(f"K1: kernel and plain version differ in {n_bad} codes")
+        ms, old_ms = paired_ms(torch, lambda: run(conv_block), lambda: run(resident), iters=20)
+        launch_ms = (cuda_ms(torch, alone, 20) + cuda_ms(torch, alone, 20)) / 2
+        plain_ms = cuda_ms(torch, lambda: run(conv_block_plain), 2)
+        print(f"K1 conv_block (wgmma) x {tuple(xq.shape)} k {tuple(kq.shape)} zero {zero:.0f} "
+              f"res {res is not None}: {n_bad} of {got.numel()} codes differ from plain (max "
+              f"{err}), resident mma.sync variant {n_old}; codes at -127/127: {spread}; bfloat16 "
+              f"out: max_abs_err {err_bf:.3e} (limit {1e-2 * ref_bf:.3e}), {n_bf} values differ; "
+              f"wrapper {ms:.4f} ms, launch alone {launch_ms:.4f} ms "
+              f"({bound_ops * PEAK_INT8_OPS / 1e12 / launch_ms:.1f} TOP/s), resident mma.sync "
+              f"{old_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{max(bound_ops, bound_bytes):.4f} ms (operations {bound_ops:.4f}, bytes "
+              f"{bound_bytes:.4f})")
+        if n_bad or n_old or not err_bf <= 1e-2 * ref_bf:
+            raise RuntimeError(f"K1: {n_bad} codes differ from plain, {n_old} from the resident "
+                               f"variant; bfloat16 error {err_bf}")
         rec["max_abs_err"] = max(rec["max_abs_err"], float(err))
         # one forward runs two links of each kind
-        rec["ms"] += 2 * ms
-        rec["plain_ms"] += 2 * plain_ms
-        rec["bytes_ms"] += 2 * bound_bytes
-        rec["ops_ms"] += 2 * bound_ops
+        for key, v in (("ms", ms), ("launch_ms", launch_ms), ("old_route_ms", old_ms),
+                       ("plain_ms", plain_ms), ("bytes_ms", bound_bytes), ("ops_ms", bound_ops)):
+            rec[key] += 2 * v
     rec["library_ms"] = None
     return bound_of(rec)
 
 
 def phase_k1_deep(torch, dev):
-    """K1 at the link shapes of the ``INT8_STAGES: 5`` chain beyond stage 1
-    (the streamed variant wherever the weight does not fit). Prints the sums
-    over those 19 launches."""
+    """K1 at the link shapes of the ``INT8_STAGES: 5`` chain beyond stage 1,
+    each on the route the dispatch gives it (``wgmma`` where C and Co are
+    multiples of 128, else the ``mma.sync`` kernel, resident or streamed);
+    every code equal to the plain version's on that route and on the
+    ``mma.sync`` variant (resident where the weight fits, else streamed), and
+    the links on ``wgmma`` are timed against that variant too. Returns the
+    sums over those 19 launches."""
     from radardistill_tpu_torch.ops.conv_block import (conv_block, conv_block_plain,
-                                                       int8_block_conv_v2, resident_fits)
+                                                       int8_block_conv_v2, resident_fits, route_of)
 
     gen = torch.Generator().manual_seed(6)
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    tot = dict.fromkeys(("ms", "old_route_ms", "device_ms", "device_old_route_ms", "plain_ms",
+                         "bound_ms", "wgmma_device_ms", "mma_sync_device_ms"), 0.0)
     for hw, c, co, kh, n_plain, n_res in INT8_DEEP_LINKS:
+        route = route_of(kh, c, co, 1, torch.int8)
+        old_route = "resident" if resident_fits(kh, c, co, 1) else "streamed"
+        old = lambda *a, **k: conv_block(*a, variant=old_route, **k)  # noqa: E731
         for with_res, count in ((False, n_plain), (True, n_res)):
             if not count:
                 continue
             link = int8_link(torch, dev, gen, 2, hw, hw, c, co, kh, 1, 127.0, with_res)
             run = lambda block: int8_block_conv_v2(block=block, **link)  # noqa: E731
-            got, want = run(conv_block)[0], run(conv_block_plain)[0]
+            read = reset_launches()
+            got = run(conv_block)[0]
+            moved = read()
+            want, got_old = run(conv_block_plain)[0], run(old)[0]
             torch.cuda.synchronize()
-            n_bad = int((got != want).sum())
+            n_bad, n_old = int((got != want).sum()), int((got_old != want).sum())
             ops_ms, bytes_ms = int8_link_bound(link, link["mask_c"].numel())
-            ms, plain_ms = paired_ms(torch, lambda: run(conv_block),
-                                     lambda: run(conv_block_plain), iters=10, plain_iters=2)
-            variant = "resident" if resident_fits(kh, c, co, 1) else "streamed"
-            print(f"K1 conv_block ({variant}) x (2, {hw}, {hw}, {c}) k ({kh}, {kh}, {c}, {co}) "
-                  f"res {with_res}: {n_bad} of {got.numel()} codes differ; "
-                  f"{100 * float((want > -127).float().mean()):.0f}% of codes above -127; kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
-                  f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
-            if n_bad:
-                raise RuntimeError(f"K1 at {hw}² C {c}: kernel and plain differ in {n_bad} codes")
-            tot["ms"] += count * ms
-            tot["plain_ms"] += count * plain_ms
-            tot["bound_ms"] += count * max(ops_ms, bytes_ms)
-    print(f"K1 over the 19 links of the INT8_STAGES: 5 chain beyond stage 1: kernel "
-          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+            # the wrapper as a caller meets it (host-bound below 720²), and its
+            # device time; the wgmma links on their mma.sync variant too
+            new_fn, old_fn = lambda: run(conv_block), lambda: run(old)  # noqa: E731
+            if route == "wgmma":
+                ms, old_ms = paired_ms(torch, new_fn, old_fn, iters=10)
+                dev_ms, dev_old_ms = paired_ms(torch, new_fn, old_fn, iters=10, timer=device_ms)
+            else:
+                ms = old_ms = (cuda_ms(torch, new_fn, 10) + cuda_ms(torch, new_fn, 10)) / 2
+                dev_ms = dev_old_ms = device_ms(torch, new_fn, 10)
+            plain_ms = cuda_ms(torch, lambda: run(conv_block_plain), 2)
+            print(f"K1 conv_block ({route}) x (2, {hw}, {hw}, {c}) k ({kh}, {kh}, {c}, {co}) "
+                  f"res {with_res}: {n_bad} of {got.numel()} codes differ, {n_old} on the "
+                  f"{old_route} mma.sync variant; "
+                  f"{100 * float((want > -127).float().mean()):.0f}% of codes above -127; wrapper "
+                  f"{ms:.4f} ms, device {dev_ms:.4f} ms ({old_route} mma.sync {old_ms:.4f}, "
+                  f"device {dev_old_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+                  f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes "
+                  f"{bytes_ms:.4f})")
+            if (n_bad or n_old
+                    or moved[f"conv_block.{'wgmma' if route == 'wgmma' else 'mma_sync'}"] != 1):
+                raise RuntimeError(f"K1 at {hw}² C {c}: {n_bad} codes differ from plain, {n_old} "
+                                   f"on the {old_route} variant; launches {moved} (route {route})")
+            for key, v in (("ms", ms), ("old_route_ms", old_ms), ("device_ms", dev_ms),
+                           ("device_old_route_ms", dev_old_ms), ("plain_ms", plain_ms),
+                           ("bound_ms", max(ops_ms, bytes_ms)),
+                           (f"{'wgmma' if route == 'wgmma' else 'mma_sync'}_device_ms", dev_ms)):
+                tot[key] += count * v
+    print(f"K1 over the 19 links of the INT8_STAGES: 5 chain beyond stage 1: wrapper "
+          f"{tot['ms']:.4f} ms (all 19 on mma.sync {tot['old_route_ms']:.4f}); device "
+          f"{tot['device_ms']:.4f} ms (wgmma links {tot['wgmma_device_ms']:.4f}, mma.sync links "
+          f"{tot['mma_sync_device_ms']:.4f}; all 19 on mma.sync {tot['device_old_route_ms']:.4f}), "
+          f"plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+    return tot
 
 
 def phase_k7(torch, dev):
@@ -747,7 +854,18 @@ def reset_launches():
            "conv_probe": conv_probe, "mma_rate": mma_rate}
     for fn in fns.values():
         fn.launches = 0
-    return lambda: {k: fn.launches for k, fn in fns.items()}
+    routes = conv_block.route_launches
+    for k in routes:
+        routes[k] = 0
+
+    def read():
+        # K1 also by route: the wgmma conv mainloop, or the mma.sync kernel
+        # (resident and streamed variants)
+        return {**{k: fn.launches for k, fn in fns.items()},
+                "conv_block.wgmma": routes["wgmma"],
+                "conv_block.mma_sync": routes["resident"] + routes["streamed"]}
+
+    return read
 
 
 def all_finite(torch, tree):
@@ -1342,7 +1460,7 @@ def main() -> int:
     k3, k4 = phase_k34(torch, dev)
     k1 = phase_k1(torch, dev)
     cudnn_bf16_conv_aside(torch, dev)
-    phase_k1_deep(torch, dev)
+    k1_deep = phase_k1_deep(torch, dev)
     k7 = phase_k7(torch, dev)
     k6 = phase_k6(torch, dev)
     k9, k9_launches = phase_k9(torch, dev)
@@ -1366,15 +1484,15 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s on the host")
     fwd_launches = phase_forward_bf16(
         torch, dev, "distillation forward", cfg, info, batch,
-        {"expand_rows": 2, "dcn_sample": 3, "conv_block": 4, **none}, 10)
+        {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, **none}, 10)
     launches = phase_train_bf16(
         torch, dev, TRAIN_YAML, cfg, info, batch,
-        {"expand_rows": 2, "dcn_sample": 3, "conv_block": 4, "dcn_offset_grad": 3,
+        {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, "dcn_offset_grad": 3,
          "dcn_input_grad": 3}, 10)
     raw = make_batch(TRAIN_YAML, host_precompute=False)[2]
     dev_launches, built = phase_device_tables(
         torch, dev, "distillation forward", cfg, info, batch, raw,
-        {"expand_rows": 2, "dcn_sample": 3, "conv_block": 4})
+        {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1})
     phase_device_train(torch, dev, TRAIN_YAML, cfg, info, batch, raw)
     k8, k8_launches = phase_k8(torch, dev, built["hp_as"])
     del batch, raw, built
@@ -1383,8 +1501,9 @@ def main() -> int:
     # the teacher's deep chains: the same yaml with BACKBONE_3D overrides
     deep = {"int8_stages5": {"INT8_STAGES": 5}, "fp_stages5": {"INT8_STAGES": 1, "FP_STAGES": 5}}
     chain_expect = {
-        "int8_stages5": {"expand_rows": 2, "dcn_sample": 3, "conv_block": 23, "chain_conv": 1},
-        "fp_stages5": {"expand_rows": 2, "dcn_sample": 3, "conv_block": 4, "conv_block_fp": 19}}
+        "int8_stages5": {"expand_rows": 2, "dcn_sample": 3, "conv_block": 23,
+                         "conv_block.wgmma": 18, "conv_block.mma_sync": 5, "chain_conv": 1},
+        "fp_stages5": {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, "conv_block_fp": 19}}
     chain_launches = {}
     for name, over in deep.items():
         cfg, info, batch = make_batch(TRAIN_YAML, backbone_3d=over)
@@ -1415,7 +1534,7 @@ def main() -> int:
     table = [
         ("expand_rows", "expand.cu", "radardistill_tpu/ops/pallas_expand.py:39", k5),
         ("dcn_sample", "dcn_sample.cu", f"{dcn_py}:213", k2),
-        ("conv_block", "conv_block.cu", f"{block_py}:81", k1),
+        ("conv_block", "conv3x3_wgmma.cu", f"{block_py}:81", k1),
         ("dcn_offset_grad", "dcn_offset_grad.cu", f"{dcn_py}:283", k3),
         ("dcn_input_grad", "dcn_input_grad.cu", f"{dcn_py}:378", k4),
         ("conv_block_fp", "conv_block_fp.cu", f"{block_py}:81", k6),
@@ -1438,18 +1557,24 @@ def main() -> int:
                 "launches_val": val_launches[name], "launches_forward": fwd_launches[name],
                 "launches_int8_stages5": chain_launches["int8_stages5"][name],
                 "launches_fp_stages5": chain_launches["fp_stages5"][name],
-                "launches_device_tables": dev_launches[name], "launch_ms": None, **rec}
+                "launches_device_tables": dev_launches[name], "launch_ms": None,
+                "mma": MMA_ROUTES.get(name), **rec}
                for name, src, replaces, rec in table]
+    # K1: the stage-1 links' time on the old resident mma.sync variant, and
+    # the 19 deeper links of INT8_STAGES: 5 on their routes
+    kernels[2].update({f"deep_{k}": v for k, v in k1_deep.items()})
     if any(k["launches"] < 1 for k in kernels):
         raise RuntimeError("a kernel was launched on no path: "
                            + str([k["name"] for k in kernels if k["launches"] < 1]))
-    keys = ("name", "route", "source", "replaces", "launches", "launches_val",
+    keys = ("name", "route", "mma", "source", "replaces", "launches", "launches_val",
             "launches_forward", "launches_int8_stages5", "launches_fp_stages5",
             "launches_device_tables", "max_abs_err",
-            "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "old_route_ms",
+            "deep_ms", "deep_old_route_ms", "deep_device_ms", "deep_device_old_route_ms",
+            "deep_plain_ms", "deep_bound_ms")
     print(f"chip_smoke.py: every phase passed; {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included, on {smi}")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
+    print(json.dumps({"kernels": [{k: kern.get(k) for k in keys} for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,12 @@
-// The Hopper 3x3 conv mainloop: TMA loads into mbarrier rings, wgmma from
-// shared memory, a persistent grid. Two kernels of the port run on it:
+// The Hopper conv mainloop: TMA loads into mbarrier rings, wgmma from shared
+// memory, a persistent grid. Three kernels of the port run on it:
 //
+//   K1  ops/conv_block.py::conv_block (the wgmma route, replaces
+//       radardistill_tpu/ops/pallas_conv_block.py::_block_kernel in int8
+//       mode): the teacher's fused int8 conv link, a 3x3 window padded (1, 1)
+//       or a 2x2 window padded (1, 0), int8 x int8 -> int32, then the link's
+//       epilogue (affine, int8 residual, relu, compact phase mask, requant to
+//       int8 or the float value as bfloat16); padding cells hold zpad;
 //   K9  ops/wide_conv.py::conv3x3_wide, bfloat16 y and dx (replaces
 //       radardistill_tpu/ops/pallas_wide_conv.py::_wide_kernel): the 3x3
 //       stride-1 pad-1 conv of x (B, H, W, C), float32 accumulation,
@@ -9,12 +15,13 @@
 //       tools/pallas_conv_proto.py): conv, dots and int8 on an input that is
 //       pre-padded by one zero row above and below, xp (B, H + 2, W, C).
 //
-// The weight arrives K-major, wk (9, Co, C): tap t's (Co, C) slice. For dx
-// the caller passes the forward's (3, 3, Co_f, C_f) kernel as it lies, which
-// is (9, N, K) of the dx conv with the taps reversed (`flip`).
+// The weight arrives K-major, wk (kh * kh, Co, C): tap t's (Co, C) slice. For
+// dx the caller passes the forward's (3, 3, Co_f, C_f) kernel as it lies,
+// which is (9, N, K) of the dx conv with the taps reversed (`flip`).
 //
-// What bounds it: operations (2 * 9 * C * Co per pixel against 2 * (C + Co)
-// bytes), so the design feeds the tensor cores and hides every copy:
+// What bounds it: operations (2 * kh * kh * C * Co per pixel against about
+// C + Co bytes in int8, 2 * (C + Co) in bfloat16), so the design feeds the
+// tensor cores and hides every copy:
 //
 // - A CTA of three warpgroups owns 4 x 64 output pixels by 128 output
 //   channels. Warpgroup 0 is the producer: one thread issues the TMA loads
@@ -22,14 +29,16 @@
 //   2 consume: each holds two m64 x n128 float32 (or int32) accumulators, two
 //   output rows of 64 pixels.
 // - Per chunk of 128 bytes of input channels (64 bfloat16, 128 int8) one TMA
-//   box brings the tile with its halo, 6 rows x 66 pixels, in the 128-byte
-//   swizzle; the zero fill of out-of-bounds boxes is the conv's padding (K9's
-//   rows -1 and H, every input's columns -1 and W; P1's rows come pre-padded).
-//   A tap's A operand is a VIEW of that tile: output row r, tap (ky, kx)
-//   starts (r + ky) * 66 + kx rows into it, 8-row groups 1024 bytes apart;
-//   the descriptor's base-offset field stays 0 (the tensor core swizzles by
-//   the address bits it reads, as TMA stored them; measured on an H100,
-//   see wgmma_ops.cuh). One staged halo serves all nine taps.
+//   box brings the tile with its halo, 6 rows x 66 pixels starting at (y0 -
+//   1, x0 - 1), in the 128-byte swizzle; the zero fill of out-of-bounds boxes
+//   is the conv's padding (K1's and K9's rows -1 and H, every input's columns
+//   -1 and W; P1's rows come pre-padded). A tap's A operand is a VIEW of that
+//   tile: output row r, tap (ky, kx) starts (r + ky) * 66 + kx rows into it,
+//   8-row groups 1024 bytes apart; the descriptor's base-offset field stays 0
+//   (the tensor core swizzles by the address bits it reads, as TMA stored
+//   them; measured on an H100, see wgmma_ops.cuh). One staged halo serves all
+//   taps; a 2x2 tap reads rows y - 1, y and columns x - 1, x, which the same
+//   box and the same view rule cover.
 // - Per (chunk, tap) one TMA box brings the weight slice, 128 output channels
 //   x 128 bytes, K-major in the same swizzle: 16 KB of weight per 256 pixels,
 //   a quarter of the L2 weight traffic per operation of a 64-pixel tile.
@@ -42,10 +51,26 @@
 // - The grid is persistent, one CTA per SM walking the tiles, output
 //   channels fastest; the producer runs ahead into the next tile while the
 //   consumers store this one.
-// - Epilogue: float32 -> bfloat16 round-to-nearest-even (K9, conv, dots), or
-//   P1's int8 requant, exactly the mma.sync route's (__fmul_rn, rintf);
-//   each warp stages its 16 pixels x 128 channels in shared memory and stores
-//   them as 16-byte vectors.
+// - Epilogue: float32 -> bfloat16 round-to-nearest-even (K9, conv, dots), P1's
+//   int8 requant, or K1's link; every float operation rounds once, as the
+//   plain versions' do (__fmul_rn, __fadd_rn, rintf). Each warp stages its 16
+//   pixels x 128 bytes of output in shared memory and stores them as 16-byte
+//   vectors (K1's bfloat16 output in two passes of 64 channels).
+//
+// K1's border: TMA fills out-of-bounds cells only with zeros, but K1's padding
+// cells hold zpad = -zero (0, or -127 after a relu: the code that dequantizes
+// to 0). Pre-padding the input would cost a read and a write of it; instead
+// the epilogue corrects the exact int32 accumulator of the pixels next to the
+// image's edge, acc += zpad * sum of wsum[t][co] over the taps t that fall
+// outside the image, wsum (kh * kh, Co) the weight summed over C. Only tiles
+// that touch an edge pay for it; per padding tap a thread reads its 32
+// channels of wsum together (one dependent read per channel and tap doubled
+// the link's time: measured on an H100). The residual tile (16 pixels x 128
+// int8 channels a warp) arrives with 16-byte loads into bytes 128-255 of the
+// warp's staging rows, beside the output's 128 bytes; it and the mask bytes
+// are prefetched into L2 when the tile starts. K1's epilogue is long beside a
+// tile's products at C = 128, so its two consumers run a few weight slices
+// apart, each one's epilogue beside the other's products (3-5% measured).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,6 +113,20 @@ struct S8 {
   }
 };
 
+// the epilogues: bfloat16 out (K9, P1 conv and dots), P1's int8 requant, K1's
+// link with an int8 or a bfloat16 output
+enum Epi { EPI_BF16, EPI_P1, EPI_K1_S8, EPI_K1_BF16 };
+
+struct EpiArgs {
+  const float* scale;   // P1: (Co,) requant scale
+  int relu;             // P1
+  const float* ab;      // K1: (8, Co), rows alpha, beta, s_out, rs, rsh
+  const int8_t* mask;   // K1: (B, H, W, nph)
+  const int8_t* res;    // K1: (B, H, W, Co) or null
+  const int* wsum;      // K1: (kh * kh, Co), the weight summed over C per tap
+  int nph, zpad;        // K1
+};
+
 // keeps the compiler from moving reads of the accumulators above the wait
 __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 __device__ __forceinline__ void fence_operand(int& r) { asm volatile("" : "+r"(r)::"memory"); }
@@ -99,6 +138,44 @@ __device__ __forceinline__ signed char quantize(int acc, float a, int relu) {
   if (relu) y = fmaxf(y, 0.0f);
   const float v = __fsub_rn(rintf(__fmul_rn(y, 0.37f)), 127.0f);
   return (signed char)fminf(fmaxf(v, -127.0f), 127.0f);
+}
+
+// K1's epilogue on one accumulator, csrc/conv_block.cu's: every float
+// operation rounds once
+__device__ __forceinline__ float link_value(int acc, float alpha, float beta, bool has_res, int r,
+                                            float rs, float rsh, float m) {
+  float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), alpha), beta);
+  if (has_res) y = __fadd_rn(y, __fadd_rn(__fmul_rn(__int2float_rn(r), rs), rsh));
+  y = fmaxf(y, 0.0f);
+  return __fmul_rn(y, m);
+}
+
+// clip(rint(y * s_out) - 127, -127, 127): the conversion rounds half to even
+// (a NaN converts to 0, as the clip of the float form takes it to -127)
+__device__ __forceinline__ signed char requant(float y, float s_out) {
+  return (signed char)(min(max(__float2int_rn(__fmul_rn(y, s_out)), 0), 254) - 127);
+}
+
+// named barrier 1 among the two consumer warpgroups
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+__device__ __forceinline__ void consumers_arrive() {
+  asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// the taps (bit ky * kh + kx) of output pixel (yy, xx) that read a cell
+// outside the image: tap (ky, kx) reads (yy + ky - 1, xx + kx - 1)
+__device__ __forceinline__ unsigned outside_taps(int yy, int xx, int H, int W, int kh) {
+  unsigned bad = 0;
+  for (int ky = 0; ky < kh; ++ky)
+    for (int kx = 0; kx < kh; ++kx) {
+      const int iy = yy + ky - 1, ix = xx + kx - 1;
+      if (iy < 0 || iy >= H || ix < 0 || ix >= W) bad |= 1u << (ky * kh + kx);
+    }
+  return bad;
 }
 
 struct Tile {
@@ -113,14 +190,15 @@ __device__ __forceinline__ Tile tile_of(int id, int H, int W, int Co) {
 }
 
 // tmx: the activation (B, Hin, W, C) as a 4-d map, box (ROW / ES, HALO_W,
-// HALO_H, 1); tmw: the weight (9, Co, C) as a 3-d map, box (ROW / ES, BN, 1).
-// row_off: the input row of output row 0's tap ky = 0 (-1 unpadded, 0 for a
-// pre-padded input). shift: conv (1) or dots (0, every tap reads the centre).
-template <class T>
+// HALO_H, 1); tmw: the weight (kh * kh, Co, C) as a 3-d map, box (ROW / ES,
+// BN, 1). row_off: the input row of output row 0's tap ky = 0 (-1 unpadded, 0
+// for a pre-padded input). shift: conv (1) or dots (0, every tap reads the
+// centre column of halo row r).
+template <class T, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
-conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
-                     uint8_t* __restrict__ out, const float* __restrict__ scale, int B, int H,
-                     int W, int C, int Co, int row_off, int shift, int flip, int relu) {
+conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+                  uint8_t* __restrict__ out, const EpiArgs ep, int B, int H, int W, int C, int Co,
+                  int kh, int row_off, int shift, int flip) {
   using acc_t = typename T::acc_t;
   constexpr int CH = ROW / T::ES;  // channels per chunk
   extern __shared__ uint8_t smem_raw[];
@@ -148,7 +226,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_const
   __syncthreads();
 
   const int n_tiles = B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW) * (Co / BN);
-  const int chunks = C / CH;
+  const int chunks = C / CH, taps = kh * kh;
 
   if (wg == 0) {  // ------------------------------------------------ producer
     rdt::setmaxnreg_dec<40>();
@@ -164,10 +242,11 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_const
         rdt::tma_load_4d(sa + ia * A_STAGE, &tmx, full_a + ia, c * CH, tl.x0 - 1, tl.y0 + row_off,
                          tl.b);
         if (++ia == A_STAGES) ia = 0, pa ^= 1;
-        for (int t = 0; t < 9; ++t) {
+        for (int t = 0; t < taps; ++t) {
           rdt::mbar_wait(empty_b + ib, pb ^ 1);
           rdt::mbar_arrive_expect_tx(full_b + ib, B_BYTES);
-          rdt::tma_load_3d(sb + ib * B_BYTES, &tmw, full_b + ib, c * CH, tl.co0, flip ? 8 - t : t);
+          rdt::tma_load_3d(sb + ib * B_BYTES, &tmw, full_b + ib, c * CH, tl.co0,
+                           flip ? taps - 1 - t : t);
           if (++ib == B_STAGES) ib = 0, pb ^= 1;
         }
       }
@@ -183,9 +262,30 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_const
   const uint32_t sa_addr = rdt::smem_addr(sa), sb_addr = rdt::smem_addr(sb);
   acc_t acc[2][64];
   int ia = 0, pa = 0, ib = 0, pb = 0;
+  // K1: consumer 1 starts STAGGER weight slices behind consumer 0 and the
+  // rings keep them apart (a consumer can run at most B_STAGES - 1 slices
+  // ahead of the other), so each one's epilogue runs while the other issues
+  // products: the epilogue is long beside a tile's products
+  constexpr bool K1 = EPI == EPI_K1_S8 || EPI == EPI_K1_BF16;
+  constexpr int STAGGER = B_STAGES - 1;  // at most 4 taps, whatever kh
+  int lead = K1 && cw == 0 ? STAGGER : 0;
+  if (K1 && cw == 1) consumers_sync();
 
   for (int id = blockIdx.x; id < n_tiles; id += gridDim.x) {
     const Tile tl = tile_of(id, H, W, Co);
+    if constexpr (K1) {
+      // the epilogue's reads from device memory start now, into L2, and
+      // land while the products run: lane (j, r) of a warp brings pixel
+      // x0 + 16 warp + r of output row 2 cw + j, its 128 channels of
+      // residual and the mask bytes of the warp's 16 pixels
+      const int j = lane >> 4, r = lane & 15;
+      const int yy = tl.y0 + 2 * cw + j, xx = tl.x0 + 16 * warp + r;
+      if (yy < H && xx < W) {
+        const size_t pix = ((size_t)tl.b * H + yy) * W + xx;
+        if (ep.res != nullptr) prefetch_l2(ep.res + pix * Co + tl.co0);
+        if (r == 0 || r == 15) prefetch_l2(ep.mask + pix * ep.nph);
+      }
+    }
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -197,9 +297,9 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_const
       rdt::mbar_wait(full_a + ia, pa);
       const uint32_t a_base = sa_addr + ia * A_STAGE + 2 * cw * HALO_W * ROW;
 #pragma unroll 1
-      for (int t = 0; t < 9; ++t) {
+      for (int t = 0; t < taps; ++t) {
         rdt::mbar_wait(full_b + ib, pb);
-        const int ky = shift ? t / 3 : 0, kx = shift ? t % 3 : 1;
+        const int ky = shift ? t / kh : 0, kx = shift ? t - (t / kh) * kh : 1;
         const uint32_t a_tap = a_base + (ky * HALO_W + kx) * ROW;
         const uint32_t b_tap = sb_addr + ib * B_BYTES;
         rdt::wgmma_fence();
@@ -218,6 +318,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_const
           prev_a = -1;
         }
         if (++ib == B_STAGES) ib = 0, pb ^= 1;
+        if (lead > 0 && --lead == 0) consumers_arrive();
       }
       prev_a = ia;
       if (++ia == A_STAGES) ia = 0, pa ^= 1;
@@ -234,46 +335,164 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_const
 
     // epilogue: thread (warp, 4 g + tq) holds rows 16 warp + g (+ 8) of each
     // m64 tile, channels 8 n + 2 tq (+ 1); row m is pixel x0 + m
-    constexpr int ROW_OUT = BN * T::ES, VECS = ROW_OUT / 16;
+    if constexpr (EPI == EPI_BF16 || EPI == EPI_P1) {
+      constexpr int ROW_OUT = BN * T::ES, VECS = ROW_OUT / 16;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < 2; ++j) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint8_t* dst = ebuf + (g + 8 * h) * EPI_ROW;
+        for (int h = 0; h < 2; ++h) {
+          uint8_t* dst = ebuf + (g + 8 * h) * EPI_ROW;
 #pragma unroll
-        for (int n = 0; n < BN / 8; ++n) {
-          const int col = 8 * n + 2 * tq;
-          if constexpr (std::is_same<T, Bf16>::value) {
-            __nv_bfloat162 v;
-            v.x = __float2bfloat16_rn(acc[j][4 * n + 2 * h]);
-            v.y = __float2bfloat16_rn(acc[j][4 * n + 2 * h + 1]);
-            *reinterpret_cast<__nv_bfloat162*>(dst + 2 * col) = v;
-          } else {
-            *reinterpret_cast<char2*>(dst + col) =
-                make_char2(quantize(acc[j][4 * n + 2 * h], __ldg(scale + tl.co0 + col), relu),
-                           quantize(acc[j][4 * n + 2 * h + 1], __ldg(scale + tl.co0 + col + 1),
-                                    relu));
+          for (int n = 0; n < BN / 8; ++n) {
+            const int col = 8 * n + 2 * tq;
+            if constexpr (EPI == EPI_BF16) {
+              __nv_bfloat162 v;
+              v.x = __float2bfloat16_rn(acc[j][4 * n + 2 * h]);
+              v.y = __float2bfloat16_rn(acc[j][4 * n + 2 * h + 1]);
+              *reinterpret_cast<__nv_bfloat162*>(dst + 2 * col) = v;
+            } else {
+              *reinterpret_cast<char2*>(dst + col) = make_char2(
+                  quantize(acc[j][4 * n + 2 * h], __ldg(ep.scale + tl.co0 + col), ep.relu),
+                  quantize(acc[j][4 * n + 2 * h + 1], __ldg(ep.scale + tl.co0 + col + 1),
+                           ep.relu));
+            }
           }
         }
+        __syncwarp();
+        const int yy = tl.y0 + 2 * cw + j;
+        for (int v = lane; v < 16 * VECS; v += 32) {
+          const int r = v / VECS, u = v % VECS;
+          const int xx = tl.x0 + 16 * warp + r;
+          if (yy < H && xx < W)
+            *reinterpret_cast<uint4*>(out + ((((size_t)tl.b * H + yy) * W + xx) * Co + tl.co0) *
+                                                T::ES + 16 * u) =
+                *reinterpret_cast<const uint4*>(ebuf + r * EPI_ROW + 16 * u);
+        }
+        __syncwarp();
       }
-      __syncwarp();
-      const int yy = tl.y0 + 2 * cw + j;
-      for (int v = lane; v < 16 * VECS; v += 32) {
-        const int r = v / VECS, u = v % VECS;
-        const int xx = tl.x0 + 16 * warp + r;
-        if (yy < H && xx < W)
-          *reinterpret_cast<uint4*>(out + ((((size_t)tl.b * H + yy) * W + xx) * Co + tl.co0) *
-                                              T::ES + 16 * u) =
-              *reinterpret_cast<const uint4*>(ebuf + r * EPI_ROW + 16 * u);
+    } else {  // ---------------------------------------------- K1's link
+      constexpr bool S8_OUT = EPI == EPI_K1_S8;
+      constexpr int ES_OUT = S8_OUT ? 1 : 2, PASSES = ES_OUT, NP = BN / 8 / PASSES;
+      const float s_out = __ldg(ep.ab + 2 * Co), rs = __ldg(ep.ab + 3 * Co),
+                  rsh = __ldg(ep.ab + 4 * Co);
+      const bool has_res = ep.res != nullptr;
+      // the mask bytes of the thread's four pixels, read together
+      uint32_t mw[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int yy = tl.y0 + 2 * cw + j, xx = tl.x0 + 16 * warp + g + 8 * h;
+          mw[j][h] = 0;
+          if (yy < H && xx < W) {
+            const int8_t* mp = ep.mask + (((size_t)tl.b * H + yy) * W + xx) * ep.nph;
+            mw[j][h] = ep.nph == 4   ? __ldg(reinterpret_cast<const uint32_t*>(mp))
+                       : ep.nph == 2 ? (uint32_t)__ldg(reinterpret_cast<const uint16_t*>(mp))
+                                     : (uint32_t)(uint8_t)__ldg(mp);
+          }
+        }
+      // the border correction, in the exact int32 accumulator: per padding
+      // tap of the pixel, the thread's 32 channels of wsum, read together
+      if (ep.zpad != 0 &&
+          (tl.y0 == 0 || tl.x0 == 0 || tl.y0 + TH >= H || tl.x0 + TW >= W)) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int yy = tl.y0 + 2 * cw + j, xx = tl.x0 + 16 * warp + g + 8 * h;
+            const unsigned bad = yy < H && xx < W ? outside_taps(yy, xx, H, W, kh) : 0u;
+            for (unsigned bb = bad; bb; bb &= bb - 1) {
+              const int* ws = ep.wsum + (__ffs((int)bb) - 1) * Co + tl.co0 + 2 * tq;
+#pragma unroll
+              for (int n0 = 0; n0 < BN / 8; n0 += 8) {
+                int2 w[8];
+#pragma unroll
+                for (int n = 0; n < 8; ++n)
+                  w[n] = __ldg(reinterpret_cast<const int2*>(ws + 8 * (n0 + n)));
+#pragma unroll
+                for (int n = 0; n < 8; ++n) {
+                  acc[j][4 * (n0 + n) + 2 * h] += ep.zpad * w[n].x;
+                  acc[j][4 * (n0 + n) + 2 * h + 1] += ep.zpad * w[n].y;
+                }
+              }
+            }
+          }
       }
-      __syncwarp();
+      // the mask phase of channel co0 + 8 n + 2 tq, two bits per n (nph is
+      // 1, 2 or 4, so Co / nph is a multiple of 32)
+      const int cpp = Co / ep.nph;
+      uint32_t phases = 0;
+      for (int n = 0, ph = tl.co0 / cpp, left = cpp - tl.co0 % cpp; n < BN / 8; ++n) {
+        phases |= (uint32_t)ph << (2 * n);
+        if ((left -= 8) == 0) ++ph, left = cpp;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int yy = tl.y0 + 2 * cw + j;
+        const size_t row_pix = ((size_t)tl.b * H + yy) * W + tl.x0 + 16 * warp;
+        if (has_res) {  // the warp's 16 pixels x 128 channels of residual
+          uint4 rv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = (lane >> 3) + 4 * i, u = lane & 7;
+            rv[i] = make_uint4(0, 0, 0, 0);
+            if (yy < H && tl.x0 + 16 * warp + r < W)
+              rv[i] = __ldg(reinterpret_cast<const uint4*>(ep.res + (row_pix + r) * Co + tl.co0 +
+                                                           16 * u));
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            *reinterpret_cast<uint4*>(ebuf + ((lane >> 3) + 4 * i) * EPI_ROW + 128 +
+                                      16 * (lane & 7)) = rv[i];
+          __syncwarp();
+        }
+#pragma unroll
+        for (int p = 0; p < PASSES; ++p) {
+#pragma unroll
+          for (int n = p * NP; n < (p + 1) * NP; ++n) {
+            const int col = 8 * n + 2 * tq, co = tl.co0 + col;
+            const float2 al = __ldg(reinterpret_cast<const float2*>(ep.ab + co));
+            const float2 be = __ldg(reinterpret_cast<const float2*>(ep.ab + Co + co));
+            const int sh = 8 * ((phases >> (2 * n)) & 3);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint8_t* row = ebuf + (g + 8 * h) * EPI_ROW;
+              const float m = (float)(int8_t)(mw[j][h] >> sh);
+              char2 r = make_char2(0, 0);
+              if (has_res) r = *reinterpret_cast<const char2*>(row + 128 + col);
+              const float v0 = link_value(acc[j][4 * n + 2 * h], al.x, be.x, has_res, r.x, rs,
+                                          rsh, m);
+              const float v1 = link_value(acc[j][4 * n + 2 * h + 1], al.y, be.y, has_res, r.y, rs,
+                                          rsh, m);
+              if constexpr (S8_OUT) {
+                *reinterpret_cast<char2*>(row + col) =
+                    make_char2(requant(v0, s_out), requant(v1, s_out));
+              } else {
+                __nv_bfloat162 v;
+                v.x = __float2bfloat16_rn(v0);
+                v.y = __float2bfloat16_rn(v1);
+                *reinterpret_cast<__nv_bfloat162*>(row + 2 * (col - 8 * NP * p)) = v;
+              }
+            }
+          }
+          __syncwarp();
+          for (int v = lane; v < 16 * 8; v += 32) {  // 16 pixels x 128 bytes
+            const int r = v / 8, u = v % 8;
+            if (yy < H && tl.x0 + 16 * warp + r < W)
+              *reinterpret_cast<uint4*>(out + ((row_pix + r) * Co + tl.co0) * ES_OUT + 128 * p +
+                                        16 * u) =
+                  *reinterpret_cast<const uint4*>(ebuf + r * EPI_ROW + 16 * u);
+          }
+          __syncwarp();
+        }
+      }
     }
   }
 }
 
-template <class T>
-cudaError_t launch(const void* x, const void* wk, const float* scale, void* out, int B, int Hin,
-                   int H, int W, int C, int Co, int row_off, int shift, int flip, int relu,
+template <class T, int EPI>
+cudaError_t launch(const void* x, const void* wk, const EpiArgs& ep, void* out, int B, int Hin,
+                   int H, int W, int C, int Co, int kh, int row_off, int shift, int flip,
                    int device, cudaStream_t stream) {
   constexpr int CH = ROW / T::ES;
   CUtensorMap tmx, tmw;
@@ -283,7 +502,7 @@ cudaError_t launch(const void* x, const void* wk, const float* scale, void* out,
   const cuuint32_t xbox[4] = {CH, HALO_W, HALO_H, 1};
   cudaError_t err = rdt::encode_sw128(&tmx, T::TMA_TYPE, 4, x, xdims, xstrides, xbox);
   if (err != cudaSuccess) return err;
-  const cuuint64_t wdims[3] = {(cuuint64_t)C, (cuuint64_t)Co, 9};
+  const cuuint64_t wdims[3] = {(cuuint64_t)C, (cuuint64_t)Co, (cuuint64_t)(kh * kh)};
   const cuuint64_t wstrides[2] = {C * es, (cuuint64_t)Co * C * es};
   const cuuint32_t wbox[3] = {CH, BN, 1};
   err = rdt::encode_sw128(&tmw, T::TMA_TYPE, 3, wk, wdims, wstrides, wbox);
@@ -291,8 +510,8 @@ cudaError_t launch(const void* x, const void* wk, const float* scale, void* out,
 
   static int configured = -1;  // the device whose attribute was set
   if (configured != device) {
-    err = cudaFuncSetAttribute(conv3x3_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM);
+    err = cudaFuncSetAttribute(conv_wgmma_kernel<T, EPI>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return err;
     configured = device;
   }
@@ -303,8 +522,8 @@ cudaError_t launch(const void* x, const void* wk, const float* scale, void* out,
       (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW) * (Co / BN);
   if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int grid = (int)(n_tiles < sms ? n_tiles : sms);
-  conv3x3_wgmma_kernel<T><<<grid, THREADS, SMEM, stream>>>(
-      tmx, tmw, static_cast<uint8_t*>(out), scale, B, H, W, C, Co, row_off, shift, flip, relu);
+  conv_wgmma_kernel<T, EPI><<<grid, THREADS, SMEM, stream>>>(
+      tmx, tmw, static_cast<uint8_t*>(out), ep, B, H, W, C, Co, kh, row_off, shift, flip);
   return cudaGetLastError();
 }
 
@@ -327,9 +546,43 @@ extern "C" int rdt_conv3x3_wgmma(const void* x, const void* wk, const void* scal
   if (err != cudaSuccess) return err;
   if ((long long)B * H * W == 0) return cudaGetLastError();
   auto st = static_cast<cudaStream_t>(stream);
+  EpiArgs ep = {};
+  ep.scale = static_cast<const float*>(scale);
+  ep.relu = relu;
   if (mode == 2)
-    return launch<S8>(x, wk, static_cast<const float*>(scale), out, B, Hin, H, W, C, Co, row_off,
-                      0, flip, relu, device, st);
-  return launch<Bf16>(x, wk, nullptr, out, B, Hin, H, W, C, Co, row_off, mode == 0, flip, 0,
-                      device, st);
+    return launch<S8, EPI_P1>(x, wk, ep, out, B, Hin, H, W, C, Co, 3, row_off, 0, flip, device,
+                              st);
+  return launch<Bf16, EPI_BF16>(x, wk, ep, out, B, Hin, H, W, C, Co, 3, row_off, mode == 0, flip,
+                                device, st);
+}
+
+// K1 on the mainloop. x (B, H, W, C) int8; wk (kh * kh, Co, C) int8, the taps
+// K-major; ab (8, Co) float32, rows alpha, beta, s_out, rs, rsh; mask (B, H,
+// W, nph) int8, nph 1, 2 or 4, channel co reading phase co / (Co / nph); res
+// (B, H, W, Co) int8 or null; wsum (kh * kh, Co) int32, wk summed over C; out
+// (B, H, W, Co) int8 (out_kind 0) or bfloat16 (2). kh 3 (padding (1, 1)) or
+// 2 (padding (1, 0)); padding cells hold zpad. Every tensor contiguous and
+// 16-byte aligned; C and Co multiples of 128.
+extern "C" int rdt_conv_block_wgmma(const void* x, const void* wk, const void* ab,
+                                    const void* mask, const void* res, const void* wsum,
+                                    void* out, int B, int H, int W, int C, int Co, int kh,
+                                    int nph, int zpad, int out_kind, int device, void* stream) {
+  if (C <= 0 || C % 128 != 0 || Co <= 0 || Co % BN != 0 || (kh != 2 && kh != 3) ||
+      (nph != 1 && nph != 2 && nph != 4) || (out_kind != 0 && out_kind != 2) ||
+      ab == nullptr || mask == nullptr || wsum == nullptr)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if ((long long)B * H * W == 0) return cudaGetLastError();
+  auto st = static_cast<cudaStream_t>(stream);
+  EpiArgs ep = {};
+  ep.ab = static_cast<const float*>(ab);
+  ep.mask = static_cast<const int8_t*>(mask);
+  ep.res = static_cast<const int8_t*>(res);
+  ep.wsum = static_cast<const int*>(wsum);
+  ep.nph = nph;
+  ep.zpad = zpad;
+  if (out_kind == 0)
+    return launch<S8, EPI_K1_S8>(x, wk, ep, out, B, H, H, W, C, Co, kh, -1, 1, 0, device, st);
+  return launch<S8, EPI_K1_BF16>(x, wk, ep, out, B, H, H, W, C, Co, kh, -1, 1, 0, device, st);
 }

@@ -1,13 +1,14 @@
-"""The Hopper 3x3 conv mainloop (``csrc/conv3x3_wgmma.cu``): TMA loads into
+"""The Hopper conv mainloop (``csrc/conv3x3_wgmma.cu``): TMA loads into
 mbarrier rings, ``wgmma`` from shared memory, a persistent grid.
 
-Two wrappers launch it and count its launches: K9's ``conv3x3_wide``
-(``ops/wide_conv.py``, bfloat16 y and dx) and P1's ``conv_probe(...,
-route="wgmma")`` (``ops/probes.py``, ``conv``, ``dots`` and ``int8``). This
-module holds what they share: the shapes the kernel takes and the bare ctypes
-call on tensors the caller prepared, which ``chip_smoke.py`` also times alone.
-It has no plain version of its own: each wrapper keeps the plain version of
-its function.
+Three wrappers launch it and count their launches: K1's ``conv_block`` on its
+``wgmma`` route (``ops/conv_block.py``, the fused int8 link, 3x3 or 2x2),
+K9's ``conv3x3_wide`` (``ops/wide_conv.py``, bfloat16 y and dx) and P1's
+``conv_probe(..., route="wgmma")`` (``ops/probes.py``, ``conv``, ``dots`` and
+``int8``). This module holds what they share: the shapes the kernel takes and
+the bare ctypes calls on tensors the caller prepared, which ``chip_smoke.py``
+also times alone. It has no plain version of its own: each wrapper keeps the
+plain version of its function.
 """
 
 from __future__ import annotations
@@ -23,6 +24,13 @@ def takes(c: int, co: int, int8: bool = False) -> bool:
     """The kernel stages 128 bytes of input channels at a time (C a multiple
     of 64 in bfloat16, of 128 in int8) and 128 output channels per tile."""
     return c > 0 and co > 0 and c % (128 if int8 else 64) == 0 and co % 128 == 0
+
+
+def wgmma_taps(k: torch.Tensor) -> torch.Tensor:
+    """The taps (kh, kh, C, Co) or (kh * kh, C, Co) as the kernel reads them,
+    K-major (kh * kh, Co, C): one transposing copy."""
+    c, co = k.shape[-2:]
+    return k.reshape(-1, c, co).transpose(1, 2).contiguous()
 
 
 def launch(x: torch.Tensor, wk: torch.Tensor, out: torch.Tensor, mode: str, padded: bool,
@@ -42,3 +50,24 @@ def launch(x: torch.Tensor, wk: torch.Tensor, out: torch.Tensor, mode: str, padd
         b, hin, out.shape[1], w, c, wk.shape[1], 0 if padded else -1, MODES.index(mode),
         int(flip), int(relu), x.device.index, cuda_lib.stream_of(x))
     cuda_lib.check(rc, "conv3x3_wgmma")
+
+
+def launch_link(x: torch.Tensor, wk: torch.Tensor, ab: torch.Tensor, mask: torch.Tensor,
+                res: torch.Tensor | None, wsum: torch.Tensor, out: torch.Tensor,
+                zpad: int, lib=None) -> None:
+    """One launch of K1's link into ``out``, nothing allocated and nothing
+    counted: x (B, H, W, C) int8, wk (kh * kh, Co, C) int8 (the taps K-major),
+    ab (8, Co) float32, mask (B, H, W, nph) int8 with nph 1, 2 or 4, res (B, H,
+    W, Co) int8 or None, wsum (kh * kh, Co) int32 (wk summed over C), out (B,
+    H, W, Co) int8 or bfloat16; padding cells hold ``zpad``. The caller has
+    checked device, dtype, contiguity, alignment and :func:`takes`. ``lib``:
+    the library to call, ``cuda_lib.lib()`` unless another build of this
+    kernel is given (bound with ``cuda_lib.bind``)."""
+    b, h, w, c = x.shape
+    taps, co = wk.shape[:2]
+    rc = (lib or cuda_lib.lib()).rdt_conv_block_wgmma(
+        x.data_ptr(), wk.data_ptr(), ab.data_ptr(), mask.data_ptr(),
+        None if res is None else res.data_ptr(), wsum.data_ptr(), out.data_ptr(),
+        b, h, w, c, co, 3 if taps == 9 else 2, mask.shape[-1], int(zpad),
+        0 if out.dtype == torch.int8 else 2, x.device.index, cuda_lib.stream_of(x))
+    cuda_lib.check(rc, "conv_block (wgmma)")

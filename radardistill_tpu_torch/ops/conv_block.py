@@ -26,12 +26,20 @@ stays on the device (the bounds are device scalars; nothing syncs).
 
 ``conv_block`` on a CPU tensor takes ``conv_block_plain``, the plain PyTorch
 version (an exact integer convolution, then the same float32 epilogue one
-operation at a time). On a CUDA tensor it launches the kernel
-(``csrc/conv_block.cu``), or raises if it cannot. The kernel has two variants:
-the resident one keeps the whole weight in shared memory (Co up to 128 and a
-weight that fits, the stage-1 links); the streamed one tiles Co by 128 and
-walks over C in chunks, for the deeper links ((3, 3, 256, 256),
-(2, 2, 512, 256)) whose weight does not fit.
+operation at a time). On a CUDA tensor it launches the kernel on one of three
+routes, or raises if the route cannot take the link. :func:`route_of` is the
+rule: the ``wgmma`` route (``csrc/conv3x3_wgmma.cu``, the Hopper conv
+mainloop: TMA into mbarrier rings, ``wgmma``) wherever C and Co are multiples
+of 128, the mask has 1, 2 or 4 phases and the output is int8 or bfloat16 (the
+four stage-1 links and 14 of the 19 deeper links of ``INT8_STAGES: 5``);
+otherwise the ``mma.sync`` kernel of ``csrc/conv_block.cu`` in its resident
+variant, which keeps the whole weight in shared memory (Co up to 128 and a
+weight that fits: the Co-64 links), or its streamed variant, which tiles Co
+by 128 and walks over C in chunks. The ``wgmma`` route reads the weight
+K-major (``conv3x3_wgmma.wgmma_taps``, one transposing copy) and pads with
+zeros; it adds ``zpad`` times the padding taps' weight sums (:func:`tap_sums`,
+:func:`border_correction`) to the exact int32 accumulator of the pixels next
+to the image's edge.
 
 ``int8_block`` is the dispatcher the backbone calls: the link above, or with
 ``CONV_BLOCK_V1=1`` in the environment the first-generation link of
@@ -62,9 +70,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import cuda_lib
+from . import conv3x3_wgmma, cuda_lib
 
 OUT_CODES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+ROUTES = ("wgmma", "resident", "streamed")
 # dynamic shared memory a block may ask for on sm_90: 227 KB, less the
 # kernel's 1 KB of static shared memory (alpha and beta)
 SMEM_LIMIT = 232448 - 1024
@@ -162,6 +171,46 @@ def resident_fits(kh: int, c: int, co: int, nph: int) -> bool:
             and smem_bytes(kh, c, co) <= SMEM_LIMIT)
 
 
+def wgmma_takes(c: int, co: int, nph: int, out_dtype) -> bool:
+    """Whether the ``wgmma`` route takes the link: C and Co multiples of 128
+    (one 128-byte chunk of input channels, 128 output channels a tile), 1, 2
+    or 4 mask phases, an int8 or bfloat16 output."""
+    return (conv3x3_wgmma.takes(c, co, int8=True) and nph in (1, 2, 4)
+            and out_dtype in (torch.int8, torch.bfloat16))
+
+
+def route_of(kh: int, c: int, co: int, nph: int, out_dtype) -> str:
+    """The dispatch rule of ``conv_block`` on the card: ``wgmma`` where
+    :func:`wgmma_takes`, else ``resident`` where :func:`resident_fits`, else
+    ``streamed`` (which raises on C % 32 or a Co it has no tile for)."""
+    if wgmma_takes(c, co, nph, out_dtype):
+        return "wgmma"
+    return "resident" if resident_fits(kh, c, co, nph) else "streamed"
+
+
+def tap_sums(kq: torch.Tensor) -> torch.Tensor:
+    """wsum (kh * kh, Co) int32: the weight (kh, kh, C, Co) summed over C,
+    per tap (``ksum`` of :func:`link_constants` is its sum over the taps)."""
+    kh, kw, _, co = kq.shape
+    return kq.sum(dim=2, dtype=torch.int32).view(kh * kw, co)
+
+
+def border_correction(wsum: torch.Tensor, h: int, w: int, kh: int, zpad: int) -> torch.Tensor:
+    """(h, w, Co) int32: what the ``wgmma`` route adds to its accumulator,
+    which reads zeros outside the image, so that it equals the convolution
+    padded with ``zpad``: ``zpad * sum(wsum[t])`` over the taps t = ky * kh +
+    kx for which cell (y + ky - 1, x + kx - 1) lies outside (3x3 padded (1,
+    1), 2x2 padded (1, 0))."""
+    dev = wsum.device
+    off = torch.arange(kh, device=dev) - 1
+    rows = torch.arange(h, device=dev)[:, None] + off  # (h, kh)
+    cols = torch.arange(w, device=dev)[:, None] + off  # (w, kh)
+    row_out, col_out = (rows < 0) | (rows >= h), (cols < 0) | (cols >= w)
+    outside = row_out[:, None, :, None] | col_out[None, :, None, :]  # (h, w, ky, kx)
+    taps = outside.reshape(h, w, kh * kh, 1).to(torch.int32)
+    return zpad * (taps * wsum).sum(dim=2, dtype=torch.int32)
+
+
 def _check_on_card(name, tensors):
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -184,11 +233,16 @@ def conv_block(xq, kq, ab, mask_c, res=None, zpad: int = 0, out_dtype=torch.int8
     """x (B, H, W, C) int8, kernel (kh, kh, C, Co) int8 in its natural HWIO
     layout, ab (8, Co) float32 (rows: alpha, beta, s_out, rs, rsh), mask
     (B, H, W, nph) int8, res (B, H, W, Co) int8 or None -> (B, H, W, Co) in
-    ``out_dtype`` (int8, float32 or bfloat16). The CUDA kernel takes C a
-    multiple of 32 and Co in {16, 32, 64} or a multiple of 128: the resident
-    variant where the weight fits in shared memory beside one input tile
-    (``resident_fits``), else the streamed one; ``variant`` ("resident",
-    "streamed") forces one. The plain version takes any shape."""
+    ``out_dtype`` (int8, float32 or bfloat16). On the card the route is
+    :func:`route_of` the shape and the output type, or ``variant`` (one of
+    ``ROUTES``) forces one: ``wgmma`` takes C and Co multiples of 128, 1, 2
+    or 4 mask phases, int8 or bfloat16 out; ``resident`` and ``streamed`` (the
+    ``mma.sync`` kernel) take C a multiple of 32 and Co in {16, 32, 64} or a
+    multiple of 128, ``resident`` only where the weight fits in shared memory
+    beside one input tile (:func:`resident_fits`). A forced route that does
+    not take the link raises. Each launch counts in ``conv_block.launches``
+    and in ``conv_block.route_launches[route]``. The plain version takes any
+    shape."""
     if xq.device.type == "cpu":
         return conv_block_plain(xq, kq, ab, mask_c, res, zpad, out_dtype)
     _check(xq, kq, ab, mask_c, res, out_dtype)
@@ -196,28 +250,39 @@ def conv_block(xq, kq, ab, mask_c, res=None, zpad: int = 0, out_dtype=torch.int8
     kh, _, c, co = kq.shape
     b, h, w, _ = xq.shape
     nph = mask_c.shape[-1]
-    if c % 32 or not streamed_co(co):
-        raise ValueError(f"conv_block: the kernel takes C % 32 == 0 and Co in (16, 32, 64) "
-                         f"or a multiple of 128, not C {c}, Co {co}")
-    fits = resident_fits(kh, c, co, nph)
-    if variant is None:
-        variant = "resident" if fits else "streamed"
-    if variant not in ("resident", "streamed") or (variant == "resident" and not fits):
-        raise ValueError(f"conv_block: variant {variant!r} does not take a ({kh}, {kh}, {c}, "
-                         f"{co}) weight with {nph} mask phases")
+    route = route_of(kh, c, co, nph, out_dtype) if variant is None else variant
     out = torch.empty((b, h, w, co), dtype=out_dtype, device=xq.device)
-    rc = cuda_lib.lib().rdt_conv_block(
-        xq.data_ptr(), kq.data_ptr(), ab.data_ptr(), mask_c.data_ptr(),
-        res.data_ptr() if res is not None else None, out.data_ptr(),
-        b, h, w, c, co, kh, nph, int(zpad), OUT_CODES[out_dtype],
-        int(variant == "streamed"), smem_bytes(kh, c, co) if fits else 0,
-        xq.device.index, cuda_lib.stream_of(xq))
-    cuda_lib.check(rc, "conv_block")
+    if route == "wgmma":
+        if not wgmma_takes(c, co, nph, out_dtype):
+            raise ValueError(f"conv_block: the wgmma route takes C and Co multiples of 128, 1, 2 "
+                             f"or 4 mask phases and an int8 or bfloat16 output, not C {c}, Co "
+                             f"{co}, {nph} phases, {out_dtype}")
+        conv3x3_wgmma.launch_link(xq, conv3x3_wgmma.wgmma_taps(kq), ab, mask_c, res,
+                                  tap_sums(kq), out, zpad)
+    elif route in ("resident", "streamed"):
+        if c % 32 or not streamed_co(co):
+            raise ValueError(f"conv_block: the mma.sync kernel takes C % 32 == 0 and Co in (16, "
+                             f"32, 64) or a multiple of 128, not C {c}, Co {co}")
+        fits = resident_fits(kh, c, co, nph)
+        if route == "resident" and not fits:
+            raise ValueError(f"conv_block: the resident variant does not take a ({kh}, {kh}, "
+                             f"{c}, {co}) weight with {nph} mask phases")
+        rc = cuda_lib.lib().rdt_conv_block(
+            xq.data_ptr(), kq.data_ptr(), ab.data_ptr(), mask_c.data_ptr(),
+            res.data_ptr() if res is not None else None, out.data_ptr(),
+            b, h, w, c, co, kh, nph, int(zpad), OUT_CODES[out_dtype],
+            int(route == "streamed"), smem_bytes(kh, c, co) if fits else 0,
+            xq.device.index, cuda_lib.stream_of(xq))
+        cuda_lib.check(rc, "conv_block")
+    else:
+        raise ValueError(f"conv_block: variant {variant!r} is not one of {ROUTES}")
     conv_block.launches += 1
+    conv_block.route_launches[route] += 1
     return out
 
 
 conv_block.launches = 0
+conv_block.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def link_constants(xc, kq, sw, bias, gt, sh, bound, res=None):

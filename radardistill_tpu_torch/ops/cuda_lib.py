@@ -79,49 +79,46 @@ def build(ptxas_verbose: bool = False) -> str:
     return "".join(logs)
 
 
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# the argument types of each entry point; every one returns an int32 error
+# code, but ``rdt_error_string``
+SIGNATURES = {
+    "rdt_error_string": [_I32],
+    "rdt_expand_rows": [_P, _P, _P, _I64, _I64, _I64, _I32, _P],
+    "rdt_dcn_sample": [_P, _P, _P, _P, *([_I32] * 10), ctypes.c_float, _I32, _P],
+    "rdt_dcn_offset_grad": [_P] * 6 + [_I32] * 10 + [ctypes.c_float, _I32, _P],
+    "rdt_dcn_input_grad": [_P] * 4 + [_I32] * 10 + [ctypes.c_float, _I32, _P],
+    "rdt_conv_block": [_P] * 6 + [_I32] * 12 + [_P],
+    "rdt_chain_conv": [_P] * 6 + [_I32] * 8 + [_P],
+    "rdt_conv_block_fp": [_P] * 6 + [_I32] * 10 + [_P],
+    "rdt_gather_rows_windowed": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I64, _I32, _P],
+    "rdt_conv_probe": [_P] * 4 + [_I32] * 8 + [_P],
+    "rdt_conv3x3_wgmma": [_P] * 4 + [_I32] * 11 + [_P],
+    "rdt_conv_block_wgmma": [_P] * 7 + [_I32] * 10 + [_P],
+    "rdt_mma_rate_bn": [_I32] * 4,
+    "rdt_mma_rate": [_P, _P, _P, _I32, _I32, _I32, ctypes.c_longlong, ctypes.c_longlong,
+                     *([_I32] * 5), _P],
+}
+
+
+def bind(so: ctypes.CDLL, names=SIGNATURES) -> ctypes.CDLL:
+    """Set the C signatures of the entry points ``names`` on ``so``: the
+    library ``lib()`` loads (all of them), or another build of some of its
+    sources (those it holds)."""
+    for name in names:
+        fn = getattr(so, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_char_p if name == "rdt_error_string" else _I32
+    return so
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
             build()
-            so = ctypes.CDLL(str(LIB_PATH))
-            p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            so.rdt_error_string.argtypes = [i32]
-            so.rdt_error_string.restype = ctypes.c_char_p
-            so.rdt_expand_rows.argtypes = [p, p, p, i64, i64, i64, i32, p]
-            so.rdt_expand_rows.restype = i32
-            so.rdt_dcn_sample.argtypes = [
-                p, p, p, p, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
-                ctypes.c_float, i32, p,
-            ]
-            so.rdt_dcn_sample.restype = i32
-            so.rdt_dcn_offset_grad.argtypes = [
-                p, p, p, p, p, p, *([i32] * 10), ctypes.c_float, i32, p,
-            ]
-            so.rdt_dcn_offset_grad.restype = i32
-            so.rdt_dcn_input_grad.argtypes = [
-                p, p, p, p, *([i32] * 10), ctypes.c_float, i32, p,
-            ]
-            so.rdt_dcn_input_grad.restype = i32
-            so.rdt_conv_block.argtypes = [p, p, p, p, p, p, *([i32] * 12), p]
-            so.rdt_conv_block.restype = i32
-            so.rdt_chain_conv.argtypes = [p, p, p, p, p, p, *([i32] * 8), p]
-            so.rdt_chain_conv.restype = i32
-            so.rdt_conv_block_fp.argtypes = [p, p, p, p, p, p, *([i32] * 10), p]
-            so.rdt_conv_block_fp.restype = i32
-            so.rdt_gather_rows_windowed.argtypes = [p, p, p, p, i64, i64, i64, i32, i64, i32, p]
-            so.rdt_gather_rows_windowed.restype = i32
-            so.rdt_conv_probe.argtypes = [p, p, p, p, *([i32] * 8), p]
-            so.rdt_conv_probe.restype = i32
-            so.rdt_conv3x3_wgmma.argtypes = [p, p, p, p, *([i32] * 11), p]
-            so.rdt_conv3x3_wgmma.restype = i32
-            so.rdt_mma_rate_bn.argtypes = [i32] * 4
-            so.rdt_mma_rate_bn.restype = i32
-            so.rdt_mma_rate.argtypes = [p, p, p, i32, i32, i32, ctypes.c_longlong,
-                                        ctypes.c_longlong, *([i32] * 5), p]
-            so.rdt_mma_rate.restype = i32
-            _lib = so
+            _lib = bind(ctypes.CDLL(str(LIB_PATH)))
         return _lib
 
 

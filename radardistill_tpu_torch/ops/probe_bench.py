@@ -19,8 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from . import conv3x3_wgmma
-from .probes import (ROUTES, conv_probe, conv_probe_plain, mma_rate, mma_rate_plain,
-                     prepare_taps)
+from .probes import ROUTES, conv_probe, conv_probe_plain, mma_rate, mma_rate_plain
 
 PEAK_BYTES = 3.35e12
 # operations/s of the tensor cores, dense
@@ -44,11 +43,16 @@ def type_name(dtype) -> str:
     return "tf32" if dtype == torch.float32 else str(dtype)[6:]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of one ``fn()`` over ``iters`` back-to-back calls."""
+def cuda_ms(fn, iters: int, hide_host: bool = False) -> float:
+    """Mean device time of one ``fn()`` over ``iters`` back-to-back calls.
+    With ``hide_host`` the stream sleeps first (about 30 ms) while the host
+    enqueues every call, so a wrapper whose launches cost the host more than
+    its kernels cost the card reads its device time."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if hide_host:
+        torch.cuda._sleep(60_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -148,7 +152,7 @@ def _conv_operands(shape, int8, dev, gen):
 def _launch_alone_ms(xp, k, mode, a, got, iters):
     """The ``wgmma`` route's launch alone: the taps prepared and the output
     allocated outside the timed loop (which the wrapper's time includes)."""
-    kt, out = prepare_taps(k), torch.empty_like(got)
+    kt, out = conv3x3_wgmma.wgmma_taps(k), torch.empty_like(got)
     relu = k.shape[-1] == 128  # the wrapper's default
     fn = lambda: conv3x3_wgmma.launch(xp, kt, out, mode, padded=True, scale=a,  # noqa: E731
                                       relu=relu)

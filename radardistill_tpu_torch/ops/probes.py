@@ -141,13 +141,6 @@ def conv_probe_plain(xp, k, mode, a=None, relu=None):
     return torch.clamp(torch.round(y * 0.37) - 127.0, -127.0, 127.0).to(torch.int8)
 
 
-def prepare_taps(k):
-    """The nine taps (3, 3, C, Co) or (9, C, Co) as the ``wgmma`` route reads
-    them, K-major (9, Co, C): one transposing copy."""
-    c, co = k.shape[-2:]
-    return k.reshape(9, c, co).transpose(1, 2).contiguous()
-
-
 def conv_probe(xp, k, mode, a=None, relu=None, route="mma_sync"):
     """xp (B, H + 2, W, C), the activation with one zero row above and one
     below; k (3, 3, C, Co) or (9, C, Co), the nine taps -> (B, H, W, Co).
@@ -167,7 +160,7 @@ def conv_probe(xp, k, mode, a=None, relu=None, route="mma_sync"):
     on the TMA + ``wgmma.mma_async`` conv mainloop (``ops/conv3x3_wgmma.py``)
     instead of ``mma.sync``: C a multiple of 64 (int8: 128), Co of 128; the
     taps are transposed to (9, Co, C) first, by a stock op
-    (:func:`prepare_taps`)."""
+    (``conv3x3_wgmma.wgmma_taps``)."""
     if xp.device.type == "cpu":
         return conv_probe_plain(xp, k, mode, a, relu)
     _check_probe(xp, k, mode, a)
@@ -182,7 +175,7 @@ def conv_probe(xp, k, mode, a=None, relu=None, route="mma_sync"):
             raise ValueError(f"conv_probe {mode}: the wgmma route takes bfloat16 with C % 64 == 0 "
                              f"(int8 with C % 128 == 0) and Co % 128 == 0, not {xp.dtype}, C {c}, "
                              f"Co {co}")
-        kt = prepare_taps(k)
+        kt = conv3x3_wgmma.wgmma_taps(k)
         out = torch.empty((b, hp - 2, w, co), dtype=xp.dtype, device=xp.device)
         conv3x3_wgmma.launch(xp, kt, out, mode, padded=True, scale=a, relu=relu)
         conv_probe.launches += 1

@@ -1,5 +1,7 @@
 """K1, the fused int8 conv link, and the int8 helpers around it, against the
-JAX package; and (on a card) the CUDA kernel against its plain version.
+JAX package; and (on a card) the CUDA kernel on each of its routes (the
+``wgmma`` conv mainloop, the ``mma.sync`` resident and streamed variants)
+against its plain version.
 
 The JAX side reaches the Pallas ``_block_kernel`` in interpret mode on its own
 (``pallas_conv_block._interpret``), as ``tests/test_conv_block_v2.py`` runs
@@ -213,20 +215,55 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+# links the wgmma route takes (C and Co multiples of 128): both windows, 1, 2
+# and 4 mask phases, zero 0 and 127 (zpad 0 and -127: the border correction),
+# with and without a residual, an H x W that is no multiple of the 4 x 64
+# tile, two chunks of C and two tiles of Co
+WGMMA_CASES = [
+    dict(kh=3, zero=0.0, c=128, co=128, h=19, w=70),
+    dict(kh=3, zero=127.0, nph=4, c=128, co=128, h=19, w=70, with_res=True),
+    dict(kh=2, zero=127.0, c=128, co=128, h=19, w=70, with_res=True),
+    dict(kh=2, zero=0.0, nph=4, c=256, co=128, h=9, w=13),
+    dict(kh=3, zero=127.0, c=256, co=256, h=19, w=70, with_res=True),
+    dict(kh=2, zero=127.0, nph=4, c=256, co=256, h=8, w=64),
+    dict(kh=3, zero=127.0, nph=2, c=256, co=256, h=5, w=130),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", LINK_CASES + [dict(kh=3, zero=127.0, h=19, w=37, c=64, co=16)],
-                         ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+@pytest.mark.parametrize("case", LINK_CASES + [dict(kh=3, zero=127.0, h=19, w=37, c=64, co=16)]
+                         + WGMMA_CASES, ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
 @pytest.mark.parametrize("deq_out", [None, torch.float32, torch.bfloat16])
 def test_kernel_equals_plain_on_card(cuda, case, deq_out):
+    """Every output equal to the plain version's on the route the dispatch
+    rule gives the link, and that route's counter moved."""
     link = _link(8, **case)
-    before = cb.conv_block.launches
+    kh, _, c, co = link["kq"].shape
+    route = cb.route_of(kh, c, co, link["mask"].shape[-1], deq_out or torch.int8)
+    if c % 128 == 0 and co % 128 == 0 and deq_out != torch.float32:
+        assert route == "wgmma"
+    else:  # float32 out, or C or Co off the 128 grid: mma.sync
+        assert route == ("streamed" if co == 256 else "resident")
+    before, routes = cb.conv_block.launches, dict(cb.conv_block.route_launches)
     got = _run_torch(link, deq_out, cuda)
     assert cb.conv_block.launches == before + 1
+    assert cb.conv_block.route_launches == {**routes, route: routes[route] + 1}
     want = _run_torch(link, deq_out, cuda, block=cb.conv_block_plain)
     torch.cuda.synchronize()
     if deq_out is None:
         got, want = got[0], want[0]
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["resident", "streamed"])
+def test_mma_sync_routes_equal_the_wgmma_route_on_card(cuda, variant):
+    """Forced onto the mma.sync kernel, a link the rule sends to wgmma gives
+    the same codes."""
+    link = _link(10, kh=3, zero=127.0, nph=4, c=128, co=128, h=19, w=70, with_res=True)
+    forced = lambda *a, **k: cb.conv_block(*a, variant=variant, **k)  # noqa: E731
+    got = _run_torch(link, None, cuda, block=forced)[0]
+    assert torch.equal(got, _run_torch(link, None, cuda)[0])
 
 
 @pytest.mark.gpu
@@ -244,3 +281,14 @@ def test_kernel_raises_on_shapes_it_does_not_take(cuda):
     link = _link(9, c=32, co=48, h=8, w=8)  # Co 48: no tile of either variant
     with pytest.raises(ValueError):
         _run_torch(link, None, cuda)
+    # the wgmma route, forced: C 64, Co 64, a float32 output
+    wgmma = lambda *a, **k: cb.conv_block(*a, variant="wgmma", **k)  # noqa: E731
+    for case, deq_out in ((dict(c=64, co=128), None), (dict(c=128, co=64), None),
+                          (dict(c=128, co=128), torch.float32)):
+        before = dict(cb.conv_block.route_launches)
+        with pytest.raises(ValueError):
+            _run_torch(_link(9, h=8, w=8, **case), deq_out, cuda, block=wgmma)
+        assert cb.conv_block.route_launches == before
+    with pytest.raises(ValueError):
+        _run_torch(_link(9, h=8, w=8), None, cuda,
+                   block=lambda *a, **k: cb.conv_block(*a, variant="tiled", **k))

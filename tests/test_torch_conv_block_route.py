@@ -1,0 +1,96 @@
+"""K1's routes on the card, checked here on the CPU through what surrounds the
+kernels: the dispatch rule of ``ops.conv_block.conv_block``, the K-major
+weight the ``wgmma`` route reads, and the border algebra that lets that
+route read zeros outside the image where the link pads with ``zpad``.
+
+The border check is exact integer arithmetic on both sides (``int_conv_exact``
+is exact, the correction is an int32 sum), so it is held bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from radardistill_tpu_torch.ops import conv3x3_wgmma
+from radardistill_tpu_torch.ops import conv_block as cb
+
+
+@pytest.mark.parametrize("kh", [2, 3])
+@pytest.mark.parametrize("zpad", [0, -127])
+def test_border_correction_turns_zero_padding_into_zpad(kh, zpad):
+    """int_conv_exact(x, k, pad 0) + border_correction == int_conv_exact(x, k,
+    pad zpad) on an odd 7 x 13 grid, for both windows (3x3 padded (1, 1),
+    2x2 padded (1, 0))."""
+    rng = np.random.RandomState(10 + kh)
+    xq = torch.from_numpy(rng.randint(-127, 128, (2, 7, 13, 8)).astype(np.int8))
+    kq = torch.from_numpy(rng.randint(-127, 128, (kh, kh, 8, 5)).astype(np.int8))
+    pad = (1, 1) if kh == 3 else (1, 0)
+    zero_padded = cb.int_conv_exact(xq, kq, 1, (pad, pad), 0)
+    want = cb.int_conv_exact(xq, kq, 1, (pad, pad), zpad)
+    corr = cb.border_correction(cb.tap_sums(kq), 7, 13, kh, zpad)
+    assert corr.dtype == torch.int32 and tuple(corr.shape) == (7, 13, 5)
+    assert torch.equal(zero_padded + corr, want)
+    # the correction lives on the padded rows and columns only
+    inner = corr[1:-1, 1:-1] if kh == 3 else corr[1:, 1:]
+    assert not inner.any()
+    assert bool(corr[0].any()) == (zpad != 0)
+
+
+def test_tap_sums_sum_to_the_link_constants_ksum():
+    kq = torch.from_numpy(np.random.RandomState(12).randint(-127, 128, (3, 3, 16, 6))
+                          .astype(np.int8))
+    wsum = cb.tap_sums(kq)
+    assert wsum.dtype == torch.int32 and tuple(wsum.shape) == (9, 6)
+    assert torch.equal(wsum.sum(dim=0).float(), kq.float().sum(dim=(0, 1, 2)))
+
+
+@pytest.mark.parametrize("kh", [2, 3])
+def test_wgmma_taps_are_k_major(kh):
+    """wk[t, co, c] == kq[t // kh, t % kh, c, co], by an explicit index loop."""
+    kq = torch.from_numpy(np.random.RandomState(13).randint(-127, 128, (kh, kh, 8, 5))
+                          .astype(np.int8))
+    wk = conv3x3_wgmma.wgmma_taps(kq)
+    assert tuple(wk.shape) == (kh * kh, 5, 8) and wk.is_contiguous() and wk.dtype == torch.int8
+    assert torch.equal(conv3x3_wgmma.wgmma_taps(kq.reshape(kh * kh, 8, 5)), wk)
+    for t in range(kh * kh):
+        for co in range(5):
+            for c in range(8):
+                assert wk[t, co, c] == kq[t // kh, t % kh, c, co]
+
+
+def test_dispatch_of_the_int8_stages_5_chain():
+    """The four stage-1 links and 14 of the 19 deeper links of ``INT8_STAGES:
+    5`` go to ``wgmma``; the five Co-64 links stay on ``mma.sync`` (the
+    resident variant); a float32 output never takes ``wgmma``."""
+    stage1 = [((720, 128, 128, 3), 4)]
+    deep = [((hw, c, co, kh), n_plain + n_res)
+            for hw, c, co, kh, n_plain, n_res in chip_smoke.INT8_DEEP_LINKS]
+    count = {"wgmma": 0, "resident": 0, "streamed": 0}
+    for (_, c, co, kh), n in stage1 + deep:
+        for nph in (1, 4):
+            route = cb.route_of(kh, c, co, nph, torch.int8)
+            assert route == cb.route_of(kh, c, co, nph, torch.bfloat16)
+            assert route == ("wgmma" if co != 64 else "resident"), (c, co, kh, nph)
+            assert cb.route_of(kh, c, co, nph, torch.float32) != "wgmma"
+        count[cb.route_of(kh, c, co, 1, torch.int8)] += n
+    assert sum(n for _, n in deep) == 19
+    assert count == {"wgmma": 18, "resident": 5, "streamed": 0}
+    # the deeper weights beyond shared memory, in float32, stream
+    assert cb.route_of(3, 256, 256, 1, torch.float32) == "streamed"
+    assert cb.route_of(2, 512, 256, 1, torch.float32) == "streamed"
+    # three mask phases, or C 64: mma.sync
+    assert cb.route_of(3, 128, 384, 3, torch.int8) != "wgmma"
+    assert cb.route_of(3, 64, 128, 1, torch.int8) == "resident"
+
+
+def test_cpu_tensors_take_the_plain_version_on_any_route():
+    rng = np.random.RandomState(14)
+    xq = torch.from_numpy(rng.randint(-127, 128, (1, 5, 6, 128)).astype(np.int8))
+    kq = torch.from_numpy(rng.randint(-127, 128, (3, 3, 128, 128)).astype(np.int8))
+    ab = torch.from_numpy(rng.rand(8, 128).astype(np.float32) * 1e-4)
+    mask = torch.ones((1, 5, 6, 1), dtype=torch.int8)
+    before = (cb.conv_block.launches, dict(cb.conv_block.route_launches))
+    got = cb.conv_block(xq, kq, ab, mask, zpad=-127, variant="wgmma")
+    assert torch.equal(got, cb.conv_block_plain(xq, kq, ab, mask, zpad=-127))
+    assert (cb.conv_block.launches, cb.conv_block.route_launches) == before

@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""A/B of K1's ``wgmma`` route on one CUDA card: the working tree's
+``csrc/conv3x3_wgmma.cu`` against another version of that file.
+
+    python3 tools/torch_conv_block_ab.py OTHER_DIR
+
+``OTHER_DIR`` holds the other ``conv3x3_wgmma.cu`` with the headers it
+includes (``tma_ops.cuh``, ``wgmma_ops.cuh``), e.g. a parent commit's
+``radardistill_tpu_torch/csrc`` unpacked with ``git archive``. Both build for
+sm_90a (ptxas registers and spills printed); then at the link shapes of the
+teacher's chain that take the route (the stage-1 link (2, 720, 720, 128) x (3,
+3, 128, 128) with 4 mask phases, and the deeper C, Co % 128 links) and for
+each ``zpad`` 0 / -127 with and without a residual, int8 out (and once
+bfloat16 out at 720²): both versions' outputs must equal ``conv_block_plain``;
+the bare launches (``rdt_conv_block_wgmma`` on prepared operands) are timed
+with CUDA events, other, this, this, other; the wrapper ``conv_block`` beside
+them, its device time with the host's enqueue hidden; and P1's ``int8`` mode at
+the same 3x3 shape (the mainloop with P1's short epilogue). Needs a CUDA
+device; exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+SHAPES = ((2, 720, 720, 128, 128, 3, 4), (2, 360, 360, 128, 128, 3, 1),
+          (2, 180, 180, 256, 256, 3, 1), (2, 180, 180, 512, 256, 2, 1),
+          (2, 90, 90, 256, 256, 3, 1))  # (B, H, W, C, Co, kh, nph)
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """The register and spill lines of the K1 instantiations."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if "entry function" in line:
+            keep = "conv_wgmma_kernel" in line and ("S8ELi2" in line or "S8ELi3" in line)
+        elif keep and ("Used" in line or "spill" in line):
+            out.append(line.strip())
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_conv_block_ab.py: no CUDA device", file=sys.stderr)
+        return 2
+    from radardistill_tpu_torch.ops import conv3x3_wgmma, cuda_lib
+    from radardistill_tpu_torch.ops import conv_block as cb
+    from radardistill_tpu_torch.ops.probe_bench import cuda_ms
+
+    log = cuda_lib.build(ptxas_verbose=True)
+    other_so = cuda_lib.BUILD_DIR / "ab" / "libconv_other.so"
+    other_so.parent.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run([cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
+                          str(other_so), str(Path(sys.argv[1]) / "conv3x3_wgmma.cu")],
+                         capture_output=True, text=True)
+    if res.returncode:
+        print(res.stderr[-4000:], file=sys.stderr)
+        return 1
+    for name, text in (("this", log), ("other", res.stderr)):
+        for line in ptxas_summary(text):
+            print(f"{name}: {line}")
+    libs = {"this": cuda_lib.lib(),
+            "other": cuda_lib.bind(ctypes.CDLL(str(other_so)), ["rdt_conv_block_wgmma"])}
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+
+    bad = 0
+    for b, h, w, c, co, kh, nph in SHAPES:
+        xq, kq, resq = codes(b, h, w, c), codes(kh, kh, c, co), codes(b, h, w, co)
+        ab = torch.zeros(8, co)
+        ab[0] = (torch.rand(co, generator=gen) * 4e-4 + 2e-4) * 128 / c * 0.4
+        ab[1] = torch.rand(co, generator=gen) - 0.5
+        ab[2], ab[3], ab[4] = 254.0 / 9.0, 3.0 / 254, 127 * 3.0 / 254
+        ab = ab.to(dev)
+        mask = (torch.rand(b, h, w, nph, generator=gen) < 0.6).to(torch.int8).to(dev)
+        wk, wsum = conv3x3_wgmma.wgmma_taps(kq), cb.tap_sums(kq)
+        cases = [(0, None, torch.int8), (-127, None, torch.int8), (0, resq, torch.int8),
+                 (-127, resq, torch.int8)] + ([(-127, resq, torch.bfloat16)] if h == 720 else [])
+        for zpad, r, out_dtype in cases:
+            outs = {k: torch.empty((b, h, w, co), dtype=out_dtype, device=dev) for k in libs}
+            want = cb.conv_block_plain(xq, kq, ab, mask, r, zpad, out_dtype)
+            run = {k: (lambda k=k: conv3x3_wgmma.launch_link(xq, wk, ab, mask, r, wsum, outs[k],
+                                                             zpad, lib=libs[k]))
+                   for k in libs}
+            for fn in run.values():
+                fn()
+            torch.cuda.synchronize()
+            n_bad = sum(int((o != want).sum()) for o in outs.values())
+            bad += n_bad
+            t = [cuda_ms(run["other"], 20), cuda_ms(run["this"], 20), cuda_ms(run["this"], 20),
+                 cuda_ms(run["other"], 20)]
+            this_ms = (t[1] + t[2]) / 2
+            ops = 2.0 * b * h * w * kh * kh * c * co
+            wrap = lambda: cb.conv_block(xq, kq, ab, mask, r, zpad, out_dtype)  # noqa: E731
+            print(f"({b}, {h}, {w}, {c}) k{kh} -> {co}, {nph} phases, zpad {zpad}, residual "
+                  f"{r is not None}, {str(out_dtype)[6:]} out: {n_bad} values differ from plain; "
+                  f"launch alone other {(t[0] + t[3]) / 2:.4f} ms, this {this_ms:.4f} ms "
+                  f"({ops / this_ms / 1e9:.0f} TOP/s); wrapper {cuda_ms(wrap, 20):.4f} ms, its "
+                  f"device time {cuda_ms(wrap, 20, hide_host=True):.4f} ms", flush=True)
+        if kh == 3:  # P1's int8 mode: the same products, P1's short epilogue
+            xp = torch.nn.functional.pad(xq, (0, 0, 0, 0, 1, 1))
+            o = torch.empty((b, h, w, co), dtype=torch.int8, device=dev)
+            a = torch.full((co,), 1e-3, device=dev)
+            p1 = lambda: conv3x3_wgmma.launch(xp, wk, o, "int8", padded=True, scale=a,  # noqa
+                                              relu=True)
+            print(f"  P1 int8 at this shape, launch alone: {cuda_ms(p1, 20):.4f} ms", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"on {smi}; {'every output equal to plain' if bad == 0 else f'{bad} values differ'}")
+    return 0 if bad == 0 else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

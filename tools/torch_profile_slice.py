@@ -22,7 +22,8 @@ model, optimizer and step built as ``chip_smoke.py`` builds them): 10
 unprofiled synced steps, then 5 steps cut into forward / losses / backward /
 optimizer by CUDA events (device-side spans), then one profiled step: device
 busy time and its share of the unprofiled p50, kernel time of each of the four
-phases, of each stage's forward (the spans of ``PillarNet.forward``) and of
+phases and of each stage's forward (the spans of ``PillarNet.forward``), both
+by the host time of each kernel's launch, and of
 each stage's backward (autograd nodes are matched to the forward ops of a
 stage by their sequence numbers; what cannot be matched is listed as such).
 
@@ -195,30 +196,35 @@ def profile_step(pieces, batch, trace_dir=None):
             for stage in STAGES:
                 if inside(e, host.get(stage)):
                     seq_stage.setdefault(e.sequence_nr, stage)
-    phase_ms = dict.fromkeys(PHASES, 0.0)
-    fwd = {}
-    bwd = {}
-    n_kernels = 0
-    for e in cpu:
-        if not e.kernels or e.name in names:
-            continue
-        ms = sum(k.duration for k in e.kernels) / 1e3
-        n_kernels += len(e.kernels)
-        phase = next((p for p in PHASES if inside(e, host.get(p))), None)
-        if phase is None:
-            continue
-        phase_ms[phase] += ms
-        if phase == "forward":
-            stage = next((s for s in STAGES if inside(e, host.get(s))), "outside the stages")
-            fwd[stage] = fwd.get(stage, 0.0) + ms
-        elif phase == "backward":
-            node = e
-            while node is not None and not node.name.startswith(AUTOGRAD_NODE):
-                node = node.cpu_parent
-            stage = seq_stage.get(node.sequence_nr) if node is not None else None
-            stage = stage or "not matched to a stage"
-            bwd[stage] = bwd.get(stage, 0.0) + ms
+    # phases and forward stages by the host time of each kernel's launch: the
+    # runtime call that launched it (cudaLaunchKernel, cudaMemcpyAsync, ...)
+    # shares its correlation id. The ops a kernel is linked to would not do:
+    # the port's ctypes launches (K1, K5, K2) have no torch op of their own,
+    # and device-side spans miss the backward (autograd launches from its own
+    # thread)
     kernels = [e for e in events if _is_kernel(e, names)]
+    launched = {e.id: e.time_range.start for e in cpu if e.name.startswith("cu")}
+
+    def kernel_ms(span):
+        return sum(k.time_range.end - k.time_range.start for k in kernels
+                   if span is not None and span[0] <= launched.get(k.id, -1) < span[1]) / 1e3
+
+    phase_ms = {p: kernel_ms(host.get(p)) for p in PHASES}
+    fwd = {s: kernel_ms(host[s]) for s in STAGES if s in host}
+    fwd["outside the stages"] = phase_ms["forward"] - sum(fwd.values())
+    n_kernels = sum(1 for k in kernels if k.id in launched)
+    # each stage's backward: kernels linked to an autograd node, matched to
+    # the stage of its forward op by sequence number
+    bwd = {}
+    for e in cpu:
+        if not e.kernels or e.name in names or not inside(e, host.get("backward")):
+            continue
+        node = e
+        while node is not None and not node.name.startswith(AUTOGRAD_NODE):
+            node = node.cpu_parent
+        stage = seq_stage.get(node.sequence_nr) if node is not None else None
+        stage = stage or "not matched to a stage"
+        bwd[stage] = bwd.get(stage, 0.0) + sum(k.duration for k in e.kernels) / 1e3
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
@@ -274,7 +280,7 @@ def main_step(torch, args, cfg, info, batch) -> int:
     print(f"profiled step: wall under the profiler {rec['profiled_wall_ms']:.3f} ms, device busy "
           f"{rec['device_busy_ms']:.3f} ms ({100 * rec['device_busy_share']:.1f}% of the "
           f"unprofiled p50), {rec['n_kernels']} kernels ({rec['n_kernels_attributed']} "
-          f"attributed to an op)")
+          f"with a launch record)")
     for p in PHASES:
         print(f"  {p:10s} host {rec['host_ms'].get(p, 0):.3f} ms, kernels "
               f"{rec['phase_kernel_ms'][p]:.3f} ms")
