@@ -33,7 +33,19 @@ It imports only ``torch`` and ``radardistill_tpu_torch``. Phases:
   4. K2 ``dcn_sample`` vs its plain version at the three CMA sites
      (180²->90², 90²->45², 180²->90², C 256, clamp R = 5), batch 1 and 2:
      float32 within 1e-5 x max|ref| (summation order), bfloat16 within 1e-2 x
-     max|ref| (one bfloat16 rounding of the same float32 sum);
+     max|ref| (one bfloat16 rounding of the same float32 sum); then with NaN
+     offsets (NaN taps read exactly 0, as in the plain version). K3
+     ``dcn_offset_grad`` and K4 ``dcn_input_grad`` at the same three sites,
+     batch 2, the same tolerances, offsets 3 x randn (a tenth on the clamp),
+     K4 on its tile route and bit-equal over two calls; one unclamped float32
+     case at 64² on K4's atomic route; NaN offsets on both routes (NaNs
+     compared as equal); the four gradients of ``modulated_deform_conv`` vs
+     autograd through ``dcn_sample_plain`` (float32, within 1e-4 x max|ref|).
+     Each of K2, K3, K4 timed as the wrapper, as the bare launch, as the
+     plain version, and beside them, as an aside that is not the same
+     function (NCHW, no mask), ``F.grid_sample`` (K2) and
+     ``grid_sampler_2d_backward`` with the mask folded into the cotangent
+     (K4: its input gradient, K3: its grid gradient);
   5. K1 ``conv_block`` vs its plain version at the teacher's stage-1 link,
      x (2, 720, 720, 128) int8, kernel (3, 3, 128, 128), 4 mask phases: a
      chain's first link (zero 0, no residual) and a later one (zero 127, with
@@ -59,7 +71,8 @@ It imports only ``torch`` and ``radardistill_tpu_torch``. Phases:
      ``lidar_preds`` rel-L2 <= 1e-3 (the int8 chain: a code may flip where the
      card and the CPU round a scale differently), ``radar_preds`` <= 1e-4;
  10. train step, bfloat16, 1440², batch 2: counts reset, one warm step, counts
-     read (K1 x 4 on ``wgmma``, K5 x 2, K2 x 3, K3 x 3, K4 x 3 per step), then 10 timed
+     read (K1 x 4 on ``wgmma``, K5 x 2, K2 x 3, K3 x 3, K4 x 3 per step, all
+     three on K4's tile route), then 10 timed
      steps with one synchronize each; the loss finite on every step,
      ``as_overflow == 0``, every trainable parameter changed and every frozen
      parameter and statistic bit-equal afterwards; p50, samples/s, peak memory;
@@ -155,9 +168,8 @@ once, each output written once) over 3.35 TB/s and its operations over the
 peak rate of their type (K1, K7: int8 tensor cores, 1979 TOP/s; K6, K9:
 bfloat16 tensor cores, 989 TFLOP/s; K2: nine float32
 operations per sampled value at 67 TFLOP/s; K3 and K4: 2 x 9 x 4 x C float32
-operations per output site; K5 copies and does none). K4's float32 scratch
-buffer is not counted: the function reads dsampled, offsets and mask and
-writes dx.
+operations per output site; K5 copies and does none). K4's bound counts what
+the function reads (dsampled, offsets, mask) and writes (dx).
 ``library_ms`` times the one PyTorch call that computes the same function
 where there is one (``index_select`` for K5, ``F.conv2d`` for K9); the port
 never calls it. In the
@@ -169,9 +181,12 @@ for K9, which no model calls, one forward and backward of ``conv3x3_wide``;
 for K8 one pass over its 14 gathers (times summed), for P1 the ``conv`` mode at
 (2, 720, 720, 128) -> 128 on the ``wgmma`` route and for P2 the bfloat16 (2048, 512, 512) product on
 the ``wgmma`` route, with ``launches`` counting every case of their tables
-(bound of P1, P2: operations at the bfloat16 peak). ``launch_ms`` (K9 and P1;
-null for the others) is the time of the bare launches on prepared inputs and
-preallocated outputs, ``ms`` that of the wrapper (``launch_ms`` also for K1).
+(bound of P1, P2: operations at the bfloat16 peak). ``launch_ms`` (K1, K2,
+K3, K4, K9 and P1; null for the others) is the time of the bare launches on
+prepared inputs and preallocated outputs, ``ms`` that of the wrapper.
+``aside_ms`` (K2, K3, K4) is the time of the asides of phase 4, ``k4_route``
+the route K4 takes on the main path and ``repeats_bitwise`` whether its dx
+repeated bit for bit.
 ``mma`` names the tensor-core instruction of a kernel that has one (K1: its
 stage-1 route). K1's record also carries ``old_route_ms``, the stage-1 links
 on the resident ``mma.sync`` variant in the same run, and ``deep_*``, the
@@ -215,6 +230,8 @@ MMA_ROUTES = {"conv_block": "wgmma", "conv3x3_wide": "wgmma", "conv_probe": "wgm
 # K1's launches in one distillation forward: the four stage-1 links, all on
 # the wgmma route
 K1_STAGE1 = {"conv_block": 4, "conv_block.wgmma": 4, "conv_block.mma_sync": 0}
+# the CMA's backward in one train step: K3 x 3, K4 x 3 on its tile route
+DCN_BACKWARD = {"dcn_offset_grad": 3, "dcn_input_grad": 3, "dcn_input_grad.tile": 3}
 FP_LINKS = ((720, 64, 64, 3, 2, 2), (360, 256, 128, 2, 1, 0), (360, 128, 128, 3, 2, 2),
             (180, 512, 256, 2, 1, 0), (180, 256, 256, 3, 2, 2), (90, 1024, 256, 2, 1, 0),
             (90, 256, 256, 3, 2, 2))  # 19 launches
@@ -337,17 +354,57 @@ def phase_k5(torch, dev):
     return bound_of(dict(out, ops_ms=0.0, max_abs_err=0.0))  # a copy: no arithmetic
 
 
+def nan_equal_within(torch, got, want, tol):
+    """(error, limit, ok): NaN exactly where the reference has NaN, the rest
+    within tol x max|ref|."""
+    got, want = got.float(), want.float()
+    nan = torch.isnan(want)
+    err = (got[~nan] - want[~nan]).abs().max().item()
+    lim = tol * want[~nan].abs().max().item()
+    return err, lim, bool(torch.equal(torch.isnan(got), nan)) and err <= lim
+
+
+def with_nans(torch, off):
+    """The offsets with a NaN in every 7th dy and every 11th dx (of 18)."""
+    off = off.clone()
+    flat = off.view(-1, 18)
+    flat[::7, 0::2] = float("nan")
+    flat[::11, 1::2] = float("nan")
+    return off
+
+
+def grid_of(torch, off, h, ho, max_offset):
+    """``F.grid_sample``'s grid (align_corners=True) of the clamped sample
+    positions: (B, Ho, 9·Wo, 2), x before y, tap k of site wo at 9·wo + k."""
+    b = off.shape[0]
+    k = torch.arange(9, device=off.device)
+    base = torch.arange(ho, device=off.device) * 2 - 1
+    d = off.view(b, ho, ho, 9, 2).clamp(-max_offset, max_offset)
+    ph = (base[:, None, None] + (k // 3)).float() + d[..., 0]
+    pw = (base[None, :, None] + (k % 3)).float() + d[..., 1]
+    g = torch.stack([2 * pw / (h - 1) - 1, 2 * ph / (h - 1) - 1], dim=-1)
+    return g.reshape(b, ho, ho * 9, 2).contiguous()
+
+
 def phase_k2(torch, dev):
-    """The three CMA sites at batch 1 (val path) and 2 (distillation forward);
-    returns the batch-2 sums."""
+    """The three CMA sites at batch 1 (val path) and 2 (distillation forward),
+    then NaN offsets; returns the batch-2 sums. Timed: the wrapper, the bare
+    launch into a preallocated output, the plain version, and as an aside
+    ``F.grid_sample`` of the same samples (NCHW, no mask: not the same
+    function)."""
+    import torch.nn.functional as F
+
+    from radardistill_tpu_torch.ops import dcn_sample as ds_mod
     from radardistill_tpu_torch.ops.dcn import DCN_MAX_OFFSET, shapes_supported
     from radardistill_tpu_torch.ops.dcn_sample import dcn_sample, dcn_sample_plain
 
     gen = torch.Generator().manual_seed(2)
     sites = ((180, 90), (90, 45), (180, 90))  # the CMA's three downsamples at 1440²
+    R = DCN_MAX_OFFSET
     recs = {}
     for b in (1, 2):
-        rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+        rec = dict.fromkeys(("max_abs_err", "ms", "launch_ms", "plain_ms", "aside_ms",
+                             "bytes_ms", "ops_ms"), 0.0)
         for h, ho in sites:
             x32 = torch.randn(b, h, h, 256, generator=gen)
             if not shapes_supported(x32.shape, (b, ho, ho, 18), 2, 1, 3):
@@ -356,8 +413,8 @@ def phase_k2(torch, dev):
             msk = (torch.rand(b, ho, ho, 9, generator=gen) * 0.9 + 0.05).to(dev)
             for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
                 x = x32.to(dev, dtype)
-                got = dcn_sample(x, off, msk, 2, 1, 3, DCN_MAX_OFFSET)
-                want = dcn_sample_plain(x, off, msk, 2, 1, 3, DCN_MAX_OFFSET)
+                got = dcn_sample(x, off, msk, 2, 1, 3, R)
+                want = dcn_sample_plain(x, off, msk, 2, 1, 3, R)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 ref = want.float().abs().max().item()
@@ -365,43 +422,82 @@ def phase_k2(torch, dev):
                       f"max_abs_err {err:.3e} (limit {tol * ref:.3e})")
                 if not err <= tol * ref:
                     raise RuntimeError(f"K2 {dtype} at {h}²: error {err} over {tol} x {ref}")
-                if dtype == torch.bfloat16:
-                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                    ms, plain_ms = paired_ms(
-                        torch, lambda: dcn_sample(x, off, msk, 2, 1, 3, DCN_MAX_OFFSET),
-                        lambda: dcn_sample_plain(x, off, msk, 2, 1, 3, DCN_MAX_OFFSET), iters=10)
-                    nbytes = ((x.numel() + got.numel()) * x.element_size()
-                              + (off.numel() + msk.numel()) * 4)
-                    # per output value: four corner multiply-adds and the mask
-                    # multiply, in float32 outside the tensor cores
-                    bytes_ms = nbytes / PEAK_BYTES * 1e3
-                    ops_ms = 9.0 * got.numel() / PEAK_F32_OPS * 1e3
-                    print(f"K2 dcn_sample bfloat16 bs{b} at {h}²->{ho}²: kernel {ms:.4f} ms, "
-                          f"plain {plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
-                          f"{bytes_ms:.4f}, {nbytes / 1e6:.1f} MB; operations {ops_ms:.4f})")
-                    rec["ms"] += ms
-                    rec["plain_ms"] += plain_ms
-                    rec["bytes_ms"] += bytes_ms
-                    rec["ops_ms"] += ops_ms
+                if dtype != torch.bfloat16:
+                    continue
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                out = torch.empty_like(got)
+                alone = lambda: ds_mod.launch(x, off, msk, out, 2, 1, R)  # noqa: E731
+                alone()
+                torch.cuda.synchronize()
+                if not torch.equal(out, got):
+                    raise RuntimeError("K2: the bare launch differs from the wrapper's result")
+                ms, plain_ms = paired_ms(
+                    torch, lambda: dcn_sample(x, off, msk, 2, 1, 3, R),
+                    lambda: dcn_sample_plain(x, off, msk, 2, 1, 3, R), iters=10)
+                launch_ms = (cuda_ms(torch, alone, 20) + cuda_ms(torch, alone, 20)) / 2
+                xn = x.permute(0, 3, 1, 2).contiguous()
+                grid = grid_of(torch, off, h, ho, R).to(dtype)
+                aside_ms = cuda_ms(torch, lambda: F.grid_sample(
+                    xn, grid, mode="bilinear", padding_mode="zeros", align_corners=True), 20)
+                nbytes = ((x.numel() + got.numel()) * x.element_size()
+                          + (off.numel() + msk.numel()) * 4)
+                # per output value: four corner multiply-adds and the mask
+                # multiply, in float32 outside the tensor cores
+                bytes_ms = nbytes / PEAK_BYTES * 1e3
+                ops_ms = 9.0 * got.numel() / PEAK_F32_OPS * 1e3
+                print(f"K2 dcn_sample bfloat16 bs{b} at {h}²->{ho}²: wrapper {ms:.4f} ms, launch "
+                      f"alone {launch_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, {nbytes / 1e6:.1f} "
+                      f"MB; operations {ops_ms:.4f}); aside, not the same function (no mask, "
+                      f"NCHW): F.grid_sample {aside_ms:.4f} ms")
+                for key, v in (("ms", ms), ("launch_ms", launch_ms), ("plain_ms", plain_ms),
+                               ("aside_ms", aside_ms), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                    rec[key] += v
         recs[b] = rec
+
+    # NaN offsets: the clamp keeps them, their taps read exactly zeros
+    b, h, ho = 2, 90, 45
+    x32 = torch.randn(b, h, h, 256, generator=gen)
+    off = with_nans(torch, (3.0 * torch.randn(b, ho, ho, 18, generator=gen)).to(dev))
+    msk = (torch.rand(b, ho, ho, 9, generator=gen) * 0.9 + 0.05).to(dev)
+    tap_nan = torch.isnan(off.view(b, ho, ho, 9, 2)).any(-1)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        x = x32.to(dev, dtype)
+        got = dcn_sample(x, off, msk, 2, 1, 3, R)
+        want = dcn_sample_plain(x, off, msk, 2, 1, 3, R)
+        err, lim, ok = nan_equal_within(torch, got, want, tol)
+        zero = bool((got.view(b, ho, ho, 9, 256)[tap_nan] == 0).all())
+        print(f"K2 dcn_sample {str(dtype)[6:]} bs{b} {h}² with {int(tap_nan.sum())} NaN taps: "
+              f"max_abs_err {err:.3e} (limit {lim:.3e}), NaN taps read 0: {zero}, finite: "
+              f"{bool(torch.isfinite(got.float()).all())}")
+        if not (ok and zero and torch.isfinite(got.float()).all()):
+            raise RuntimeError(f"K2 {dtype}: NaN offsets are not handled as the plain version")
     return bound_of(dict(recs[2], library_ms=None))
 
 
 def phase_k34(torch, dev):
-    """K3 and K4 at the three CMA sites, batch 2: kernel vs plain, then the
-    whole DCN backward against autograd through the plain sampling. Returns
-    the two records (sums over the three sites, bfloat16)."""
+    """K3 and K4 at the three CMA sites, batch 2: kernel vs plain (K4 on the
+    route the dispatch gives it, counted; the tile route twice, bit for bit),
+    the bare launches timed beside the wrappers, and as asides the grid
+    gradient (K3) and the input gradient (K4) of ``grid_sampler_2d_backward``
+    with the mask folded into the cotangent; then NaN offsets on both K4
+    routes, and the whole DCN backward against autograd through the plain
+    sampling. Returns the two records (sums over the three sites,
+    bfloat16)."""
+    from radardistill_tpu_torch.ops import dcn_grad
     from radardistill_tpu_torch.ops.dcn import (DCN_MAX_OFFSET, modulated_deform_conv,
                                                 shapes_supported)
     from radardistill_tpu_torch.ops.dcn_grad import (dcn_input_grad, dcn_input_grad_plain,
-                                                     dcn_offset_grad, dcn_offset_grad_plain)
+                                                     dcn_offset_grad, dcn_offset_grad_plain,
+                                                     input_grad_route)
     from radardistill_tpu_torch.ops.dcn_sample import dcn_sample_plain
 
     gen = torch.Generator().manual_seed(3)
     b, c = 2, 256
-    zero = lambda: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,  # noqa: E731
-                    "bytes_ms": 0.0, "ops_ms": 0.0}
+    zero = lambda: dict.fromkeys(("max_abs_err", "ms", "launch_ms", "plain_ms",  # noqa: E731
+                                  "aside_ms", "bytes_ms", "ops_ms"), 0.0)
     k3, k4 = zero(), zero()
+    k4["repeats_bitwise"] = True
 
     def check(tag, got, want, tol):
         err = (got.float() - want.float()).abs().max().item()
@@ -409,6 +505,15 @@ def phase_k34(torch, dev):
         if not err <= tol * ref:
             raise RuntimeError(f"{tag}: error {err} over {tol} x {ref}")
         return err, ref
+
+    def routed(ds, off, msk, h, geo):
+        """dx through the wrapper, and the route it was counted on."""
+        before = dict(dcn_input_grad.route_launches)
+        dx = dcn_input_grad(ds, off, msk, h, h, *geo)
+        moved = [r for r, n in dcn_input_grad.route_launches.items() if n != before[r]]
+        if len(moved) != 1 or moved[0] != input_grad_route(geo[3], 2, 1, c, ds.dtype):
+            raise RuntimeError(f"K4: counted on {moved}")
+        return dx, moved[0]
 
     cases = [(180, 90, DCN_MAX_OFFSET), (90, 45, DCN_MAX_OFFSET), (180, 90, DCN_MAX_OFFSET),
              (64, 32, None)]  # the last: outside the gate, no clamp (float32 only)
@@ -419,14 +524,14 @@ def phase_k34(torch, dev):
         ds32 = torch.randn(b, ho, ho, 9 * c, generator=gen)
         off = (3.0 * torch.randn(b, ho, ho, 18, generator=gen)).to(dev)
         msk = (torch.rand(b, ho, ho, 9, generator=gen) * 0.9 + 0.05).to(dev)
-        sat = (off.abs() > DCN_MAX_OFFSET).float().mean().item()
+        sat = (off.abs() >= DCN_MAX_OFFSET).float().mean().item()
         geo = (2, 1, 3, max_offset)
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
             if max_offset is None and dtype != torch.float32:
                 continue
             x, ds = x32.to(dev, dtype), ds32.to(dev, dtype)
             g18, dm9 = dcn_offset_grad(x, off, ds, msk, *geo)
-            dx = dcn_input_grad(ds, off, msk, h, h, *geo)
+            dx, route = routed(ds, off, msk, h, geo)
             g18_p, dm9_p = dcn_offset_grad_plain(x, off, ds, msk, *geo)
             dx_p = dcn_input_grad_plain(ds, off, msk, h, h, *geo)
             torch.cuda.synchronize()
@@ -434,32 +539,83 @@ def phase_k34(torch, dev):
             e_g, r_g = check(f"K3 g18 {tag}", g18, g18_p, tol)
             e_m, r_m = check(f"K3 dm9 {tag}", dm9, dm9_p, tol)
             e_x, r_x = check(f"K4 dx {tag}", dx, dx_p, tol)
-            print(f"K3 dcn_offset_grad {tag} ({100 * sat:.1f}% of offsets beyond the clamp): "
-                  f"g18 max_abs_err {e_g:.3e} (limit {tol * r_g:.3e}), dm9 {e_m:.3e} "
-                  f"(limit {tol * r_m:.3e}); K4 dcn_input_grad: dx {e_x:.3e} "
-                  f"(limit {tol * r_x:.3e})")
+            again = torch.equal(dx, dcn_input_grad(ds, off, msk, h, h, *geo))
+            if route == "tile":
+                k4["repeats_bitwise"] &= again
+            print(f"K3 dcn_offset_grad {tag} ({100 * sat:.1f}% of offsets at or beyond the "
+                  f"clamp): g18 max_abs_err {e_g:.3e} (limit {tol * r_g:.3e}), dm9 {e_m:.3e} "
+                  f"(limit {tol * r_m:.3e}); K4 dcn_input_grad, {route} route: dx {e_x:.3e} "
+                  f"(limit {tol * r_x:.3e}), a second call bit-equal: {again}")
             if dtype != torch.bfloat16:
                 continue
+            if route != "tile":
+                raise RuntimeError(f"K4: a clamped CMA site took the {route} route")
             k3["max_abs_err"] = max(k3["max_abs_err"], e_g, e_m)
             k4["max_abs_err"] = max(k4["max_abs_err"], e_x)
             ops_ms = 2.0 * 9 * 4 * c * b * ho * ho / PEAK_F32_OPS * 1e3
             small = (off.numel() + msk.numel()) * 4
-            for rec, name, kern, plain, nbytes in (
+            # the bare launches: preallocated outputs, K4's window table made
+            g18_o, dm9_o, dx_o = torch.empty_like(g18), torch.empty_like(dm9), torch.empty_like(dx)
+            plan = dcn_grad.tile_plan(h, h)
+            win = dcn_grad.tile_windows(h, h, ho, ho, *geo[:3], max_offset, *plan[:2], dev)
+            k3_alone = lambda: dcn_grad.launch_offset_grad(  # noqa: E731
+                x, off, msk, ds, g18_o, dm9_o, 2, 1, max_offset)
+            k4_alone = lambda: dcn_grad.launch_tile(  # noqa: E731
+                ds, off, msk, win, dx_o, 2, 1, max_offset, plan)
+            k3_alone()
+            k4_alone()
+            torch.cuda.synchronize()
+            if not (torch.equal(g18_o, g18) and torch.equal(dm9_o, dm9)
+                    and torch.equal(dx_o, dx)):
+                raise RuntimeError("K3/K4: the bare launches differ from the wrappers' results")
+            # asides, not the same functions: the input and the grid gradient
+            # of grid_sample (NCHW) with the mask folded into the cotangent
+            xn = x.permute(0, 3, 1, 2).contiguous()
+            grid = grid_of(torch, off, h, ho, max_offset).to(dtype)
+            cot = (ds.view(b, ho, ho, 9, c) * msk[..., None].to(dtype)).permute(0, 4, 1, 2, 3)
+            cot = cot.reshape(b, c, ho, ho * 9).contiguous()
+            bwd = torch.ops.aten.grid_sampler_2d_backward
+            for rec, name, kern, alone, plain, nbytes, aside in (
                     (k3, "K3 dcn_offset_grad", lambda: dcn_offset_grad(x, off, ds, msk, *geo),
-                     lambda: dcn_offset_grad_plain(x, off, ds, msk, *geo),
-                     (x.numel() + ds.numel()) * 2 + small + (g18.numel() + dm9.numel()) * 4),
+                     k3_alone, lambda: dcn_offset_grad_plain(x, off, ds, msk, *geo),
+                     (x.numel() + ds.numel()) * 2 + small + (g18.numel() + dm9.numel()) * 4,
+                     lambda: bwd(cot, xn, grid, 0, 0, True, [False, True])),
                     (k4, "K4 dcn_input_grad", lambda: dcn_input_grad(ds, off, msk, h, h, *geo),
-                     lambda: dcn_input_grad_plain(ds, off, msk, h, h, *geo),
-                     (ds.numel() + dx.numel()) * 2 + small)):
+                     k4_alone, lambda: dcn_input_grad_plain(ds, off, msk, h, h, *geo),
+                     (ds.numel() + dx.numel()) * 2 + small,
+                     lambda: bwd(cot, xn, grid, 0, 0, True, [True, False]))):
                 ms, plain_ms = paired_ms(torch, kern, plain, iters=10)
+                launch_ms = (cuda_ms(torch, alone, 20) + cuda_ms(torch, alone, 20)) / 2
+                aside_ms = cuda_ms(torch, aside, 10)
                 bytes_ms = nbytes / PEAK_BYTES * 1e3
-                print(f"{name} bfloat16 bs{b} at {h}²->{ho}²: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
-                      f"{bytes_ms:.4f}, {nbytes / 1e6:.1f} MB; operations {ops_ms:.4f})")
-                rec["ms"] += ms
-                rec["plain_ms"] += plain_ms
-                rec["bytes_ms"] += bytes_ms
-                rec["ops_ms"] += ops_ms
+                print(f"{name} bfloat16 bs{b} at {h}²->{ho}²: wrapper {ms:.4f} ms, launch alone "
+                      f"{launch_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, {nbytes / 1e6:.1f} "
+                      f"MB; operations {ops_ms:.4f}); aside, not the same function: "
+                      f"grid_sampler_2d_backward {aside_ms:.4f} ms")
+                for key, v in (("ms", ms), ("launch_ms", launch_ms), ("plain_ms", plain_ms),
+                               ("aside_ms", aside_ms), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                    rec[key] += v
+
+        # NaN offsets through K3 and K4 (the same route), NaNs compared as equal
+        off_n = with_nans(torch, off)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            if (max_offset is None and dtype != torch.float32) or h == 180:
+                continue
+            x, ds = x32.to(dev, dtype), ds32.to(dev, dtype)
+            g18, dm9 = dcn_offset_grad(x, off_n, ds, msk, *geo)
+            dx, route = routed(ds, off_n, msk, h, geo)
+            g18_p, dm9_p = dcn_offset_grad_plain(x, off_n, ds, msk, *geo)
+            dx_p = dcn_input_grad_plain(ds, off_n, msk, h, h, *geo)
+            res = [nan_equal_within(torch, g, p, tol)
+                   for g, p in ((g18, g18_p), (dm9, dm9_p), (dx, dx_p))]
+            print(f"K3/K4 {str(dtype)[6:]} bs{b} {h}² clamp {max_offset} with NaN offsets: "
+                  f"g18 / dm9 / dx (K4 {route} route) max_abs_err "
+                  + " / ".join(f"{e:.3e} (limit {lim:.3e})" for e, lim, _ in res)
+                  + f"; NaNs in g18 {int(torch.isnan(g18_p).sum())}, in dx "
+                  f"{int(torch.isnan(dx_p.float()).sum())}, placed as the plain version's")
+            if not all(ok for _, _, ok in res):
+                raise RuntimeError(f"K3/K4 {dtype} at {h}²: NaN offsets differ from plain")
 
         # the whole backward: the kernels against autograd through the plain sampling
         w = torch.randn(3, 3, c, c, generator=gen) / (9 * c) ** 0.5
@@ -479,7 +635,10 @@ def phase_k34(torch, dev):
         print(f"DCN backward float32 bs{b} {h}²->{ho}² clamp {max_offset}: kernels vs autograd "
               f"through the plain sampling, max_abs_err dx {errs[0]:.3e}, doffset {errs[1]:.3e}, "
               f"dmask {errs[2]:.3e}, dweight {errs[3]:.3e} (each within 1e-4 x max|ref|)")
-    return bound_of(dict(k3, library_ms=None)), bound_of(dict(k4, library_ms=None))
+    if not k4["repeats_bitwise"]:
+        raise RuntimeError("K4: the tile route did not repeat bit for bit")
+    return (bound_of(dict(k3, library_ms=None)),
+            bound_of(dict(k4, library_ms=None, k4_route="tile")))
 
 
 def int8_link(torch, dev, gen, b, h, w, c, co, kh, nph, zero, with_res):
@@ -854,16 +1013,18 @@ def reset_launches():
            "conv_probe": conv_probe, "mma_rate": mma_rate}
     for fn in fns.values():
         fn.launches = 0
-    routes = conv_block.route_launches
-    for k in routes:
-        routes[k] = 0
+    routes, dx_routes = conv_block.route_launches, dcn_input_grad.route_launches
+    for r in (routes, dx_routes):
+        for k in r:
+            r[k] = 0
 
     def read():
         # K1 also by route: the wgmma conv mainloop, or the mma.sync kernel
-        # (resident and streamed variants)
+        # (resident and streamed variants); K4 by route: tile or atomic
         return {**{k: fn.launches for k, fn in fns.items()},
                 "conv_block.wgmma": routes["wgmma"],
-                "conv_block.mma_sync": routes["resident"] + routes["streamed"]}
+                "conv_block.mma_sync": routes["resident"] + routes["streamed"],
+                **{f"dcn_input_grad.{k}": n for k, n in dx_routes.items()}}
 
     return read
 
@@ -1487,8 +1648,7 @@ def main() -> int:
         {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, **none}, 10)
     launches = phase_train_bf16(
         torch, dev, TRAIN_YAML, cfg, info, batch,
-        {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, "dcn_offset_grad": 3,
-         "dcn_input_grad": 3}, 10)
+        {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, **DCN_BACKWARD}, 10)
     raw = make_batch(TRAIN_YAML, host_precompute=False)[2]
     dev_launches, built = phase_device_tables(
         torch, dev, "distillation forward", cfg, info, batch, raw,
@@ -1511,7 +1671,7 @@ def main() -> int:
             torch, dev, f"distillation forward {over}", cfg, info, batch, chain_expect[name], 5)
         if name == "int8_stages5":
             phase_train_bf16(torch, dev, TRAIN_YAML, cfg, info, batch,
-                             {**chain_expect[name], "dcn_offset_grad": 3, "dcn_input_grad": 3}, 3)
+                             {**chain_expect[name], **DCN_BACKWARD}, 3)
         del batch
         torch.cuda.empty_cache()
 
@@ -1569,7 +1729,8 @@ def main() -> int:
     keys = ("name", "route", "mma", "source", "replaces", "launches", "launches_val",
             "launches_forward", "launches_int8_stages5", "launches_fp_stages5",
             "launches_device_tables", "max_abs_err",
-            "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "old_route_ms",
+            "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "aside_ms",
+            "k4_route", "repeats_bitwise", "old_route_ms",
             "deep_ms", "deep_old_route_ms", "deep_device_ms", "deep_device_old_route_ms",
             "deep_plain_ms", "deep_bound_ms")
     print(f"chip_smoke.py: every phase passed; {time.perf_counter() - t_start:.1f} s in all, the "

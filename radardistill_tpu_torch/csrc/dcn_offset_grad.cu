@@ -12,7 +12,8 @@
 //                                                     the unmasked dsampled)
 //
 // Offsets are clamped to [-R, R] first when the caller asks for it, as in the
-// forward (dcn_sample.cu); the clamp's own pass-through (zero gradient where
+// forward, with the geometry of dcn_geom.cuh (a NaN offset stays NaN and puts
+// every corner off the grid); the clamp's own pass-through (zero gradient where
 // |offset| > R) is applied by the caller on g18.
 //
 // Replaces the TPU kernel radardistill_tpu/ops/pallas_dcn.py (_offgrad_kernel,
@@ -35,10 +36,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dcn_geom.cuh"
+
 namespace {
 
-constexpr int kK = 3;
-constexpr int kTaps = kK * kK;
+using dcn::kTaps;
 
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -61,28 +63,15 @@ __global__ void dcn_offset_grad_kernel(
   const int lane = threadIdx.x & 31;
 
   // every lane of the warp computes the tap's geometry (same values)
-  const int ki = k / kK, kj = k % kK;
-  float dy = offset[site * 2 * kTaps + 2 * k];
-  float dx = offset[site * 2 * kTaps + 2 * k + 1];
-  if (clamp) {
-    dy = fminf(fmaxf(dy, -max_offset), max_offset);
-    dx = fminf(fmaxf(dx, -max_offset), max_offset);
-  }
-  const float ph = (float)(ho * stride - pad + ki) + dy;
-  const float pw = (float)(wo * stride - pad + kj) + dx;
-  const float h0 = floorf(ph);
-  const float w0 = floorf(pw);
-  const float dh = ph - h0;
-  const float dw = pw - w0;
+  const dcn::Tap t = dcn::tap_at(offset + site * 2 * kTaps + 2 * k, ho, wo, k,
+                                 stride, pad, clamp, max_offset);
 
   const T* corner[4];
   bool ok[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const float r = h0 + (float)(j >> 1);
-    const float q = w0 + (float)(j & 1);
-    // float compares: a NaN or huge offset is simply off the grid
-    ok[j] = r >= 0.0f && r <= (float)(H - 1) && q >= 0.0f && q <= (float)(W - 1);
+    const float r = dcn::corner_r(t, j), q = dcn::corner_q(t, j);
+    ok[j] = dcn::on_grid(r, q, H, W);
     corner[j] = ok[j] ? x + ((b * H + (int64_t)r) * W + (int64_t)q) * C : x;
   }
 
@@ -109,11 +98,10 @@ __global__ void dcn_offset_grad_kernel(
     float gy = 0.0f, gx = 0.0f, gm = 0.0f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int a = j >> 1, bb = j & 1;
-      const float fh = a ? dh : 1.0f - dh;
-      const float fw = bb ? dw : 1.0f - dw;
-      const float gh = a ? 1.0f : -1.0f;
-      const float gw = bb ? 1.0f : -1.0f;
+      const float fh = dcn::corner_fh(t, j);
+      const float fw = dcn::corner_fw(t, j);
+      const float gh = (j >> 1) ? 1.0f : -1.0f;
+      const float gw = (j & 1) ? 1.0f : -1.0f;
       gy += gh * fw * v[j];
       gx += fh * gw * v[j];
       gm += fh * fw * v[j];

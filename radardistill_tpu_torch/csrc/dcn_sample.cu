@@ -5,7 +5,9 @@
 //                               wo*stride - pad + kj + dx_k)
 //
 // with (dy_k, dx_k) = offset[b, ho, wo, 2k : 2k+2], clamped to [-R, R] when
-// the caller asks for it, and zeros for corners off the grid.
+// the caller asks for it (a NaN offset stays NaN and reads zeros, as in the
+// reference), and zeros for corners off the grid. The geometry is
+// dcn_geom.cuh's, shared with K3 and K4.
 //
 // Replaces the TPU kernel radardistill_tpu/ops/pallas_dcn.py (_sample_kernel,
 // entered through dcn_sample). On the TPU a row gather paid a fixed cost per
@@ -18,116 +20,104 @@
 // version compute one function.
 //
 // What bounds it on the H100: bytes. Per output site it writes 9*C values
-// (the CMA's 180^2 -> 90^2 site writes 90*90*9*256 bf16 = 37 MB) and reads at
-// most 4*9 input rows of C values, which mostly hit L2 because neighbouring
-// sites sample neighbouring rows. The arithmetic (4 FMAs per written value)
-// is negligible. The design gives one block to one output site: the first
-// 9 threads compute the tap geometry and the corner weights once, in f32 as
-// the TPU kernel does, into shared memory; then the threads run along C, so
-// every corner read and every output write is coalesced over the contiguous
-// NHWC channel axis.
+// (the CMA's 180^2 -> 90^2 site at batch 2 writes 75 MB of bfloat16) and reads
+// 4*9 input rows of C values, which mostly hit L2 because neighbouring sites
+// sample neighbouring rows. The arithmetic (4 FMAs per written value) is
+// negligible. The design: one thread per 16 bytes of one (site, tap) row of
+// the output (8 bfloat16 or 4 float32 channels; at C 256 a warp is one tap of
+// one site). Every thread computes its tap's geometry itself from a broadcast
+// read of the tap's two offsets and its mask value: no shared memory and no
+// barrier before the first load. It issues the four corner reads as 16-byte
+// loads, accumulates in float32 in the plain version's corner order and
+// stores 16 bytes, marked evict-first so that the 75 MB of output leave L2 to
+// the input. The grid is persistent (8 blocks of 128 threads an SM) and walks
+// (site, tap, channels) in row-major order, so neighbouring warps read
+// neighbouring input rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dcn_geom.cuh"
+
 namespace {
 
-constexpr int kK = 3;  // 3x3 taps, the only DCN of the model (the CMA's)
-constexpr int kTaps = kK * kK;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using dcn::kTaps;
+using dcn::Vec16;
 
 template <typename T>
-__global__ void dcn_sample_kernel(const T* __restrict__ x,
-                                  const float* __restrict__ offset,
-                                  const float* __restrict__ mask,
-                                  T* __restrict__ out, int H, int W, int C,
-                                  int Ho, int Wo, int stride, int pad,
-                                  int clamp, float max_offset) {
-  __shared__ int64_t s_off[kTaps * 4];
-  __shared__ float s_wt[kTaps * 4];
+__global__ void __launch_bounds__(128)
+    dcn_sample_kernel(const T* __restrict__ x, const float* __restrict__ offset,
+                      const float* __restrict__ mask, T* __restrict__ out, int H,
+                      int W, int C, int Ho, int Wo, int stride, int pad,
+                      int clamp, float max_offset, int items) {
+  using V = Vec16<T>;
+  const int nvec = C / V::n;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < items;
+       i += gridDim.x * blockDim.x) {
+    const int st = i / nvec;  // (b, ho, wo, k) flattened
+    const int c = (i - st * nvec) * V::n;
+    const int k = st % kTaps;
+    const int site = st / kTaps;
+    const int wo = site % Wo;
+    const int ho = (site / Wo) % Ho;
+    const int b = site / (Wo * Ho);
+    const dcn::Tap t = dcn::tap_at(offset + 2 * (int64_t)st, ho, wo, k, stride,
+                                   pad, clamp, max_offset);
+    const float m = mask[st];
 
-  const int64_t site = blockIdx.x;  // (b, ho, wo) flattened
-  const int wo = (int)(site % Wo);
-  const int ho = (int)((site / Wo) % Ho);
-  const int64_t b = site / ((int64_t)Wo * Ho);
-
-  const int k = threadIdx.x;
-  if (k < kTaps) {
-    const int ki = k / kK, kj = k % kK;
-    float dy = offset[site * 2 * kTaps + 2 * k];
-    float dx = offset[site * 2 * kTaps + 2 * k + 1];
-    if (clamp) {
-      dy = fminf(fmaxf(dy, -max_offset), max_offset);
-      dx = fminf(fmaxf(dx, -max_offset), max_offset);
+    float val[4][V::n];
+    bool ok[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // all four reads in flight before any FMA
+      const float r = dcn::corner_r(t, j), q = dcn::corner_q(t, j);
+      ok[j] = dcn::on_grid(r, q, H, W);
+      if (ok[j])
+        V::load(x + (((int64_t)b * H + (int)r) * W + (int)q) * C + c, val[j]);
     }
-    const float ph = (float)(ho * stride - pad + ki) + dy;
-    const float pw = (float)(wo * stride - pad + kj) + dx;
-    const float h0 = floorf(ph);
-    const float w0 = floorf(pw);
-    const float dh = ph - h0;
-    const float dw = pw - w0;
-    const float m = mask[site * kTaps + k];
+    float acc[V::n];
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
+    for (int e = 0; e < V::n; ++e) acc[e] = 0.0f;
 #pragma unroll
-      for (int bb = 0; bb < 2; ++bb) {
-        const float fh = a ? dh : 1.0f - dh;
-        const float fw = bb ? dw : 1.0f - dw;
-        const float r = h0 + (float)a;
-        const float q = w0 + (float)bb;
-        // float compares: a NaN or huge offset is simply off the grid
-        const bool ok = r >= 0.0f && r <= (float)(H - 1) && q >= 0.0f &&
-                        q <= (float)(W - 1);
-        const int j = k * 4 + a * 2 + bb;
-        s_off[j] = ok ? (((b * H + (int64_t)r) * W + (int64_t)q) * C) : -1;
-        s_wt[j] = ok ? fh * fw * m : 0.0f;
+    for (int j = 0; j < 4; ++j) {
+      if (ok[j]) {
+        const float w = dcn::corner_weight(t, j, m);
+#pragma unroll
+        for (int e = 0; e < V::n; ++e) acc[e] = fmaf(w, val[j][e], acc[e]);
       }
     }
+    V::store_streaming(out + (int64_t)st * C + c, acc);
   }
-  __syncthreads();
+}
 
-  T* o = out + site * (int64_t)kTaps * C;
-  for (int t = 0; t < kTaps; ++t) {
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int64_t off = s_off[t * 4 + j];
-        if (off >= 0) acc += s_wt[t * 4 + j] * to_f32(x[off + c]);
-      }
-      store(o + (int64_t)t * C + c, acc);
-    }
-  }
+int sm_count(int device) {
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+  return n > 0 ? n : 132;
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const float* offset, const float* mask,
                    void* out, int B, int H, int W, int C, int Ho, int Wo,
-                   int stride, int pad, int clamp, float max_offset,
+                   int stride, int pad, int clamp, float max_offset, int device,
                    cudaStream_t stream) {
-  const int64_t sites = (int64_t)B * Ho * Wo;
-  if (sites == 0) return cudaGetLastError();
-  // a multiple of 32, at least one thread per tap, at most 256
-  const int threads = C < 256 ? ((C + 31) / 32) * 32 : 256;
-  dcn_sample_kernel<T><<<(unsigned)sites, threads, 0, stream>>>(
+  const int64_t items = (int64_t)B * Ho * Wo * kTaps * (C / Vec16<T>::n);
+  if (items == 0) return cudaGetLastError();
+  if (items > INT32_MAX || C % Vec16<T>::n) return cudaErrorInvalidValue;
+  constexpr int threads = 128, blocks_per_sm = 8;
+  const int64_t most = (int64_t)blocks_per_sm * sm_count(device);
+  const int64_t need = (items + threads - 1) / threads;
+  dcn_sample_kernel<T><<<(int)(need < most ? need : most), threads, 0, stream>>>(
       static_cast<const T*>(x), offset, mask, static_cast<T*>(out), H, W, C,
-      Ho, Wo, stride, pad, clamp, max_offset);
+      Ho, Wo, stride, pad, clamp, max_offset, (int)items);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// 3x3 taps. dtype: 0 = float32, 1 = bfloat16 (x and out share it; offset
-// and mask are always float32). clamp != 0 clamps each offset to
+// 3x3 taps, C a multiple of 16 bytes (8 bfloat16 or 4 float32 channels), x
+// and out 16-byte aligned. dtype: 0 = float32, 1 = bfloat16 (x and out share
+// it; offset and mask are always float32). clamp != 0 clamps each offset to
 // [-max_offset, max_offset].
 extern "C" int rdt_dcn_sample(const void* x, const float* offset,
                               const float* mask, void* out, int dtype, int B,
@@ -139,9 +129,9 @@ extern "C" int rdt_dcn_sample(const void* x, const float* offset,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(x, offset, mask, out, B, H, W, C, Ho, Wo, stride, pad,
-                         clamp, max_offset, s);
+                         clamp, max_offset, device, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, offset, mask, out, B, H, W, C, Ho, Wo,
-                                 stride, pad, clamp, max_offset, s);
+                                 stride, pad, clamp, max_offset, device, s);
   return cudaErrorInvalidValue;
 }

@@ -21,8 +21,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("expand.cu", "dcn_sample.cu", "dcn_offset_grad.cu", "dcn_input_grad.cu",
            "conv_block.cu", "conv_block_fp.cu", "gather_win.cu", "conv_probe.cu", "mma_rate.cu",
            "conv3x3_wgmma.cu")
-# included by the conv and probe sources
-HEADERS = ("conv_tile.cuh", "wgmma_ops.cuh", "tma_ops.cuh")
+# included by the conv, probe and DCN sources
+HEADERS = ("conv_tile.cuh", "wgmma_ops.cuh", "tma_ops.cuh", "dcn_geom.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "radardistill_tpu_torch"
 LIB_PATH = BUILD_DIR / "librdt_kernels.so"
 NVCC_FLAGS = (
@@ -88,6 +88,7 @@ SIGNATURES = {
     "rdt_dcn_sample": [_P, _P, _P, _P, *([_I32] * 10), ctypes.c_float, _I32, _P],
     "rdt_dcn_offset_grad": [_P] * 6 + [_I32] * 10 + [ctypes.c_float, _I32, _P],
     "rdt_dcn_input_grad": [_P] * 4 + [_I32] * 10 + [ctypes.c_float, _I32, _P],
+    "rdt_dcn_input_grad_tile": [_P] * 5 + [_I32] * 9 + [ctypes.c_float] + [_I32] * 5 + [_P],
     "rdt_conv_block": [_P] * 6 + [_I32] * 12 + [_P],
     "rdt_chain_conv": [_P] * 6 + [_I32] * 8 + [_P],
     "rdt_conv_block_fp": [_P] * 6 + [_I32] * 10 + [_P],

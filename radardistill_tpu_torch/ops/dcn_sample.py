@@ -11,8 +11,12 @@ weight contraction around it is a plain last-axis matmul.
 ``max_offset``: clamp every offset to ``[-max_offset, max_offset]`` first
 (``None`` = no clamp). Unlike the TPU kernel, Wo is never padded.
 
+The clamp keeps a NaN offset NaN, as ``torch.clamp`` and the reference's
+``jnp.clip`` do: its four corners fall off the grid and the tap reads zeros.
+
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
-kernel (``csrc/dcn_sample.cu``), or raises if it cannot.
+kernel (``csrc/dcn_sample.cu``: a thread per 16 bytes of one tap's output
+row, geometry from ``csrc/dcn_geom.cuh``), or raises if it cannot.
 """
 
 from __future__ import annotations
@@ -94,12 +98,27 @@ def dcn_sample_plain(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     return acc.reshape(B, Ho, Wo, KK * C).to(x.dtype)
 
 
+def launch(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor, out: torch.Tensor,
+           stride: int, padding: int, max_offset: Optional[float]) -> None:
+    """The bare kernel launch into a preallocated ``out`` (B, Ho, Wo, 9·C) of
+    x's dtype, on checked operands; counts nothing."""
+    B, H, W, C = x.shape
+    Ho, Wo = offset.shape[1], offset.shape[2]
+    rc = cuda_lib.lib().rdt_dcn_sample(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        DTYPE_CODES[x.dtype], B, H, W, C, Ho, Wo, stride, padding,
+        int(max_offset is not None), float(max_offset or 0.0),
+        x.device.index, cuda_lib.stream_of(x))
+    cuda_lib.check(rc, "dcn_sample")
+
+
 def dcn_sample(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                stride: int = 2, padding: int = 1, kernel_size: int = 3,
                max_offset: Optional[float] = None) -> torch.Tensor:
     """x (B, H, W, C) float32/bfloat16; offset (B, Ho, Wo, 2K²) and mask
     (B, Ho, Wo, K²) float32 -> (B, Ho, Wo, K²·C) in x's dtype. The CUDA
-    kernel takes K = 3 (the CMA's DCN); the plain version any K."""
+    kernel takes K = 3 and C a multiple of 16 bytes (8 bfloat16 or 4 float32
+    channels); the plain version any K and C."""
     if x.device.type == "cpu":
         return dcn_sample_plain(x, offset, mask, stride, padding, kernel_size, max_offset)
     if x.device.type != "cuda" or offset.device != x.device or mask.device != x.device:
@@ -112,15 +131,13 @@ def dcn_sample(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"dcn_sample: the kernel samples 3x3 taps, not {kernel_size}x{kernel_size}")
     if not (x.is_contiguous() and offset.is_contiguous() and mask.is_contiguous()):
         raise ValueError("dcn_sample: x, offset and mask must be contiguous")
-    B, H, W, C = x.shape
-    Ho, Wo = offset.shape[1], offset.shape[2]
-    out = torch.empty((B, Ho, Wo, 9 * C), dtype=x.dtype, device=x.device)
-    rc = cuda_lib.lib().rdt_dcn_sample(
-        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        DTYPE_CODES[x.dtype], B, H, W, C, Ho, Wo, stride, padding,
-        int(max_offset is not None), float(max_offset or 0.0),
-        x.device.index, cuda_lib.stream_of(x))
-    cuda_lib.check(rc, "dcn_sample")
+    vec = 16 // x.element_size()
+    if x.shape[3] % vec or x.data_ptr() % 16:
+        raise ValueError(f"dcn_sample: the kernel moves 16-byte vectors of {vec} channels; "
+                         f"C = {x.shape[3]}, x at {x.data_ptr():#x}")
+    B, Ho, Wo = offset.shape[:3]
+    out = torch.empty((B, Ho, Wo, 9 * x.shape[3]), dtype=x.dtype, device=x.device)
+    launch(x, offset, mask, out, stride, padding, max_offset)
     dcn_sample.launches += 1
     return out
 

@@ -23,7 +23,7 @@ from radardistill_tpu.ops import pallas_dcn as jpdcn
 from radardistill_tpu.ops.dcn import _modulated_deform_conv_xla
 from radardistill_tpu_torch.ops import active_site as asx
 from radardistill_tpu_torch.ops import dcn, dcn_grad
-from radardistill_tpu_torch.ops.dcn_sample import dcn_sample_plain
+from radardistill_tpu_torch.ops.dcn_sample import corner_terms, dcn_sample_plain
 
 # Six xdist workers share the machine's cores: one intra-op thread per worker
 # keeps torch's thread pools from oversubscribing them (the suite is bound by
@@ -162,6 +162,82 @@ def test_dcn_zero_offset_gradients_are_a_convs():
     gx, gw = torch.autograd.grad(y, (xt, wt), torch.from_numpy(cot))
     _close(got[0], gx)
     _close(got[3], gw)
+
+
+# ------------------------------------------- K4's tile route: window and route
+
+
+def _windowed_corners(stride, max_offset, h, seed):
+    """Every on-grid corner that ``corner_terms`` gives for offsets of which
+    a tenth sit on the clamp at exactly ±R, a tenth are whole numbers and a
+    few are NaN: (site row, corner row, site column, corner column)."""
+    rng = np.random.RandomState(seed)
+    ho = h // stride
+    off = 3.0 * rng.randn(2, ho, ho, 18)
+    pick = rng.rand(*off.shape)
+    off = np.where(pick < 0.1, np.sign(off) * max_offset, off)
+    off = np.where((pick >= 0.1) & (pick < 0.2), np.round(off), off)
+    off = np.where(pick > 0.99, np.nan, off).astype(np.float32)
+    mask = np.ones((2, ho, ho, 9), np.float32)
+    _, _, _, corners = corner_terms((2, h, h, 1), torch.from_numpy(off), torch.from_numpy(mask),
+                                    stride, 1, 3, max_offset)
+    site_r = np.broadcast_to(np.arange(ho)[None, :, None, None], (2, ho, ho, 9))
+    site_q = np.broadcast_to(np.arange(ho)[None, None, :, None], (2, ho, ho, 9))
+    out = []
+    for _, _, ok, rows in corners:
+        ok = ok.numpy()
+        cell = rows.numpy() % (h * h)
+        out.append((site_r[ok], cell[ok] // h, site_q[ok], cell[ok] % h))
+    return [np.concatenate(a) for a in zip(*out)], ho
+
+
+@pytest.mark.parametrize("stride", [2, 1])
+@pytest.mark.parametrize("max_offset", [5.0, 4.5])
+def test_reach_window_holds_every_corner(stride, max_offset):
+    """Every on-grid corner lies in a tile whose windows, in the table the
+    wrapper passes to the tile kernel, hold the corner's site on both axes;
+    a window one output row shorter at either end misses some; and the
+    kernel's shared memory holds every (site, tap) of a tile's window."""
+    h = 90
+    (sr, r, sq, q), ho = _windowed_corners(stride, max_offset, h, 30 + stride)
+    assert len(r) > 10000
+    th, tw = dcn_grad.tile_plan(h, h)[:2]
+    table, cap = dcn_grad.tile_windows(h, h, ho, ho, stride, 1, 3, max_offset, th, tw, "cpu")
+    win = table.numpy().reshape(-1, 2)
+    n_tr = -(-h // th)
+    for site, tile, axis in ((sr, r // th, win[:n_tr]), (sq, q // tw, win[n_tr:])):
+        first, last = axis[tile, 0], axis[tile, 1]
+        assert ((first <= site) & (site <= last)).all()
+        assert ((site == first) & (first > 0)).any()  # a window from first + 1 misses these
+        assert ((site == last) & (last < ho - 1)).any()  # one to last - 1 misses these
+    span = (win[:, 1] - win[:, 0] + 1)
+    assert span[:n_tr].max() * span[n_tr:].max() * 9 == cap
+
+
+def test_tile_windows_at_the_cma_site():
+    """The table the kernel reads at the CMA's 180² -> 90² site: one [first,
+    last] pair per tile row of 8, then per tile column of 8."""
+    assert dcn_grad.tile_plan(180, 180) == (8, 8, 8)
+    table, cap = dcn_grad.tile_windows(180, 180, 90, 90, 2, 1, 3, 5.0, 8, 8, "cpu")
+    t = table.tolist()
+    pairs = list(zip(t[::2], t[1::2]))
+    assert len(pairs) == 23 + 23 and pairs[:23] == pairs[23:]
+    assert pairs[:3] == [(0, 6), (1, 10), (5, 14)] and pairs[22] == (85, 89)
+    assert cap == 9 * 10 * 10  # rows 8-15 reach output rows 1-10
+
+
+def test_input_grad_route():
+    """Clamped calls take the tile kernel where it takes the channels; the
+    unclamped leg (no window) the atomic kernel."""
+    route = dcn_grad.input_grad_route
+    for dtype in (torch.float32, torch.bfloat16):
+        assert route(5.0, 2, 1, 256, dtype) == "tile"
+        assert route(5, 1, 1, 72, dtype) == "tile"
+        assert route(None, 2, 1, 256, dtype) == "atomic"
+        assert route(5.0, 2, 1, 36, dtype) == "atomic"  # not whole 16-byte vectors
+    assert route(float("inf"), 2, 1, 256, torch.float32) == "atomic"
+    assert [dcn_grad.tile_plan(h, w) for h, w in ((180, 180), (90, 45), (7, 64))] == [
+        (8, 8, 8), (8, 8, 8), (7, 8, 8)]
 
 
 # ------------------------------------------------- active-site backward passes

@@ -145,6 +145,22 @@ def test_dcn_unclamped_matches_xla():
     np.testing.assert_allclose(_port_dcn(x, offset, mask, weight), want, rtol=2e-5, atol=2e-5)
 
 
+def test_dcn_sample_nan_offset_reads_zeros_as_pallas():
+    """A NaN offset stays NaN through the clamp (``jnp.clip``, ``torch.clamp``):
+    its corners fall off the grid, so the tap reads exactly 0 in the Pallas
+    kernel (interpret mode) and in the plain version, and every other value
+    agrees as in ``test_dcn_clamped_matches_pallas``."""
+    x, offset, mask, _ = _dcn_case(11, 40, 40, 128, off_scale=3.0)
+    offset[0, 7, 9, 2 * 4] = np.nan  # dy of the centre tap at site (7, 9)
+    want = np.asarray(jpdcn.dcn_sample(*map(jnp.asarray, (x, offset, mask)), stride=2,
+                                       padding=1, max_offset=5, interpret=True))[:, :, :20]
+    got = dcn_sample_plain(*map(torch.from_numpy, (x, offset, mask)), 2, 1, 3, 5.0).numpy()
+    tap = np.s_[0, 7, 9, 4 * 128:5 * 128]
+    assert (want[tap] == 0).all() and (got[tap] == 0).all()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("shape,stride,pad,k", [
     ((1, 180, 180, 256), 2, 1, 3), ((1, 90, 90, 256), 2, 1, 3),
     ((1, 32, 32, 256), 2, 1, 3), ((1, 24, 24, 256), 2, 1, 3),
@@ -221,6 +237,9 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # the kernel samples 3x3 taps only
         dcn_sample(x.float(), torch.zeros(1, 4, 4, 50, device=cuda),
                    torch.zeros(1, 4, 4, 25, device=cuda), 2, 2, 5)
+    with pytest.raises(ValueError):  # 12 bfloat16 channels: not whole 16-byte vectors
+        dcn_sample(torch.zeros(1, 8, 8, 12, device=cuda, dtype=torch.bfloat16),
+                   torch.zeros(1, 4, 4, 18, device=cuda), torch.zeros(1, 4, 4, 9, device=cuda))
 
 
 def _max_err_ratio(got, want):
@@ -233,7 +252,9 @@ def _max_err_ratio(got, want):
 @pytest.mark.parametrize("stride", [2, 1])
 def test_cuda_dcn_grad_kernels_match_plain(cuda, dtype, max_offset, stride):
     """K3 and K4 against their plain versions: float32 within 1e-5 x max|ref|
-    (summation order; K4 adds with atomics), bfloat16 inputs within 1e-2."""
+    (summation order; K4 adds with atomics), bfloat16 inputs within 1e-2. A
+    clamped call takes K4's tile route, an unclamped one its atomic route,
+    and each launch counts on its route."""
     x, offset, mask, _ = _dcn_case(4, 40, 40, 128, off_scale=3.0, stride=stride)
     rng = np.random.RandomState(5)
     ho = 40 // stride
@@ -241,18 +262,63 @@ def test_cuda_dcn_grad_kernels_match_plain(cuda, dtype, max_offset, stride):
     x = torch.from_numpy(x).to(cuda, dtype)
     offset, mask = torch.from_numpy(offset).to(cuda), torch.from_numpy(mask).to(cuda)
     args = (stride, 1, 3, max_offset)
+    route = "tile" if max_offset is not None else "atomic"
+    assert dcn_grad.input_grad_route(max_offset, stride, 1, 128, dtype) == route
+    routes = dict(dcn_grad.dcn_input_grad.route_launches)
     before = dcn_grad.dcn_offset_grad.launches, dcn_grad.dcn_input_grad.launches
     g18, dm9 = dcn_grad.dcn_offset_grad(x, offset, ds, mask, *args)
     dx = dcn_grad.dcn_input_grad(ds, offset, mask, 40, 40, *args)
     torch.cuda.synchronize()
     assert (dcn_grad.dcn_offset_grad.launches, dcn_grad.dcn_input_grad.launches) == (
         before[0] + 1, before[1] + 1)
+    routes[route] += 1
+    assert dcn_grad.dcn_input_grad.route_launches == routes
     g18_p, dm9_p = dcn_grad.dcn_offset_grad_plain(x, offset, ds, mask, *args)
     dx_p = dcn_grad.dcn_input_grad_plain(ds, offset, mask, 40, 40, *args)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     assert dx.dtype == dtype and g18.dtype == dm9.dtype == torch.float32
     for got, want in ((g18, g18_p), (dm9, dm9_p), (dx, dx_p)):
         assert _max_err_ratio(got, want) <= tol
+
+
+def _nan_equal_within(got, want, tol):
+    """NaN where the reference has NaN, and the rest within tol x max|ref|."""
+    got, want = got.float(), want.float()
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return False
+    err = (got[~nan] - want[~nan]).abs().max().item()
+    return err <= tol * want[~nan].abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_offset", [5.0, None])
+def test_cuda_dcn_kernels_keep_nan_offsets_as_plain(cuda, dtype, max_offset):
+    """K2, K3 and K4 (both routes) with NaN offsets against their plain
+    versions, NaNs compared as equal: the clamp keeps a NaN, so its tap
+    reads zeros, adds nothing to dx, and K3's g18 is NaN where the plain
+    version's is."""
+    x, offset, mask, _ = _dcn_case(12, 40, 40, 128, off_scale=3.0)
+    offset[0, ::3, ::5, 0] = np.nan
+    offset[0, 1::4, ::3, 7] = np.nan
+    rng = np.random.RandomState(13)
+    ds = torch.from_numpy(rng.randn(1, 20, 20, 9 * 128).astype(np.float32)).to(cuda, dtype)
+    x = torch.from_numpy(x).to(cuda, dtype)
+    offset, mask = torch.from_numpy(offset).to(cuda), torch.from_numpy(mask).to(cuda)
+    args = (2, 1, 3, max_offset)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    got = dcn_sample(x, offset, mask, *args)
+    assert _nan_equal_within(got, dcn_sample_plain(x, offset, mask, *args), tol)
+    assert torch.isfinite(got.float()).all()
+    g18, dm9 = dcn_grad.dcn_offset_grad(x, offset, ds, mask, *args)
+    g18_p, dm9_p = dcn_grad.dcn_offset_grad_plain(x, offset, ds, mask, *args)
+    assert torch.isnan(g18_p).any()
+    assert _nan_equal_within(g18, g18_p, tol) and _nan_equal_within(dm9, dm9_p, tol)
+    dx = dcn_grad.dcn_input_grad(ds, offset, mask, 40, 40, *args)
+    dx_p = dcn_grad.dcn_input_grad_plain(ds, offset, mask, 40, 40, *args)
+    assert torch.isfinite(dx_p.float()).all()
+    assert _nan_equal_within(dx, dx_p, tol)
 
 
 @pytest.mark.gpu
