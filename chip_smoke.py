@@ -104,8 +104,15 @@ Phases 12-19, the deep chains of the teacher:
  14. K6 ``conv_block_fp`` vs its plain version at the seven link shapes of the
      ``FP_STAGES: 5`` chain in bfloat16 (within 1e-2 x max|ref|: one bfloat16
      rounding of a differently ordered float32 sum), with and without a
-     residual, and in float32 at two of them (within 1e-5 x max|ref|), plus a
-     4-phase mask and an odd 45 x 77 grid;
+     residual, on both bfloat16 routes, each forced and its counter checked:
+     ``wgmma`` (the conv mainloop of ``csrc/conv3x3_wgmma.cu``; the Co-64
+     links on its transposed kernel), where the dispatch sends every one of
+     them, and ``mma.sync``; the ``wgmma`` route's bare launch equal to its
+     wrapper's output; wrapper, launch alone, the ``mma.sync`` route, the
+     plain version and, as an aside that is not the same function, cuDNN's
+     bfloat16 conv of the same products timed in one run; then float32 (the
+     FFMA kernel) at two of them (within 1e-5 x max|ref|), 2- and 4-phase
+     masks and odd grids on both bfloat16 routes;
  15. K9 ``conv3x3_wide`` at (2, 180, 180, 256) -> 256, bfloat16 (the TMA +
      ``wgmma`` conv mainloop of ``csrc/conv3x3_wgmma.cu``) and float32 (the
      float link's kernel): forward and both gradients vs autograd through
@@ -117,12 +124,17 @@ Phases 12-19, the deep chains of the teacher:
  16. distillation forward, bfloat16, 1440², ``INT8_STAGES: 5``: K1 x 23
      (18 on ``wgmma``, 5 on ``mma.sync``), K7 x 1, K6 x 0, K5 x 2, K2 x 3;
      finite outputs, p50;
- 17. the same with ``INT8_STAGES: 1`` + ``FP_STAGES: 5``: K1 x 4 (``wgmma``), K6 x 19,
-     K7 x 0, K5 x 2, K2 x 3;
+ 17. the same with ``INT8_STAGES: 1`` + ``FP_STAGES: 5``: K1 x 4 (``wgmma``), K6 x 19
+     (all on its ``wgmma`` route), K7 x 0, K5 x 2, K2 x 3;
  18. both configurations in float32 at grid 512, card vs CPU (teacher features
      1e-3, ``radar_preds`` 1e-4; under ``INT8_STAGES: 5`` the teacher's bound
      is 5e-2, see below), and the ``INT8_STAGES: 5`` teacher once more with
-     ``CONV_BLOCK_V1=1`` (every link through K7): features bit-equal;
+     ``CONV_BLOCK_V1=1`` (every link through K7): features bit-equal; then the
+     ``FP_STAGES: 5`` teacher in bfloat16 against the card's own float32
+     forward of the same batch and weights at grid 512: the rel-L2 of
+     ``x_conv4``, ``x_conv5`` and ``spatial_features_2d``, at most 1.5 x what
+     the same comparison read with every K6 link on ``mma.sync``
+     (``FP_TEACHER_BF16_REL_BEFORE``);
  19. one warm and three timed train steps with the ``INT8_STAGES: 5`` teacher:
      finite losses, K1 x 23 (18 + 5), K3 x 3 and K4 x 3 per step as before.
 
@@ -150,8 +162,10 @@ Phases 20-24, the route without host tables and the last three kernels:
      modes on two routes, ``mma.sync`` and the ``wgmma`` conv mainloop, five
      shapes): each case within tolerance of its plain version
      (bfloat16 1e-2, TF32 1e-3 x max|ref|, int8 equal), then its rate beside
-     the library call's; the ``wgmma`` route also by its launch alone. (They
-     run first, right after the build.)
+     the library call's; the ``wgmma`` route also by its launch alone; then
+     P2's bfloat16 (2048, 512, 512) case on ``wgmma`` and ``torch.bmm`` in
+     turns, 20 times each (mean, min, max). (They run first, right after the
+     build.)
 
 Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
 float32 scales alike, but not every stock op around it (the VFE's sums); one
@@ -182,14 +196,18 @@ for K8 one pass over its 14 gathers (times summed), for P1 the ``conv`` mode at
 (2, 720, 720, 128) -> 128 on the ``wgmma`` route and for P2 the bfloat16 (2048, 512, 512) product on
 the ``wgmma`` route, with ``launches`` counting every case of their tables
 (bound of P1, P2: operations at the bfloat16 peak). ``launch_ms`` (K1, K2,
-K3, K4, K9 and P1; null for the others) is the time of the bare launches on
-prepared inputs and preallocated outputs, ``ms`` that of the wrapper.
-``aside_ms`` (K2, K3, K4) is the time of the asides of phase 4, ``k4_route``
-the route K4 takes on the main path and ``repeats_bitwise`` whether its dx
-repeated bit for bit.
-``mma`` names the tensor-core instruction of a kernel that has one (K1: its
-stage-1 route). K1's record also carries ``old_route_ms``, the stage-1 links
-on the resident ``mma.sync`` variant in the same run, and ``deep_*``, the
+K3, K4, K6, K9 and P1; null for the others) is the time of the bare launches
+on prepared inputs and preallocated outputs, ``ms`` that of the wrapper.
+``aside_ms`` (K2, K3, K4) is the time of the asides of phase 4 (K6: cuDNN's
+bfloat16 conv of its 19 links' products, phase 14), ``k4_route`` the route
+K4 takes on the main path and ``repeats_bitwise`` whether its dx repeated
+bit for bit. K6's ``teacher_bf16_rel_l2`` is the figure of phase 18; P2's
+``alternating_ms`` and ``alternating_library_ms`` are (mean, min, max) of P2
+and ``torch.bmm`` timed in turns, 20 times each (phase 24).
+``mma`` names the tensor-core instruction of a kernel that has one (K1, K6:
+their routes at the links of their configuration). K1's and K6's records also
+carry ``old_route_ms``, their links on the ``mma.sync`` kernel in the same
+run; K1's also ``deep_*``, the
 sums over the 19 deeper links of ``INT8_STAGES: 5`` on their routes
 (``deep_old_route_ms``: all 19 on ``mma.sync``; ``deep_device_*``: their
 device time with the host's enqueue hidden, as the wrappers of the links
@@ -226,12 +244,19 @@ INT8_DEEP_LINKS = ((720, 128, 64, 2, 1, 0), (720, 64, 64, 3, 2, 2), (360, 256, 1
 # the tensor-core instruction of each kernel that has one (K1: its route at
 # the stage-1 links; the Co-64 links of INT8_STAGES: 5 stay on mma.sync)
 MMA_ROUTES = {"conv_block": "wgmma", "conv3x3_wide": "wgmma", "conv_probe": "wgmma",
-              "mma_rate": "wgmma", "conv_block_fp": "mma.sync", "chain_conv": "mma.sync"}
+              "mma_rate": "wgmma", "conv_block_fp": "wgmma", "chain_conv": "mma.sync"}
 # K1's launches in one distillation forward: the four stage-1 links, all on
 # the wgmma route
 K1_STAGE1 = {"conv_block": 4, "conv_block.wgmma": 4, "conv_block.mma_sync": 0}
 # the CMA's backward in one train step: K3 x 3, K4 x 3 on its tile route
 DCN_BACKWARD = {"dcn_offset_grad": 3, "dcn_input_grad": 3, "dcn_input_grad.tile": 3}
+# rel-L2 of the FP_STAGES: 5 teacher's features, bfloat16 against the card's
+# float32 forward at grid 512 (phase_fp_teacher_bf16), read on an H100 with
+# every K6 link on the mma.sync kernel, before the wgmma route existed
+# (tools/torch_fp_teacher_rel.py on that tree); the wgmma route may not be
+# more than 1.5 x this
+FP_TEACHER_BF16_REL_BEFORE = {"x_conv4": 1.0093e-02, "x_conv5": 8.4639e-03,
+                              "spatial_features_2d": 1.6576e-02}
 FP_LINKS = ((720, 64, 64, 3, 2, 2), (360, 256, 128, 2, 1, 0), (360, 128, 128, 3, 2, 2),
             (180, 512, 256, 2, 1, 0), (180, 256, 256, 3, 2, 2), (90, 1024, 256, 2, 1, 0),
             (90, 256, 256, 3, 2, 2))  # 19 launches
@@ -863,23 +888,45 @@ def fp_link(torch, dev, gen, dtype, b, h, w, c, co, kh, nph, with_res):
 
 
 def phase_k6(torch, dev):
-    """K6 at the link shapes of the ``FP_STAGES: 5`` chain; returns the sums
-    over its 19 launches (bfloat16)."""
+    """K6 at the link shapes of the ``FP_STAGES: 5`` chain on both bfloat16
+    routes, each forced: every link held against the plain version, the
+    launch counted on the route forced; the wgmma route's bare launch on the
+    prepared taps equal to its wrapper's output. Timed in one run: the plain
+    version, the ``wgmma`` route (wrapper and launch alone), the ``mma.sync``
+    route, and as an aside that is not the same function (no affine,
+    residual, relu or mask) cuDNN's bfloat16 ``F.conv2d`` of the same
+    products, channels-last (a 2x2 link on its input padded once outside the
+    timing). Then float32 (the FFMA route) at two of the shapes, and 2- and
+    4-phase masks and odd grids on both bfloat16 routes. Returns the sums
+    over the 19 launches (bfloat16)."""
+    import torch.nn.functional as F
+
+    from radardistill_tpu_torch.ops import conv3x3_wgmma
     from radardistill_tpu_torch.ops.conv_block import (conv_block_fp, conv_block_fp_plain,
-                                                       fp_block_conv)
+                                                       fp_block_conv, fp_route_of)
 
     gen = torch.Generator().manual_seed(8)
-    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    rec = dict.fromkeys(("max_abs_err", "ms", "launch_ms", "old_route_ms", "plain_ms",
+                         "aside_ms", "bytes_ms", "ops_ms"), 0.0)
+    forced = {r: (lambda *a, r=r: conv_block_fp(*a, variant=r)) for r in ("wgmma", "mma_sync")}
 
-    def check(link, tag, tol):
-        got = fp_block_conv(block=conv_block_fp, **link)
+    def check(link, tag, tol, routes):
         want = fp_block_conv(block=conv_block_fp_plain, **link)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
         ref = want.float().abs().max().item()
-        if not err <= tol * ref:
-            raise RuntimeError(f"K6 {tag}: error {err} over {tol} x {ref}")
-        return err, ref, got
+        got, errs = {}, {}
+        for route in routes:
+            before = dict(conv_block_fp.route_launches)
+            got[route] = fp_block_conv(block=forced.get(route, conv_block_fp), **link)
+            torch.cuda.synchronize()
+            moved = [r for r, n in conv_block_fp.route_launches.items() if n != before[r]]
+            if moved != [route]:
+                raise RuntimeError(f"K6 {tag}: a launch forced on {route} counted on {moved}")
+            errs[route] = (got[route].float() - want.float()).abs().max().item()
+            if not errs[route] <= tol * ref:
+                raise RuntimeError(f"K6 {tag} ({route}): error {errs[route]} over {tol} x {ref}")
+        print(f"K6 conv_block_fp {tag}: max_abs_err "
+              + ", ".join(f"{r} {e:.3e}" for r, e in errs.items()) + f" (limit {tol * ref:.3e})")
+        return errs.get("wgmma", 0.0), got
 
     for hw, c, co, kh, n_plain, n_res in FP_LINKS:
         for with_res, count in ((False, n_plain), (True, n_res)):
@@ -887,38 +934,78 @@ def phase_k6(torch, dev):
                 continue
             link = fp_link(torch, dev, gen, torch.bfloat16, 2, hw, hw, c, co, kh, 1, with_res)
             tag = f"bfloat16 x (2, {hw}, {hw}, {c}) k ({kh}, {kh}, {c}, {co}) res {with_res}"
-            err, ref, got = check(link, tag, 1e-2)
-            ops_ms = 2.0 * got.numel() * kh * kh * c / PEAK_BF16_OPS * 1e3
-            nbytes = (2 * (link["x"].numel() + link["kernel"].numel() + got.numel()
-                           + (got.numel() if with_res else 0))
-                      + link["mask_c"].numel() + 2 * co * 4)
-            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            if fp_route_of(c, co, 1, torch.bfloat16) != "wgmma":
+                raise RuntimeError(f"K6 {tag}: the dispatch does not send it to wgmma")
+            err, got = check(link, tag, 1e-2, ("wgmma", "mma_sync"))
+            # the bare launch on prepared operands, as the wrapper prepares them
+            wk = conv3x3_wgmma.wgmma_taps(link["kernel"].to(torch.bfloat16))
+            ab = torch.stack([link["gt"], link["bias"] * link["gt"] + link["sh"]]).float()
+            out = torch.empty_like(got["wgmma"])
+            alone = lambda: conv3x3_wgmma.launch_fp_link(  # noqa: E731
+                link["x"], wk, ab, link["mask_c"], link["res"], out)
+            alone()
+            torch.cuda.synchronize()
+            if not torch.equal(out, got["wgmma"]):
+                raise RuntimeError(f"K6 {tag}: the bare launch differs from the wrapper's output")
+            xn = link["x"].permute(0, 3, 1, 2)
+            if kh == 2:
+                xn = F.pad(xn, (1, 0, 1, 0))
+            wn = link["kernel"].to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            old1 = cuda_ms(torch, lambda: fp_block_conv(block=forced["mma_sync"], **link), 10)
             ms, plain_ms = paired_ms(torch, lambda: fp_block_conv(block=conv_block_fp, **link),
                                      lambda: fp_block_conv(block=conv_block_fp_plain, **link),
                                      iters=10, plain_iters=2)
-            print(f"K6 conv_block_fp {tag}: max_abs_err {err:.3e} (limit {1e-2 * ref:.3e}); "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            old2 = cuda_ms(torch, lambda: fp_block_conv(block=forced["mma_sync"], **link), 10)
+            launch_ms = (cuda_ms(torch, alone, 10) + cuda_ms(torch, alone, 10)) / 2
+            aside_ms = cuda_ms(torch, lambda: F.conv2d(xn, wn, None, 1, 1 if kh == 3 else 0), 10)
+            ops_ms = 2.0 * out.numel() * kh * kh * c / PEAK_BF16_OPS * 1e3
+            nbytes = (2 * (link["x"].numel() + link["kernel"].numel() + out.numel()
+                           + (out.numel() if with_res else 0))
+                      + link["mask_c"].numel() + 2 * co * 4)
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            print(f"  x {count}: wgmma wrapper {ms:.4f} ms, launch alone {launch_ms:.4f} ms "
+                  f"({ops_ms * PEAK_BF16_OPS / 1e12 / launch_ms:.0f} TFLOP/s) [mma.sync "
+                  f"{(old1 + old2) / 2:.4f} ms], plain {plain_ms:.4f} ms, bound "
                   f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes "
-                  f"{bytes_ms:.4f}, {nbytes / 1e6:.1f} MB)")
+                  f"{bytes_ms:.4f}, {nbytes / 1e6:.1f} MB); aside, conv only: cuDNN bf16 "
+                  f"F.conv2d {aside_ms:.4f} ms")
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            rec["ms"] += count * ms
-            rec["plain_ms"] += count * plain_ms
-            rec["bytes_ms"] += count * bytes_ms
-            rec["ops_ms"] += count * ops_ms
-    # float32 at two of the shapes, a 4-phase and a 2-phase mask, an odd grid
+            for key, v in (("ms", ms), ("launch_ms", launch_ms),
+                           ("old_route_ms", (old1 + old2) / 2), ("plain_ms", plain_ms),
+                           ("aside_ms", aside_ms), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                rec[key] += count * v
+    print(f"K6 conv_block_fp, the 19 links of FP_STAGES: 5 summed: wgmma wrapper {rec['ms']:.4f} "
+          f"ms, launch alone {rec['launch_ms']:.4f} ms [mma.sync {rec['old_route_ms']:.4f} ms]; "
+          f"aside, conv only: cuDNN bf16 F.conv2d {rec['aside_ms']:.4f} ms")
+    # float32 at two of the shapes, 2- and 4-phase masks, odd grids
     for dtype, tol, (b, h, w, c, co, kh, nph, with_res) in (
             (torch.float32, 1e-5, (2, 180, 180, 256, 256, 3, 1, True)),
             (torch.float32, 1e-5, (2, 90, 90, 1024, 256, 2, 1, False)),
             (torch.bfloat16, 1e-2, (2, 90, 90, 256, 256, 3, 4, True)),
             (torch.bfloat16, 1e-2, (1, 45, 77, 128, 128, 3, 2, True)),
+            (torch.bfloat16, 1e-2, (1, 45, 77, 64, 64, 3, 2, True)),
+            (torch.bfloat16, 1e-2, (1, 19, 37, 64, 64, 2, 4, True)),
             (torch.float32, 1e-5, (1, 45, 77, 128, 128, 3, 2, False))):
         link = fp_link(torch, dev, gen, dtype, b, h, w, c, co, kh, nph, with_res)
         tag = (f"{str(dtype)[6:]} x ({b}, {h}, {w}, {c}) k ({kh}, {kh}, {c}, {co}) nph {nph} "
                f"res {with_res}")
-        err, ref, _ = check(link, tag, tol)
-        print(f"K6 conv_block_fp {tag}: max_abs_err {err:.3e} (limit {tol * ref:.3e})")
+        check(link, tag, tol, ("ffma",) if dtype == torch.float32 else ("wgmma", "mma_sync"))
     rec["library_ms"] = None  # no single PyTorch call fuses the conv with this epilogue
     return bound_of(rec)
+
+
+def phase_fp_teacher_bf16(torch, dev, small):
+    """The ``FP_STAGES: 5`` teacher in bfloat16 against the card's own float32
+    forward of the same batch and weights (TF32 off), grid 512: rel-L2 of the
+    teacher's features (``tools/torch_fp_teacher_rel.py``). Both forwards run
+    the port's kernels (bfloat16: K6 on its routes; float32: K6's FFMA
+    kernel), so the figure is what bfloat16 costs the chain. Returns it."""
+    from tools.torch_fp_teacher_rel import report, teacher_rel
+
+    rel, launches = teacher_rel(torch, dev, small)
+    report(rel, launches)
+    return rel
 
 
 def phase_k9(torch, dev):
@@ -1014,16 +1101,19 @@ def reset_launches():
     for fn in fns.values():
         fn.launches = 0
     routes, dx_routes = conv_block.route_launches, dcn_input_grad.route_launches
-    for r in (routes, dx_routes):
+    fp_routes = conv_block_fp.route_launches
+    for r in (routes, dx_routes, fp_routes):
         for k in r:
             r[k] = 0
 
     def read():
         # K1 also by route: the wgmma conv mainloop, or the mma.sync kernel
-        # (resident and streamed variants); K4 by route: tile or atomic
+        # (resident and streamed variants); K6 by route: wgmma, mma.sync or
+        # ffma; K4 by route: tile or atomic
         return {**{k: fn.launches for k, fn in fns.items()},
                 "conv_block.wgmma": routes["wgmma"],
                 "conv_block.mma_sync": routes["resident"] + routes["streamed"],
+                **{f"conv_block_fp.{k}": n for k, n in fp_routes.items()},
                 **{f"dcn_input_grad.{k}": n for k, n in dx_routes.items()}}
 
     return read
@@ -1558,12 +1648,22 @@ def phase_probes(torch, dev):
     records of the kernels line: the bfloat16 (2048, 512, 512) product on the
     ``wgmma`` route, and the ``conv`` mode at (2, 720, 720, 128) -> 128 on the
     ``wgmma`` route (the TMA + ``wgmma`` conv mainloop)."""
-    from radardistill_tpu_torch.ops.probe_bench import conv_probe_table, mma_rate_table
+    from radardistill_tpu_torch.ops.probe_bench import (conv_probe_table,
+                                                         mma_rate_against_library,
+                                                         mma_rate_table)
 
     read = reset_launches()
     rates = mma_rate_table(dev, target_ops=4e11)
     convs = conv_probe_table(dev, iters=3)
     launches = read()
+    # P2 and torch.bmm in turns, 20 times each: the table's single reading of
+    # each moves more between calls than the two differ
+    alt = mma_rate_against_library(dev)
+    spread = {name: (sum(v) / len(v), min(v), max(v)) for name, v in zip(("P2", "bmm"), alt)}
+    print("P2 mma_rate bfloat16 (2048, 512, 512), 8 products, wgmma, and torch.bmm in turns, "
+          f"{len(alt[0])} times each: " + "; ".join(
+              f"{n} mean {m:.4f} ms (min {lo:.4f}, max {hi:.4f})"
+              for n, (m, lo, hi) in spread.items()))
     p2 = next(r for r in rates if r["shape"] == (2048, 512, 512) and r["type"] == "bfloat16"
               and r["route"] == "wgmma")
     p1 = next(r for r in convs if r["shape"] == (2, 720, 720, 128, 128) and r["mode"] == "conv"
@@ -1571,7 +1671,8 @@ def phase_probes(torch, dev):
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
     return (bound_of({"launch_ms": p1["launch_ms"], **{k: p1[k] for k in keys}}),
             launches["conv_probe"],
-            bound_of({k: p2[k] for k in keys}), launches["mma_rate"])
+            bound_of({**{k: p2[k] for k in keys}, "alternating_ms": list(spread["P2"]),
+                      "alternating_library_ms": list(spread["bmm"])}), launches["mma_rate"])
 
 
 def cudnn_bf16_conv_aside(torch, dev):
@@ -1663,7 +1764,8 @@ def main() -> int:
     chain_expect = {
         "int8_stages5": {"expand_rows": 2, "dcn_sample": 3, "conv_block": 23,
                          "conv_block.wgmma": 18, "conv_block.mma_sync": 5, "chain_conv": 1},
-        "fp_stages5": {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, "conv_block_fp": 19}}
+        "fp_stages5": {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, "conv_block_fp": 19,
+                       "conv_block_fp.wgmma": 19}}
     chain_launches = {}
     for name, over in deep.items():
         cfg, info, batch = make_batch(TRAIN_YAML, backbone_3d=over)
@@ -1688,6 +1790,12 @@ def main() -> int:
         phase_forward_f32(torch, dev, f"distillation forward {over}", cfg, info, batch,
                           {**{k: t_tol for k in teacher}, "radar_preds": 1e-4},
                           v1_equal=teacher[:4] if name == "int8_stages5" else ())
+    fp_rel = phase_fp_teacher_bf16(torch, dev, small)
+    worse = {k: v for k, v in fp_rel.items() if not v <= 1.5 * FP_TEACHER_BF16_REL_BEFORE[k]}
+    if worse:
+        raise RuntimeError(f"FP_STAGES: 5 bf16 teacher: rel-L2 {worse}, more than 1.5 x the "
+                           f"mma.sync route's {FP_TEACHER_BF16_REL_BEFORE}")
+    k6["teacher_bf16_rel_l2"] = fp_rel
 
     dcn_py = "radardistill_tpu/ops/pallas_dcn.py"
     block_py = "radardistill_tpu/ops/pallas_conv_block.py"
@@ -1697,7 +1805,7 @@ def main() -> int:
         ("conv_block", "conv3x3_wgmma.cu", f"{block_py}:81", k1),
         ("dcn_offset_grad", "dcn_offset_grad.cu", f"{dcn_py}:283", k3),
         ("dcn_input_grad", "dcn_input_grad.cu", f"{dcn_py}:378", k4),
-        ("conv_block_fp", "conv_block_fp.cu", f"{block_py}:81", k6),
+        ("conv_block_fp", "conv3x3_wgmma.cu", f"{block_py}:81", k6),
         ("chain_conv", "conv_block.cu", "radardistill_tpu/ops/pallas_int8_conv.py:64", k7),
         ("conv3x3_wide", "conv3x3_wgmma.cu", "radardistill_tpu/ops/pallas_wide_conv.py:57", k9),
         ("gather_rows_windowed", "gather_win.cu", "radardistill_tpu/ops/pallas_expand.py:130", k8),
@@ -1730,6 +1838,7 @@ def main() -> int:
             "launches_forward", "launches_int8_stages5", "launches_fp_stages5",
             "launches_device_tables", "max_abs_err",
             "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "aside_ms",
+            "teacher_bf16_rel_l2", "alternating_ms", "alternating_library_ms",
             "k4_route", "repeats_bitwise", "old_route_ms",
             "deep_ms", "deep_old_route_ms", "deep_device_ms", "deep_device_old_route_ms",
             "deep_plain_ms", "deep_bound_ms")

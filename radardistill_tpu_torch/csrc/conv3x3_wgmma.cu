@@ -1,5 +1,5 @@
 // The Hopper conv mainloop: TMA loads into mbarrier rings, wgmma from shared
-// memory, a persistent grid. Three kernels of the port run on it:
+// memory, a persistent grid. Four kernels of the port run on it:
 //
 //   K1  ops/conv_block.py::conv_block (the wgmma route, replaces
 //       radardistill_tpu/ops/pallas_conv_block.py::_block_kernel in int8
@@ -7,6 +7,12 @@
 //       or a 2x2 window padded (1, 0), int8 x int8 -> int32, then the link's
 //       epilogue (affine, int8 residual, relu, compact phase mask, requant to
 //       int8 or the float value as bfloat16); padding cells hold zpad;
+//   K6  ops/conv_block.py::conv_block_fp (the wgmma route, replaces
+//       radardistill_tpu/ops/pallas_conv_block.py::_block_kernel in bf16
+//       mode): the teacher's fused bfloat16 conv link, the same two windows,
+//       float32 accumulation, then its epilogue (affine, bfloat16 residual
+//       added as float32, relu, compact phase mask, one rounding to
+//       bfloat16); padding cells hold zeros;
 //   K9  ops/wide_conv.py::conv3x3_wide, bfloat16 y and dx (replaces
 //       radardistill_tpu/ops/pallas_wide_conv.py::_wide_kernel): the 3x3
 //       stride-1 pad-1 conv of x (B, H, W, C), float32 accumulation,
@@ -52,10 +58,10 @@
 //   channels fastest; the producer runs ahead into the next tile while the
 //   consumers store this one.
 // - Epilogue: float32 -> bfloat16 round-to-nearest-even (K9, conv, dots), P1's
-//   int8 requant, or K1's link; every float operation rounds once, as the
-//   plain versions' do (__fmul_rn, __fadd_rn, rintf). Each warp stages its 16
-//   pixels x 128 bytes of output in shared memory and stores them as 16-byte
-//   vectors (K1's bfloat16 output in two passes of 64 channels).
+//   int8 requant, K1's link or K6's; every float operation rounds once, as
+//   the plain versions' do (__fmul_rn, __fadd_rn, rintf). Each warp stages
+//   its 16 pixels x 128 bytes of output in shared memory and stores them as
+//   16-byte vectors (a bfloat16 link output in passes of 64 channels).
 //
 // K1's border: TMA fills out-of-bounds cells only with zeros, but K1's padding
 // cells hold zpad = -zero (0, or -127 after a relu: the code that dequantizes
@@ -71,6 +77,16 @@
 // are prefetched into L2 when the tile starts. K1's epilogue is long beside a
 // tile's products at C = 128, so its two consumers run a few weight slices
 // apart, each one's epilogue beside the other's products (3-5% measured).
+//
+// K6 takes the same pieces in bfloat16: TMA's zero fill is its padding (no
+// border correction), its residual (64 bfloat16 channels, 128 bytes a pixel,
+// per pass) is staged in bytes 128-255 of the staging rows beside the pass's
+// 128 bytes of output, and its consumers run apart as K1's do. K1 and K6 read
+// each tile's mask bytes into registers, and alpha and beta of its channels
+// into a shared copy per consumer, when the tile starts, so that those reads
+// land while the products run (read after them, they stood exposed after
+// each tile's products). K6's Co-64 links take their own kernel below,
+// conv_co64_kernel, with the product transposed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,9 +108,15 @@ constexpr int B_BYTES = BN * ROW;                      // one weight slice
 constexpr int A_STAGES = 2, B_STAGES = 5;
 constexpr int EPI_ROW = 2 * BN + 16;                   // padded: conflict-free fragment stores
 constexpr int EPI_WARP = 16 * EPI_ROW;
+constexpr int AB_BYTES = 2 * 2 * BN * 4;               // each consumer's alpha, beta
 constexpr int THREADS = 384;
-constexpr int SMEM = 1024 + A_STAGES * A_STAGE + B_STAGES * B_BYTES + 8 * EPI_WARP +
+constexpr int SMEM = 1024 + A_STAGES * A_STAGE + B_STAGES * B_BYTES + 8 * EPI_WARP + AB_BYTES +
                      2 * 8 * (A_STAGES + B_STAGES);
+// K1's and K6's consumers run this many weight slices apart: fewer than the
+// ring holds, and the taps of one 2x2 chunk, so that consumer 0 needs one halo
+// stage to get there
+constexpr int STAGGER = 4;
+static_assert(STAGGER < B_STAGES && SMEM <= 232448, "the rings, the stagger and the epilogue fit");
 
 struct Bf16 {
   using acc_t = float;
@@ -114,17 +136,18 @@ struct S8 {
 };
 
 // the epilogues: bfloat16 out (K9, P1 conv and dots), P1's int8 requant, K1's
-// link with an int8 or a bfloat16 output
-enum Epi { EPI_BF16, EPI_P1, EPI_K1_S8, EPI_K1_BF16 };
+// link with an int8 or a bfloat16 output, K6's link
+enum Epi { EPI_BF16, EPI_P1, EPI_K1_S8, EPI_K1_BF16, EPI_K6 };
 
 struct EpiArgs {
   const float* scale;   // P1: (Co,) requant scale
   int relu;             // P1
-  const float* ab;      // K1: (8, Co), rows alpha, beta, s_out, rs, rsh
-  const int8_t* mask;   // K1: (B, H, W, nph)
+  const float* ab;      // K1: (8, Co), rows alpha, beta, s_out, rs, rsh; K6: (2, Co)
+  const int8_t* mask;   // K1, K6: (B, H, W, nph)
   const int8_t* res;    // K1: (B, H, W, Co) or null
+  const __nv_bfloat16* res16;  // K6: (B, H, W, Co) or null
   const int* wsum;      // K1: (kh * kh, Co), the weight summed over C per tap
-  int nph, zpad;        // K1
+  int nph, zpad;        // K1 (nph also K6)
 };
 
 // keeps the compiler from moving reads of the accumulators above the wait
@@ -150,10 +173,25 @@ __device__ __forceinline__ float link_value(int acc, float alpha, float beta, bo
   return __fmul_rn(y, m);
 }
 
+// K6's epilogue on one accumulator, csrc/conv_block_fp.cu's: every float
+// operation rounds once
+__device__ __forceinline__ float fp_value(float acc, float alpha, float beta, bool has_res,
+                                          float r, float m) {
+  float y = __fadd_rn(__fmul_rn(acc, alpha), beta);
+  if (has_res) y = __fadd_rn(y, r);
+  y = fmaxf(y, 0.0f);
+  return __fmul_rn(y, m);
+}
+
 // clip(rint(y * s_out) - 127, -127, 127): the conversion rounds half to even
 // (a NaN converts to 0, as the clip of the float form takes it to -127)
 __device__ __forceinline__ signed char requant(float y, float s_out) {
   return (signed char)(min(max(__float2int_rn(__fmul_rn(y, s_out)), 0), 254) - 127);
+}
+
+// named barrier 2 + cw among the 128 threads of consumer warpgroup cw
+__device__ __forceinline__ void consumer_sync(int cw) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
 }
 
 // named barrier 1 among the two consumer warpgroups
@@ -206,7 +244,8 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
                                            ~(uintptr_t)1023);
   uint8_t* sb = sa + A_STAGES * A_STAGE;
   uint8_t* se = sb + B_STAGES * B_BYTES;
-  uint64_t* full_a = reinterpret_cast<uint64_t*>(se + 8 * EPI_WARP);
+  float* sab_all = reinterpret_cast<float*>(se + 8 * EPI_WARP);
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(se + 8 * EPI_WARP + AB_BYTES);
   uint64_t* empty_a = full_a + A_STAGES;
   uint64_t* full_b = empty_a + A_STAGES;
   uint64_t* empty_b = full_b + B_STAGES;
@@ -262,28 +301,63 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
   const uint32_t sa_addr = rdt::smem_addr(sa), sb_addr = rdt::smem_addr(sb);
   acc_t acc[2][64];
   int ia = 0, pa = 0, ib = 0, pb = 0;
-  // K1: consumer 1 starts STAGGER weight slices behind consumer 0 and the
-  // rings keep them apart (a consumer can run at most B_STAGES - 1 slices
-  // ahead of the other), so each one's epilogue runs while the other issues
-  // products: the epilogue is long beside a tile's products
-  constexpr bool K1 = EPI == EPI_K1_S8 || EPI == EPI_K1_BF16;
-  constexpr int STAGGER = B_STAGES - 1;  // at most 4 taps, whatever kh
-  int lead = K1 && cw == 0 ? STAGGER : 0;
-  if (K1 && cw == 1) consumers_sync();
+  // K1 and K6: consumer 1 starts STAGGER weight slices behind consumer 0 and
+  // the rings keep them apart (a consumer can run at most B_STAGES - 1
+  // slices ahead of the other), so each one's epilogue runs while the other
+  // issues products: the epilogue is long beside a tile's products
+  constexpr bool K6 = EPI == EPI_K6;
+  constexpr bool LINK = EPI == EPI_K1_S8 || EPI == EPI_K1_BF16 || K6;
+  int lead = LINK && cw == 0 ? STAGGER : 0;
+  float* sab = sab_all + cw * 2 * BN;  // this consumer's alpha (BN), beta (BN)
+  int sab_co0 = -1;
+  if (LINK && cw == 1) consumers_sync();
 
   for (int id = blockIdx.x; id < n_tiles; id += gridDim.x) {
     const Tile tl = tile_of(id, H, W, Co);
-    if constexpr (K1) {
+    if constexpr (LINK) {
       // the epilogue's reads from device memory start now, into L2, and
       // land while the products run: lane (j, r) of a warp brings pixel
-      // x0 + 16 warp + r of output row 2 cw + j, its 128 channels of
-      // residual and the mask bytes of the warp's 16 pixels
+      // x0 + 16 warp + r of output row 2 cw + j, its BN channels of
+      // residual (128 bytes a line) and the mask bytes of the warp's 16
+      // pixels
       const int j = lane >> 4, r = lane & 15;
       const int yy = tl.y0 + 2 * cw + j, xx = tl.x0 + 16 * warp + r;
       if (yy < H && xx < W) {
         const size_t pix = ((size_t)tl.b * H + yy) * W + xx;
-        if (ep.res != nullptr) prefetch_l2(ep.res + pix * Co + tl.co0);
+        if constexpr (K6) {
+          if (ep.res16 != nullptr)
+#pragma unroll
+            for (int c = 0; c < BN; c += 64) prefetch_l2(ep.res16 + pix * Co + tl.co0 + c);
+        } else if (ep.res != nullptr) {
+          prefetch_l2(ep.res + pix * Co + tl.co0);
+        }
         if (r == 0 || r == 15) prefetch_l2(ep.mask + pix * ep.nph);
+      }
+    }
+    // the link's mask bytes for the thread's four pixels and alpha, beta of
+    // the tile's channels (into this consumer's shared copy, when the tile's
+    // channels differ from the last tile's), read now: they land while the
+    // products run
+    uint32_t mw[2][2] = {{0u, 0u}, {0u, 0u}};
+    if constexpr (LINK) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int yy = tl.y0 + 2 * cw + j, xx = tl.x0 + 16 * warp + g + 8 * h;
+          if (yy < H && xx < W) {
+            const int8_t* mp = ep.mask + (((size_t)tl.b * H + yy) * W + xx) * ep.nph;
+            mw[j][h] = ep.nph == 4   ? __ldg(reinterpret_cast<const uint32_t*>(mp))
+                       : ep.nph == 2 ? (uint32_t)__ldg(reinterpret_cast<const uint16_t*>(mp))
+                                     : (uint32_t)(uint8_t)__ldg(mp);
+          }
+        }
+      if (tl.co0 != sab_co0) {  // the same for every thread of the CTA
+        consumer_sync(cw);  // no warp of this consumer still reads the old values
+        for (int i = tid; i < 2 * BN; i += 128)
+          sab[i] = __ldg(ep.ab + (i >= BN ? Co : 0) + tl.co0 + (i & (BN - 1)));
+        consumer_sync(cw);
+        sab_co0 = tl.co0;
       }
     }
 #pragma unroll
@@ -370,56 +444,49 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
         }
         __syncwarp();
       }
-    } else {  // ---------------------------------------------- K1's link
+    } else {  // ------------------------------------------ K1's and K6's link
       constexpr bool S8_OUT = EPI == EPI_K1_S8;
-      constexpr int ES_OUT = S8_OUT ? 1 : 2, PASSES = ES_OUT, NP = BN / 8 / PASSES;
-      const float s_out = __ldg(ep.ab + 2 * Co), rs = __ldg(ep.ab + 3 * Co),
-                  rsh = __ldg(ep.ab + 4 * Co);
-      const bool has_res = ep.res != nullptr;
-      // the mask bytes of the thread's four pixels, read together
-      uint32_t mw[2][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int yy = tl.y0 + 2 * cw + j, xx = tl.x0 + 16 * warp + g + 8 * h;
-          mw[j][h] = 0;
-          if (yy < H && xx < W) {
-            const int8_t* mp = ep.mask + (((size_t)tl.b * H + yy) * W + xx) * ep.nph;
-            mw[j][h] = ep.nph == 4   ? __ldg(reinterpret_cast<const uint32_t*>(mp))
-                       : ep.nph == 2 ? (uint32_t)__ldg(reinterpret_cast<const uint16_t*>(mp))
-                                     : (uint32_t)(uint8_t)__ldg(mp);
-          }
-        }
-      // the border correction, in the exact int32 accumulator: per padding
+      // passes of 128 bytes of output: one of 128 int8 channels, or of 64
+      // bfloat16 channels each
+      constexpr int ES_OUT = S8_OUT ? 1 : 2, PASSES = BN * ES_OUT / 128, NP = BN / 8 / PASSES;
+      float s_out = 0.0f, rs = 0.0f, rsh = 0.0f;
+      if constexpr (!K6) {
+        s_out = __ldg(ep.ab + 2 * Co), rs = __ldg(ep.ab + 3 * Co), rsh = __ldg(ep.ab + 4 * Co);
+      }
+      const bool has_res = K6 ? ep.res16 != nullptr : ep.res != nullptr;
+      // K1's border correction, in the exact int32 accumulator: per padding
       // tap of the pixel, the thread's 32 channels of wsum, read together
-      if (ep.zpad != 0 &&
-          (tl.y0 == 0 || tl.x0 == 0 || tl.y0 + TH >= H || tl.x0 + TW >= W)) {
+      // (K6 pads with zeros: TMA's fill is exact)
+      if constexpr (!K6) {
+        if (ep.zpad != 0 &&
+            (tl.y0 == 0 || tl.x0 == 0 || tl.y0 + TH >= H || tl.x0 + TW >= W)) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int yy = tl.y0 + 2 * cw + j, xx = tl.x0 + 16 * warp + g + 8 * h;
-            const unsigned bad = yy < H && xx < W ? outside_taps(yy, xx, H, W, kh) : 0u;
-            for (unsigned bb = bad; bb; bb &= bb - 1) {
-              const int* ws = ep.wsum + (__ffs((int)bb) - 1) * Co + tl.co0 + 2 * tq;
+            for (int h = 0; h < 2; ++h) {
+              const int yy = tl.y0 + 2 * cw + j, xx = tl.x0 + 16 * warp + g + 8 * h;
+              const unsigned bad = yy < H && xx < W ? outside_taps(yy, xx, H, W, kh) : 0u;
+              for (unsigned bb = bad; bb; bb &= bb - 1) {
+                const int* ws = ep.wsum + (__ffs((int)bb) - 1) * Co + tl.co0 + 2 * tq;
 #pragma unroll
-              for (int n0 = 0; n0 < BN / 8; n0 += 8) {
-                int2 w[8];
+                for (int n0 = 0; n0 < BN / 8; n0 += 8) {
+                  int2 w[8];
 #pragma unroll
-                for (int n = 0; n < 8; ++n)
-                  w[n] = __ldg(reinterpret_cast<const int2*>(ws + 8 * (n0 + n)));
+                  for (int n = 0; n < 8; ++n)
+                    w[n] = __ldg(reinterpret_cast<const int2*>(ws + 8 * (n0 + n)));
 #pragma unroll
-                for (int n = 0; n < 8; ++n) {
-                  acc[j][4 * (n0 + n) + 2 * h] += ep.zpad * w[n].x;
-                  acc[j][4 * (n0 + n) + 2 * h + 1] += ep.zpad * w[n].y;
+                  for (int n = 0; n < 8; ++n) {
+                    acc[j][4 * (n0 + n) + 2 * h] += ep.zpad * w[n].x;
+                    acc[j][4 * (n0 + n) + 2 * h + 1] += ep.zpad * w[n].y;
+                  }
                 }
               }
             }
-          }
+        }
       }
       // the mask phase of channel co0 + 8 n + 2 tq, two bits per n (nph is
-      // 1, 2 or 4, so Co / nph is a multiple of 32)
+      // 1, 2 or 4 and Co / nph a multiple of 8, so a phase changes only
+      // between two n)
       const int cpp = Co / ep.nph;
       uint32_t phases = 0;
       for (int n = 0, ph = tl.co0 / cpp, left = cpp - tl.co0 % cpp; n < BN / 8; ++n) {
@@ -430,40 +497,62 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
       for (int j = 0; j < 2; ++j) {
         const int yy = tl.y0 + 2 * cw + j;
         const size_t row_pix = ((size_t)tl.b * H + yy) * W + tl.x0 + 16 * warp;
-        if (has_res) {  // the warp's 16 pixels x 128 channels of residual
-          uint4 rv[4];
+        // the warp's 16 pixels x 128 bytes of residual into bytes 128-255 of
+        // its staging rows: K1's 128 int8 channels once per row, K6's 64
+        // bfloat16 channels of pass p at the start of that pass
+        auto load_res = [&](uint4 (&rv)[4], const uint8_t* src, size_t pix_bytes) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int r = (lane >> 3) + 4 * i, u = lane & 7;
             rv[i] = make_uint4(0, 0, 0, 0);
             if (yy < H && tl.x0 + 16 * warp + r < W)
-              rv[i] = __ldg(reinterpret_cast<const uint4*>(ep.res + (row_pix + r) * Co + tl.co0 +
+              rv[i] = __ldg(reinterpret_cast<const uint4*>(src + (row_pix + r) * pix_bytes +
                                                            16 * u));
           }
+        };
+        auto put_res = [&](const uint4 (&rv)[4]) {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             *reinterpret_cast<uint4*>(ebuf + ((lane >> 3) + 4 * i) * EPI_ROW + 128 +
                                       16 * (lane & 7)) = rv[i];
           __syncwarp();
+        };
+        uint4 rv[4];
+        if (!K6 && has_res) {
+          load_res(rv, reinterpret_cast<const uint8_t*>(ep.res + tl.co0), (size_t)Co);
+          put_res(rv);
         }
 #pragma unroll
         for (int p = 0; p < PASSES; ++p) {
+          if (K6 && has_res) {
+            load_res(rv, reinterpret_cast<const uint8_t*>(ep.res16 + tl.co0 + 64 * p),
+                     (size_t)Co * 2);
+            put_res(rv);
+          }
 #pragma unroll
           for (int n = p * NP; n < (p + 1) * NP; ++n) {
-            const int col = 8 * n + 2 * tq, co = tl.co0 + col;
-            const float2 al = __ldg(reinterpret_cast<const float2*>(ep.ab + co));
-            const float2 be = __ldg(reinterpret_cast<const float2*>(ep.ab + Co + co));
+            const int col = 8 * n + 2 * tq;
+            const float2 al = *reinterpret_cast<const float2*>(sab + col);
+            const float2 be = *reinterpret_cast<const float2*>(sab + BN + col);
             const int sh = 8 * ((phases >> (2 * n)) & 3);
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               uint8_t* row = ebuf + (g + 8 * h) * EPI_ROW;
               const float m = (float)(int8_t)(mw[j][h] >> sh);
-              char2 r = make_char2(0, 0);
-              if (has_res) r = *reinterpret_cast<const char2*>(row + 128 + col);
-              const float v0 = link_value(acc[j][4 * n + 2 * h], al.x, be.x, has_res, r.x, rs,
-                                          rsh, m);
-              const float v1 = link_value(acc[j][4 * n + 2 * h + 1], al.y, be.y, has_res, r.y, rs,
-                                          rsh, m);
+              float v0, v1;
+              if constexpr (K6) {
+                float2 r = make_float2(0.0f, 0.0f);
+                if (has_res)
+                  r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                      row + 128 + 2 * (col - 8 * NP * p)));
+                v0 = fp_value(acc[j][4 * n + 2 * h], al.x, be.x, has_res, r.x, m);
+                v1 = fp_value(acc[j][4 * n + 2 * h + 1], al.y, be.y, has_res, r.y, m);
+              } else {
+                char2 r = make_char2(0, 0);
+                if (has_res) r = *reinterpret_cast<const char2*>(row + 128 + col);
+                v0 = link_value(acc[j][4 * n + 2 * h], al.x, be.x, has_res, r.x, rs, rsh, m);
+                v1 = link_value(acc[j][4 * n + 2 * h + 1], al.y, be.y, has_res, r.y, rs, rsh, m);
+              }
               if constexpr (S8_OUT) {
                 *reinterpret_cast<char2*>(row + col) =
                     make_char2(requant(v0, s_out), requant(v1, s_out));
@@ -488,6 +577,283 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
       }
     }
   }
+}
+
+// K6's Co-64 links (720^2, 64 -> 64), the product transposed: D (64 output
+// channels x 128 pixels) = W (64 x K) . X^T, so that the pixels are wgmma's N
+// (m64n128k16, A the weight slice, B a view of the halo tile) and the 64
+// channels its M. Untransposed, 64 channels are an n64 product, both of
+// whose operands come from shared memory for half the work of an n128 one
+// (P2 reads 365 TFLOP/s at N 64, 540-641 at N 128-1024 on an H100), and the
+// mainloop above with a 64-channel tile ran these links slower than this
+// kernel does. A tile is 2 output rows x 128 pixels x 64 channels; the halo
+// tile is 4 rows x 130 pixels x 128 bytes (one chunk of 64 channels), and
+// tap (ky, kx) of row r is the 128 consecutive pixels that start (r + ky) *
+// 130 + kx rows into it. The consumers work in ping-pong: each owns whole
+// tiles (two m64n128 accumulators, one a row) and they take the CTA's tiles
+// in turns, so one's epilogue runs beside the other's products (a few
+// percent faster on these links than both consumers on every tile, a row
+// each, on an H100); the rings carry the tiles in order, each slot read by
+// the one consumer whose tile it holds, which finds it by the tile's index.
+// A consumer skips the ring phases of the other's tiles, which its parity
+// waits cannot tell apart from its own, so the mainloops take turns: a
+// consumer starts a tile's products only once the other has passed every
+// wait of the tile before (the barriers order[], CUTLASS's ping-pong order),
+// and each of its waits is then on the phase right after one that has
+// completed.
+// Thread (warp w, lane 4 g + tq) holds channels 16 w + g (+ 8) of pixels 8 n
+// + 2 tq (+ 1); the epilogue stages a row's 128 pixels x 128 bytes in shared
+// memory (the residual first, read in 16-byte vectors), each thread turns
+// its own elements into the output in place, and the row leaves in 16-byte
+// vectors.
+namespace co64 {
+constexpr int TH = 2, TW = 128, HALO_H = TH + 2, HALO_W = TW + 2;
+constexpr int A_BYTES = HALO_H * HALO_W * ROW;  // 66 560, a whole number of KB
+constexpr int A_STAGES = 2;
+constexpr int W_BYTES = 64 * ROW;  // one weight slice
+constexpr int W_STAGES = 6;
+constexpr int OUT_ROW = 144;  // 128 bytes of a pixel and a pad: conflict-free element access
+constexpr int OUT_BYTES = TW * OUT_ROW;
+constexpr int MASK_WORDS = 2 * 2 * 2 * TW;  // consumer x tile parity x row x pixel
+constexpr int SMEM = 1024 + A_STAGES * A_BYTES + W_STAGES * W_BYTES + 2 * OUT_BYTES +
+                     MASK_WORDS * 4 + 2 * 8 * (A_STAGES + W_STAGES + 1);
+static_assert(A_BYTES % 1024 == 0 && SMEM <= 232448, "co64 layout");
+}  // namespace co64
+
+__global__ void __launch_bounds__(THREADS, 1)
+conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+                 __nv_bfloat16* __restrict__ out, const EpiArgs ep, int B, int H, int W, int C,
+                 int kh) {
+  constexpr int CH = 64, CO = 64, TW = co64::TW, TH = co64::TH, HALO_W = co64::HALO_W;
+  constexpr int A_STAGES = co64::A_STAGES, W_STAGES = co64::W_STAGES;
+  constexpr int A_BYTES = co64::A_BYTES, W_BYTES = co64::W_BYTES, OUT_ROW = co64::OUT_ROW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sa = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                           ~(uintptr_t)1023);
+  uint8_t* sw = sa + A_STAGES * A_BYTES;
+  uint8_t* so_all = sw + W_STAGES * W_BYTES;
+  uint32_t* smask_all = reinterpret_cast<uint32_t*>(so_all + 2 * co64::OUT_BYTES);
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(smask_all + co64::MASK_WORDS);
+  uint64_t* empty_a = full_a + A_STAGES;
+  uint64_t* full_b = empty_a + A_STAGES;
+  uint64_t* empty_b = full_b + W_STAGES;
+  uint64_t* order = empty_b + W_STAGES;  // order[cw]: the other consumer's mainloops done
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < A_STAGES; ++s) {
+      rdt::mbar_init(full_a + s, 1);
+      rdt::mbar_init(empty_a + s, 1);
+    }
+    for (int s = 0; s < W_STAGES; ++s) {
+      rdt::mbar_init(full_b + s, 1);
+      rdt::mbar_init(empty_b + s, 1);
+    }
+    for (int s = 0; s < 2; ++s) rdt::mbar_init(order + s, 128);
+    rdt::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
+  const int n_tiles = B * tiles_y * tiles_x;
+  const int chunks = C / CH, taps = kh * kh;
+
+  if (wg == 0) {  // ------------------------------------------------ producer
+    rdt::setmaxnreg_dec<40>();
+    if (tid != 0) return;
+    rdt::tma_prefetch_desc(&tmx);
+    rdt::tma_prefetch_desc(&tmw);
+    int ia = 0, pa = 0, ib = 0, pb = 0;
+    for (int id = blockIdx.x; id < n_tiles; id += gridDim.x) {
+      const int b = id / (tiles_x * tiles_y), y0 = ((id / tiles_x) % tiles_y) * TH,
+                x0 = (id % tiles_x) * TW;
+      for (int c = 0; c < chunks; ++c) {
+        rdt::mbar_wait(empty_a + ia, pa ^ 1);
+        rdt::mbar_arrive_expect_tx(full_a + ia, A_BYTES);
+        rdt::tma_load_4d(sa + ia * A_BYTES, &tmx, full_a + ia, c * CH, x0 - 1, y0 - 1, b);
+        if (++ia == A_STAGES) ia = 0, pa ^= 1;
+        for (int t = 0; t < taps; ++t) {
+          rdt::mbar_wait(empty_b + ib, pb ^ 1);
+          rdt::mbar_arrive_expect_tx(full_b + ib, W_BYTES);
+          rdt::tma_load_3d(sw + ib * W_BYTES, &tmw, full_b + ib, c * CH, 0, t);
+          if (++ib == W_STAGES) ib = 0, pb ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------- consumers
+  rdt::setmaxnreg_inc<232>();
+  const int cw = wg - 1;  // takes the CTA's tiles cw, cw + 2, ...
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  uint8_t* so = so_all + cw * co64::OUT_BYTES;
+  uint32_t* smask = smask_all + cw * 2 * 2 * TW;
+  const uint32_t sa_addr = rdt::smem_addr(sa), sw_addr = rdt::smem_addr(sw);
+  const int co_r[2] = {16 * warp + g, 16 * warp + g + 8};
+  float al[2], be[2];
+  int sh[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    al[r] = __ldg(ep.ab + co_r[r]);
+    be[r] = __ldg(ep.ab + CO + co_r[r]);
+    sh[r] = 8 * (co_r[r] / (CO / ep.nph));
+  }
+  const bool has_res = ep.res16 != nullptr;
+  float acc[2][64];
+  int parity = 0;
+  for (int i = cw, id = blockIdx.x + cw * gridDim.x; id < n_tiles;
+       i += 2, id += 2 * gridDim.x, parity ^= 1) {
+    const int b = id / (tiles_x * tiles_y), y0 = ((id / tiles_x) % tiles_y) * TH,
+              x0 = (id % tiles_x) * TW;
+    // the two rows' mask words, and their residual into L2
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int yy = y0 + j;
+      uint32_t m = 0;
+      if (yy < H && x0 + tid < W) {
+        const size_t pix = ((size_t)b * H + yy) * W + x0 + tid;
+        const int8_t* mp = ep.mask + pix * ep.nph;
+        m = ep.nph == 4   ? __ldg(reinterpret_cast<const uint32_t*>(mp))
+            : ep.nph == 2 ? (uint32_t)__ldg(reinterpret_cast<const uint16_t*>(mp))
+                          : (uint32_t)(uint8_t)__ldg(mp);
+        if (has_res) prefetch_l2(ep.res16 + pix * CO);
+      }
+      smask[(parity * 2 + j) * TW + tid] = m;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int k = 0; k < 64; ++k) acc[j][k] = 0.0f;
+    int prev_a = -1, prev_b = -1;  // slots whose last products may still run
+    // the other consumer has waited on every phase of the tile before: phase
+    // k of order[1] ends consumer 0's tile 2k, phase k of order[0] consumer
+    // 1's tile 2k + 1
+    if (cw == 1)
+      rdt::mbar_wait(order + 1, parity);
+    else if (i > 0)
+      rdt::mbar_wait(order, parity ^ 1);
+
+#pragma unroll 1
+    for (int c = 0; c < chunks; ++c) {
+      const int sa_seq = i * chunks + c, ia = sa_seq % A_STAGES;
+      rdt::mbar_wait(full_a + ia, (sa_seq / A_STAGES) & 1);
+      const uint32_t a_base = sa_addr + ia * A_BYTES;
+#pragma unroll 1
+      for (int t = 0; t < taps; ++t) {
+        const int sb_seq = sa_seq * taps + t, ib = sb_seq % W_STAGES;
+        rdt::mbar_wait(full_b + ib, (sb_seq / W_STAGES) & 1);
+        const int ky = t / kh, kx = t - ky * kh;
+        const uint32_t px_tap = a_base + (ky * HALO_W + kx) * ROW;
+        const uint32_t w_tap = sw_addr + ib * W_BYTES;
+        rdt::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < ROW; ks += 32) {
+          const uint64_t dw = rdt::wgmma_desc_sw128(w_tap + ks);
+          rdt::wgmma_bf16_n128(acc[0], dw, rdt::wgmma_desc_sw128_rows(px_tap + ks, 1024));
+          rdt::wgmma_bf16_n128(acc[1], dw,
+                               rdt::wgmma_desc_sw128_rows(px_tap + HALO_W * ROW + ks, 1024));
+        }
+        rdt::wgmma_commit();
+        rdt::wgmma_wait<1>();  // the previous tap's products are done
+        if (prev_b >= 0 && tid == 0) rdt::mbar_arrive(empty_b + prev_b);
+        prev_b = ib;
+        if (t == 0 && prev_a >= 0) {  // ... and with them the previous chunk's
+          if (tid == 0) rdt::mbar_arrive(empty_a + prev_a);
+          prev_a = -1;
+        }
+      }
+      prev_a = ia;
+    }
+    rdt::mbar_arrive(order + (cw ^ 1));  // every thread, its last wait passed
+    rdt::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int k = 0; k < 64; ++k) fence_operand(acc[j][k]);
+    if (tid == 0) {
+      rdt::mbar_arrive(empty_b + prev_b);
+      rdt::mbar_arrive(empty_a + prev_a);
+    }
+
+    // epilogue, a row at a time through the staging rows
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int yy = y0 + j;
+      const bool row_in = yy < H;
+      const size_t row_pix = ((size_t)b * H + yy) * W + x0;
+      consumer_sync(cw);  // the staging rows are free, the mask words in place
+      if (has_res) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int v = tid + 128 * q, px = v >> 3, u = v & 7;
+          uint4 rv = make_uint4(0, 0, 0, 0);
+          if (row_in && x0 + px < W)
+            rv = __ldg(reinterpret_cast<const uint4*>(ep.res16 + (row_pix + px) * CO) + u);
+          *reinterpret_cast<uint4*>(so + px * OUT_ROW + 16 * u) = rv;
+        }
+        consumer_sync(cw);
+      }
+      const uint32_t* mrow = smask + (parity * 2 + j) * TW;
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int px = 8 * n + 2 * tq + e;
+          const uint32_t mw = mrow[px];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            __nv_bfloat16* el = reinterpret_cast<__nv_bfloat16*>(so + px * OUT_ROW) + co_r[r];
+            const float res = has_res ? __bfloat162float(*el) : 0.0f;
+            const float m = (float)(int8_t)(mw >> sh[r]);
+            *el = __float2bfloat16_rn(
+                fp_value(acc[j][4 * n + 2 * r + e], al[r], be[r], has_res, res, m));
+          }
+        }
+      consumer_sync(cw);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {  // the row out, 16-byte vectors
+        const int v = tid + 128 * q, px = v >> 3, u = v & 7;
+        if (row_in && x0 + px < W)
+          reinterpret_cast<uint4*>(out + (row_pix + px) * CO)[u] =
+              *reinterpret_cast<const uint4*>(so + px * OUT_ROW + 16 * u);
+      }
+    }
+  }
+}
+
+cudaError_t launch_co64(const void* x, const void* wk, const EpiArgs& ep, void* out, int B, int H,
+                        int W, int C, int kh, int device, cudaStream_t stream) {
+  CUtensorMap tmx, tmw;
+  const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t xstrides[3] = {C * 2ull, (cuuint64_t)W * C * 2, (cuuint64_t)H * W * C * 2};
+  const cuuint32_t xbox[4] = {64, co64::HALO_W, co64::HALO_H, 1};
+  cudaError_t err =
+      rdt::encode_sw128(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, xdims, xstrides, xbox);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t wdims[3] = {(cuuint64_t)C, 64, (cuuint64_t)(kh * kh)};
+  const cuuint64_t wstrides[2] = {C * 2ull, 64ull * C * 2};
+  const cuuint32_t wbox[3] = {64, 64, 1};
+  err = rdt::encode_sw128(&tmw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, wk, wdims, wstrides, wbox);
+  if (err != cudaSuccess) return err;
+  auto kernel = conv_co64_kernel;
+  constexpr int smem = co64::SMEM;
+  static int configured = -1;  // the device whose attribute was set
+  if (configured != device) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = device;
+  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long n_tiles =
+      (long long)B * ((H + co64::TH - 1) / co64::TH) * ((W + co64::TW - 1) / co64::TW);
+  if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = (int)(n_tiles < sms ? n_tiles : sms);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      tmx, tmw, static_cast<__nv_bfloat16*>(out), ep, B, H, W, C, kh);
+  return cudaGetLastError();
 }
 
 template <class T, int EPI>
@@ -540,7 +906,7 @@ extern "C" int rdt_conv3x3_wgmma(const void* x, const void* wk, const void* scal
                                  int B, int Hin, int H, int W, int C, int Co, int row_off,
                                  int mode, int flip, int relu, int device, void* stream) {
   if (mode < 0 || mode > 2 || C <= 0 || C % (mode == 2 ? 128 : 64) != 0 || Co <= 0 ||
-      Co % BN != 0 || (mode == 2 && scale == nullptr))
+      Co % 128 != 0 || (mode == 2 && scale == nullptr))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -567,7 +933,7 @@ extern "C" int rdt_conv_block_wgmma(const void* x, const void* wk, const void* a
                                     const void* mask, const void* res, const void* wsum,
                                     void* out, int B, int H, int W, int C, int Co, int kh,
                                     int nph, int zpad, int out_kind, int device, void* stream) {
-  if (C <= 0 || C % 128 != 0 || Co <= 0 || Co % BN != 0 || (kh != 2 && kh != 3) ||
+  if (C <= 0 || C % 128 != 0 || Co <= 0 || Co % 128 != 0 || (kh != 2 && kh != 3) ||
       (nph != 1 && nph != 2 && nph != 4) || (out_kind != 0 && out_kind != 2) ||
       ab == nullptr || mask == nullptr || wsum == nullptr)
     return cudaErrorInvalidValue;
@@ -585,4 +951,32 @@ extern "C" int rdt_conv_block_wgmma(const void* x, const void* wk, const void* a
   if (out_kind == 0)
     return launch<S8, EPI_K1_S8>(x, wk, ep, out, B, H, H, W, C, Co, kh, -1, 1, 0, device, st);
   return launch<S8, EPI_K1_BF16>(x, wk, ep, out, B, H, H, W, C, Co, kh, -1, 1, 0, device, st);
+}
+
+// K6 on the mainloop. x (B, H, W, C) bfloat16; wk (kh * kh, Co, C) bfloat16,
+// the taps K-major; ab (2, Co) float32, rows alpha, beta; mask (B, H, W, nph)
+// int8, nph 1, 2 or 4 with Co / nph a multiple of 8, channel co reading phase
+// co / (Co / nph); res (B, H, W, Co) bfloat16 or null; out (B, H, W, Co)
+// bfloat16. kh 3 (padding (1, 1)) or 2 (padding (1, 0)), padding cells zero.
+// Every tensor contiguous and 16-byte aligned; C a multiple of 64, Co a
+// multiple of 128 (tiles of 128 channels) or 64 (one tile of 64).
+extern "C" int rdt_conv_block_fp_wgmma(const void* x, const void* wk, const void* ab,
+                                       const void* mask, const void* res, void* out, int B,
+                                       int H, int W, int C, int Co, int kh, int nph, int device,
+                                       void* stream) {
+  if (C <= 0 || C % 64 != 0 || !(Co == 64 || (Co > 0 && Co % 128 == 0)) ||
+      (kh != 2 && kh != 3) || (nph != 1 && nph != 2 && nph != 4) || (Co / nph) % 8 != 0 ||
+      ab == nullptr || mask == nullptr)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if ((long long)B * H * W == 0) return cudaGetLastError();
+  auto st = static_cast<cudaStream_t>(stream);
+  EpiArgs ep = {};
+  ep.ab = static_cast<const float*>(ab);
+  ep.mask = static_cast<const int8_t*>(mask);
+  ep.res16 = static_cast<const __nv_bfloat16*>(res);
+  ep.nph = nph;
+  if (Co == 64) return launch_co64(x, wk, ep, out, B, H, W, C, kh, device, st);
+  return launch<Bf16, EPI_K6>(x, wk, ep, out, B, H, H, W, C, Co, kh, -1, 1, 0, device, st);
 }

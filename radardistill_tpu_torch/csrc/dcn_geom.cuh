@@ -86,6 +86,19 @@ struct Vec16;
 template <>
 struct Vec16<float> {
   static constexpr int n = 4;
+  // the 16 bytes as loaded (raw_t), unpacked to float32 when used: fewer
+  // live registers while the reads are in flight; ld_streaming marks the
+  // read evict-first (ld.global.cs), for data read once
+  using raw_t = float4;
+  static __device__ __forceinline__ raw_t ld(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ raw_t ld_streaming(const float* p) {
+    return __ldcs(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void unpack(raw_t a, float* v) {
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  }
   static __device__ __forceinline__ void load(const float* p, float* v) {
     const float4 a = *reinterpret_cast<const float4*>(p);
     v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
@@ -102,14 +115,23 @@ struct Vec16<float> {
 template <>
 struct Vec16<__nv_bfloat16> {
   static constexpr int n = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* v) {
-    const uint4 a = *reinterpret_cast<const uint4*>(p);
+  using raw_t = uint4;
+  static __device__ __forceinline__ raw_t ld(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  static __device__ __forceinline__ raw_t ld_streaming(const __nv_bfloat16* p) {
+    return __ldcs(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void unpack(uint4 a, float* v) {
     const uint32_t w[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
       v[2 * i] = f.x, v[2 * i + 1] = f.y;
     }
+  }
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* v) {
+    unpack(*reinterpret_cast<const uint4*>(p), v);
   }
   static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* v) {
     uint32_t w[4];

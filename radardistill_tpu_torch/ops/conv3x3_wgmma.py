@@ -1,10 +1,11 @@
 """The Hopper conv mainloop (``csrc/conv3x3_wgmma.cu``): TMA loads into
 mbarrier rings, ``wgmma`` from shared memory, a persistent grid.
 
-Three wrappers launch it and count their launches: K1's ``conv_block`` on its
-``wgmma`` route (``ops/conv_block.py``, the fused int8 link, 3x3 or 2x2),
-K9's ``conv3x3_wide`` (``ops/wide_conv.py``, bfloat16 y and dx) and P1's
-``conv_probe(..., route="wgmma")`` (``ops/probes.py``, ``conv``, ``dots`` and
+Four wrappers launch it and count their launches: K1's ``conv_block`` and
+K6's ``conv_block_fp`` on their ``wgmma`` routes (``ops/conv_block.py``, the
+fused int8 and bfloat16 links, 3x3 or 2x2; K6's Co-64 links on the kernel's
+transposed form), K9's ``conv3x3_wide`` (``ops/wide_conv.py``, bfloat16 y and
+dx) and P1's ``conv_probe(..., route="wgmma")`` (``ops/probes.py``, ``conv``, ``dots`` and
 ``int8``). This module holds what they share: the shapes the kernel takes and
 the bare ctypes calls on tensors the caller prepared, which ``chip_smoke.py``
 also times alone. It has no plain version of its own: each wrapper keeps the
@@ -24,6 +25,13 @@ def takes(c: int, co: int, int8: bool = False) -> bool:
     """The kernel stages 128 bytes of input channels at a time (C a multiple
     of 64 in bfloat16, of 128 in int8) and 128 output channels per tile."""
     return c > 0 and co > 0 and c % (128 if int8 else 64) == 0 and co % 128 == 0
+
+
+def takes_fp(c: int, co: int) -> bool:
+    """K6's link: C a multiple of 64 bfloat16 channels (one 128-byte chunk),
+    Co a multiple of 128 (tiles of 128 channels) or exactly 64 (the
+    transposed kernel: the 64 channels as ``wgmma``'s M)."""
+    return c > 0 and c % 64 == 0 and (co == 64 or (co > 0 and co % 128 == 0))
 
 
 def wgmma_taps(k: torch.Tensor) -> torch.Tensor:
@@ -71,3 +79,20 @@ def launch_link(x: torch.Tensor, wk: torch.Tensor, ab: torch.Tensor, mask: torch
         b, h, w, c, co, 3 if taps == 9 else 2, mask.shape[-1], int(zpad),
         0 if out.dtype == torch.int8 else 2, x.device.index, cuda_lib.stream_of(x))
     cuda_lib.check(rc, "conv_block (wgmma)")
+
+
+def launch_fp_link(x: torch.Tensor, wk: torch.Tensor, ab: torch.Tensor, mask: torch.Tensor,
+                   res: torch.Tensor | None, out: torch.Tensor, lib=None) -> None:
+    """One launch of K6's link into ``out``, nothing allocated and nothing
+    counted: x (B, H, W, C) bfloat16, wk (kh * kh, Co, C) bfloat16 (the taps
+    K-major), ab (2, Co) float32, mask (B, H, W, nph) int8 with nph 1, 2 or 4,
+    res (B, H, W, Co) bfloat16 or None, out (B, H, W, Co) bfloat16; padding
+    cells read zero. The caller has checked device, dtype, contiguity,
+    alignment and :func:`takes_fp`. ``lib`` as for :func:`launch_link`."""
+    b, h, w, c = x.shape
+    taps, co = wk.shape[:2]
+    rc = (lib or cuda_lib.lib()).rdt_conv_block_fp_wgmma(
+        x.data_ptr(), wk.data_ptr(), ab.data_ptr(), mask.data_ptr(),
+        None if res is None else res.data_ptr(), out.data_ptr(), b, h, w, c, co,
+        3 if taps == 9 else 2, mask.shape[-1], x.device.index, cuda_lib.stream_of(x))
+    cuda_lib.check(rc, "conv_block_fp (wgmma)")

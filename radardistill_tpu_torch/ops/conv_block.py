@@ -54,11 +54,20 @@ through ``fp_block_conv``), for the stages a ``FP_STAGES`` teacher runs fused:
     out = relu(y) * mask                   rounded once to x's dtype
 
 ``fp_block_conv`` casts the kernel to x's dtype and builds the affine;
-``conv_block_fp`` launches ``csrc/conv_block_fp.cu`` on a CUDA tensor
-(bfloat16 on the tensor cores, float32 in plain FFMA) and takes
-``conv_block_fp_plain`` on a CPU tensor. With ``identity`` it returns the bare
-convolution (``ops/wide_conv.py``, K9). The TPU kernel's lane padding, W
-padding and W pairing have no counterpart: every tensor keeps its real shape.
+``conv_block_fp`` takes ``conv_block_fp_plain`` on a CPU tensor and on a CUDA
+tensor launches the kernel on one of three routes, :func:`fp_route_of` the
+rule: ``wgmma`` (the Hopper conv mainloop of ``csrc/conv3x3_wgmma.cu``, K1's,
+with K6's epilogue; for Co 64 its transposed kernel) for a bfloat16 link with
+C a multiple of 64 and Co a multiple of 128 or exactly 64, 1, 2 or 4 mask
+phases of a multiple of 8 channels: every link of ``FP_STAGES: 5``; ``mma_sync``
+(``csrc/conv_block_fp.cu``, ``mma.sync`` on ``conv_tile.cuh``) for the other
+bfloat16 links and the bare convolution; ``ffma`` (the same source, plain
+float32 FFMA without TF32, for the card-vs-CPU comparisons) for float32. The
+``wgmma`` route reads the weight K-major (``conv3x3_wgmma.wgmma_taps``, one
+transposing copy per call, of at most 1.2 MB). With ``identity`` it returns
+the bare convolution (``ops/wide_conv.py``, K9). The TPU kernel's lane
+padding, W padding and W pairing have no counterpart: every tensor keeps its
+real shape.
 """
 
 from __future__ import annotations
@@ -74,6 +83,7 @@ from . import conv3x3_wgmma, cuda_lib
 
 OUT_CODES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 ROUTES = ("wgmma", "resident", "streamed")
+FP_ROUTES = ("wgmma", "mma_sync", "ffma")  # K6's
 # dynamic shared memory a block may ask for on sm_90: 227 KB, less the
 # kernel's 1 KB of static shared memory (alpha and beta)
 SMEM_LIMIT = 232448 - 1024
@@ -405,38 +415,78 @@ def conv_block_fp_plain(x, k, ab=None, mask_c=None, res=None, identity=False):
     return y.to(x.dtype).contiguous()
 
 
-def conv_block_fp(x, k, ab=None, mask_c=None, res=None, identity=False):
+def fp_wgmma_takes(c: int, co: int, nph: int, dtype, identity: bool = False) -> bool:
+    """Whether K6's ``wgmma`` route takes the link: bfloat16, C a multiple of
+    64, Co a multiple of 128 or exactly 64 (``conv3x3_wgmma.takes_fp``), 1, 2
+    or 4 mask phases of a multiple of 8 channels each; not the bare
+    convolution."""
+    return (dtype == torch.bfloat16 and not identity and conv3x3_wgmma.takes_fp(c, co)
+            and nph in (1, 2, 4) and (co // nph) % 8 == 0)
+
+
+def fp_route_of(c: int, co: int, nph: int, dtype, identity: bool = False) -> str:
+    """The dispatch rule of ``conv_block_fp`` on the card: ``ffma`` for
+    float32, else ``wgmma`` where :func:`fp_wgmma_takes`, else ``mma_sync``
+    (which raises on C % 16 or a Co it has no tile for)."""
+    if dtype == torch.float32:
+        return "ffma"
+    return "wgmma" if fp_wgmma_takes(c, co, nph, dtype, identity) else "mma_sync"
+
+
+def conv_block_fp(x, k, ab=None, mask_c=None, res=None, identity=False,
+                  variant: Optional[str] = None):
     """x (B, H, W, C) bfloat16 or float32, kernel (kh, kh, C, Co) in x's dtype
     and its natural HWIO layout, ab (2, Co) float32 (rows: alpha, beta), mask
     (B, H, W, nph) int8, res (B, H, W, Co) in x's dtype or None -> (B, H, W,
-    Co) in x's dtype; with ``identity`` the bare convolution of x and k. The
-    CUDA kernel takes, in bfloat16, C a multiple of 16 and Co in {16, 32, 64}
-    or a multiple of 128; in float32, C a multiple of 8 and Co of 4. The plain
-    version takes any shape."""
+    Co) in x's dtype; with ``identity`` the bare convolution of x and k. On the
+    card the route is :func:`fp_route_of`, or ``variant`` (one of
+    ``FP_ROUTES``) forces one: ``wgmma`` takes what :func:`fp_wgmma_takes`
+    says, ``mma_sync`` bfloat16 with C a multiple of 16 and Co in {16, 32,
+    64} or a multiple of 128, ``ffma`` float32 with C a multiple of 8 and Co
+    of 4. A forced route that does not take the call raises. Each launch
+    counts in ``conv_block_fp.launches`` and
+    ``conv_block_fp.route_launches[route]``. The plain version takes any
+    shape."""
     if x.device.type == "cpu":
         return conv_block_fp_plain(x, k, ab, mask_c, res, identity)
     _check_fp(x, k, ab, mask_c, res, identity)
     _check_on_card("conv_block_fp", [t for t in (x, k, ab, mask_c, res) if t is not None])
     kh, _, c, co = k.shape
     b, h, w, _ = x.shape
-    if x.dtype == torch.bfloat16 and (c % 16 or not streamed_co(co)):
-        raise ValueError(f"conv_block_fp: the bfloat16 kernel takes C % 16 == 0 and Co in "
-                         f"(16, 32, 64) or a multiple of 128, not C {c}, Co {co}")
-    if x.dtype == torch.float32 and (c % 8 or co % 4):
-        raise ValueError(f"conv_block_fp: the float32 kernel takes C % 8 == 0 and "
-                         f"Co % 4 == 0, not C {c}, Co {co}")
+    nph = 1 if identity else mask_c.shape[-1]
+    route = fp_route_of(c, co, nph, x.dtype, identity) if variant is None else variant
     out = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = cuda_lib.lib().rdt_conv_block_fp(
-        x.data_ptr(), k.data_ptr(), ptr(ab), ptr(mask_c), ptr(res), out.data_ptr(),
-        b, h, w, c, co, kh, 1 if identity else mask_c.shape[-1], OUT_CODES[x.dtype],
-        int(identity), x.device.index, cuda_lib.stream_of(x))
-    cuda_lib.check(rc, "conv_block_fp")
+    if route == "wgmma":
+        if not fp_wgmma_takes(c, co, nph, x.dtype, identity):
+            raise ValueError(f"conv_block_fp: the wgmma route takes a bfloat16 link with C % 64 "
+                             f"== 0, Co 64 or a multiple of 128 and 1, 2 or 4 mask phases of a "
+                             f"multiple of 8 channels, not {x.dtype}, C {c}, Co {co}, {nph} "
+                             f"phases{', the bare convolution' if identity else ''}")
+        conv3x3_wgmma.launch_fp_link(x, conv3x3_wgmma.wgmma_taps(k), ab, mask_c, res, out)
+    elif route in ("mma_sync", "ffma"):
+        if (route == "ffma") != (x.dtype == torch.float32):
+            raise ValueError(f"conv_block_fp: the {route} route does not take {x.dtype}")
+        if x.dtype == torch.bfloat16 and (c % 16 or not streamed_co(co)):
+            raise ValueError(f"conv_block_fp: the bfloat16 kernel takes C % 16 == 0 and Co in "
+                             f"(16, 32, 64) or a multiple of 128, not C {c}, Co {co}")
+        if x.dtype == torch.float32 and (c % 8 or co % 4):
+            raise ValueError(f"conv_block_fp: the float32 kernel takes C % 8 == 0 and "
+                             f"Co % 4 == 0, not C {c}, Co {co}")
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        rc = cuda_lib.lib().rdt_conv_block_fp(
+            x.data_ptr(), k.data_ptr(), ptr(ab), ptr(mask_c), ptr(res), out.data_ptr(),
+            b, h, w, c, co, kh, nph, OUT_CODES[x.dtype], int(identity), x.device.index,
+            cuda_lib.stream_of(x))
+        cuda_lib.check(rc, "conv_block_fp")
+    else:
+        raise ValueError(f"conv_block_fp: variant {variant!r} is not one of {FP_ROUTES}")
     conv_block_fp.launches += 1
+    conv_block_fp.route_launches[route] += 1
     return out
 
 
 conv_block_fp.launches = 0
+conv_block_fp.route_launches = dict.fromkeys(FP_ROUTES, 0)
 
 
 def fp_block_conv(x, kernel, bias, gt, sh, mask_c, res=None, block=conv_block_fp):

@@ -25,7 +25,8 @@ float32 and rounded once.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 kernel (``csrc/dcn_offset_grad.cu``, ``csrc/dcn_input_grad.cu``), or raises if
-it cannot. The CUDA kernels take K = 3. K4 has two routes,
+it cannot. The CUDA kernels take K = 3. K3 reads its rows in 16-byte vectors
+(C a multiple of 8 in bfloat16, of 4 in float32). K4 has two routes,
 :func:`input_grad_route` chooses: ``"tile"`` for a clamped call (every call of
 the model), where a CTA owns a tile of ``dx``, finds the (site, tap) pairs
 that reach each cell among the output sites that :func:`reach_window` says
@@ -117,6 +118,10 @@ def dcn_offset_grad(x: torch.Tensor, offset: torch.Tensor, dsampled: torch.Tenso
         return dcn_offset_grad_plain(x, offset, dsampled, mask, stride, padding, kernel_size,
                                      max_offset)
     _check_cuda("dcn_offset_grad", x.shape, offset, mask, dsampled, kernel_size, others=(x,))
+    vec = 16 // x.element_size()
+    if x.shape[3] % vec:
+        raise ValueError(f"dcn_offset_grad: the kernel moves 16-byte vectors of {vec} channels; "
+                         f"C = {x.shape[3]}")
     B, Ho, Wo = offset.shape[:3]
     g18 = torch.empty((B, Ho, Wo, 18), dtype=torch.float32, device=x.device)
     dm9 = torch.empty((B, Ho, Wo, 9), dtype=torch.float32, device=x.device)

@@ -137,6 +137,27 @@ def mma_rate_table(dev, target_ops=1.5e12):
     return recs
 
 
+def mma_rate_against_library(dev, shape=(2048, 512, 512), rounds=20, iters=20):
+    """P2's ``wgmma`` route and ``torch.bmm`` on the same bfloat16 operands in
+    turns, ``rounds`` times each (P2, library, P2, library, ...), each time a
+    CUDA-event mean over ``iters`` calls; returns both lists of ms per ``reps``
+    = 8 products, P2 checked against its plain version first."""
+    gen = torch.Generator().manual_seed(21)
+    m, k, n = shape
+    reps = 8
+    a, b = _rate_operands(shape, torch.bfloat16, dev, gen)
+    _max_err(mma_rate(a, b, reps, "wgmma"), mma_rate_plain(a, b, reps), "mma_rate wgmma",
+             TOL["bfloat16"])
+    grid_reps = int(min(max(round(4e11 / (2.0 * m * k * n * reps)), 1), 4096))
+    copies = min(reps * grid_reps, 128)
+    ab, bb = a.expand(copies, *a.shape), b.expand(copies, *b.shape)
+    kernel, library = [], []
+    for _ in range(rounds):
+        kernel.append(cuda_ms(lambda: mma_rate(a, b, reps, "wgmma", grid_reps), iters) / grid_reps)
+        library.append(cuda_ms(lambda: torch.bmm(ab, bb), iters) / copies * reps)
+    return kernel, library
+
+
 def _conv_operands(shape, int8, dev, gen):
     b, h, w, c, co = shape
     if int8:

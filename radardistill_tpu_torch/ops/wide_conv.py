@@ -70,10 +70,12 @@ def conv_or_dx(x, kernel, backward=False):
     k = k.to(x.dtype).contiguous()
     if x.device.type == "cpu":
         return conv_block_fp_plain(x, k, identity=True)
-    before = conv_block_fp.launches  # counted here, not as a launch of the float link
+    # counted here, not as a launch of the float link
+    before, routes = conv_block_fp.launches, dict(conv_block_fp.route_launches)
     y = conv_block_fp(x, k, identity=True)
     conv3x3_wide.launches += conv_block_fp.launches - before
     conv_block_fp.launches = before
+    conv_block_fp.route_launches.update(routes)
     return y
 
 

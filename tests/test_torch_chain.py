@@ -564,6 +564,54 @@ def test_fp_kernel_matches_plain_on_card(cuda, case, dtype, tol):
     assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
 
 
+# the seven link shapes of FP_STAGES: 5 (kernel, C, Co; chip_smoke.FP_LINKS) on
+# a small odd grid, the 3x3 ones also with a residual, and a Co-64 link with
+# a residual and a 2-phase mask; then Co-64 links on more tiles than the card
+# has CTAs (2 x 90 x 2 = 360 tiles of the transposed kernel against 132 SMs
+# on an H100), so both consumers of a CTA take tiles, with 2 chunks of the
+# shared rings a tile (C 128) or 4 taps a chunk (kh 2)
+FP_STAGE_CASES = [dict(kh=kh, w=37, c=c, co=co, res=res, h=19)
+                  for kh, c, co, ress in ((3, 64, 64, (False, True)), (2, 256, 128, (False,)),
+                                          (3, 128, 128, (False, True)), (2, 512, 256, (False,)),
+                                          (3, 256, 256, (False, True)), (2, 1024, 256, (False,)))
+                  for res in ress] + [dict(kh=3, w=45, c=64, co=64, res=True, nph=2, h=23),
+                                      dict(kh=3, w=180, c=128, co=64, res=True, h=180),
+                                      dict(kh=2, w=180, c=64, co=64, res=False, nph=2, h=180),
+                                      dict(kh=3, w=180, c=64, co=64, res=True, h=180)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("case", FP_STAGE_CASES, ids=_ids)
+def test_fp_routes_match_plain_at_the_fp_stages_5_links(cuda, case, route):
+    """K6 on both bfloat16 routes (forced) against its plain version, within
+    1e-2 x max|ref|; the dispatch rule sends each of these links to
+    ``wgmma``, and the launch counts on the route it took."""
+    assert cb.fp_route_of(case["c"], case["co"], case.get("nph", 1), torch.bfloat16) == "wgmma"
+    link = _fp_link(35, **case)
+    routes = dict(cb.conv_block_fp.route_launches)
+    got = _run_fp_torch(link, torch.bfloat16, cuda,
+                        block=lambda *a: cb.conv_block_fp(*a, variant=route))
+    assert cb.conv_block_fp.route_launches == {**routes, route: routes[route] + 1}
+    want = _run_fp_torch(link, torch.bfloat16, cuda, block=cb.conv_block_fp_plain)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
+
+
+@pytest.mark.gpu
+def test_fp_forced_routes_raise_where_they_do_not_fit(cuda):
+    link = _fp_link(36, kh=3, w=8, c=32, co=64, res=False)  # C 32: half a 128-byte chunk
+    with pytest.raises(ValueError):
+        _run_fp_torch(link, torch.bfloat16, cuda,
+                      block=lambda *a: cb.conv_block_fp(*a, variant="wgmma"))
+    link = _fp_link(36, kh=3, w=8, c=64, co=64, res=False)
+    for dtype, variant in ((torch.float32, "wgmma"), (torch.float32, "mma_sync"),
+                           (torch.bfloat16, "ffma"), (torch.bfloat16, "tiled")):
+        with pytest.raises(ValueError):
+            _run_fp_torch(link, dtype, cuda,
+                          block=lambda *a, v=variant: cb.conv_block_fp(*a, variant=v))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", CHAIN_CASES + [dict(kh=2, zero=127.0, c=1024, co=256, h=9, w=10),
                                                dict(kh=3, zero=127.0, h=19, w=37, c=64, co=16)],

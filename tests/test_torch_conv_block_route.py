@@ -94,3 +94,68 @@ def test_cpu_tensors_take_the_plain_version_on_any_route():
     got = cb.conv_block(xq, kq, ab, mask, zpad=-127, variant="wgmma")
     assert torch.equal(got, cb.conv_block_plain(xq, kq, ab, mask, zpad=-127))
     assert (cb.conv_block.launches, cb.conv_block.route_launches) == before
+
+
+# ------------------------------------------------------------------ K6
+
+
+def test_fp_dispatch_of_the_fp_stages_5_chain():
+    """All 19 links of ``FP_STAGES: 5`` go to K6's ``wgmma`` route in
+    bfloat16 (the four 720² Co-64 links on its 64-channel tile); float32
+    takes the FFMA kernel; C % 64 != 0, or Co neither 64 nor a multiple of
+    128, stays on ``mma.sync``."""
+    count = dict.fromkeys(cb.FP_ROUTES, 0)
+    for hw, c, co, kh, n_plain, n_res in chip_smoke.FP_LINKS:
+        assert cb.fp_route_of(c, co, 1, torch.bfloat16) == "wgmma", (hw, c, co, kh)
+        assert cb.fp_route_of(c, co, 1, torch.float32) == "ffma"
+        count[cb.fp_route_of(c, co, 1, torch.bfloat16)] += n_plain + n_res
+    assert count == {"wgmma": 19, "mma_sync": 0, "ffma": 0}
+    for c, co in ((32, 64), (96, 128), (64, 32), (64, 192), (128, 16), (16, 96)):
+        assert cb.fp_route_of(c, co, 1, torch.bfloat16) == "mma_sync", (c, co)
+    # mask phases: 1, 2 or 4 of a multiple of 8 channels; the bare conv
+    assert cb.fp_route_of(64, 64, 4, torch.bfloat16) == "wgmma"
+    assert cb.fp_route_of(128, 128, 3, torch.bfloat16) == "mma_sync"
+    assert cb.fp_route_of(64, 64, 8, torch.bfloat16) == "mma_sync"
+    assert cb.fp_route_of(256, 256, 1, torch.bfloat16, identity=True) == "mma_sync"
+    assert cb.fp_route_of(256, 256, 1, torch.float32, identity=True) == "ffma"
+
+
+def _fp_operands(rng, b, h, w, c, co, kh, nph, res):
+    x = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32))
+    k = torch.from_numpy(rng.randn(kh, kh, c, co).astype(np.float32) / (kh * kh * c) ** 0.5)
+    ab = torch.from_numpy(np.stack([rng.rand(co) + 0.5, rng.randn(co) * 0.1]).astype(np.float32))
+    mask = torch.from_numpy((rng.rand(b, h, w, nph) > 0.3).astype(np.int8))
+    r = torch.from_numpy(rng.randn(b, h, w, co).astype(np.float32)) if res else None
+    return x, k, ab, mask, r
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("variant", list(cb.FP_ROUTES) + [None])
+def test_fp_cpu_tensors_take_the_plain_version_on_any_route(dtype, variant):
+    """A CPU tensor takes ``conv_block_fp_plain`` whatever route is forced,
+    and counts nothing."""
+    x, k, ab, mask, r = _fp_operands(np.random.RandomState(15), 1, 5, 6, 64, 64, 3, 2, True)
+    x, k, r = x.to(dtype), k.to(dtype), r.to(dtype)
+    before = (cb.conv_block_fp.launches, dict(cb.conv_block_fp.route_launches))
+    got = cb.conv_block_fp(x, k, ab, mask, r, variant=variant)
+    assert torch.equal(got, cb.conv_block_fp_plain(x, k, ab, mask, r))
+    assert (cb.conv_block_fp.launches, cb.conv_block_fp.route_launches) == before
+
+
+@pytest.mark.parametrize("kh", [2, 3])
+def test_fp_wgmma_taps_give_the_plain_conv(kh):
+    """The K-major taps K6's ``wgmma`` route reads, (kh * kh, Co, C), summed
+    as the kernel sums them (tap t = ky * kh + kx reads the input cell (y +
+    ky - 1, x + kx - 1), zero outside), equal the plain version's bare
+    convolution: 3x3 padded (1, 1), 2x2 padded (1, 0)."""
+    rng = np.random.RandomState(16 + kh)
+    x, k, _, _, _ = _fp_operands(rng, 2, 7, 13, 64, 64, kh, 1, False)
+    wk = conv3x3_wgmma.wgmma_taps(k)
+    assert tuple(wk.shape) == (kh * kh, 64, 64) and wk.is_contiguous()
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))  # zeros around; 2x2 reads rows -1, 0
+    acc = torch.zeros(2, 7, 13, 64, dtype=torch.float64)
+    for t in range(kh * kh):
+        ky, kx = divmod(t, kh)
+        acc += xp[:, ky:ky + 7, kx:kx + 13].double() @ wk[t].double().t()
+    want = cb.conv_block_fp_plain(x, k, identity=True)
+    assert (acc.float() - want).abs().max().item() <= 1e-5 * want.abs().max().item()

@@ -322,6 +322,53 @@ def test_cuda_dcn_kernels_keep_nan_offsets_as_plain(cuda, dtype, max_offset):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+def test_cuda_dcn_offset_grad_matches_plain_at_each_width(cuda, dtype, c):
+    """K3 at C 64 to 512 (8 lanes a (site, tap), 4 taps a warp, a lane walking
+    1 to 16 of the row's 16-byte vectors) against its plain version, clamped
+    and unclamped, with NaN offsets: float32 within 1e-5 x max|ref|, bfloat16
+    inputs within 1e-2, g18 NaN exactly where the plain version's is."""
+    x, offset, mask, _ = _dcn_case(20 + c, 24, 28, c, off_scale=3.0)
+    offset[0, ::3, ::4, 2] = np.nan
+    offset[0, 1::5, ::2, 9] = np.nan
+    rng = np.random.RandomState(21)
+    ds = torch.from_numpy(rng.randn(1, 12, 14, 9 * c).astype(np.float32)).to(cuda, dtype)
+    x = torch.from_numpy(x).to(cuda, dtype)
+    offset, mask = torch.from_numpy(offset).to(cuda), torch.from_numpy(mask).to(cuda)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for max_offset in (5.0, None):
+        args = (2, 1, 3, max_offset)
+        before = dcn_grad.dcn_offset_grad.launches
+        g18, dm9 = dcn_grad.dcn_offset_grad(x, offset, ds, mask, *args)
+        torch.cuda.synchronize()
+        assert dcn_grad.dcn_offset_grad.launches == before + 1
+        g18_p, dm9_p = dcn_grad.dcn_offset_grad_plain(x, offset, ds, mask, *args)
+        assert torch.isnan(g18_p).any()
+        assert _nan_equal_within(g18, g18_p, tol) and _nan_equal_within(dm9, dm9_p, tol)
+
+
+@pytest.mark.gpu
+def test_cuda_dcn_offset_grad_past_2_31_dsampled_elements(cuda):
+    """K3 where dsampled holds more than 2^31 elements (3 x 560^2 sites x 9
+    taps x 256 channels), so that a row's offset passes 32 bits: the last
+    scene, whose rows cross 2^31, against the plain version of that scene
+    alone, bfloat16 within 1e-2 x max|ref|."""
+    b, hw, c = 3, 560, 256
+    assert (b - 1) * hw * hw * 9 * c < 2 ** 31 < b * hw * hw * 9 * c
+    g = torch.Generator(device=cuda).manual_seed(22)
+    x = torch.randn((b, hw, hw, c), generator=g, device=cuda, dtype=torch.bfloat16)
+    offset = 3.0 * torch.randn((b, hw, hw, 18), generator=g, device=cuda)
+    mask = torch.rand((b, hw, hw, 9), generator=g, device=cuda)
+    ds = torch.randn((b, hw, hw, 9 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    args = (1, 1, 3, 5.0)
+    g18, dm9 = dcn_grad.dcn_offset_grad(x, offset, ds, mask, *args)
+    g18_p, dm9_p = dcn_grad.dcn_offset_grad_plain(x[-1:], offset[-1:], ds[-1:], mask[-1:], *args)
+    torch.cuda.synchronize()
+    assert _max_err_ratio(g18[-1:], g18_p) <= 1e-2 and _max_err_ratio(dm9[-1:], dm9_p) <= 1e-2
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(40, 128), (24, 64)], ids=["clamped", "unclamped"])
 def test_cuda_dcn_backward_matches_cpu(cuda, shape):
     """All four gradients of ``modulated_deform_conv`` through the kernels on
@@ -351,3 +398,7 @@ def test_cuda_dcn_grad_wrappers_reject_what_the_kernels_do_not_take(cuda):
         dcn_grad.dcn_input_grad(ds, off.cpu(), msk, 8, 8)
     with pytest.raises(ValueError):  # C = 6 is not a multiple of 4
         dcn_grad.dcn_input_grad(torch.zeros(1, 4, 4, 54, device=cuda), off, msk, 8, 8)
+    with pytest.raises(ValueError):  # 12 bfloat16 channels: not whole 16-byte vectors
+        dcn_grad.dcn_offset_grad(torch.zeros(1, 8, 8, 12, device=cuda, dtype=torch.bfloat16),
+                                 off, torch.zeros(1, 4, 4, 108, device=cuda,
+                                                  dtype=torch.bfloat16), msk)
