@@ -99,8 +99,13 @@ Phases 12-19, the deep chains of the teacher:
      device alone, the ``wgmma`` links also on their ``mma.sync`` variant;
  13. K7 ``chain_conv`` vs its plain version at the conv5 link, pre-padded
      (2, 91, 90, 1024) x (2, 2, 1024, 256) with an all-ones lane mask, and at a
-     3x3 link with a per-channel mask and a residual: every code equal, and
-     equal to K1's on the same link;
+     3x3 (90², 256 -> 256) link with a 60% per-channel mask and a residual, on
+     the route the dispatch gives them (``chain_route_of``: the ``wgmma`` conv
+     mainloop, its counter moved): every code equal, equal to the streamed
+     ``mma.sync`` kernel's, and on an all-ones mask to K1's on the same link;
+     the wrapper (and its device time), the bare launch beside K1's bare
+     launch of the same product with a mask word a pixel, the streamed
+     kernel's wrapper and the plain version timed in one run;
  14. K6 ``conv_block_fp`` vs its plain version at the seven link shapes of the
      ``FP_STAGES: 5`` chain in bfloat16 (within 1e-2 x max|ref|: one bfloat16
      rounding of a differently ordered float32 sum), with and without a
@@ -122,14 +127,16 @@ Phases 12-19, the deep chains of the teacher:
      results must equal the wrapper's; ``F.conv2d``'s time as its library
      call;
  16. distillation forward, bfloat16, 1440², ``INT8_STAGES: 5``: K1 x 23
-     (18 on ``wgmma``, 5 on ``mma.sync``), K7 x 1, K6 x 0, K5 x 2, K2 x 3;
+     (18 on ``wgmma``, 5 on ``mma.sync``), K7 x 1 (on ``wgmma``), K6 x 0, K5 x
+     2, K2 x 3;
      finite outputs, p50;
  17. the same with ``INT8_STAGES: 1`` + ``FP_STAGES: 5``: K1 x 4 (``wgmma``), K6 x 19
      (all on its ``wgmma`` route), K7 x 0, K5 x 2, K2 x 3;
  18. both configurations in float32 at grid 512, card vs CPU (teacher features
      1e-3, ``radar_preds`` 1e-4; under ``INT8_STAGES: 5`` the teacher's bound
      is 5e-2, see below), and the ``INT8_STAGES: 5`` teacher once more with
-     ``CONV_BLOCK_V1=1`` (every link through K7): features bit-equal; then the
+     ``CONV_BLOCK_V1=1`` (every link through K7, 18 on its ``wgmma`` route):
+     features bit-equal; then the
      ``FP_STAGES: 5`` teacher in bfloat16 against the card's own float32
      forward of the same batch and weights at grid 512: the rel-L2 of
      ``x_conv4``, ``x_conv5`` and ``spatial_features_2d``, at most 1.5 x what
@@ -162,10 +169,10 @@ Phases 20-24, the route without host tables and the last three kernels:
      modes on two routes, ``mma.sync`` and the ``wgmma`` conv mainloop, five
      shapes): each case within tolerance of its plain version
      (bfloat16 1e-2, TF32 1e-3 x max|ref|, int8 equal), then its rate beside
-     the library call's; the ``wgmma`` route also by its launch alone; then
-     P2's bfloat16 (2048, 512, 512) case on ``wgmma`` and ``torch.bmm`` in
-     turns, 20 times each (mean, min, max). (They run first, right after the
-     build.)
+     the library call's (P2 at every ``MMA_CASES`` row on both routes); P1's
+     ``wgmma`` route also by its launch alone; then P2's bfloat16 (2048, 512,
+     512) case on ``wgmma`` and ``torch.bmm`` in turns, 20 times each (mean,
+     min, max). (They run first, right after the build.)
 
 Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
 float32 scales alike, but not every stock op around it (the VFE's sums); one
@@ -196,7 +203,7 @@ for K8 one pass over its 14 gathers (times summed), for P1 the ``conv`` mode at
 (2, 720, 720, 128) -> 128 on the ``wgmma`` route and for P2 the bfloat16 (2048, 512, 512) product on
 the ``wgmma`` route, with ``launches`` counting every case of their tables
 (bound of P1, P2: operations at the bfloat16 peak). ``launch_ms`` (K1, K2,
-K3, K4, K6, K9 and P1; null for the others) is the time of the bare launches
+K3, K4, K6, K7, K9 and P1; null for the others) is the time of the bare launches
 on prepared inputs and preallocated outputs, ``ms`` that of the wrapper.
 ``aside_ms`` (K2, K3, K4) is the time of the asides of phase 4 (K6: cuDNN's
 bfloat16 conv of its 19 links' products, phase 14), ``k4_route`` the route
@@ -204,14 +211,16 @@ K4 takes on the main path and ``repeats_bitwise`` whether its dx repeated
 bit for bit. K6's ``teacher_bf16_rel_l2`` is the figure of phase 18; P2's
 ``alternating_ms`` and ``alternating_library_ms`` are (mean, min, max) of P2
 and ``torch.bmm`` timed in turns, 20 times each (phase 24).
-``mma`` names the tensor-core instruction of a kernel that has one (K1, K6:
-their routes at the links of their configuration). K1's and K6's records also
+``mma`` names the tensor-core instruction of a kernel that has one (K1, K6,
+K7: their routes at the links of their configuration; K7's conv5 link on
+``wgmma``). K1's, K6's and K7's records also
 carry ``old_route_ms``, their links on the ``mma.sync`` kernel in the same
-run; K1's also ``deep_*``, the
+run (K7: its streamed kernel); K1's also ``deep_*``, the
 sums over the 19 deeper links of ``INT8_STAGES: 5`` on their routes
 (``deep_old_route_ms``: all 19 on ``mma.sync``; ``deep_device_*``: their
 device time with the host's enqueue hidden, as the wrappers of the links
-below 720² cost the host more than the card). Any failed phase exits non-zero. The line before the
+below 720² cost the host more than the card); K7's ``device_ms`` is its
+wrapper's device time, the same way. Any failed phase exits non-zero. The line before the
 last is the kernels record ``{"kernels": [{"name", "route", "mma", "source",
 "replaces", "launches", "max_abs_err", "ms", "launch_ms", "plain_ms",
 "bound_ms", "bound_by", "library_ms", ...}]}``; the last line is
@@ -244,7 +253,7 @@ INT8_DEEP_LINKS = ((720, 128, 64, 2, 1, 0), (720, 64, 64, 3, 2, 2), (360, 256, 1
 # the tensor-core instruction of each kernel that has one (K1: its route at
 # the stage-1 links; the Co-64 links of INT8_STAGES: 5 stay on mma.sync)
 MMA_ROUTES = {"conv_block": "wgmma", "conv3x3_wide": "wgmma", "conv_probe": "wgmma",
-              "mma_rate": "wgmma", "conv_block_fp": "wgmma", "chain_conv": "mma.sync"}
+              "mma_rate": "wgmma", "conv_block_fp": "wgmma", "chain_conv": "wgmma"}
 # K1's launches in one distillation forward: the four stage-1 links, all on
 # the wgmma route
 K1_STAGE1 = {"conv_block": 4, "conv_block.wgmma": 4, "conv_block.mma_sync": 0}
@@ -835,15 +844,28 @@ def phase_k1_deep(torch, dev):
 
 def phase_k7(torch, dev):
     """K7 at the conv5 link of the ``INT8_STAGES: 5`` chain and at a 3x3 link
-    with a per-channel mask and a residual: equal to plain, and to K1."""
-    from radardistill_tpu_torch.ops.conv_block import conv_block, int8_block_conv_v2
+    with a per-channel mask and a residual, on the route the dispatch gives
+    them (``wgmma``): equal to plain, to the streamed kernel and, on an
+    all-ones mask, to K1. Timed in one run: the wrapper (and its device
+    time), the bare launch on prepared operands beside K1's on the same
+    product with its one-word mask, the streamed kernel's wrapper, the plain
+    version. The record is the conv5 link's, the main path's launch."""
+    import torch.nn.functional as F
+
+    from radardistill_tpu_torch.ops import conv3x3_wgmma
+    from radardistill_tpu_torch.ops.conv_block import (conv_block, int8_block_conv_v2,
+                                                       link_constants, tap_sums)
     from radardistill_tpu_torch.ops.int8_conv import (chain_conv, chain_conv_plain,
-                                                      int8_block_conv)
+                                                      chain_route_of, int8_block_conv)
 
     gen = torch.Generator().manual_seed(7)
+    streamed = lambda *a, **k: chain_conv(*a, variant="streamed", **k)  # noqa: E731
     rec = None
     for name, (h, c, co, kh, with_res) in (("conv5 link", (90, 1024, 256, 2, False)),
                                            ("3x3 link", (90, 256, 256, 3, True))):
+        route = chain_route_of(kh, c, co)
+        if route != "wgmma":
+            raise RuntimeError(f"K7 {name}: dispatched to {route}, not wgmma")
         link = int8_link(torch, dev, gen, 2, h, h, c, co, kh, 1, 127.0, with_res)
         args = {k: v for k, v in link.items() if k != "mask_c"}
         if with_res:  # a mask that differs from channel to channel
@@ -851,27 +873,58 @@ def phase_k7(torch, dev):
         else:
             mq = torch.ones((2, h, h, co), dtype=torch.int8, device=dev)
         run = lambda block: int8_block_conv(mask_q=mq, block=block, **args)[0]  # noqa: E731
-        got, want = run(chain_conv), run(chain_conv_plain)
+        read = reset_launches()
+        got = run(chain_conv)
+        moved = read()
+        want, old = run(chain_conv_plain), run(streamed)
         # K1 on the same link: a lane mask it can take is constant per pixel
         ones = torch.ones((2, h, h, co), dtype=torch.int8, device=dev)
         k7_ones = int8_block_conv(mask_q=ones, **args)[0]
         k1_ones = int8_block_conv_v2(mask_c=ones[..., :1].contiguous(), block=conv_block,
                                      **args)[0]
         torch.cuda.synchronize()
-        n_bad, n_k1 = int((got != want).sum()), int((k7_ones != k1_ones).sum())
+        if moved["chain_conv.wgmma"] != 1 or moved["chain_conv.streamed"] != 0:
+            raise RuntimeError(f"K7 {name}: launches {moved}")
+        n_bad, n_old = int((got != want).sum()), int((old != want).sum())
+        n_k1 = int((k7_ones != k1_ones).sum())
+        # the bare launch on prepared operands and a preallocated output
+        xq, kq, res = link["xc"][0], link["kq"], link["res"]
+        ab = link_constants(link["xc"], kq, link["sw"], link["bias"], link["gt"], link["sh"],
+                            link["bound"], res)[0]
+        xp = F.pad(xq, (0, 0, 0, 0, 1, kh - 2), value=-127)
+        wk, wsum, out = conv3x3_wgmma.wgmma_taps(kq), tap_sums(kq), torch.empty_like(got)
+        alone = lambda: conv3x3_wgmma.launch_chain(  # noqa: E731
+            xp, wk, ab, mq, None if res is None else res[0], wsum, out, -127)
+        alone()
+        torch.cuda.synchronize()
+        if not torch.equal(out, got):
+            raise RuntimeError(f"K7 {name}: the bare launch differs from the wrapper's codes")
+        # K1's bare launch of the same product, its mask a word a pixel
+        ones_c, out1 = ones[..., :1].contiguous(), torch.empty_like(got)
+        k1_alone = lambda: conv3x3_wgmma.launch_link(  # noqa: E731
+            xq, wk, ab, ones_c, None if res is None else res[0], wsum, out1, -127)
         ops_ms, bytes_ms = int8_link_bound(link, mq.numel())
-        ms, plain_ms = paired_ms(torch, lambda: run(chain_conv), lambda: run(chain_conv_plain),
-                                 iters=20, plain_iters=2)
-        print(f"K7 chain_conv {name} x (2, {h + kh - 1}, {h}, {c}) pre-padded, k ({kh}, {kh}, "
-              f"{c}, {co}), lane mask {tuple(mq.shape)}, res {with_res}: {n_bad} of "
-              f"{got.numel()} codes differ from plain, {n_k1} from K1; "
-              f"{100 * float((want > -127).float().mean()):.0f}% of codes above -127; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
-              f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
-        if n_bad or n_k1:
-            raise RuntimeError(f"K7 {name}: {n_bad} codes differ from plain, {n_k1} from K1")
+        ms, old_ms = paired_ms(torch, lambda: run(chain_conv), lambda: run(streamed), iters=20)
+        # the wrapper costs the host more than the card: its device time too
+        dev_ms = device_ms(torch, lambda: run(chain_conv), 20)
+        launch_ms, k1_ms = paired_ms(torch, alone, k1_alone, iters=20)
+        plain_ms = cuda_ms(torch, lambda: run(chain_conv_plain), 2)
+        print(f"K7 chain_conv ({route}) {name} x (2, {h + kh - 1}, {h}, {c}) pre-padded, k ({kh}, "
+              f"{kh}, {c}, {co}), lane mask {tuple(mq.shape)}, res {with_res}: {n_bad} of "
+              f"{got.numel()} codes differ from plain, {n_old} on the streamed mma.sync kernel, "
+              f"{n_k1} from K1 on an all-ones mask; "
+              f"{100 * float((want > -127).float().mean()):.0f}% of codes above -127; wrapper "
+              f"{ms:.4f} ms (device {dev_ms:.4f} ms), launch alone {launch_ms:.4f} ms "
+              f"({ops_ms * PEAK_INT8_OPS / 1e12 / launch_ms:.1f} TOP/s; K1's bare launch with a "
+              f"mask word a pixel {k1_ms:.4f} ms), streamed mma.sync "
+              f"wrapper {old_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
+        if n_bad or n_old or n_k1:
+            raise RuntimeError(f"K7 {name}: {n_bad} codes differ from plain, {n_old} on the "
+                               f"streamed kernel, {n_k1} from K1")
         if rec is None:  # the main path's launch
-            rec = bound_of({"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            rec = bound_of({"max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+                            "launch_ms": launch_ms, "old_route_ms": old_ms, "plain_ms": plain_ms,
                             "bytes_ms": bytes_ms, "ops_ms": ops_ms, "library_ms": None})
     return rec
 
@@ -1101,19 +1154,20 @@ def reset_launches():
     for fn in fns.values():
         fn.launches = 0
     routes, dx_routes = conv_block.route_launches, dcn_input_grad.route_launches
-    fp_routes = conv_block_fp.route_launches
-    for r in (routes, dx_routes, fp_routes):
+    fp_routes, chain_routes = conv_block_fp.route_launches, chain_conv.route_launches
+    for r in (routes, dx_routes, fp_routes, chain_routes):
         for k in r:
             r[k] = 0
 
     def read():
         # K1 also by route: the wgmma conv mainloop, or the mma.sync kernel
         # (resident and streamed variants); K6 by route: wgmma, mma.sync or
-        # ffma; K4 by route: tile or atomic
+        # ffma; K7 by route: wgmma or streamed; K4 by route: tile or atomic
         return {**{k: fn.launches for k, fn in fns.items()},
                 "conv_block.wgmma": routes["wgmma"],
                 "conv_block.mma_sync": routes["resident"] + routes["streamed"],
                 **{f"conv_block_fp.{k}": n for k, n in fp_routes.items()},
+                **{f"chain_conv.{k}": n for k, n in chain_routes.items()},
                 **{f"dcn_input_grad.{k}": n for k, n in dx_routes.items()}}
 
     return read
@@ -1240,7 +1294,8 @@ def phase_forward_f32(torch, dev, name, cfg, info, batch, tol, v1_equal=()):
         v1_launches = read()
         differ = [k for k in v1_equal if not torch.equal(got_v1[k], got[k])]
         print(f"{name} f32 with CONV_BLOCK_V1=1: conv_block x {v1_launches['conv_block']}, "
-              f"chain_conv x {v1_launches['chain_conv']} (v2 route: "
+              f"chain_conv x {v1_launches['chain_conv']} ({v1_launches['chain_conv.wgmma']} on "
+              f"wgmma, {v1_launches['chain_conv.streamed']} streamed) (v2 route: "
               f"{v2_launches['conv_block']}, {v2_launches['chain_conv']}); "
               f"{', '.join(v1_equal)} bit-equal to the v2 route's: {not differ}")
         links = v2_launches["conv_block"] + v2_launches["chain_conv"]
@@ -1710,7 +1765,8 @@ def main() -> int:
     print(f"build: nvcc {' '.join(cuda_lib.NVCC_FLAGS)} x {len(cuda_lib.SOURCES)} sources in "
           f"{time.perf_counter() - t0:.1f} s")
     for line in ptxas.splitlines():
-        if "Used" in line:
+        # registers, and any wgmma pipeline ptxas had to serialize (C7513)
+        if "Used" in line or "Performance Loss" in line:
             print(f"  {line.strip()}")
 
     from radardistill_tpu_torch.data.synthetic import make_batch
@@ -1763,7 +1819,8 @@ def main() -> int:
     deep = {"int8_stages5": {"INT8_STAGES": 5}, "fp_stages5": {"INT8_STAGES": 1, "FP_STAGES": 5}}
     chain_expect = {
         "int8_stages5": {"expand_rows": 2, "dcn_sample": 3, "conv_block": 23,
-                         "conv_block.wgmma": 18, "conv_block.mma_sync": 5, "chain_conv": 1},
+                         "conv_block.wgmma": 18, "conv_block.mma_sync": 5, "chain_conv": 1,
+                         "chain_conv.wgmma": 1},
         "fp_stages5": {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, "conv_block_fp": 19,
                        "conv_block_fp.wgmma": 19}}
     chain_launches = {}
@@ -1806,7 +1863,7 @@ def main() -> int:
         ("dcn_offset_grad", "dcn_offset_grad.cu", f"{dcn_py}:283", k3),
         ("dcn_input_grad", "dcn_input_grad.cu", f"{dcn_py}:378", k4),
         ("conv_block_fp", "conv3x3_wgmma.cu", f"{block_py}:81", k6),
-        ("chain_conv", "conv_block.cu", "radardistill_tpu/ops/pallas_int8_conv.py:64", k7),
+        ("chain_conv", "conv3x3_wgmma.cu", "radardistill_tpu/ops/pallas_int8_conv.py:64", k7),
         ("conv3x3_wide", "conv3x3_wgmma.cu", "radardistill_tpu/ops/pallas_wide_conv.py:57", k9),
         ("gather_rows_windowed", "gather_win.cu", "radardistill_tpu/ops/pallas_expand.py:130", k8),
         ("conv_probe", "conv3x3_wgmma.cu", "tools/pallas_conv_proto.py:65", p1),
@@ -1839,7 +1896,7 @@ def main() -> int:
             "launches_device_tables", "max_abs_err",
             "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "aside_ms",
             "teacher_bf16_rel_l2", "alternating_ms", "alternating_library_ms",
-            "k4_route", "repeats_bitwise", "old_route_ms",
+            "k4_route", "repeats_bitwise", "old_route_ms", "device_ms",
             "deep_ms", "deep_old_route_ms", "deep_device_ms", "deep_device_old_route_ms",
             "deep_plain_ms", "deep_bound_ms")
     print(f"chip_smoke.py: every phase passed; {time.perf_counter() - t_start:.1f} s in all, the "

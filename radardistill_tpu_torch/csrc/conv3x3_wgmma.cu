@@ -19,7 +19,15 @@
 //       bfloat16 out;
 //   P1  ops/probes.py::conv_probe(route="wgmma") (replaces the kernels of
 //       tools/pallas_conv_proto.py): conv, dots and int8 on an input that is
-//       pre-padded by one zero row above and below, xp (B, H + 2, W, C).
+//       pre-padded by one zero row above and below, xp (B, H + 2, W, C);
+//   K7  ops/int8_conv.py::chain_conv (the wgmma route, replaces
+//       radardistill_tpu/ops/pallas_int8_conv.py::_chain_kernel): K1's link
+//       on the first generation's operands, an input pre-padded in H with
+//       zpad rows, xp (B, H + kh - 1, W, C), and a mask of one byte per
+//       output channel, (B, H, W, Co). The mainloop reads the interior rows
+//       xp[:, 1 : 1 + H] through a 4-d TMA map whose image stride is that of
+//       xp (H + kh - 1 rows), so the zpad rows are never read: TMA's zero
+//       fill and K1's border correction (below) stand for them, exactly.
 //
 // The weight arrives K-major, wk (kh * kh, Co, C): tap t's (Co, C) slice. For
 // dx the caller passes the forward's (3, 3, Co_f, C_f) kernel as it lies,
@@ -87,6 +95,15 @@
 // land while the products run (read after them, they stood exposed after
 // each tile's products). K6's Co-64 links take their own kernel below,
 // conv_co64_kernel, with the product transposed.
+//
+// K7's mask (a byte per output channel, int8 out) is not a word per pixel:
+// its epilogue (EPI_K7, K1's otherwise) has each lane load its part of the
+// warp's 16 pixels x 128 mask bytes of both output rows as 16-byte vectors
+// (8 a lane) when the tile starts, so that they land while the products
+// run, as K1's mask words do; the epilogue stages a row's vectors in bytes
+// 0-127 of the warp's staging rows, beside the residual, and each thread
+// reads its two channels' bytes there before it writes their output codes in
+// their place.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -136,14 +153,15 @@ struct S8 {
 };
 
 // the epilogues: bfloat16 out (K9, P1 conv and dots), P1's int8 requant, K1's
-// link with an int8 or a bfloat16 output, K6's link
-enum Epi { EPI_BF16, EPI_P1, EPI_K1_S8, EPI_K1_BF16, EPI_K6 };
+// link with an int8 or a bfloat16 output, K6's link, K1's int8 link with K7's
+// mask of a byte per output channel
+enum Epi { EPI_BF16, EPI_P1, EPI_K1_S8, EPI_K1_BF16, EPI_K6, EPI_K7 };
 
 struct EpiArgs {
   const float* scale;   // P1: (Co,) requant scale
   int relu;             // P1
   const float* ab;      // K1: (8, Co), rows alpha, beta, s_out, rs, rsh; K6: (2, Co)
-  const int8_t* mask;   // K1, K6: (B, H, W, nph)
+  const int8_t* mask;   // K1, K6: (B, H, W, nph); K7: (B, H, W, Co)
   const int8_t* res;    // K1: (B, H, W, Co) or null
   const __nv_bfloat16* res16;  // K6: (B, H, W, Co) or null
   const int* wsum;      // K1: (kh * kh, Co), the weight summed over C per tap
@@ -306,7 +324,8 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
   // slices ahead of the other), so each one's epilogue runs while the other
   // issues products: the epilogue is long beside a tile's products
   constexpr bool K6 = EPI == EPI_K6;
-  constexpr bool LINK = EPI == EPI_K1_S8 || EPI == EPI_K1_BF16 || K6;
+  constexpr bool LANE = EPI == EPI_K7;  // a mask byte per output channel
+  constexpr bool LINK = EPI == EPI_K1_S8 || EPI == EPI_K1_BF16 || K6 || LANE;
   int lead = LINK && cw == 0 ? STAGGER : 0;
   float* sab = sab_all + cw * 2 * BN;  // this consumer's alpha (BN), beta (BN)
   int sab_co0 = -1;
@@ -331,7 +350,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
         } else if (ep.res != nullptr) {
           prefetch_l2(ep.res + pix * Co + tl.co0);
         }
-        if (r == 0 || r == 15) prefetch_l2(ep.mask + pix * ep.nph);
+        if (!LANE && (r == 0 || r == 15)) prefetch_l2(ep.mask + pix * ep.nph);
       }
     }
     // the link's mask bytes for the thread's four pixels and alpha, beta of
@@ -339,13 +358,28 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
     // channels differ from the last tile's), read now: they land while the
     // products run
     uint32_t mw[2][2] = {{0u, 0u}, {0u, 0u}};
+    // K7's mask: mv[j][i] of lane l is 16-byte unit l & 7 of pixel x0 + 16
+    // warp + (l >> 3) + 4 i of output row 2 cw + j
+    uint4 mv[2][4];
+    if constexpr (LANE) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int yy = tl.y0 + 2 * cw + j, xx = tl.x0 + 16 * warp + (lane >> 3) + 4 * i;
+          mv[j][i] = make_uint4(0, 0, 0, 0);
+          if (yy < H && xx < W)
+            mv[j][i] = __ldg(reinterpret_cast<const uint4*>(
+                ep.mask + (((size_t)tl.b * H + yy) * W + xx) * Co + tl.co0 + 16 * (lane & 7)));
+        }
+    }
     if constexpr (LINK) {
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int yy = tl.y0 + 2 * cw + j, xx = tl.x0 + 16 * warp + g + 8 * h;
-          if (yy < H && xx < W) {
+          if (!LANE && yy < H && xx < W) {
             const int8_t* mp = ep.mask + (((size_t)tl.b * H + yy) * W + xx) * ep.nph;
             mw[j][h] = ep.nph == 4   ? __ldg(reinterpret_cast<const uint32_t*>(mp))
                        : ep.nph == 2 ? (uint32_t)__ldg(reinterpret_cast<const uint16_t*>(mp))
@@ -445,7 +479,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
         __syncwarp();
       }
     } else {  // ------------------------------------------ K1's and K6's link
-      constexpr bool S8_OUT = EPI == EPI_K1_S8;
+      constexpr bool S8_OUT = EPI == EPI_K1_S8 || LANE;
       // passes of 128 bytes of output: one of 128 int8 channels, or of 64
       // bfloat16 channels each
       constexpr int ES_OUT = S8_OUT ? 1 : 2, PASSES = BN * ES_OUT / 128, NP = BN / 8 / PASSES;
@@ -489,7 +523,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
       // between two n)
       const int cpp = Co / ep.nph;
       uint32_t phases = 0;
-      for (int n = 0, ph = tl.co0 / cpp, left = cpp - tl.co0 % cpp; n < BN / 8; ++n) {
+      for (int n = 0, ph = tl.co0 / cpp, left = cpp - tl.co0 % cpp; !LANE && n < BN / 8; ++n) {
         phases |= (uint32_t)ph << (2 * n);
         if ((left -= 8) == 0) ++ph, left = cpp;
       }
@@ -499,7 +533,8 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
         const size_t row_pix = ((size_t)tl.b * H + yy) * W + tl.x0 + 16 * warp;
         // the warp's 16 pixels x 128 bytes of residual into bytes 128-255 of
         // its staging rows: K1's 128 int8 channels once per row, K6's 64
-        // bfloat16 channels of pass p at the start of that pass
+        // bfloat16 channels of pass p at the start of that pass; K7's 128
+        // mask bytes (read when the tile started) into bytes 0-127
         auto load_res = [&](uint4 (&rv)[4], const uint8_t* src, size_t pix_bytes) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -510,24 +545,26 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
                                                            16 * u));
           }
         };
-        auto put_res = [&](const uint4 (&rv)[4]) {
+        auto put_res = [&](const uint4 (&rv)[4], int at) {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            *reinterpret_cast<uint4*>(ebuf + ((lane >> 3) + 4 * i) * EPI_ROW + 128 +
+            *reinterpret_cast<uint4*>(ebuf + ((lane >> 3) + 4 * i) * EPI_ROW + at +
                                       16 * (lane & 7)) = rv[i];
-          __syncwarp();
         };
         uint4 rv[4];
         if (!K6 && has_res) {
           load_res(rv, reinterpret_cast<const uint8_t*>(ep.res + tl.co0), (size_t)Co);
-          put_res(rv);
+          put_res(rv, 128);
         }
+        if constexpr (LANE) put_res(mv[j], 0);
+        __syncwarp();
 #pragma unroll
         for (int p = 0; p < PASSES; ++p) {
           if (K6 && has_res) {
             load_res(rv, reinterpret_cast<const uint8_t*>(ep.res16 + tl.co0 + 64 * p),
                      (size_t)Co * 2);
-            put_res(rv);
+            put_res(rv, 128);
+            __syncwarp();
           }
 #pragma unroll
           for (int n = p * NP; n < (p + 1) * NP; ++n) {
@@ -538,20 +575,25 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               uint8_t* row = ebuf + (g + 8 * h) * EPI_ROW;
-              const float m = (float)(int8_t)(mw[j][h] >> sh);
+              float m0 = (float)(int8_t)(mw[j][h] >> sh), m1 = m0;
+              if constexpr (LANE) {  // read before the codes overwrite them
+                const char2 mk = *reinterpret_cast<const char2*>(row + col);
+                m0 = (float)mk.x, m1 = (float)mk.y;
+              }
               float v0, v1;
               if constexpr (K6) {
                 float2 r = make_float2(0.0f, 0.0f);
                 if (has_res)
                   r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
                       row + 128 + 2 * (col - 8 * NP * p)));
-                v0 = fp_value(acc[j][4 * n + 2 * h], al.x, be.x, has_res, r.x, m);
-                v1 = fp_value(acc[j][4 * n + 2 * h + 1], al.y, be.y, has_res, r.y, m);
+                v0 = fp_value(acc[j][4 * n + 2 * h], al.x, be.x, has_res, r.x, m0);
+                v1 = fp_value(acc[j][4 * n + 2 * h + 1], al.y, be.y, has_res, r.y, m1);
               } else {
                 char2 r = make_char2(0, 0);
                 if (has_res) r = *reinterpret_cast<const char2*>(row + 128 + col);
-                v0 = link_value(acc[j][4 * n + 2 * h], al.x, be.x, has_res, r.x, rs, rsh, m);
-                v1 = link_value(acc[j][4 * n + 2 * h + 1], al.y, be.y, has_res, r.y, rs, rsh, m);
+                v0 = link_value(acc[j][4 * n + 2 * h], al.x, be.x, has_res, r.x, rs, rsh, m0);
+                v1 = link_value(acc[j][4 * n + 2 * h + 1], al.y, be.y, has_res, r.y, rs, rsh,
+                                m1);
               }
               if constexpr (S8_OUT) {
                 *reinterpret_cast<char2*>(row + col) =
@@ -856,15 +898,18 @@ cudaError_t launch_co64(const void* x, const void* wk, const EpiArgs& ep, void* 
   return cudaGetLastError();
 }
 
+// x: Hin rows of each image, images x_rows rows apart (Hin but for K7's
+// view of the interior rows of its padded input)
 template <class T, int EPI>
 cudaError_t launch(const void* x, const void* wk, const EpiArgs& ep, void* out, int B, int Hin,
-                   int H, int W, int C, int Co, int kh, int row_off, int shift, int flip,
-                   int device, cudaStream_t stream) {
+                   int x_rows, int H, int W, int C, int Co, int kh, int row_off, int shift,
+                   int flip, int device, cudaStream_t stream) {
   constexpr int CH = ROW / T::ES;
   CUtensorMap tmx, tmw;
   const cuuint64_t es = T::ES;
   const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)Hin, (cuuint64_t)B};
-  const cuuint64_t xstrides[3] = {C * es, (cuuint64_t)W * C * es, (cuuint64_t)Hin * W * C * es};
+  const cuuint64_t xstrides[3] = {C * es, (cuuint64_t)W * C * es,
+                                  (cuuint64_t)x_rows * W * C * es};
   const cuuint32_t xbox[4] = {CH, HALO_W, HALO_H, 1};
   cudaError_t err = rdt::encode_sw128(&tmx, T::TMA_TYPE, 4, x, xdims, xstrides, xbox);
   if (err != cudaSuccess) return err;
@@ -916,10 +961,10 @@ extern "C" int rdt_conv3x3_wgmma(const void* x, const void* wk, const void* scal
   ep.scale = static_cast<const float*>(scale);
   ep.relu = relu;
   if (mode == 2)
-    return launch<S8, EPI_P1>(x, wk, ep, out, B, Hin, H, W, C, Co, 3, row_off, 0, flip, device,
-                              st);
-  return launch<Bf16, EPI_BF16>(x, wk, ep, out, B, Hin, H, W, C, Co, 3, row_off, mode == 0, flip,
-                                device, st);
+    return launch<S8, EPI_P1>(x, wk, ep, out, B, Hin, Hin, H, W, C, Co, 3, row_off, 0, flip,
+                              device, st);
+  return launch<Bf16, EPI_BF16>(x, wk, ep, out, B, Hin, Hin, H, W, C, Co, 3, row_off, mode == 0,
+                                flip, device, st);
 }
 
 // K1 on the mainloop. x (B, H, W, C) int8; wk (kh * kh, Co, C) int8, the taps
@@ -949,8 +994,36 @@ extern "C" int rdt_conv_block_wgmma(const void* x, const void* wk, const void* a
   ep.nph = nph;
   ep.zpad = zpad;
   if (out_kind == 0)
-    return launch<S8, EPI_K1_S8>(x, wk, ep, out, B, H, H, W, C, Co, kh, -1, 1, 0, device, st);
-  return launch<S8, EPI_K1_BF16>(x, wk, ep, out, B, H, H, W, C, Co, kh, -1, 1, 0, device, st);
+    return launch<S8, EPI_K1_S8>(x, wk, ep, out, B, H, H, H, W, C, Co, kh, -1, 1, 0, device, st);
+  return launch<S8, EPI_K1_BF16>(x, wk, ep, out, B, H, H, H, W, C, Co, kh, -1, 1, 0, device, st);
+}
+
+// K7 on the mainloop: K1's int8 link on the first generation's operands. x
+// points at the first interior row of image 0 of the padded input (B, H + kh
+// - 1, W, C) int8, the images x_rows = H + kh - 1 rows apart: the mainloop
+// reads rows 0 .. H - 1 of each and never the zpad rows around them. mask
+// (B, H, W, Co) int8, one byte per output channel; the other operands and
+// the result as for rdt_conv_block_wgmma, int8 out. Every tensor 16-byte
+// aligned and contiguous but for x's image stride; C and Co multiples of 128.
+extern "C" int rdt_chain_conv_wgmma(const void* x, const void* wk, const void* ab,
+                                    const void* mask, const void* res, const void* wsum,
+                                    void* out, int B, int H, int W, int C, int Co, int kh,
+                                    int x_rows, int zpad, int device, void* stream) {
+  if (C <= 0 || C % 128 != 0 || Co <= 0 || Co % 128 != 0 || (kh != 2 && kh != 3) ||
+      x_rows < H || ab == nullptr || mask == nullptr || wsum == nullptr)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if ((long long)B * H * W == 0) return cudaGetLastError();
+  EpiArgs ep = {};
+  ep.ab = static_cast<const float*>(ab);
+  ep.mask = static_cast<const int8_t*>(mask);
+  ep.res = static_cast<const int8_t*>(res);
+  ep.wsum = static_cast<const int*>(wsum);
+  ep.nph = Co;
+  ep.zpad = zpad;
+  return launch<S8, EPI_K7>(x, wk, ep, out, B, H, x_rows, H, W, C, Co, kh, -1, 1, 0, device,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // K6 on the mainloop. x (B, H, W, C) bfloat16; wk (kh * kh, Co, C) bfloat16,
@@ -978,5 +1051,5 @@ extern "C" int rdt_conv_block_fp_wgmma(const void* x, const void* wk, const void
   ep.res16 = static_cast<const __nv_bfloat16*>(res);
   ep.nph = nph;
   if (Co == 64) return launch_co64(x, wk, ep, out, B, H, W, C, kh, device, st);
-  return launch<Bf16, EPI_K6>(x, wk, ep, out, B, H, H, W, C, Co, kh, -1, 1, 0, device, st);
+  return launch<Bf16, EPI_K6>(x, wk, ep, out, B, H, H, H, W, C, Co, kh, -1, 1, 0, device, st);
 }

@@ -1,15 +1,20 @@
 """Write ``wgmma_ops.cuh``: one inline-PTX wrapper per ``wgmma.mma_async``
-shape the port uses. Each instruction names every accumulator register, so
-the operand lists are mechanical; run ``python gen_wgmma_ops.py`` in this
-directory after changing the shapes below and commit the header."""
+shape the port uses, with A from shared memory (``wgmma_<type>_n<N>``) and
+with A from registers (``wgmma_rs_<type>_n<N>``). Each instruction names every
+accumulator register, so the operand lists are mechanical; run ``python
+gen_wgmma_ops.py`` in this directory after changing the shapes below and
+commit the header."""
 
 from pathlib import Path
 
-# (suffix, PTX type string, k, accumulator C type, constraint, trailing immediates)
+# (suffix, PTX type string, k, accumulator C type, constraint, trailing
+# immediates with A from shared memory, the same with A from registers: the
+# scales of A and B, then the transposes of A and B, where the type has them;
+# the register form has no transpose of A)
 TYPES = (
-    ("bf16", "f32.bf16.bf16", 16, "float", "f", ", 1, 1, 0, 0"),
-    ("tf32", "f32.tf32.tf32", 8, "float", "f", ", 1, 1"),
-    ("s8", "s32.s8.s8", 32, "int", "r", ""),
+    ("bf16", "f32.bf16.bf16", 16, "float", "f", ", 1, 1, 0, 0", ", 1, 1, 0"),
+    ("tf32", "f32.tf32.tf32", 8, "float", "f", ", 1, 1", ", 1, 1"),
+    ("s8", "s32.s8.s8", 32, "int", "r", "", ""),
 )
 WIDTHS = (32, 64, 128, 256)
 
@@ -21,6 +26,15 @@ HEAD = '''// Generated by gen_wgmma_ops.py: wgmma.mma_async wrappers (sm_90a onl
 // lane 4*g + t) holds, for j < N/8, d[4j], d[4j+1] = row 16w + g, columns
 // 8j + 2t, 8j + 2t + 1 and d[4j+2], d[4j+3] = row 16w + g + 8, same columns.
 // The caller fences before (wgmma_fence), commits and waits after.
+//
+// The wgmma_rs_* forms read A from registers instead: four 32-bit words
+// a0 .. a3 a thread, the mma.sync m16n8k{16,8,32} A fragment of 16 rows x 32
+// bytes of K per warp, warp w holding rows 16w .. 16w + 15. By bytes of the
+// k step: a0 = row 16w + g, bytes 4t .. 4t + 3; a1 = row 16w + g + 8, the
+// same bytes; a2, a3 = the same two rows, bytes 16 + 4t .. 16 + 4t + 3 (what
+// ldmatrix.x4 of the 16 x 32-byte slice gives). The registers must not
+// change until a wait_group covers the instruction; fence (wgmma_fence)
+// after writing them and before the instruction.
 
 #pragma once
 
@@ -84,8 +98,26 @@ def wrapper(suffix, ptx, k, ctype, cons, imms, n):
         f"}}\n\n")
 
 
+def wrapper_rs(suffix, ptx, k, ctype, cons, imms, n):
+    regs = n // 2
+    outs = ", ".join(f"%{i}" for i in range(regs))
+    ops = ", ".join(f'"+{cons}"(d[{i}])' for i in range(regs))
+    return (
+        f"__device__ __forceinline__ void wgmma_rs_{suffix}_n{n}({ctype} (&d)[{regs}], "
+        f"uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t db) {{\n"
+        f"  asm volatile(\n"
+        f'      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{regs + 5}, 0;\\n"\n'
+        f'      "wgmma.mma_async.sync.aligned.m64n{n}k{k}.{ptx} "\n'
+        f'      "{{{outs}}}, "\n'
+        f'      "{{%{regs}, %{regs + 1}, %{regs + 2}, %{regs + 3}}}, %{regs + 4}, p{imms};\\n}}\\n"\n'
+        f"      : {ops}\n"
+        f'      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));\n'
+        f"}}\n\n")
+
+
 def main():
-    body = "".join(wrapper(*t, n) for t in TYPES for n in WIDTHS)
+    body = "".join(wrapper(*t[:6], n) for t in TYPES for n in WIDTHS)
+    body += "".join(wrapper_rs(*t[:5], t[6], n) for t in TYPES for n in WIDTHS)
     Path(__file__).with_name("wgmma_ops.cuh").write_text(HEAD + body + "}  // namespace rdt\n")
 
 

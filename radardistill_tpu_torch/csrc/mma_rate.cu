@@ -1,47 +1,63 @@
-// P2: tensor-core rate probe with operands resident in shared memory.
+// P2: tensor-core rate probe with operands resident on chip.
 //
 //   out = sum over r < reps of  round_to_type(A + r) @ B
 //
 // A (M, K) and B (K, N) of one type: bfloat16 (float32 accumulation, bfloat16
 // out), int8 (int32 accumulation, int32 out; A + r wraps as int8 addition
-// does) or float32 run as TF32 products (operands rounded to TF32, float32
-// accumulation and out). B arrives transposed, (N, K) with K contiguous.
+// does) or float32 run as TF32 products (float32 accumulation and out). B
+// arrives transposed, (N, K) with K contiguous.
 //
 // Replaces the TPU probe tools/mxu_rate.py (main.case, kern): eight products
 // of a slightly rotated A with B on operands that sit in on-chip memory, 64
 // identical programs, to read the matrix unit's rate as a function of N.
 //
 // On Hopper (2048, 512) bfloat16 does not fit an SM's 227 KB, so the probe
-// tiles: a block owns 64 rows of A and BN columns of B (BN the widest of 256,
-// 128, 64, 32 that divides N; 256 on the wgmma route only) and walks K in
-// chunks of 256 bytes. It loads each chunk of both from device memory ONCE,
-// runs all `reps` products of the chunk out of shared memory (the sums over r
-// and over K commute), and writes its tile at the end. Small chunks let
-// several blocks share an SM. The
-// grid covers (M / 64, N / BN) and is repeated `grid_reps` times in z (each
-// repeat redoes the same work and writes the same values), so that a launch
-// lasts long enough to time. What bounds it: operations; the bytes are read
-// once per block and are small beside 2 * 64 * K * BN * reps operations.
+// tiles, walks K in slabs and, because the sums over r and over K commute,
+// runs all `reps` products of a slab while it is on chip: each slab of A and
+// B is read from device memory (mostly from L2) once per tile. Each launch
+// repeats the whole tile grid `grid_reps` times (each repeat redoes the same
+// work and writes the same values), so that a launch lasts long enough to
+// time. What bounds it: operations (2 * M * K * N * reps against the bytes
+// of one A, one B and one out).
 //
-// Both routes use one shared-memory layout, the K-major 128-byte-swizzle tile
-// that wgmma reads: rows of 128 bytes (64 bfloat16, 128 int8, 32 float32 of
-// K), row r's 16-byte unit u stored at unit u ^ (r % 8), one such [rows][128 B]
-// slab per 128 bytes of K. The swizzle is what keeps the fragment loads of the
-// mma.sync route free of bank conflicts as well.
+// Route 1, mma.sync (m16n8k16 bf16, m16n8k32 s8, m16n8k8 tf32): a block of
+// four warps (2 x 2) owns 64 rows of A and BN columns of B (BN the widest of
+// 128, 64, 32 that divides N), loads chunks of 256 bytes of K of both into
+// shared memory, in the K-major 128-byte-swizzle layout (rows of 128 bytes,
+// row r's 16-byte unit u stored at unit u ^ (r % 8), one [rows][128 B] slab
+// per 128 bytes of K: it keeps the fragment loads free of bank conflicts),
+// and applies the rotation to each A fragment in registers.
 //
-// Route 1, mma.sync (m16n8k16 bf16, m16n8k32 s8, m16n8k8 tf32): four warps as
-// 2 x 2, a warp owns 32 rows by BN / 2 columns; A stays in shared memory
-// unrotated and the rotation is applied to each fragment in registers.
+// Route 2, wgmma.mma_async with A from registers (m64nBNk16 bf16, k32 s8, k8
+// tf32; BN the widest of 256, 128, 64, 32 that divides N):
 //
-// Route 2, wgmma.mma_async (m64nBNk16 bf16, k32 s8, k8 tf32): one warpgroup,
-// A and B both read by the tensor core from shared memory through
-// descriptors. The rotated A must therefore be materialised in shared memory
-// for every r: a thread holds its part of the chunk of A in registers (8
-// vectors of 16 bytes), and while round r's instructions run on one A tile
-// the threads write round(A + r + 1) into a second one and fence the
-// generic-proxy writes against the async proxy. The probe's rate includes
-// whatever of the rewrite the products do not hide.
-
+// - A persistent grid, one CTA per SM, walks the tiles of 128 rows x BN
+//   columns, m fastest, then n, then the grid repeat (at (2048, 512, 512)
+//   bfloat16 with BN 256: 32 tiles a repeat).
+// - Warpgroup 0 is the producer: one thread issues, per 128-byte slab of K,
+//   one TMA load of A (128 rows) and one of B (BN rows) in the 128-byte
+//   swizzle into a ring of STAGES stages, each with a full barrier (TMA's
+//   transaction count) and an empty barrier (one arrival per consumer); the
+//   warpgroup gives its registers away (setmaxnreg).
+// - Warpgroups 1 and 2 consume, each 64 rows of the tile: BN / 2 float32
+//   (int32) accumulators a thread. A consumer loads its A fragment of a
+//   slab once (ldmatrix.x4 through the swizzle: 16 words a thread, the
+//   register-A layout of four k steps), then for each r forms round(A + r)
+//   in registers (bf16: __hadd2, one rounding to nearest even; int8:
+//   __vadd4, wrapping; TF32: the float32 add, then cvt.rna to TF32) and
+//   issues the slab's four k steps on it, with B through a descriptor. No
+//   rotated A is written to shared memory, so no proxy fence is needed.
+// - Every (slab, r) is one commit group; the rotated fragment alternates
+//   between two register sets, and each group ends in wait_group 1: the
+//   group before it, which read the other set, is done before that set is
+//   rewritten, and one group is always in flight while the next is formed.
+//   A stage goes back to the producer once the last group that read it is
+//   done.
+// - TF32: the register form takes A rounded to TF32 by cvt.rna; B goes to
+//   the tensor core as the float32 bits TMA stored, and the tensor core
+//   reads them as TF32 (route 1 rounds B with cvt.rna as it stages it).
+// - The epilogue writes the accumulators straight from registers, once per
+//   tile and grid repeat, while the producer already loads the next tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,13 +65,17 @@
 #include <type_traits>
 
 #include "conv_tile.cuh"
+#include "tma_ops.cuh"
 #include "wgmma_ops.cuh"
 
 namespace {
 
 constexpr int T_BF16 = 0, T_S8 = 1, T_TF32 = 2;
-constexpr int BM = 64;         // rows of A per block
-constexpr int NTHREADS = 128;  // one warpgroup
+constexpr int BM = 64;         // rows of A per block (mma.sync route)
+constexpr int NTHREADS = 128;  // four warps (mma.sync route)
+
+template <int TYPE>
+constexpr int ELEM_BYTES = TYPE == T_BF16 ? 2 : TYPE == T_S8 ? 1 : 4;
 
 __device__ __forceinline__ uint32_t to_tf32(uint32_t f32_bits) {
   uint32_t out;
@@ -76,12 +96,6 @@ __device__ __forceinline__ uint32_t rotate(uint32_t w, int r) {
   } else {
     return to_tf32(__float_as_uint(__fadd_rn(__uint_as_float(w), (float)r)));
   }
-}
-
-template <int TYPE>
-__device__ __forceinline__ uint4 rotate4(uint4 v, int r) {
-  return make_uint4(rotate<TYPE>(v.x, r), rotate<TYPE>(v.y, r), rotate<TYPE>(v.z, r),
-                    rotate<TYPE>(v.w, r));
 }
 
 // byte offset of (row, byte kb of the row) in a swizzled tile of `rows` rows
@@ -216,103 +230,203 @@ mma_sync_rate_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ 
 
 // --------------------------------------------------------------- wgmma route
 
+namespace wg {
+constexpr int BM = 128;       // rows of A per tile: 64 per consumer warpgroup
+constexpr int SLAB = 128;     // bytes of K per ring stage
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;  // the producer warpgroup and two consumers
+constexpr int A_BYTES = BM * SLAB;
+
+constexpr int smem_bytes(int bn) { return 1024 + STAGES * (A_BYTES + bn * SLAB) + 2 * 8 * STAGES; }
+}  // namespace wg
+
 template <int TYPE, int BN>
-__device__ __forceinline__ void wgmma_step(acc_of<TYPE> (&d)[BN / 2], uint64_t da, uint64_t db) {
-#define RDT_WG(n)                                                   \
-  if constexpr (BN == n) {                                          \
-    if constexpr (TYPE == T_BF16) rdt::wgmma_bf16_n##n(d, da, db);  \
-    else if constexpr (TYPE == T_S8) rdt::wgmma_s8_n##n(d, da, db); \
-    else rdt::wgmma_tf32_n##n(d, da, db);                           \
+__device__ __forceinline__ void wgmma_rs_step(acc_of<TYPE> (&d)[BN / 2], const uint32_t* a,
+                                              uint64_t db) {
+#define RDT_WG(n)                                                                        \
+  if constexpr (BN == n) {                                                               \
+    if constexpr (TYPE == T_BF16) rdt::wgmma_rs_bf16_n##n(d, a[0], a[1], a[2], a[3], db); \
+    else if constexpr (TYPE == T_S8) rdt::wgmma_rs_s8_n##n(d, a[0], a[1], a[2], a[3], db); \
+    else rdt::wgmma_rs_tf32_n##n(d, a[0], a[1], a[2], a[3], db);                         \
   }
   RDT_WG(32) RDT_WG(64) RDT_WG(128) RDT_WG(256)
 #undef RDT_WG
 }
 
-// 16-byte vectors of a chunk of A a thread keeps in registers (64 * 256 / 16 / 128)
-constexpr int NV = 8;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// keeps the compiler from moving a register's definition below, or its
+// reads above, this point (a wgmma fence or wait beside it)
+template <class T>
+__device__ __forceinline__ void fence_operand(T& r) {
+  if constexpr (std::is_same<T, float>::value) asm volatile("" : "+f"(r)::"memory");
+  else asm volatile("" : "+r"(r)::"memory");
+}
+
+// tma: A (M, K) as a 2-d map, box (128 bytes of K, 128 rows); tmb: B^T (N,
+// K), box (128 bytes of K, BN rows). Tile id -> m tile id % tiles_m, n tile
+// (id % tiles_mn) / tiles_m, grid repeat id / tiles_mn.
+template <int TYPE, int BN>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+wgmma_rate_kernel(const __grid_constant__ CUtensorMap tma, const __grid_constant__ CUtensorMap tmb,
+                  void* __restrict__ out, int M, int N, int slabs, int reps, int tiles_m,
+                  int tiles_mn, int n_tiles) {
+  constexpr int CH = wg::SLAB / ELEM_BYTES<TYPE>;  // elements of K per slab
+  constexpr int STAGE = wg::A_BYTES + BN * wg::SLAB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + wg::STAGES * STAGE);
+  uint64_t* empty = full + wg::STAGES;
+  const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < wg::STAGES; ++s) {
+      rdt::mbar_init(full + s, 1);
+      rdt::mbar_init(empty + s, 2);
+    }
+    rdt::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {  // ------------------------------------------------ producer
+    rdt::setmaxnreg_dec<40>();
+    if (tid != 0) return;
+    rdt::tma_prefetch_desc(&tma);
+    rdt::tma_prefetch_desc(&tmb);
+    int st = 0, ph = 0;
+    for (int id = blockIdx.x; id < n_tiles; id += gridDim.x) {
+      const int mn = id % tiles_mn, m0 = (mn % tiles_m) * wg::BM, n0 = (mn / tiles_m) * BN;
+      for (int s = 0; s < slabs; ++s) {
+        rdt::mbar_wait(empty + st, ph ^ 1);
+        rdt::mbar_arrive_expect_tx(full + st, STAGE);
+        uint8_t* dst = sm + st * STAGE;
+        rdt::tma_load_2d(dst, &tma, full + st, s * CH, m0);
+        rdt::tma_load_2d(dst + wg::A_BYTES, &tmb, full + st, s * CH, n0);
+        if (++st == wg::STAGES) st = 0, ph ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------- consumers
+  rdt::setmaxnreg_inc<232>();
+  const int cw = wgi - 1, warp = tid >> 5, lane = tid & 31;
+  // this lane's ldmatrix row of the stage's A tile (128-byte rows, 1024-byte
+  // aligned, so the swizzle phase is the row's index mod 8) and its 16-byte
+  // unit of each 32-byte k step
+  const int arow = 64 * cw + 16 * warp + (lane & 15), unit = lane >> 4;
+  const uint32_t sm_addr = rdt::smem_addr(sm);
+  acc_of<TYPE> acc[BN / 2];
+  uint32_t base[16], fr0[16], fr1[16];  // the slab's A; round(A + r), two sets
+  int st = 0, ph = 0;
+  const int groups = slabs * reps;
+
+  for (int id = blockIdx.x; id < n_tiles; id += gridDim.x) {
+    const int mn = id % tiles_mn, m0 = (mn % tiles_m) * wg::BM, n0 = (mn / tiles_m) * BN;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    int r = 0, cur = -1, prev = -1;  // the slab's stage, the one before it
+    // one (slab, r): the slab's A fragment when r == 0, round(A + r) into
+    // `fr`, its four k steps as one commit group, then wait_group 1
+    auto group = [&](uint32_t* fr) {
+      if (r == 0) {
+        rdt::mbar_wait(full + st, ph);
+        const uint32_t a_row = sm_addr + st * STAGE + arow * 128;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          ldmatrix_x4(base + 4 * ks, a_row + (((2 * ks + unit) ^ (arow & 7)) << 4));
+        prev = cur;
+        cur = st;
+        if (++st == wg::STAGES) st = 0, ph ^= 1;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        fr[i] = rotate<TYPE>(base[i], r);
+        fence_operand(fr[i]);  // formed before the fence, not sunk past it
+      }
+      const uint32_t b_tile = sm_addr + cur * STAGE + wg::A_BYTES;
+      rdt::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_rs_step<TYPE, BN>(acc, fr + 4 * ks, rdt::wgmma_desc_sw128(b_tile + 32 * ks));
+      rdt::wgmma_commit();
+      rdt::wgmma_wait<1>();  // the group before is done, and with it the other set
+      if (r == 0 && prev >= 0 && tid == 0) rdt::mbar_arrive(empty + prev);
+      if (++r == reps) r = 0;
+    };
+    // in pairs, so that on every path the set a group rewrites is the one
+    // whose last reader the wait_group 1 before it has retired (a pair with
+    // its second group under a condition made ptxas serialize the wgmmas)
+    int gi = 0;
+#pragma unroll 1
+    for (; gi + 2 <= groups; gi += 2) {
+      group(fr0);
+      group(fr1);
+    }
+    if (gi < groups) group(fr0);
+    rdt::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
+    if (tid == 0) rdt::mbar_arrive(empty + cur);
+
+    // thread (warp, 4 g + t) holds rows 16 warp + g (+ 8) of this consumer's
+    // 64, columns 8 j + 2 t (+ 1)
+    const int g = lane >> 2, t = lane & 3, row = m0 + 64 * cw + 16 * warp + g;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      if (row < M) store2<TYPE>(out, (size_t)row * N + col, acc[4 * j], acc[4 * j + 1]);
+      if (row + 8 < M)
+        store2<TYPE>(out, (size_t)(row + 8) * N + col, acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
 
 template <int TYPE, int BN>
-__global__ void __launch_bounds__(NTHREADS, 2)
-wgmma_rate_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ bt,
-                  void* __restrict__ out, int N, int rb, int rb_total, size_t lda, size_t ldb,
-                  int lv, int reps) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* as = aligned_smem(smem_raw);  // two A tiles, then the B tile
-  uint8_t* bs = as + 2 * BM * rb;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, vpr = rb >> 4, n_vec = BM * vpr;
-  const int a_tile = BM * rb;
-
-  acc_of<TYPE> acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
-  const uint32_t as_addr = (uint32_t)__cvta_generic_to_shared(as);
-  const uint32_t bs_addr = (uint32_t)__cvta_generic_to_shared(bs);
-
-  // K in chunks of rb bytes: each chunk of A and B is loaded once and serves
-  // all `reps` products (the sums over r and over K commute)
-#pragma unroll 1
-  for (int k0 = 0; k0 < rb_total; k0 += rb) {
-    load_tile<TYPE, true>(bs, bt + (size_t)n0 * ldb + k0, BN, rb, ldb, lv);
-    uint4 a0[NV];
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int v = tid + NTHREADS * i;
-      a0[i] = make_uint4(0, 0, 0, 0);
-      if (v < n_vec)
-        a0[i] = *reinterpret_cast<const uint4*>(a + (size_t)(m0 + (v >> lv)) * lda + k0 +
-                                                (v & (vpr - 1)) * 16);
-    }
-
-    // round r's products run on tile r % 2 while the threads write round
-    // r + 1's rotated A into the other tile
-    auto write_a = [&](int r) {
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int v = tid + NTHREADS * i;
-        if (v < n_vec)
-          *reinterpret_cast<uint4*>(as + (r & 1) * a_tile +
-                                    sw_off(BM, v >> lv, (v & (vpr - 1)) * 16)) =
-              rotate4<TYPE>(a0[i], r);
-      }
-      rdt::fence_proxy_async();
-    };
-    write_a(0);
-    __syncthreads();
-#pragma unroll 1
-    for (int r = 0; r < reps; ++r) {
-      const uint32_t ar_addr = as_addr + (r & 1) * a_tile;
-      rdt::wgmma_fence();
-#pragma unroll 1
-      for (int kc = 0; kc < rb; kc += 128) {  // one 128-byte slab of K
-#pragma unroll
-        for (int ks = 0; ks < 128; ks += 32)  // one instruction: 32 bytes of K
-          wgmma_step<TYPE, BN>(acc,
-                                rdt::wgmma_desc_sw128(ar_addr + (kc >> 7) * BM * 128 + ks),
-                                rdt::wgmma_desc_sw128(bs_addr + (kc >> 7) * BN * 128 + ks));
-      }
-      rdt::wgmma_commit();
-      if (r + 1 < reps) write_a(r + 1);
-      rdt::wgmma_wait_all();
-      __syncthreads();  // the products are over and the next tile is written
-    }
+cudaError_t launch_wgmma(const void* a, const void* bt, void* out, int M, int N, int K,
+                         size_t sa, size_t sb, int reps, int grid_reps, int device,
+                         cudaStream_t stream) {
+  constexpr int ES = ELEM_BYTES<TYPE>;
+  constexpr CUtensorMapDataType TT = TYPE == T_BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : TYPE == T_S8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap tma, tmb;
+  const cuuint64_t adims[2] = {(cuuint64_t)K, (cuuint64_t)M}, astr[1] = {sa};
+  const cuuint32_t abox[2] = {wg::SLAB / ES, wg::BM};
+  cudaError_t err = rdt::encode_sw128(&tma, TT, 2, a, adims, astr, abox);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t bdims[2] = {(cuuint64_t)K, (cuuint64_t)N}, bstr[1] = {sb};
+  const cuuint32_t bbox[2] = {wg::SLAB / ES, BN};
+  err = rdt::encode_sw128(&tmb, TT, 2, bt, bdims, bstr, bbox);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = wg::smem_bytes(BN);
+  static int configured = -1;  // the device whose attribute was set
+  if (configured != device) {
+    err = cudaFuncSetAttribute(wgmma_rate_kernel<TYPE, BN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = device;
   }
-
-  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int row = m0 + 16 * warp + g, col = n0 + 8 * j + 2 * t;
-    store2<TYPE>(out, (size_t)row * N + col, acc[4 * j], acc[4 * j + 1]);
-    store2<TYPE>(out, (size_t)(row + 8) * N + col, acc[4 * j + 2], acc[4 * j + 3]);
-  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int tiles_m = (M + wg::BM - 1) / wg::BM, tiles_mn = tiles_m * (N / BN);
+  const long long n_tiles = (long long)tiles_mn * grid_reps;
+  if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = (int)(n_tiles < sms ? n_tiles : sms);
+  wgmma_rate_kernel<TYPE, BN><<<grid, wg::THREADS, smem, stream>>>(
+      tma, tmb, out, M, N, K * ES / wg::SLAB, reps, tiles_m, tiles_mn, (int)n_tiles);
+  return cudaGetLastError();
 }
 
 constexpr int SMEM_MAX = 232448;  // bytes a block may use on sm_90
 
-// A (two tiles on the wgmma route), B, and the slack to align to 1024 bytes
-inline int smem_bytes(int rb, int bn, int route) {
-  return ((route == 1 ? 2 : 1) * BM + bn) * rb + 1024;
-}
+// the mma.sync route's A and B chunks, and the slack to align to 1024 bytes
+inline int smem_bytes(int rb, int bn) { return (BM + bn) * rb + 1024; }
 
 template <class K>
 cudaError_t launch(K kernel, int smem, dim3 grid, cudaStream_t stream, const uint8_t* a,
@@ -325,23 +439,22 @@ cudaError_t launch(K kernel, int smem, dim3 grid, cudaStream_t stream, const uin
   return cudaGetLastError();
 }
 
-// bytes of K one pass holds in shared memory: small enough that several
-// blocks share an SM and, on the wgmma route, that a thread holds its part of
-// the A chunk in registers beside the accumulators
+// bytes of K one pass of the mma.sync route holds in shared memory: small
+// enough that several blocks share an SM
 inline int chunk_bytes(int rb_total) { return rb_total < 256 ? rb_total : 256; }
 
 }  // namespace
 
 // The column width a launch would use, or 0 if the shape is not served:
-// the widest of 256 (wgmma only), 128, 64, 32 that divides N and fits beside
-// the A tile.
+// the widest of 256 (wgmma only), 128, 64, 32 that divides N and fits in
+// shared memory.
 extern "C" int rdt_mma_rate_bn(int N, int K, int dtype, int route) {
   const int es = dtype == T_BF16 ? 2 : dtype == T_S8 ? 1 : 4;
   const int rb = K * es;
   if (rb < 128 || (rb & (rb - 1)) != 0 || rb > 8192) return 0;
   for (int bn : {256, 128, 64, 32}) {
-    if (bn == 256 && route == 0) continue;
-    if (N % bn == 0 && smem_bytes(chunk_bytes(rb), bn, route) <= SMEM_MAX) return bn;
+    const int smem = route == 0 ? smem_bytes(chunk_bytes(rb), bn) : wg::smem_bytes(bn);
+    if ((route == 1 || bn != 256) && N % bn == 0 && smem <= SMEM_MAX) return bn;
   }
   return 0;
 }
@@ -349,8 +462,9 @@ extern "C" int rdt_mma_rate_bn(int N, int K, int dtype, int route) {
 // a (M, K) with row stride lda elements, bt (N, K) with row stride ldb
 // elements, out (M, N) contiguous: bfloat16 in and out (dtype 0), int8 in and
 // int32 out (1), float32 in and out as TF32 products (2). route 0 = mma.sync,
-// 1 = wgmma. M % 64 == 0; K * element size a power of two from 128 to 8192
-// bytes; a, bt and both strides 16-byte aligned.
+// 1 = wgmma. M % 64 == 0 (the wgmma route's last tile of 128 rows reads
+// zeros past M and stores nothing there); K * element size a power of two
+// from 128 to 8192 bytes; a, bt and both strides 16-byte aligned.
 extern "C" int rdt_mma_rate(const void* a, const void* bt, void* out, int M, int N, int K,
                             long long lda, long long ldb, int dtype, int route, int reps,
                             int grid_reps, int device, void* stream) {
@@ -364,7 +478,7 @@ extern "C" int rdt_mma_rate(const void* a, const void* bt, void* out, int M, int
   const int rb_total = K * es, rb = chunk_bytes(rb_total);
   int lv = 0;
   while ((16 << lv) < rb) ++lv;
-  const int smem = smem_bytes(rb, bn, route);
+  const int smem = smem_bytes(rb, bn);
   const dim3 grid(M / BM, N / bn, grid_reps);
   auto st = static_cast<cudaStream_t>(stream);
   auto pa = static_cast<const uint8_t*>(a);
@@ -378,12 +492,14 @@ extern "C" int rdt_mma_rate(const void* a, const void* bt, void* out, int M, int
     if (bn == 64) RDT_GO((mma_sync_rate_kernel<T, 64>));     \
     RDT_GO((mma_sync_rate_kernel<T, 32>));                   \
   }
-#define RDT_WGM(T)                                                 \
-  if (dtype == T) {                                                \
-    if (bn == 256) RDT_GO((wgmma_rate_kernel<T, 256>));            \
-    if (bn == 128) RDT_GO((wgmma_rate_kernel<T, 128>));            \
-    if (bn == 64) RDT_GO((wgmma_rate_kernel<T, 64>));              \
-    RDT_GO((wgmma_rate_kernel<T, 32>));                            \
+#define RDT_WG_GO(T, n) \
+  return launch_wgmma<T, n>(pa, pb, out, M, N, K, sa, sb, reps, grid_reps, device, st)
+#define RDT_WGM(T)                           \
+  if (dtype == T) {                          \
+    if (bn == 256) RDT_WG_GO(T, 256);        \
+    if (bn == 128) RDT_WG_GO(T, 128);        \
+    if (bn == 64) RDT_WG_GO(T, 64);          \
+    RDT_WG_GO(T, 32);                        \
   }
   if (route == 0) {
     RDT_SYNC(T_BF16) RDT_SYNC(T_S8) RDT_SYNC(T_TF32)
@@ -392,6 +508,7 @@ extern "C" int rdt_mma_rate(const void* a, const void* bt, void* out, int M, int
   }
 #undef RDT_GO
 #undef RDT_SYNC
+#undef RDT_WG_GO
 #undef RDT_WGM
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,14 @@
 """The Hopper conv mainloop (``csrc/conv3x3_wgmma.cu``): TMA loads into
 mbarrier rings, ``wgmma`` from shared memory, a persistent grid.
 
-Four wrappers launch it and count their launches: K1's ``conv_block`` and
+Five wrappers launch it and count their launches: K1's ``conv_block`` and
 K6's ``conv_block_fp`` on their ``wgmma`` routes (``ops/conv_block.py``, the
 fused int8 and bfloat16 links, 3x3 or 2x2; K6's Co-64 links on the kernel's
-transposed form), K9's ``conv3x3_wide`` (``ops/wide_conv.py``, bfloat16 y and
-dx) and P1's ``conv_probe(..., route="wgmma")`` (``ops/probes.py``, ``conv``, ``dots`` and
-``int8``). This module holds what they share: the shapes the kernel takes and
+transposed form), K7's ``chain_conv`` on its ``wgmma`` route
+(``ops/int8_conv.py``: K1's link on a pre-padded input and a mask per output
+channel), K9's ``conv3x3_wide`` (``ops/wide_conv.py``, bfloat16 y and dx) and
+P1's ``conv_probe(..., route="wgmma")`` (``ops/probes.py``, ``conv``, ``dots``
+and ``int8``). This module holds what they share: the shapes the kernel takes and
 the bare ctypes calls on tensors the caller prepared, which ``chip_smoke.py``
 also times alone. It has no plain version of its own: each wrapper keeps the
 plain version of its function.
@@ -79,6 +81,37 @@ def launch_link(x: torch.Tensor, wk: torch.Tensor, ab: torch.Tensor, mask: torch
         b, h, w, c, co, 3 if taps == 9 else 2, mask.shape[-1], int(zpad),
         0 if out.dtype == torch.int8 else 2, x.device.index, cuda_lib.stream_of(x))
     cuda_lib.check(rc, "conv_block (wgmma)")
+
+
+def interior_rows(xp: torch.Tensor, kh: int) -> torch.Tensor:
+    """The rows of K7's padded input (B, H + kh - 1, W, C) that hold the
+    image, ``xp[:, 1 : 1 + H]``: a view (no copy) whose image stride is
+    still xp's, as the kernel's tensor map reads it."""
+    return xp[:, 1:xp.shape[1] - (kh - 2)]
+
+
+def launch_chain(xp: torch.Tensor, wk: torch.Tensor, ab: torch.Tensor, mask: torch.Tensor,
+                 res: torch.Tensor | None, wsum: torch.Tensor, out: torch.Tensor,
+                 zpad: int, lib=None) -> None:
+    """One launch of K7's link into ``out``, nothing allocated and nothing
+    counted: xp (B, H + kh - 1, W, C) int8, padded in H by the caller with
+    (1, kh - 2) rows of ``zpad``, of which the kernel reads only
+    :func:`interior_rows` (its border is K1's exact correction, so the
+    padding rows need not be read); wk (kh * kh, Co, C) int8 (the taps
+    K-major), ab (8, Co) float32, mask (B, H, W, Co) int8 (a byte per output
+    channel), res (B, H, W, Co) int8 or None, wsum (kh * kh, Co) int32, out
+    (B, H, W, Co) int8. The caller has checked device, dtype, contiguity,
+    alignment and :func:`takes`. ``lib`` as for :func:`launch_link`."""
+    taps, co = wk.shape[:2]
+    kh = 3 if taps == 9 else 2
+    x = interior_rows(xp, kh)
+    b, h, w, c = x.shape
+    rc = (lib or cuda_lib.lib()).rdt_chain_conv_wgmma(
+        x.data_ptr(), wk.data_ptr(), ab.data_ptr(), mask.data_ptr(),
+        None if res is None else res.data_ptr(), wsum.data_ptr(), out.data_ptr(),
+        b, h, w, c, co, kh, x.stride(0) // (w * c), int(zpad), x.device.index,
+        cuda_lib.stream_of(x))
+    cuda_lib.check(rc, "chain_conv (wgmma)")
 
 
 def launch_fp_link(x: torch.Tensor, wk: torch.Tensor, ab: torch.Tensor, mask: torch.Tensor,

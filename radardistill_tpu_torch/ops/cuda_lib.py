@@ -96,6 +96,7 @@ SIGNATURES = {
     "rdt_conv_probe": [_P] * 4 + [_I32] * 8 + [_P],
     "rdt_conv3x3_wgmma": [_P] * 4 + [_I32] * 11 + [_P],
     "rdt_conv_block_wgmma": [_P] * 7 + [_I32] * 10 + [_P],
+    "rdt_chain_conv_wgmma": [_P] * 7 + [_I32] * 9 + [_P],
     "rdt_conv_block_fp_wgmma": [_P] * 6 + [_I32] * 8 + [_P],
     "rdt_mma_rate_bn": [_I32] * 4,
     "rdt_mma_rate": [_P, _P, _P, _I32, _I32, _I32, ctypes.c_longlong, ctypes.c_longlong,

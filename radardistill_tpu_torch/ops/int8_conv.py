@@ -21,9 +21,23 @@ carry, all-ones mask), and ``CONV_BLOCK_V1=1`` sends every link through it
 and Co to 128 lanes is not carried over.
 
 ``chain_conv`` on a CPU tensor takes ``chain_conv_plain``; on a CUDA tensor
-it launches ``rdt_chain_conv`` (``csrc/conv_block.cu``: the streamed kernel
-of K1 with this addressing, the same product and epilogue device code), or
-raises if it cannot. Every int8 code equals K1's on operands both can take.
+it launches the kernel on one of two routes, or raises if the route cannot
+take the link. :func:`chain_route_of` is the rule:
+
+  - ``wgmma`` where C and Co are multiples of 128 (the conv5 link of
+    ``INT8_STAGES: 5``, and the C, Co % 128 links under ``CONV_BLOCK_V1=1``):
+    K1's link on the Hopper conv mainloop (``csrc/conv3x3_wgmma.cu``,
+    ``rdt_chain_conv_wgmma``), which reads the interior rows ``xp[:, 1 : 1 +
+    H]`` through a strided tensor map, never the ``zpad`` rows, and gives
+    the border K1's exact int32 correction (``conv_block.border_correction``),
+    so its accumulator equals the padded convolution's; its epilogue reads
+    the mask per output channel;
+  - ``streamed`` for the rest (the Co-64 and C-64 links under
+    ``CONV_BLOCK_V1=1``): ``rdt_chain_conv`` (``csrc/conv_block.cu``, the
+    streamed ``mma.sync`` kernel of K1 with this addressing, the same
+    product and epilogue device code).
+
+Every int8 code equals K1's on operands both can take.
 """
 
 from __future__ import annotations
@@ -31,8 +45,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import cuda_lib
-from .conv_block import _check_on_card, int_conv_exact, link_constants, streamed_co
+from . import conv3x3_wgmma, cuda_lib
+from .conv_block import _check_on_card, int_conv_exact, link_constants, streamed_co, tap_sums
+
+ROUTES = ("wgmma", "streamed")
 
 
 def _check(xp, kq, ab, mask_q, res):
@@ -68,12 +84,27 @@ def chain_conv_plain(xp, kq, ab, mask_q, res=None, zpad: int = 0):
     return torch.clamp(torch.round(y * ab[2, 0]) - 127.0, -127.0, 127.0).to(torch.int8)
 
 
-def chain_conv(xp, kq, ab, mask_q, res=None, zpad: int = 0):
+def chain_route_of(kh: int, c: int, co: int) -> str:
+    """The dispatch rule of ``chain_conv`` on the card: ``wgmma`` where C and
+    Co are multiples of 128 (``conv3x3_wgmma.takes``; both windows, kh 2 and
+    3), else ``streamed`` (which raises on C % 32 or a Co it has no tile
+    for)."""
+    if kh not in (2, 3):
+        raise ValueError(f"chain_route_of: kh {kh}")
+    return "wgmma" if conv3x3_wgmma.takes(c, co, int8=True) else "streamed"
+
+
+def chain_conv(xp, kq, ab, mask_q, res=None, zpad: int = 0, variant=None):
     """xp (B, H + kh - 1, W, C) int8, padded in H with (1, kh - 2) rows of
     ``zpad``; kernel (kh, kh, C, Co) int8 HWIO; ab (8, Co) float32 (rows:
     alpha, beta, s_out, rs, rsh); mask (B, H, W, Co) int8; res (B, H, W, Co)
-    int8 or None -> (B, H, W, Co) int8. The CUDA kernel takes C a multiple of
-    32 and Co in {16, 32, 64} or a multiple of 128; the plain version any."""
+    int8 or None -> (B, H, W, Co) int8. On the card the route is
+    :func:`chain_route_of`, or ``variant`` (one of ``ROUTES``) forces one:
+    ``wgmma`` takes C and Co multiples of 128, ``streamed`` C a multiple of
+    32 and Co in {16, 32, 64} or a multiple of 128; a forced route that does
+    not take the link raises. Each launch counts in ``chain_conv.launches``
+    and ``chain_conv.route_launches[route]``. The plain version takes any
+    shape."""
     if xp.device.type == "cpu":
         return chain_conv_plain(xp, kq, ab, mask_q, res, zpad)
     _check(xp, kq, ab, mask_q, res)
@@ -81,20 +112,32 @@ def chain_conv(xp, kq, ab, mask_q, res=None, zpad: int = 0):
     kh, _, c, co = kq.shape
     b, hp, w, _ = xp.shape
     h = hp - (kh - 1)
-    if c % 32 or not streamed_co(co):
-        raise ValueError(f"chain_conv: the kernel takes C % 32 == 0 and Co in (16, 32, 64) "
-                         f"or a multiple of 128, not C {c}, Co {co}")
+    route = chain_route_of(kh, c, co) if variant is None else variant
     out = torch.empty((b, h, w, co), dtype=torch.int8, device=xp.device)
-    rc = cuda_lib.lib().rdt_chain_conv(
-        xp.data_ptr(), kq.data_ptr(), ab.data_ptr(), mask_q.data_ptr(),
-        res.data_ptr() if res is not None else None, out.data_ptr(),
-        b, h, w, c, co, kh, int(zpad), xp.device.index, cuda_lib.stream_of(xp))
-    cuda_lib.check(rc, "chain_conv")
+    if route == "wgmma":
+        if not conv3x3_wgmma.takes(c, co, int8=True):
+            raise ValueError(f"chain_conv: the wgmma route takes C and Co multiples of 128, not "
+                             f"C {c}, Co {co}")
+        conv3x3_wgmma.launch_chain(xp, conv3x3_wgmma.wgmma_taps(kq), ab, mask_q, res,
+                                   tap_sums(kq), out, zpad)
+    elif route == "streamed":
+        if c % 32 or not streamed_co(co):
+            raise ValueError(f"chain_conv: the streamed kernel takes C % 32 == 0 and Co in (16, "
+                             f"32, 64) or a multiple of 128, not C {c}, Co {co}")
+        rc = cuda_lib.lib().rdt_chain_conv(
+            xp.data_ptr(), kq.data_ptr(), ab.data_ptr(), mask_q.data_ptr(),
+            res.data_ptr() if res is not None else None, out.data_ptr(),
+            b, h, w, c, co, kh, int(zpad), xp.device.index, cuda_lib.stream_of(xp))
+        cuda_lib.check(rc, "chain_conv")
+    else:
+        raise ValueError(f"chain_conv: variant {variant!r} is not one of {ROUTES}")
     chain_conv.launches += 1
+    chain_conv.route_launches[route] += 1
     return out
 
 
 chain_conv.launches = 0
+chain_conv.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def int8_block_conv(xc, kq, sw, bias, gt, sh, bound, mask_q, res=None, block=chain_conv):

@@ -7,7 +7,9 @@ resident on chip). No model calls them; ``tools/torch_conv_probe.py`` and
 ``tools/torch_mma_rate.py`` drive them and print the rate tables.
 
 ``mma_rate`` (``csrc/mma_rate.cu``) computes ``sum_r round(A + r) @ B`` on two
-routes, ``mma.sync`` and ``wgmma.mma_async``; ``conv_probe`` computes one
+routes, ``mma.sync`` and ``wgmma.mma_async`` (the latter with A in
+registers: :func:`rotate_plain` is the rule by which both routes form
+``round(A + r)`` there); ``conv_probe`` computes one
 of three functions of a pre-padded activation (``conv``, ``dots``, ``int8``)
 on two routes as well: ``csrc/conv_probe.cu`` (``mma.sync``, one load path for
 the three) and the conv mainloop of ``csrc/conv3x3_wgmma.cu``. A CPU tensor
@@ -41,6 +43,31 @@ def _check_rate(a, b, reps):
         raise ValueError(f"mma_rate: reps {reps}")
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: 10 mantissa
+    bits kept, to nearest, ties away from zero (finite values)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def rotate_plain(a: torch.Tensor, r: int) -> torch.Tensor:
+    """``round(a + r)`` in a's type as the kernels form it, one 32-bit
+    register word at a time: bfloat16 adds in float32 and rounds once to
+    nearest even (``__hadd2``; the float32 sum of a bfloat16 and an integer
+    below 8 rounds to the same bfloat16 as the exact sum); int8 adds with
+    wrap-around (``__vadd4``); float32 adds in float32, then rounds to TF32
+    (:func:`tf32_round`). For bfloat16 and int8 this is ``(a + r).to(a.dtype)``
+    of :func:`mma_rate_plain`; for float32 it differs from that by the TF32
+    rounding, at most 2**-11 of the value."""
+    if a.dtype == torch.bfloat16:
+        return (a.float() + r).to(torch.bfloat16)
+    if a.dtype == torch.int8:
+        return ((a.to(torch.int32) + r + 128) % 256 - 128).to(torch.int8)
+    if a.dtype == torch.float32:
+        return tf32_round(a + r)
+    raise TypeError(f"rotate_plain: {a.dtype}")
+
+
 def mma_rate_plain(a: torch.Tensor, b: torch.Tensor, reps: int = 8) -> torch.Tensor:
     """Plain PyTorch P2: ``sum over r < reps of (a + r).to(a.dtype) @ b``. The
     add is done and rounded in a's dtype (int8 wraps); products and sums are
@@ -63,8 +90,9 @@ def mma_rate(a: torch.Tensor, b: torch.Tensor, reps: int = 8, route: str = "mma_
     dtype (int32 for int8): ``sum over r < reps of round(a + r) @ b``, the sum
     in float32 (int32 for int8). float32 operands are rounded to TF32 for the
     products. ``route`` picks the tensor-core instruction, ``mma.sync`` or
-    ``wgmma.mma_async``; both keep a block's operands in shared memory across
-    the ``reps`` products. ``grid_reps`` repeats the whole grid inside one
+    ``wgmma.mma_async``; both keep a block's operands on chip across the
+    ``reps`` products (the ``wgmma`` route holds A in registers and forms
+    :func:`rotate_plain` there). ``grid_reps`` repeats the whole grid inside one
     launch (same work, same values) so that a launch lasts long enough to
     time. The kernel takes M a multiple of 64, N a multiple of 32 and K times
     the element size a power of two from 128 to 8192 bytes; b is read

@@ -41,6 +41,7 @@ from radardistill_tpu_torch.convert import load_jax_variables
 from radardistill_tpu_torch.data.synthetic import make_batch
 from radardistill_tpu_torch.models import backbone_s2d as s2d
 from radardistill_tpu_torch.models import layers
+from radardistill_tpu_torch.ops import conv3x3_wgmma
 from radardistill_tpu_torch.ops import conv_block as cb
 from radardistill_tpu_torch.ops import int8_conv as ic
 from radardistill_tpu_torch.utils.production import TRAIN_YAML
@@ -234,6 +235,65 @@ def test_chain_conv_rejects_what_it_does_not_take():
         ic.chain_conv(xp, t(link["kq"]), ab, t(link["mask"]))  # a compact mask
     with pytest.raises(TypeError):
         ic.chain_conv(xp.float(), t(link["kq"]), ab, mq)
+
+
+# the link shapes (kh, C, Co) of the INT8_STAGES: 5 chain, which CONV_BLOCK_V1=1
+# sends through K7: the stage-1 links, the deeper ones (chip_smoke.INT8_DEEP_LINKS)
+# and the conv5 link K7 always takes
+V1_LINKS = {(3, 128, 128): "wgmma", (2, 128, 64): "streamed", (3, 64, 64): "streamed",
+            (2, 256, 128): "wgmma", (3, 128, 128): "wgmma", (2, 512, 256): "wgmma",
+            (3, 256, 256): "wgmma", (2, 1024, 256): "wgmma"}
+
+
+def test_chain_route_of_sends_the_128_channel_links_to_wgmma():
+    """C and Co multiples of 128 go to the ``wgmma`` mainloop (the conv5
+    link and every such link under ``CONV_BLOCK_V1=1``); the Co-64 and C-64
+    links, and any other width, stay on the streamed kernel."""
+    for (kh, c, co), route in V1_LINKS.items():
+        assert ic.chain_route_of(kh, c, co) == route, (kh, c, co)
+    for kh, c, co in ((3, 32, 32), (2, 128, 16), (3, 384, 192), (2, 96, 128)):
+        assert ic.chain_route_of(kh, c, co) == "streamed"
+    assert ic.chain_route_of(3, 384, 640) == "wgmma"
+    with pytest.raises(ValueError):
+        ic.chain_route_of(1, 128, 128)
+
+
+@pytest.mark.parametrize("kh,w,with_res", [(2, 15, False), (3, 15, True), (3, 9, False)])
+def test_interior_rows_with_the_border_correction_equal_the_padded_link(kh, w, with_res):
+    """What the ``wgmma`` route computes, on the CPU: the interior rows of the
+    padded input (a view, no copy) convolved with zeros outside, plus
+    ``border_correction``, is the exact int32 accumulator of the input padded
+    with ``zpad`` rows (-127: the carry's zero is 127), at odd W; the codes
+    that K1's epilogue makes from it with the lane mask equal
+    ``chain_conv_plain``'s, which match the Pallas kernel's (interpret mode)
+    as ``test_chain_link_codes_match_pallas`` holds them."""
+    link = _link(16, kh=kh, zero=127.0, c=32, co=32, h=10, w=w, with_res=with_res)
+    mq = (np.random.RandomState(17).rand(2, 10, w, 32) > 0.4).astype(np.int8)
+    t = torch.as_tensor
+    xq, kq, zpad = t(link["xq"]), t(link["kq"]), -127
+    xp = F.pad(xq, (0, 0, 0, 0, 1, kh - 2), value=zpad)
+    x = conv3x3_wgmma.interior_rows(xp, kh)
+    assert torch.equal(x, xq) and x.stride() == xp.stride()
+    assert x.data_ptr() == xp.data_ptr() + w * 32  # row 1 of image 0
+    pad = (1, kh - 2)
+    acc = (cb.int_conv_exact(x, kq, 1, (pad, pad), 0)
+           + cb.border_correction(cb.tap_sums(kq), 10, w, kh, zpad))
+    assert torch.equal(acc, cb.int_conv_exact(xp, kq, 1, ((0, 0), pad), zpad))
+
+    res = link["res"] and (t(link["res"][0]), t(link["res"][1]), link["res"][2])
+    ab = cb.link_constants((xq, t(link["bnd"]), 127.0), kq, t(link["sw"]), t(link["bias"]),
+                           t(link["gt"]), t(link["sh"]), t(link["bound"]), res)[0]
+    r = None if res is None else res[0]
+    q = ic.chain_conv_plain(xp, kq, ab, t(mq), r, zpad)
+    assert torch.equal(cb.conv_block_plain(x, kq, ab, t(mq), r, zpad), q)
+    j = jnp.asarray
+    jres = link["res"] and (j(link["res"][0]), j(link["res"][1]), link["res"][2])
+    qj = np.asarray(jic.int8_block_conv(
+        (j(link["xq"]), j(link["bnd"]), 127.0), j(link["kq"]), j(link["sw"]), j(link["bias"]),
+        j(link["gt"]), j(link["sh"]), j(link["bound"]), j(mq), res=jres)[0]).astype(np.int32)
+    diff = np.abs(q.numpy().astype(np.int32) - qj)
+    assert diff.max() <= 1 and float((diff != 0).mean()) <= CODE_SHARE_LIMIT
+    assert (qj > -127).mean() > 0.1
 
 
 # ------------------------------------------------------ helpers of the chains
@@ -626,6 +686,68 @@ def test_chain_kernel_equals_plain_on_card(cuda, case):
     want = _run_chain_torch(link, mq, cuda, block=ic.chain_conv_plain)[0]
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# K7 on its wgmma route: the conv5 link of INT8_STAGES: 5 (all-ones mask; 2 x
+# 23 x 2 x 2 = 184 tiles of 4 x 64 pixels x 128 channels, more than an H100's
+# 132 CTAs), a 3x3 90² 256 -> 256 link with a 60% per-channel mask and a
+# residual, odd W, and a chain's first link (zpad 0)
+CHAIN_WGMMA_CASES = [dict(kh=2, zero=127.0, c=1024, co=256, h=90, w=90, ones=True),
+                     dict(kh=3, zero=127.0, c=256, co=256, h=90, w=90, with_res=True),
+                     dict(kh=3, zero=127.0, c=128, co=128, h=19, w=37, with_res=True),
+                     dict(kh=2, zero=0.0, c=256, co=384, h=13, w=65),
+                     dict(kh=3, zero=0.0, c=128, co=256, h=5, w=7, with_res=True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ic.ROUTES)
+@pytest.mark.parametrize("case", CHAIN_WGMMA_CASES, ids=_ids)
+def test_chain_routes_equal_plain_on_card(cuda, case, route):
+    """Every code equal to ``chain_conv_plain``'s on both routes (forced);
+    the dispatch rule sends these links to ``wgmma``; the launch counts on
+    the route taken."""
+    case = dict(case)
+    ones = case.pop("ones", False)
+    assert ic.chain_route_of(case["kh"], case["c"], case["co"]) == "wgmma"
+    link = _link(37, **case)
+    shape = (*link["xq"].shape[:3], link["kq"].shape[-1])
+    mq = (np.ones(shape, np.int8) if ones
+          else (np.random.RandomState(38).rand(*shape) < 0.6).astype(np.int8))
+    routes = dict(ic.chain_conv.route_launches)
+    got = _run_chain_torch(link, mq, cuda,
+                           block=lambda *a, **k: ic.chain_conv(*a, variant=route, **k))[0]
+    assert ic.chain_conv.route_launches == {**routes, route: routes[route] + 1}
+    want = _run_chain_torch(link, mq, cuda, block=ic.chain_conv_plain)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float((want > -127).float().mean()) > 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [CHAIN_WGMMA_CASES[0], CHAIN_WGMMA_CASES[1]], ids=_ids)
+def test_chain_wgmma_route_equals_k1_on_an_all_ones_mask_on_card(cuda, case):
+    """K7 on ``wgmma`` with an all-ones lane mask against K1 (``conv_block``,
+    its ``wgmma`` route) with the one-phase mask of ones: every code equal."""
+    case = {k: v for k, v in case.items() if k != "ones"}
+    from tests.test_torch_conv_block import _run_torch
+
+    link = _link(39, **case)
+    link["mask"] = np.ones((*link["xq"].shape[:3], 1), np.int8)
+    k7 = _run_chain_torch(link, _lane_mask(link), cuda)[0]
+    k1 = _run_torch(link, None, cuda)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(k7, k1)
+
+
+@pytest.mark.gpu
+def test_chain_wgmma_route_raises_where_it_does_not_fit(cuda):
+    link = _link(40, kh=3, zero=127.0, c=64, co=128, h=8, w=8)  # C 64: half an int8 chunk
+    with pytest.raises(ValueError, match="wgmma route"):
+        _run_chain_torch(link, _lane_mask(link), cuda,
+                         block=lambda *a, **k: ic.chain_conv(*a, variant="wgmma", **k))
+    with pytest.raises(ValueError):
+        _run_chain_torch(link, _lane_mask(link), cuda,
+                         block=lambda *a, **k: ic.chain_conv(*a, variant="tiled", **k))
 
 
 @pytest.mark.gpu

@@ -16,10 +16,15 @@ Pallas kernels in interpret mode. Inputs come from a numpy seed.
 - P2 ``mma_rate``: against the formula of ``tools/mxu_rate.py`` (``kern``)
   evaluated with ``jnp``: bfloat16 within 1e-2 x max|ref| (one bfloat16
   rounding of a differently ordered float32 sum), float32 within 1e-5, int8
-  against numpy's int32 sum, equal.
+  against numpy's int32 sum, equal. The rotation ``round(A + r)`` the kernels
+  form in registers (``probes.rotate_plain``), per type: bfloat16 and int8
+  bit-equal to ``mma_rate_plain``'s and to the formula's add on every value
+  of the type; TF32 the float32 add rounded to nearest, ties away from zero;
+  and the eight products of the rotated A against both, on small shapes.
 
 The card-only twins (marker ``gpu``) hold each CUDA kernel against its plain
-version at small shapes; ``chip_smoke.py`` does so at the production shapes.
+version at small shapes, and P2's ``wgmma`` route at every case of its rate
+table; ``chip_smoke.py`` does so at the production shapes.
 """
 
 import functools
@@ -33,7 +38,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from radardistill_tpu.ops import pallas_expand as jexp
-from radardistill_tpu_torch.ops import expand, probes
+from radardistill_tpu_torch.ops import expand, probe_bench, probes
 from tools import pallas_conv_proto as proto
 
 BLK = 512
@@ -279,6 +284,81 @@ def test_mma_rate_int8_is_exact():
         probes.mma_rate(torch.from_numpy(a), torch.from_numpy(b).float())
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_rotation_rule_equals_the_plain_add_on_every_value(dtype):
+    """bfloat16 (one rounding to nearest even) and int8 (wrap-around): the
+    kernels' rotation equals ``(a + r).to(a.dtype)`` of ``mma_rate_plain``
+    and the add of ``tools/mxu_rate.py``'s ``kern`` on every finite value of
+    the type, for each r < 8 (against ``kern`` but for bfloat16's subnormals,
+    which XLA's CPU backend flushes to zero)."""
+    ibits = torch.int16 if dtype == "bfloat16" else torch.int8
+    if dtype == "int8":
+        a = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+        normal = torch.ones_like(a, dtype=torch.bool)
+    else:
+        a = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+        a = a[torch.isfinite(a.float())]
+        normal = (a == 0) | (a.float().abs() >= torch.finfo(torch.bfloat16).tiny)
+    aj = jnp.asarray(a[normal].view(ibits).numpy()).view(jnp.dtype(dtype))
+    for r in range(8):
+        got = probes.rotate_plain(a, r)
+        assert torch.equal(got.view(ibits), (a + r).to(a.dtype).view(ibits))
+        want = np.asarray(aj + jnp.float32(r).astype(aj.dtype)).view(aj.dtype.name.replace(
+            "bfloat16", "int16"))
+        np.testing.assert_array_equal(got[normal].view(ibits).numpy(), want)
+
+
+def test_rotation_rule_rounds_to_tf32():
+    """float32: the float32 add, then cvt.rna to TF32: the low 13 bits
+    cleared, the nearest TF32 value, a tie away from zero; within 2**-11 of
+    ``mma_rate_plain``'s float32 add."""
+    rng = np.random.RandomState(5)
+    a = torch.from_numpy(np.concatenate([rng.randn(4096) * 0.05, rng.randn(4096) * 300]
+                                        ).astype(np.float32))
+    for r in range(8):
+        exact = a + r
+        got = probes.rotate_plain(a, r)
+        assert not (got.view(torch.int32) & 0x1FFF).any()
+        assert ((got - exact).abs() <= exact.abs() * 2.0 ** -11).all()
+        # no TF32 value lies nearer: the neighbours one TF32 step away
+        step = torch.ldexp(torch.ones_like(got), torch.frexp(got)[1] - 11)
+        assert ((got - exact).abs() <= (got + step - exact).abs()).all()
+        assert ((got - exact).abs() <= (got - step - exact).abs()).all()
+    ties = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 3 + 2 ** -10], dtype=torch.float32)
+    assert probes.rotate_plain(ties, 0).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 3 + 2 ** -9]
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 1e-2), ("int8", 0.0), ("float32", 1e-3)])
+def test_products_of_the_rotated_a_match_plain_and_the_mxu_formula(dtype, tol):
+    """The eight products the kernels compute, ``sum_r rotate_plain(a, r) @ b``
+    with float32 sums (int8: exact), against ``mma_rate_plain`` (bfloat16,
+    int8: equal; TF32: within 1e-3 x max|ref|, the TF32 rounding of A) and
+    against ``kern`` of ``tools/mxu_rate.py`` (bfloat16 1e-2, as above)."""
+    rng = np.random.RandomState(6)
+    m, k, n = 64, 128, 32
+    if dtype == "int8":
+        a = rng.randint(-127, 128, (m, k)).astype(np.int8)
+        b = rng.randint(-127, 128, (k, n)).astype(np.int8)
+        ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+        got = sum(probes.rotate_plain(ta, r).to(torch.int64) @ tb.to(torch.int64)
+                  for r in range(8)).to(torch.int32)
+        # kern's add; its int8 products summed in int32 (kern's own cast
+        # of the sum to int8 would wrap)
+        want = sum(np.asarray(jnp.asarray(a) + jnp.float32(r).astype(jnp.int8)).astype(np.int32)
+                   @ b.astype(np.int32) for r in range(8))
+    else:
+        a = (rng.randn(m, k) * 0.05).astype(np.float32)
+        b = (rng.randn(k, n) * 0.05).astype(np.float32)
+        tdt = getattr(torch, dtype)
+        ta, tb = torch.from_numpy(a).to(tdt), torch.from_numpy(b).to(tdt)
+        got = sum(probes.rotate_plain(ta, r).double() @ tb.double() for r in range(8)).to(tdt)
+        want = _mxu_formula(jnp.asarray(a, dtype), jnp.asarray(b, dtype))
+    plain = probes.mma_rate_plain(ta, tb)
+    assert got.dtype == plain.dtype
+    _close(got.double().numpy(), plain.double().numpy(), tol)
+    _close(got.double().numpy(), np.asarray(want, np.float64), max(tol, 1e-5))
+
+
 # ------------------------------------------------------- card-only (gpu)
 
 
@@ -341,6 +421,29 @@ def test_mma_rate_kernel_matches_plain_on_card(cuda, route, dtype, tol, m, k, n)
     got = probes.mma_rate(a, b, route=route, grid_reps=2)
     assert probes.mma_rate.launches == before + 1
     want = probes.mma_rate_plain(a, b)
+    err = (got.double() - want.double()).abs().max().item()
+    assert got.dtype == want.dtype and err <= tol * want.double().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid_reps", [1, 3])
+@pytest.mark.parametrize("shape,dtype", [*probe_bench.MMA_CASES, ((8192, 256, 768), torch.bfloat16),
+                                         ((8192, 256, 768), torch.int8)],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple)
+                         else probe_bench.type_name(v))
+def test_mma_rate_wgmma_route_matches_plain_at_every_case_on_card(cuda, shape, dtype, grid_reps):
+    """P2's ``wgmma`` route (persistent CTAs over tiles of 128 rows x BN, A in
+    registers) at the 15 ``MMA_CASES`` of the rate table and at (8192, 256,
+    768), 64 x 3 tiles of BN 256: more than an H100's 132 CTAs, so a CTA
+    walks several tiles; bfloat16 within 1e-2, TF32 within 1e-3 x max|ref|,
+    int8 equal; every grid repeat writes the same values."""
+    a, b = probe_bench._rate_operands(shape, dtype, cuda, torch.Generator().manual_seed(23))
+    before = probes.mma_rate.launches
+    got = probes.mma_rate(a, b, route="wgmma", grid_reps=grid_reps)
+    assert probes.mma_rate.launches == before + 1
+    want = probes.mma_rate_plain(a, b)
+    torch.cuda.synchronize()
+    tol = probe_bench.TOL[probe_bench.type_name(dtype)]
     err = (got.double() - want.double()).abs().max().item()
     assert got.dtype == want.dtype and err <= tol * want.double().abs().max().item()
 
