@@ -162,8 +162,10 @@ Phases 20-24, the route without host tables and the last three kernels:
      memory of each;
  23. K8 ``gather_rows_windowed`` on the seven tap tables of the batch-2 train
      batch, forward (``nb``) and backward (``inv``), bfloat16: the least
-     ``n_win`` without overflow per table, kernel == plain windowed version ==
-     unwindowed gather and count 0; one table with ``n_win`` one too small:
+     ``n_win`` without overflow per table, wrapper == bare launch == plain
+     windowed version == unwindowed gather and count 0; each gather timed in
+     turns as the wrapper, the bare launch alone (host hidden), the plain
+     version and ``index_select``; one table with ``n_win`` one too small:
      rows and count equal to the plain version's, count > 0;
  24. P2 ``mma_rate`` (two routes, three types) and P1 ``conv_probe`` (three
      modes on two routes, ``mma.sync`` and the ``wgmma`` conv mainloop, five
@@ -203,7 +205,7 @@ for K8 one pass over its 14 gathers (times summed), for P1 the ``conv`` mode at
 (2, 720, 720, 128) -> 128 on the ``wgmma`` route and for P2 the bfloat16 (2048, 512, 512) product on
 the ``wgmma`` route, with ``launches`` counting every case of their tables
 (bound of P1, P2: operations at the bfloat16 peak). ``launch_ms`` (K1, K2,
-K3, K4, K6, K7, K9 and P1; null for the others) is the time of the bare launches
+K3, K4, K6, K7, K8, K9 and P1; null for the others) is the time of the bare launches
 on prepared inputs and preallocated outputs, ``ms`` that of the wrapper.
 ``aside_ms`` (K2, K3, K4) is the time of the asides of phase 4 (K6: cuDNN's
 bfloat16 conv of its 19 links' products, phase 14), ``k4_route`` the route
@@ -1621,79 +1623,54 @@ def phase_dense_from(torch, dev, yaml_name, dense_from=3):
         raise RuntimeError(f"DENSE_FROM {dense_from} vs 5: {bad}")
 
 
-# input channels of the conv that reads each tap table
-TAP_CHANNELS = {"tap1": 32, "dtap2": 32, "tap2": 64, "dtap3": 64, "tap3": 128, "dtap4": 128,
-                "tap4": 256}
-
-
-def phase_k8(torch, dev, tables):
+def phase_k8(torch, dev, tables, smi):
     """K8 on the student's tap tables of the bs2 train batch, as the
-    active-site convs would use it: forward (rows of the feature table at
-    ``nb``) and backward (rows of the cotangent at ``inv``), bfloat16. Per
-    table the least window without overflow, then kernel == plain windowed ==
-    unwindowed gather and count 0; one table with the window one too small.
-    Returns the record summed over the 14 gathers."""
+    active-site convs would use it (``ops/gather_bench.py``): forward (rows of
+    the feature table at ``nb``) and backward (rows of the cotangent at
+    ``inv``), bfloat16. Per table the least window without overflow, then
+    wrapper == bare launch == plain windowed == unwindowed gather and count
+    0; each gather timed as the wrapper, the bare launch alone, the plain
+    version and ``index_select``, in turns; one table with the window one too
+    small. Returns the record summed over the 14 gathers."""
+    from radardistill_tpu_torch.ops import gather_bench
     from radardistill_tpu_torch.ops.expand import (gather_rows_windowed,
-                                                   gather_rows_windowed_plain, window_overflow)
+                                                   gather_rows_windowed_plain)
 
-    gen = torch.Generator().manual_seed(18)
-    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
-           "ops_ms": 0.0}
-    cases, small = [], None
-    for name, c in TAP_CHANNELS.items():
-        nb, _, inv, _ = tables[name]
-        b, k, cap_out = nb.shape
-        cap_in = inv.shape[2]
-        fwd_idx = (nb + (torch.arange(b, device=dev, dtype=torch.int32) * cap_in)[:, None, None])
-        seg = (torch.arange(b * k, device=dev, dtype=torch.int32) * cap_out).reshape(b, k, 1)
-        for direction, idx, rows in (("forward", fwd_idx, b * cap_in),
-                                     ("backward", inv + seg, b * k * cap_out)):
-            idx = idx.reshape(-1).to(torch.int32).contiguous()
-            table = torch.randn(rows, c, generator=gen).to(dev, torch.bfloat16)
-            n_win = next(n for n in range(1, rows // 512 + 2)
-                         if int(window_overflow(idx, rows, n)) == 0)
-            got, over = gather_rows_windowed(table, idx, n_win)
-            want, over_p = gather_rows_windowed_plain(table, idx, n_win)
-            lib = torch.index_select(table, 0, idx.long())  # no window: every idx is a row
-            torch.cuda.synchronize()
-            if not (torch.equal(got, want) and torch.equal(got, lib)) or int(over) or int(over_p):
-                raise RuntimeError(f"K8 {name} {direction}: kernel, plain and unwindowed gather "
-                                   f"differ at n_win {n_win} (counts {int(over)}, {int(over_p)})")
-            cases.append((table, idx, n_win))
-            if small is None and n_win > 1:
-                small = (name, direction, table, idx, n_win - 1)
-            ms, plain_ms = paired_ms(
-                torch, lambda: gather_rows_windowed(table, idx, n_win),
-                lambda: gather_rows_windowed_plain(table, idx, n_win), iters=20)
-            idx64 = idx.long()
-            lib_ms = cuda_ms(torch, lambda: torch.index_select(table, 0, idx64), 20)
-            # idx and the table read once (no more of it than the rows asked
-            # for), the rows written once
-            nbytes = (idx.numel() * 4 + got.numel() * 2
-                      + min(table.numel(), got.numel()) * 2)
-            bytes_ms = nbytes / PEAK_BYTES * 1e3
-            print(f"K8 gather_rows_windowed {name} {direction}: table ({rows}, {c}) bf16, idx "
-                  f"({idx.numel()},), least n_win {n_win}: kernel == plain == unwindowed gather, "
-                  f"overflow 0; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select (no "
-                  f"window) {lib_ms:.4f} ms, bound {bytes_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
-            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                           ("bytes_ms", bytes_ms)):
-                rec[key] += v
+    cases = gather_bench.tap_gathers(tables, torch.Generator().manual_seed(18))
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "launch_ms": 0.0, "cold_launch_ms": 0.0,
+           "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    for case in cases:
+        gather_bench.check_case(case)
+        ms = gather_bench.time_case(case)
+        print(f"K8 gather_rows_windowed {gather_bench.describe(case)}: wrapper == bare launch == "
+              f"plain == unwindowed gather, overflow 0; wrapper {ms['wrapper']:.4f} ms, alone "
+              f"{ms['alone']:.4f} ms, alone with L2 emptied {ms['cold']:.4f} ms, plain "
+              f"{ms['plain']:.4f} ms, index_select (no window) {ms['index_select']:.4f} ms, "
+              f"bound {ms['bound']:.4f} ms ({gather_bench.bound_bytes(case) / 1e6:.1f} MB) on "
+              f"{smi}")
+        for key, v in (("ms", "wrapper"), ("launch_ms", "alone"), ("cold_launch_ms", "cold"),
+                       ("plain_ms", "plain"), ("library_ms", "index_select"),
+                       ("bytes_ms", "bound")):
+            rec[key] += ms[v]
+    small = next((c for c in cases if c["n_win"] > 1), None)
     if small is None:
         raise RuntimeError("K8: no tap table needs a window above one block")
-    name, direction, table, idx, n_win = small
+    table, idx, n_win = small["table"], small["idx"], small["n_win"] - 1
     got, over = gather_rows_windowed(table, idx, n_win)
     want, over_p = gather_rows_windowed_plain(table, idx, n_win)
     torch.cuda.synchronize()
     zeroed = int((got == 0).all(dim=1).sum())
-    print(f"K8 {name} {direction} with n_win {n_win}, one too small: kernel rows == plain rows "
-          f"{torch.equal(got, want)}, {zeroed} zero rows, overflow count kernel {int(over)}, "
-          f"plain {int(over_p)}")
+    print(f"K8 {small['name']} {small['direction']} with n_win {n_win}, one too small: kernel "
+          f"rows == plain rows {torch.equal(got, want)}, {zeroed} zero rows, overflow count "
+          f"kernel {int(over)}, plain {int(over_p)}")
     if not torch.equal(got, want) or int(over) != int(over_p) or int(over) <= 0:
         raise RuntimeError("K8: the too-small window differs from the plain version")
+    print(f"K8, the 14 gathers summed: wrapper {rec['ms']:.4f} ms, alone {rec['launch_ms']:.4f} "
+          f"ms, alone with L2 emptied {rec['cold_launch_ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+          f"ms, index_select {rec['library_ms']:.4f} ms, bound {rec['bytes_ms']:.4f} ms on {smi}")
     read = reset_launches()
-    for table, idx, n_win in cases:
-        gather_rows_windowed(table, idx, n_win)
+    for case in cases:
+        gather_rows_windowed(case["table"], case["idx"], case["n_win"])
     torch.cuda.synchronize()
     return bound_of(rec), read()["gather_rows_windowed"]
 
@@ -1811,7 +1788,7 @@ def main() -> int:
         torch, dev, "distillation forward", cfg, info, batch, raw,
         {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1})
     phase_device_train(torch, dev, TRAIN_YAML, cfg, info, batch, raw)
-    k8, k8_launches = phase_k8(torch, dev, built["hp_as"])
+    k8, k8_launches = phase_k8(torch, dev, built["hp_as"], smi)
     del batch, raw, built
     torch.cuda.empty_cache()
 

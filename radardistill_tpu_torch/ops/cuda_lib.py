@@ -92,7 +92,7 @@ SIGNATURES = {
     "rdt_conv_block": [_P] * 6 + [_I32] * 12 + [_P],
     "rdt_chain_conv": [_P] * 6 + [_I32] * 8 + [_P],
     "rdt_conv_block_fp": [_P] * 6 + [_I32] * 10 + [_P],
-    "rdt_gather_rows_windowed": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I64, _I32, _P],
+    "rdt_gather_rows_windowed": [_P] * 5 + [_I64, _I64, _I64, _I32, _I64, _I32, _P],
     "rdt_conv_probe": [_P] * 4 + [_I32] * 8 + [_P],
     "rdt_conv3x3_wgmma": [_P] * 4 + [_I32] * 11 + [_P],
     "rdt_conv_block_wgmma": [_P] * 7 + [_I32] * 10 + [_P],

@@ -11,7 +11,11 @@ each 512-cell block and the cells padded to that block; the CUDA kernel
 gather, but an entry also yields a zero row when it falls outside the window
 of its aligned block of 512 entries, and such entries are counted. On the TPU
 the window made the gather affordable; here it is only the function to
-reproduce. Nothing in the model calls it, as in the JAX package.
+reproduce. Nothing in the model calls it, as in the JAX package. Its bare
+launch ``launch_gather_win`` (nothing allocated, nothing counted) is what
+``chip_smoke.py`` and ``tools/torch_gather_ab.py`` time alone. Neither may be
+captured into a CUDA graph (both raise): the count's scratch word is kept per
+stream, and a graph would bake one word into every replay.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 kernel, or raises if it cannot.
@@ -95,13 +99,19 @@ def window_overflow(idx: torch.Tensor, r: int, n_win: int) -> torch.Tensor:
     return (active & (rel >= n_win * BLK)).sum().to(torch.int32)
 
 
+def in_window(idx: torch.Tensor, r: int, n_win: int) -> torch.Tensor:
+    """(M,) bool: the entries of ``idx`` whose row K8 copies (active and
+    inside their block's window)."""
+    active, rel = _window(idx, r, n_win)
+    return (active & (rel >= 0) & (rel < n_win * BLK)).reshape(-1)
+
+
 def gather_rows_windowed_plain(table: torch.Tensor, idx: torch.Tensor, n_win: int):
     """Plain PyTorch K8: (rows (M, C), overflow count). Unlike
     ``expand_rows_plain`` it zeroes the rows outside the window: for K8 the
     window is the function."""
     r = table.shape[0]
-    active, rel = _window(idx, r, n_win)
-    ok = (active & (rel >= 0) & (rel < n_win * BLK)).reshape(-1)
+    ok = in_window(idx, r, n_win)
     rows = table[idx.clamp(0, r - 1).long()]
     rows = torch.where(ok[:, None], rows, torch.zeros((), dtype=table.dtype, device=table.device))
     return rows, window_overflow(idx, r, n_win)
@@ -115,10 +125,15 @@ def gather_rows_windowed(table: torch.Tensor, idx: torch.Tensor, n_win: int):
     from the block of the least active index, clipped to the padded table);
     exact zero rows elsewhere. ``overflow`` counts the active entries outside
     their window (what ``window_overflow`` computes); the kernel counts them
-    in the same pass. Bit-exact in every dtype."""
-    if table.device.type == "cpu":
-        return gather_rows_windowed_plain(table, idx, n_win)
-    if table.device.type != "cuda" or idx.device != table.device:
+    in the same pass. Bit-exact in every dtype. On the card: the checks,
+    two allocations and one launch (:func:`launch_gather_win`); not while
+    the stream is captured into a CUDA graph."""
+    if not table.is_cuda:
+        if table.device.type == "cpu":
+            return gather_rows_windowed_plain(table, idx, n_win)
+        raise ValueError(f"gather_rows_windowed: table on {table.device}, idx on {idx.device}")
+    index = table.get_device()
+    if idx.get_device() != index:
         raise ValueError(f"gather_rows_windowed: table on {table.device}, idx on {idx.device}")
     if table.dtype not in DTYPES or idx.dtype != torch.int32:
         raise TypeError(f"gather_rows_windowed: table {table.dtype}, idx {idx.dtype}")
@@ -134,14 +149,53 @@ def gather_rows_windowed(table: torch.Tensor, idx: torch.Tensor, n_win: int):
     if row_bytes % 16 or table.data_ptr() % 16:
         raise ValueError(f"gather_rows_windowed: the kernel moves 16-byte words; rows of "
                          f"{row_bytes} bytes at address {table.data_ptr():#x}")
-    out = torch.empty((m, c), dtype=table.dtype, device=table.device)
-    overflow = torch.zeros((), dtype=torch.int32, device=table.device)
-    rc = cuda_lib.lib().rdt_gather_rows_windowed(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), overflow.data_ptr(), m, r,
-        _padded_rows(r, n_win), n_win, row_bytes, table.device.index, cuda_lib.stream_of(table))
-    cuda_lib.check(rc, "gather_rows_windowed")
+    out = table.new_empty((m, c))
+    overflow = idx.new_empty(())
+    _launch(_launch_fn or _bind(), table, idx, out, overflow, m, r, row_bytes, n_win, index)
     gather_rows_windowed.launches += 1
     return out, overflow
 
 
 gather_rows_windowed.launches = 0
+
+# the kernel's 8-byte word (tickets, sum) per (device, stream), zero between
+# launches: made once, and each launch's last CTA zeroes it again. Launches on
+# one stream run in order, so they never share it in flight; a captured graph
+# would replay one word on any stream, so _launch refuses capture. Values:
+# (the tensor, its address).
+_scratch: dict = {}
+_launch_fn = None
+
+
+def _bind():
+    global _launch_fn
+    _launch_fn = cuda_lib.lib().rdt_gather_rows_windowed
+    return _launch_fn
+
+
+def _launch(fn, table, idx, out, overflow, m, r, row_bytes, n_win, index):
+    if torch._C._cuda_isCurrentStreamCapturing():
+        raise RuntimeError("gather_rows_windowed: the count's scratch word is kept per stream; "
+                           "the kernel cannot be captured into a CUDA graph")
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    scratch = _scratch.get((index, stream))
+    if scratch is None:
+        t = torch.zeros(2, dtype=torch.int32, device=table.device)
+        scratch = _scratch[index, stream] = (t, t.data_ptr())
+    rc = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), overflow.data_ptr(), scratch[1], m,
+            r, _padded_rows(r, n_win), n_win, row_bytes, index, stream)
+    if rc:
+        cuda_lib.check(rc, "gather_rows_windowed")
+
+
+def launch_gather_win(table: torch.Tensor, idx: torch.Tensor, n_win: int, out: torch.Tensor,
+                      overflow: torch.Tensor, lib=None) -> None:
+    """One launch of K8 into ``out`` (M, C) and ``overflow`` (() int32, written
+    whole), nothing allocated (but the count's scratch, once per device and
+    stream) and nothing counted; raises under CUDA graph capture. The caller
+    has checked what :func:`gather_rows_windowed` checks. ``lib``: another
+    build of this kernel (bound with ``cuda_lib.bind``), else the package's."""
+    fn = lib.rdt_gather_rows_windowed if lib is not None else _launch_fn or _bind()
+    m, (r, c) = idx.shape[0], table.shape
+    _launch(fn, table, idx, out, overflow, m, r, c * table.element_size(), n_win,
+            table.get_device())

@@ -136,7 +136,8 @@ PORT_FILES = sorted(
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/torch_profile_slice.py",
                                     "tools/torch_mma_rate.py", "tools/torch_conv_probe.py",
                                     "tools/torch_conv_block_ab.py",
-                                    "tools/torch_fp_teacher_rel.py"])
+                                    "tools/torch_fp_teacher_rel.py",
+                                    "tools/torch_gather_ab.py"])
 def test_card_scripts_import_only_torch_and_the_port(script):
     names = _imported_modules(os.path.join(REPO, script))
     roots = {n.split(".")[0] for n in names}

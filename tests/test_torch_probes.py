@@ -137,6 +137,112 @@ def test_gather_rows_windowed_rejects_a_ragged_length():
         expand.gather_rows_windowed(torch.zeros(8, 4), torch.zeros(100, dtype=torch.int32), 2)
 
 
+def test_every_entry_point_signature_has_the_c_arity():
+    """``cuda_lib.SIGNATURES`` gives each ``extern "C"`` entry point of the
+    sources as many arguments as its declaration has (ctypes would pass a
+    short list on, and the card alone would find out)."""
+    import re
+
+    from radardistill_tpu_torch.ops import cuda_lib
+
+    seen = set()
+    for src in cuda_lib.SOURCES:
+        text = (cuda_lib.CSRC / src).read_text()
+        for name, params in re.findall(r'extern "C" [^(]*?\b(rdt_\w+)\(([^)]*)\)', text):
+            seen.add(name)
+            assert len(cuda_lib.SIGNATURES[name]) == len(params.split(",")), name
+    assert set(cuda_lib.SIGNATURES) <= seen
+
+
+# the 14 gathers of the bs2 tap tables (chip_smoke.py's K8 phase): entries M
+# and row bytes (bfloat16 channels x 2)
+K8_GATHERS = {
+    "tap1_fwd": (73728, 64), "tap1_bwd": (73728, 64), "dtap2_fwd": (147456, 64),
+    "dtap2_bwd": (73728, 64), "tap2_fwd": (147456, 128), "tap2_bwd": (147456, 128),
+    "dtap3_fwd": (175104, 128), "dtap3_bwd": (147456, 128), "tap3_fwd": (175104, 256),
+    "tap3_bwd": (175104, 256), "dtap4_fwd": (147456, 256), "dtap4_bwd": (175104, 256),
+    "tap4_fwd": (147456, 512), "tap4_bwd": (147456, 512)}
+
+
+# csrc/gather_win.cu's launch geometry, mirrored here and held to the source
+# by test_k8_mirror_is_the_kernel_source: a CTA of 128 threads moves 1024
+# 16-byte vectors a round, 8 loads in flight a thread
+K8_THREADS, K8_UNROLL = 128, 8
+K8_CHUNK = K8_THREADS * K8_UNROLL
+
+
+def _k8_slice_rows(row_bytes):
+    """Mirror of ``slice_rows_for``: rows of a window block one CTA takes."""
+    vpr, rows = row_bytes // 16, BLK
+    while rows > 1 and rows * vpr > K8_CHUNK:
+        rows //= 2
+    return rows
+
+
+def test_k8_mirror_is_the_kernel_source():
+    from radardistill_tpu_torch.ops import cuda_lib
+
+    text = (cuda_lib.CSRC / "gather_win.cu").read_text()
+    for decl in (f"constexpr int kBlk = {BLK};", f"constexpr int kThreads = {K8_THREADS};",
+                 f"constexpr int kUnroll = {K8_UNROLL};",
+                 "constexpr int kChunk = kThreads * kUnroll;",
+                 "while (rows > 1 && rows * vpr > kChunk) rows /= 2;"):
+        assert decl in text, decl
+
+
+def _k8_cover(m, row_bytes):
+    """Mirror of ``csrc/gather_win.cu``'s launch: CTA -> (window block,
+    slice), the CTA's vector loop (round c0, load k, thread) and the four
+    entries of its block each thread loads and counts when they lie in its
+    slice. Returns the hits of every output vector and of every entry's
+    overflow test."""
+    rows, vpr = _k8_slice_rows(row_bytes), row_bytes // 16
+    slices = BLK // rows
+    cta = np.arange(max(1, m // BLK * slices))  # one CTA when m == 0
+    e0, r0 = (cta // slices) * BLK, (cta % slices) * rows
+    e0, r0 = e0[e0 < m], r0[e0 < m]
+    n_vec = rows * vpr
+    i = (np.arange(0, n_vec, K8_CHUNK)[:, None, None]
+         + np.arange(K8_UNROLL)[None, :, None] * K8_THREADS
+         + np.arange(K8_THREADS)[None, None, :]).ravel()
+    i = i[i < n_vec]
+    vec = (((e0 + r0) * vpr)[:, None] + i[None, :]).ravel()
+    e = np.arange(BLK)[None, :]  # thread t holds entries 4t .. 4t + 3
+    mine = (e >= r0[:, None]) & (e < (r0 + rows)[:, None])
+    return (np.bincount(vec, minlength=m * vpr), np.bincount((e0[:, None] + e)[mine], minlength=m))
+
+
+def _k8_plan_ok(row_bytes):
+    """The slice is a power of two dividing the block, and fits one round
+    unless it is one row."""
+    rows, vpr = _k8_slice_rows(row_bytes), row_bytes // 16
+    assert 1 <= rows <= BLK and BLK % rows == 0
+    assert rows == 1 or rows * vpr <= K8_CHUNK
+
+
+@pytest.mark.parametrize("gather", K8_GATHERS)
+def test_gather_plan_covers_every_row_and_entry_once_at_the_tap_gathers(gather):
+    """At the 14 gathers of the tap tables every output vector is written by
+    exactly one (CTA, round, load, thread), and every entry's overflow is
+    counted by exactly one CTA."""
+    m, row_bytes = K8_GATHERS[gather]
+    _k8_plan_ok(row_bytes)
+    vec_hits, entry_hits = _k8_cover(m, row_bytes)
+    assert vec_hits.shape == (m * row_bytes // 16,) and (vec_hits == 1).all()
+    assert entry_hits.shape == (m,) and (entry_hits == 1).all()
+
+
+@pytest.mark.parametrize("row_bytes", [16, 32, 96, 1024, 65536])
+@pytest.mark.parametrize("m", [0, BLK, 3 * BLK])
+def test_gather_plan_covers_every_row_and_entry_once_at_other_widths(row_bytes, m):
+    """The general instantiation's widths, the card tests' among them, one
+    row a CTA for rows above 16 KB (several rounds), and no entries."""
+    _k8_plan_ok(row_bytes)
+    vec_hits, entry_hits = _k8_cover(m, row_bytes)
+    assert vec_hits.shape == (m * row_bytes // 16,) and (vec_hits == 1).all()
+    assert entry_hits.shape == (m,) and (entry_hits == 1).all()
+
+
 # ----------------------------------------------------------------------- P1
 
 B, H, W = 2, 16, 24
@@ -369,18 +475,127 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,c", [(torch.float32, 24), (torch.bfloat16, 64), (torch.int8, 32)])
-@pytest.mark.parametrize("n_win,widen", [(2, 0), (3, 2), (1, 2)])
-def test_gather_rows_windowed_kernel_matches_plain_on_card(cuda, dtype, c, n_win, widen):
-    table, idx = _windowed_case(n_win, 4096, seed=n_win, c=c, widen=widen)
-    tt, ti = torch.from_numpy(table * 20).to(cuda, dtype), torch.from_numpy(idx).to(cuda)
+# (dtype, channels): rows of 96, 128, 32, 16, 64, 512 and 1024 bytes
+K8_CARD_ROWS = [(torch.float32, 24), (torch.bfloat16, 64), (torch.int8, 32), (torch.float32, 4),
+                (torch.bfloat16, 32), (torch.bfloat16, 256), (torch.int8, 1024)]
+
+
+def _k8_on_card(tt, ti, n_win):
+    """The wrapper (one launch) and the bare launch against the plain version:
+    rows bit-equal, counts equal. Returns the count."""
     before = expand.gather_rows_windowed.launches
     got, n_over = expand.gather_rows_windowed(tt, ti, n_win)
     assert expand.gather_rows_windowed.launches == before + 1
     want, want_n = expand.gather_rows_windowed_plain(tt, ti, n_win)
+    assert got.shape == want.shape and n_over.shape == () and n_over.dtype == torch.int32
     assert torch.equal(got, want) and int(n_over) == int(want_n)
-    assert (int(n_over) > 0) == (widen > 0)
+    bare = torch.full_like(want, 7)
+    n_bare = torch.full((), -1, dtype=torch.int32, device=tt.device)
+    expand.launch_gather_win(tt, ti, n_win, bare, n_bare)
+    assert torch.equal(bare, want) and int(n_bare) == int(want_n)
+    return int(n_over)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,c", K8_CARD_ROWS)
+@pytest.mark.parametrize("n_win,widen", [(2, 0), (3, 2), (1, 2)])
+def test_gather_rows_windowed_kernel_matches_plain_on_card(cuda, dtype, c, n_win, widen):
+    table, idx = _windowed_case(n_win, 4096, seed=n_win, c=c, widen=widen)
+    tt, ti = torch.from_numpy(table * 20).to(cuda, dtype), torch.from_numpy(idx).to(cuda)
+    n_over = _k8_on_card(tt, ti, n_win)
+    assert (n_over > 0) == (widen > 0)
+
+
+def _k8_card_case(cuda, dtype, c, r, idx, seed=0):
+    rng = np.random.RandomState(seed)
+    tt = torch.from_numpy(rng.randn(r, c).astype(np.float32) * 20).to(cuda, dtype)
+    return tt, torch.from_numpy(np.asarray(idx, np.int32)).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 32), (torch.bfloat16, 256)])
+def test_gather_rows_windowed_kernel_with_more_ctas_than_the_card_holds(cuda, dtype, c):
+    """1200 blocks of 512 entries: 2400 CTAs at 64-byte rows, 19200 at
+    512-byte rows, above the 132 SMs x 8 CTAs the card holds at once (64
+    registers a thread); every third block with a too-small window."""
+    rng = np.random.RandomState(4)
+    r, blocks = 60000, 1200
+    start = rng.randint(0, r - 2 * BLK, size=blocks)
+    idx = start[:, None] + np.sort(rng.randint(0, 2 * BLK, size=(blocks, BLK)), axis=1)
+    idx[::3, -1] = r - 1
+    tt, ti = _k8_card_case(cuda, dtype, c, r, idx.ravel())
+    assert _k8_on_card(tt, ti, 3) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 64), (torch.bfloat16, 256)])
+def test_gather_rows_windowed_kernel_edge_cases(cuda, dtype, c):
+    """No entries; a block of sentinels only; a window start clipped at the
+    table's end; a window over the whole table; the window one block too
+    small."""
+    r = 3000
+    tt, ti = _k8_card_case(cuda, dtype, c, r, np.zeros(0))
+    got, n_over = expand.gather_rows_windowed(tt, ti, 2)
+    assert got.shape == (0, c) and int(n_over) == 0
+    _k8_on_card(tt, ti, 2)
+    rng = np.random.RandomState(5)
+    sentinel = np.full(BLK, PAD)
+    sentinel[::7] = -1
+    sentinel[1::7] = r + 5  # beyond the table: not active, zero rows
+    tail = np.sort(rng.randint(r - 400, r, size=BLK))  # start clipped to r_full/512 - n_win
+    spread = np.sort(rng.randint(0, r, size=BLK))
+    idx = np.concatenate([sentinel, tail, spread])
+    tt, ti = _k8_card_case(cuda, dtype, c, r, idx, seed=6)
+    n_full = -(-r // BLK) + 1  # covers the padded table
+    assert _k8_on_card(tt, ti, n_full) == 0
+    # only the spread block overflows: the clipped block's window holds its rows
+    assert _k8_on_card(tt, ti, 2) == int(expand.window_overflow(ti[2 * BLK:], r, 2)) > 0
+    least = next(n for n in range(1, n_full + 1) if int(expand.window_overflow(ti, r, n)) == 0)
+    assert _k8_on_card(tt, ti, least) == 0 < _k8_on_card(tt, ti, least - 1)
+
+
+@pytest.mark.gpu
+def test_gather_rows_windowed_count_after_an_overflowing_call_is_its_own(cuda):
+    """The count's scratch lives across calls: two calls in a row give the
+    same count, a call after an overflowing one counts 0, on two streams
+    too."""
+    table, idx = _windowed_case(1, 4096, seed=12, c=64, widen=2)
+    tt, ti = torch.from_numpy(table).to(cuda, torch.bfloat16), torch.from_numpy(idx).to(cuda)
+    ok_table, ok_idx = _windowed_case(3, 4096, seed=3, c=64)
+    ok_t, ok_i = torch.from_numpy(ok_table).to(cuda, torch.bfloat16), torch.from_numpy(ok_idx).to(
+        cuda)
+    want = int(expand.window_overflow(ti, 4096, 1))
+    assert want > 0
+    counts = [expand.gather_rows_windowed(tt, ti, 1)[1] for _ in range(2)]
+    after = expand.gather_rows_windowed(ok_t, ok_i, 3)[1]
+    assert [int(n) for n in counts] == [want, want] and int(after) == 0
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        on_side = expand.gather_rows_windowed(tt, ti, 1)[1]
+    main = expand.gather_rows_windowed(ok_t, ok_i, 3)[1]
+    torch.cuda.synchronize()
+    assert int(on_side) == want and int(main) == 0
+    with torch.cuda.stream(side):
+        assert int(expand.gather_rows_windowed(ok_t, ok_i, 3)[1]) == 0
+
+
+@pytest.mark.gpu
+def test_gather_rows_windowed_refuses_graph_capture(cuda):
+    """The count's scratch word is kept per stream, and a captured graph would
+    replay one word on any stream: the wrapper and the bare launch raise under
+    capture, and the calls after it still count their own."""
+    table, idx = _windowed_case(1, 4096, seed=12, c=64, widen=2)
+    tt, ti = torch.from_numpy(table).to(cuda, torch.bfloat16), torch.from_numpy(idx).to(cuda)
+    want = int(expand.window_overflow(ti, 4096, 1))
+    assert int(expand.gather_rows_windowed(tt, ti, 1)[1]) == want > 0
+    out, over = torch.empty(ti.numel(), 64, dtype=tt.dtype, device=cuda), ti.new_empty(())
+    for call in (lambda: expand.gather_rows_windowed(tt, ti, 1),
+                 lambda: expand.launch_gather_win(tt, ti, 1, out, over)):
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            with torch.cuda.graph(graph):
+                call()
+    assert _k8_on_card(tt, ti, 1) == want
 
 
 @pytest.mark.gpu
