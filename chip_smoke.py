@@ -176,6 +176,29 @@ Phases 20-24, the route without host tables and the last three kernels:
      512) case on ``wgmma`` and ``torch.bmm`` in turns, 20 times each (mean,
      min, max). (They run first, right after the build.)
 
+Phase 25, the runtime around the step (after phase 23), through the functions
+of the CLIs as a user runs them, at full width on
+``tools/cfgs/synthetic/production_cert.yaml`` (the shipped model and optimizer,
+``SyntheticDataset`` of 160 000 lidar points, 3000 radar returns and 60 boxes a
+scene) with ``--set DATA_CONFIG.NUM_SAMPLES 6``, batch 2, bf16, 2 loader
+workers, a log line a step, checkpoints under ``output/`` (removed after):
+``tools/torch_train.py::main`` for one epoch (3 steps from the loader:
+forked workers, ``HostPrecompute`` on the prefetch thread, pinned copies on a
+copy stream), again with ``--epochs 2`` (it must resume at epoch 1 and take
+3 more), then ``tools/torch_test.py::eval_ckpt`` with a fresh model restored
+from the last checkpoint over the eval loader (3 batches, tables built on the
+card) and ``SyntheticDataset.evaluation``. Counts reset before the first run
+and read after the eval: 6 x the train step's (K1 x 4 on ``wgmma``, K5 x 2,
+K2 x 3, K3 x 3, K4 x 3 on its tile route) + 3 x the eval forward's (K1 x 4,
+K5 x 2, K2 x 3), nothing else; every logged loss finite; the restored model's
+every ``state_dict`` tensor, Adam's moments and the update count bit-equal
+to the trained ones; the restored model's detections on one eval batch equal
+to the trained model's (the near-tie rule of ``tests/test_torch_slice.py``).
+It prints t_iter and t_data p50 over the 6 steps (read from the train logs,
+1 ms resolution), the loader's seconds a batch alone (serial, then 2 workers,
+which must give the same batches),
+the checkpoint's size, save and load seconds, and eval samples/s.
+
 Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
 float32 scales alike, but not every stock op around it (the VFE's sums); one
 flipped input code flips a few percent of the 9 x Co codes it reaches in the
@@ -222,7 +245,8 @@ sums over the 19 deeper links of ``INT8_STAGES: 5`` on their routes
 (``deep_old_route_ms``: all 19 on ``mma.sync``; ``deep_device_*``: their
 device time with the host's enqueue hidden, as the wrappers of the links
 below 720² cost the host more than the card); K7's ``device_ms`` is its
-wrapper's device time, the same way. Any failed phase exits non-zero. The line before the
+wrapper's device time, the same way. ``launches_runtime`` is each
+kernel's count over phase 25. Any failed phase exits non-zero. The line before the
 last is the kernels record ``{"kernels": [{"name", "route", "mma", "source",
 "replaces", "launches", "max_abs_err", "ms", "launch_ms", "plain_ms",
 "bound_ms", "bound_by", "library_ms", ...}]}``; the last line is
@@ -1327,7 +1351,7 @@ def build_trainer(torch, yaml_name, cfg, info, dtype, device):
 def phase_train_bf16(torch, dev, yaml_name, cfg, info, batch, expect_launches, runs):
     """The train step in bfloat16 at full size: launch counts of one step,
     finite losses, no overflow, trained parameters moved and frozen ones
-    untouched, p50 of synced steps."""
+    untouched, p50 of synced steps. Returns (launches, p50 ms)."""
     from radardistill_tpu_torch.models.detector import batch_to_torch
 
     model, step, _ = build_trainer(torch, yaml_name, cfg, info, torch.bfloat16, None)
@@ -1389,7 +1413,7 @@ def phase_train_bf16(torch, dev, yaml_name, cfg, info, batch, expect_launches, r
           f"(min {times[0] * 1e3:.3f}, max {times[-1] * 1e3:.3f}); "
           f"{bdev['gt_boxes'].shape[0] / p50 * 1e3:.3f} samples/s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, p50
 
 
 # leaves of the student whose true gradient is zero in train mode: the conv
@@ -1582,6 +1606,188 @@ def phase_device_train(torch, dev, yaml_name, cfg, info, host_batch, raw_batch):
     if not rel <= 1e-4 or losses["device"] != losses["device"]:
         raise RuntimeError(f"train step: device route loss {losses['device']} vs host route "
                            f"{losses['host']}")
+
+
+# the step and the eval forward of the distillation yaml, per call: K1 x 4
+# (wgmma), K5 x 2, K2 x 3; the step adds K3 x 3 and K4 x 3 (tile route)
+EVAL_FORWARD = {"expand_rows": 2, "dcn_sample": 3, "conv_block": 4, "conv_block.wgmma": 4}
+TRAIN_STEP = {**EVAL_FORWARD, "dcn_offset_grad": 3, "dcn_input_grad": 3,
+              "dcn_input_grad.tile": 3}
+
+
+def same_detections(torch, got, want, tol):
+    """Equal validity; each valid entry of ``got`` equals the same entry of
+    ``want`` (label exactly, box and score within ``tol``) or, where two
+    candidates scored within ``tol`` traded places, another unused one
+    (the near-tie rule of ``tests/test_torch_slice.py``)."""
+    if not torch.equal(got["valid"], want["valid"]):
+        return False
+    for b in range(want["valid"].shape[0]):
+        idx = torch.nonzero(want["valid"][b]).flatten()
+        row = lambda d: torch.cat([d["boxes"][b, idx], d["scores"][b, idx, None]],  # noqa: E731
+                                  1).double()
+        g, w = row(got), row(want)
+        gl, wl = got["labels"][b, idx], want["labels"][b, idx]
+        used = torch.zeros(len(idx), dtype=torch.bool, device=g.device)
+        for i in range(len(idx)):
+            ok = (~used & (wl == gl[i]) & ((w - g[i]).abs().amax(1) <= tol)
+                  & ((w[:, -1] - w[i, -1]).abs() <= tol))
+            if not ok.any():
+                return False
+            used[i if ok[i] else torch.nonzero(ok)[0, 0]] = True
+    return True
+
+
+def loader_pass(loader):
+    """(the batches of one pass, seconds a batch)."""
+    t0 = time.perf_counter()
+    batches = [b for b, _ in loader]
+    return batches, (time.perf_counter() - t0) / len(batches)
+
+
+def same_numpy_tree(got, want):
+    if isinstance(want, dict):
+        return sorted(got) == sorted(want) and all(same_numpy_tree(got[k], want[k]) for k in want)
+    if isinstance(want, (tuple, list)):
+        return len(got) == len(want) and all(same_numpy_tree(g, w) for g, w in zip(got, want))
+    return got.dtype == want.dtype and got.shape == want.shape and (got == want).all()
+
+
+def phase_runtime(torch, dev, smi, step_p50):
+    """The runtime around the step at full width, through the functions of
+    the CLIs: ``tools/torch_train.py`` on ``production_cert.yaml`` (bs2,
+    bf16, 2 workers, a log line a step, ``NUM_SAMPLES`` 6: 3 steps an epoch)
+    for one epoch, then again with ``--epochs 2`` (it must resume at epoch 1),
+    then ``tools/torch_test.py::eval_ckpt`` over the eval loader with the
+    restored model and ``SyntheticDataset.evaluation``. Launch counts over
+    the three are steps x the step's + eval batches x the eval forward's;
+    every logged loss finite; the restored model and optimizer bit-equal to
+    the trained ones; the restored model's detections on one batch equal the
+    trained model's. Prints t_iter and t_data p50 over the steps, the
+    loader's seconds a batch alone (serial and 2 workers), the checkpoint's
+    size and its save and load seconds, eval samples/s, beside ``step_p50``,
+    the device-resident step's p50 of phase 10 in the same call. Returns the
+    launch counts."""
+    import argparse
+    import shutil
+
+    from radardistill_tpu_torch.data.loader import build_dataloader
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+    from radardistill_tpu_torch.train.checkpoint import CheckpointManager
+    from radardistill_tpu_torch.train.train_step import create_train_state, make_eval_step
+    from radardistill_tpu_torch.train.trainer import read_log
+    from tools import torch_test, torch_train
+
+    tag = "chip_smoke_runtime"
+    argv = ["--cfg_file", str(ROOT / "tools/cfgs/synthetic/production_cert.yaml"),
+            "--batch_size", "2", "--workers", "2", "--log_interval", "1", "--extra_tag", tag,
+            "--num_epochs_to_eval", "0", "--set", "DATA_CONFIG.NUM_SAMPLES", "6"]
+    _, cfg = torch_train.parse_config(argv)
+    out = Path("output") / cfg.TAG / tag
+    shutil.rmtree(out, ignore_errors=True)
+    t_start = time.perf_counter()
+
+    read = reset_launches()
+    trained = torch_train.main(["--epochs", "1"] + argv)
+    (log1,) = out.glob("log_train_*.txt")
+    time.sleep(1.0)  # the second run's log file is named by the second
+    trained = torch_train.main(["--epochs", "2"] + argv)
+    log2 = [p for p in out.glob("log_train_*.txt") if p != log1]
+    if next(trained.model.parameters()).device != dev:
+        raise RuntimeError("runtime: the train CLI did not default to the card")
+    first, second = read_log(log1), read_log(log2[0])
+    resumed = "resumed from epoch 1 it 3" in log2[0].read_text()
+    steps = first + second
+    print(f"runtime: train CLI, production_cert.yaml, bs2, bf16, 2 workers: epoch 0 "
+          f"{[(r[2], r[4]) for r in first]}; again with --epochs 2: resumed at epoch 1 "
+          f"{resumed}, {[(r[0], r[2], r[4]) for r in second]} (epoch, it, loss)")
+    if ([r[:4] for r in first] != [(0, 1, i, 3) for i in range(3)]
+            or [r[:4] for r in second] != [(1, 2, i, 3) for i in range(3)] or not resumed
+            or trained.step != 6):
+        raise RuntimeError(f"runtime: logged steps {first} then {second}, resumed {resumed}, "
+                           f"{trained.step} updates")
+    if not all(r[4] == r[4] and abs(r[4]) != float("inf") for r in steps):
+        raise RuntimeError(f"runtime: a logged loss is not finite: {[r[4] for r in steps]}")
+
+    # the checkpoint: a fresh model and optimizer restored bit-equal
+    info = {"grid_size": trained.model.grid_size, "voxel_size": trained.model.voxel_size,
+            "point_cloud_range": trained.model.point_cloud_range,
+            "class_names": tuple(cfg.CLASS_NAMES)}
+    fresh, _ = create_train_state(
+        build_network(cfg.MODEL, info, compute_dtype=torch.bfloat16), cfg.OPTIMIZATION, 6,
+        torch.Generator().manual_seed(1))
+    mgr = CheckpointManager(out / "ckpt")
+    path = out / "ckpt" / "checkpoint_epoch_2"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = mgr.restore(fresh)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr.save(trained, epoch=2)
+    t_save = time.perf_counter() - t0
+    a, b = fresh.model.state_dict(), trained.model.state_dict()
+    differ = [k for k in b if not torch.equal(a[k], b[k])]
+    ma, mb = fresh.optimizer.adamw.state_dict()["state"], trained.optimizer.adamw.state_dict()[
+        "state"]
+    differ += [f"adam {i}.{k}" for i in mb for k in mb[i] if not torch.equal(ma[i][k], mb[i][k])]
+    if (restored is None or restored[1:] != (2, 6) or fresh.step != 6 or differ
+            or len(ma) != len(mb)):
+        raise RuntimeError(f"runtime: restore {restored and restored[1:]}, count {fresh.step}, "
+                           f"differs in {differ[:5]}")
+    print(f"runtime: checkpoint {path.stat().st_size / 2**20:.3f} MiB, save {t_save:.3f} s, "
+          f"load {t_load:.3f} s; the restored model ({len(b)} tensors) and optimizer "
+          f"({len(mb)} parameters' moments, count {fresh.step}) bit-equal to the trained ones")
+
+    # evaluation of the restored model over the eval loader
+    test_set, test_loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2,
+                                             training=False)
+    from radardistill_tpu_torch.utils.common import create_logger
+
+    logger = create_logger()
+    t0 = time.perf_counter()
+    result = torch_test.eval_ckpt(argparse.Namespace(cal_params=False, infer_time=True), cfg,
+                                  fresh, test_set, test_loader, logger, out / "eval", "epoch_2")
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    launches = read()
+    n_eval = len(test_loader)
+    want = {**dict.fromkeys(launches, 0),
+            **{k: 6 * v + n_eval * EVAL_FORWARD.get(k, 0) for k, v in TRAIN_STEP.items()}}
+    print(f"runtime launches over 6 steps and {n_eval} eval batches: {launches}")
+    if launches != want or not 0 <= result["mAP"] <= 1:
+        raise RuntimeError(f"runtime: launches {launches}, expected {want}; result {result}")
+
+    # the restored model's detections equal the trained model's
+    batch = batch_to_torch(next(iter(test_loader))[0])
+    got = make_eval_step(fresh.model)(batch)["final_box_dicts"]
+    ref = make_eval_step(trained.model)(batch)["final_box_dicts"]
+    if not same_detections(torch, got, ref, 1e-4) or int(ref["valid"].sum()) == 0:
+        raise RuntimeError("runtime: the restored model's detections differ from the trained "
+                           "model's")
+
+    # the loader alone: serial, then 2 workers forked with CUDA up; the same
+    # batches
+    _, ld = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0,
+                             model_cfg=cfg.MODEL)
+    by_serial, serial = loader_pass(ld)
+    ld.workers = 2
+    by_workers, workers = loader_pass(ld)
+    if not same_numpy_tree(by_workers, by_serial):
+        raise RuntimeError("runtime: the loader's batches with 2 workers differ from serial")
+    med = lambda v: sorted(v)[(len(v) - 1) // 2] / 2 + sorted(v)[len(v) // 2] / 2  # noqa: E731
+    shutil.rmtree(out, ignore_errors=True)
+    t_iter = med([r[5] for r in steps]) * 1e3
+    print(f"runtime on {smi}: t_iter p50 {t_iter:.1f} ms, t_data p50 "
+          f"{med([r[6] for r in steps]) * 1e3:.1f} ms over the 6 steps (the log's ms; t_iter "
+          f"{[r[5] for r in steps]}, t_data {[r[6] for r in steps]} s), the device-resident "
+          f"step p50 {step_p50:.3f} ms (phase 10): {t_iter / step_p50:.3f} x; loader alone (the "
+          f"same batches both ways), bs2 with HostPrecompute: serial "
+          f"{serial:.4f} s/batch, 2 workers {workers:.4f} s/batch; eval {len(test_set)} samples "
+          f"({n_eval} batches) in {t_eval:.3f} s: {len(test_set) / t_eval:.3f} samples/s, mAP "
+          f"{result['mAP']:.4f}; the phase {time.perf_counter() - t_start:.1f} s")
+    return launches
 
 
 def phase_dense_from(torch, dev, yaml_name, dense_from=3):
@@ -1780,7 +1986,7 @@ def main() -> int:
     fwd_launches = phase_forward_bf16(
         torch, dev, "distillation forward", cfg, info, batch,
         {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, **none}, 10)
-    launches = phase_train_bf16(
+    launches, step_p50 = phase_train_bf16(
         torch, dev, TRAIN_YAML, cfg, info, batch,
         {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, **DCN_BACKWARD}, 10)
     raw = make_batch(TRAIN_YAML, host_precompute=False)[2]
@@ -1790,6 +1996,8 @@ def main() -> int:
     phase_device_train(torch, dev, TRAIN_YAML, cfg, info, batch, raw)
     k8, k8_launches = phase_k8(torch, dev, built["hp_as"], smi)
     del batch, raw, built
+    torch.cuda.empty_cache()
+    runtime_launches = phase_runtime(torch, dev, smi, step_p50)
     torch.cuda.empty_cache()
 
     # the teacher's deep chains: the same yaml with BACKBONE_3D overrides
@@ -1859,7 +2067,8 @@ def main() -> int:
                 "launches_val": val_launches[name], "launches_forward": fwd_launches[name],
                 "launches_int8_stages5": chain_launches["int8_stages5"][name],
                 "launches_fp_stages5": chain_launches["fp_stages5"][name],
-                "launches_device_tables": dev_launches[name], "launch_ms": None,
+                "launches_device_tables": dev_launches[name],
+                "launches_runtime": runtime_launches[name], "launch_ms": None,
                 "mma": MMA_ROUTES.get(name), **rec}
                for name, src, replaces, rec in table]
     # K1: the stage-1 links' time on the old resident mma.sync variant, and
@@ -1870,7 +2079,7 @@ def main() -> int:
                            + str([k["name"] for k in kernels if k["launches"] < 1]))
     keys = ("name", "route", "mma", "source", "replaces", "launches", "launches_val",
             "launches_forward", "launches_int8_stages5", "launches_fp_stages5",
-            "launches_device_tables", "max_abs_err",
+            "launches_device_tables", "launches_runtime", "max_abs_err",
             "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "aside_ms",
             "teacher_bf16_rel_l2", "alternating_ms", "alternating_library_ms",
             "k4_route", "repeats_bitwise", "old_route_ms", "device_ms",

@@ -25,6 +25,10 @@ _lib = None
 
 def _load():
     global _lib
+    # once loaded, no lock: a loader worker forked while another thread held
+    # it would otherwise wait on it forever
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib

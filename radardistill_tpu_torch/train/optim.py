@@ -109,6 +109,25 @@ class OneCycleAdamW:
         self.grad_norm = norm
         return norm
 
+    def state_dict(self) -> dict:
+        """The update count (it sets the next update's lr and b1) and
+        AdamW's moments."""
+        return {"count": self.count, "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, state: dict):
+        """Raises ValueError where ``state`` was saved over other parameters
+        (another number of them, or another shape of any moment)."""
+        adamw = state["adamw"]
+        if len(adamw["param_groups"]) != 1 or len(adamw["param_groups"][0]["params"]) != len(
+                self.params):
+            raise ValueError("optimizer state of other parameters")
+        for i, p in enumerate(self.params):
+            moments = adamw["state"].get(i, {})
+            if any(k != "step" and v.shape != p.shape for k, v in moments.items()):
+                raise ValueError(f"optimizer state of parameter {i}: other shape")
+        self.adamw.load_state_dict(adamw)
+        self.count = int(state["count"])
+
 
 def build_optimizer(optim_cfg, model: nn.Module, total_steps: int, frozen_scopes=()):
     """The optimizer of the OPTIMIZATION config over ``model``'s trainable

@@ -1,13 +1,13 @@
 """The train step: frozen teacher forward, student forward in train mode,
 targets, head + distillation losses, backward, clip, AdamW with the one-cycle
-schedules, BN running statistics updated.
+schedules, BN running statistics updated; the train state and the eval step.
 
-Counterpart of ``radardistill_tpu/train/train_step.py::make_train_step`` on
-one device (its ``sync_bn or mesh is None`` leg). PyTorch runs eagerly, so
-the step is a closure over the model and the optimizer, which hold the state
-that the reference threads through ``TrainState`` (``TrainState`` here only
-names them and counts the steps). Parameters, BN statistics and optimizer
-moments are updated in place.
+Counterpart of ``radardistill_tpu/train/train_step.py`` (``create_train_state``,
+``make_train_step`` on one device, its ``sync_bn or mesh is None`` leg, and
+``make_eval_step``). PyTorch runs eagerly, so the step is a closure over the
+model and the optimizer, which hold the state that the reference threads
+through ``TrainState`` (``TrainState`` here only names them). Parameters, BN
+statistics and optimizer moments are updated in place.
 """
 
 from __future__ import annotations
@@ -24,12 +24,35 @@ from .optim import OneCycleAdamW
 
 @dataclass
 class TrainState:
-    """What a train step changes: the model (parameters and BN statistics),
-    the optimizer (moments, update count) and the number of steps taken."""
+    """What a train step changes: the model (parameters and BN statistics)
+    and the optimizer (moments, update count). ``step``, the number of steps
+    taken, is the optimizer's update count, so a restored optimizer restores
+    it too."""
 
     model: nn.Module
     optimizer: OneCycleAdamW
-    step: int = 0
+
+    @property
+    def step(self) -> int:
+        return self.optimizer.count
+
+
+def create_train_state(model: nn.Module, optim_cfg, total_steps: int,
+                       generator: torch.Generator | None = None):
+    """Counterpart of the JAX ``create_train_state`` (``model.init`` + the
+    optimizer's init): draws every parameter of ``model`` from the
+    reference's initializers (``layers.init_reference_``) with ``generator``
+    (seed 0 when None, as the JAX package's ``PRNGKey(0)``), so the model
+    never trains from uninitialized memory, then builds the optimizer of
+    ``optim_cfg`` over its trainable parameters (``model.frozen`` frozen).
+    Returns (TrainState, lr_sched)."""
+    from ..models.layers import init_reference_
+    from .optim import build_optimizer
+
+    init_reference_(model, generator if generator is not None
+                    else torch.Generator().manual_seed(0))
+    optimizer, lr_sched = build_optimizer(optim_cfg, model, total_steps, model.frozen)
+    return TrainState(model, optimizer), lr_sched
 
 
 def dcn_offset_sat(model: nn.Module):
@@ -67,8 +90,21 @@ def make_train_step(model: nn.Module, optimizer: OneCycleAdamW, model_cfg, class
             tb["dcn_offset_sat"] = sat
         loss.backward()
         optimizer.step()
-        state.step += 1
         return {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}
 
     step.state = state
     return step
+
+
+def make_eval_step(model: nn.Module) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
+    """Returns ``eval_step(batch) -> outputs`` (``final_box_dicts`` among
+    them): the forward in eval mode without gradients, where ``model`` and
+    ``batch`` live."""
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, Any]) -> Dict[str, Any]:
+        if model.training:
+            model.eval()
+        return model(batch)
+
+    return eval_step

@@ -188,3 +188,62 @@ def test_teacher_backbone_stage1_and_masks_match_jax(backbone_run):
 def test_unported_switches_raise(kwargs):
     with pytest.raises(NotImplementedError):
         PillarRes18BackBone8xS2D((GRID, GRID), **kwargs)
+
+
+# ------------------------------------------- the runtime around the forward
+
+
+def test_prediction_dicts_and_recall_match_jax(run, inputs):
+    """Both packages' final_box_dicts through their own
+    ``generate_prediction_dicts`` and ``update_recall_record``: the same
+    detections per sample (the near-tie rule above, over those that scored)
+    and the same recall counts."""
+    from radardistill_tpu.data.dataset import DatasetTemplate as JTemplate
+    from radardistill_tpu.train.eval_utils import update_recall_record as j_recall
+    from radardistill_tpu_torch.data.dataset import DatasetTemplate
+    from radardistill_tpu_torch.train.eval_utils import update_recall_record
+
+    _, model, jout, tout = run
+    cfg, info, jbatch, _, _ = inputs
+    host = {"frame_id": ["synthetic_0", "synthetic_1"]}
+    names = list(info["class_names"])
+    ds = type("DS", (), {"class_names": names,
+                         "generate_prediction_dicts": DatasetTemplate.generate_prediction_dicts})
+    jds = type("JDS", (), {"class_names": names,
+                           "generate_prediction_dicts": JTemplate.generate_prediction_dicts})
+    got = ds().generate_prediction_dicts(
+        host, {k: v.numpy() for k, v in tout["final_box_dicts"].items()})
+    want = jds().generate_prediction_dicts(host, jout["final_box_dicts"])
+    gt = np.asarray(jbatch["gt_boxes"])
+    thresh = tuple(cfg.POST_PROCESSING.RECALL_THRESH_LIST)
+    rec, jrec = {}, {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g["frame_id"] == w["frame_id"] and len(g["pred_boxes"]) == len(w["pred_boxes"])
+        for a in (g, w):
+            np.testing.assert_array_equal(a["name"], [names[k - 1] for k in a["pred_labels"]])
+        as_fixed = lambda a: {  # noqa: E731
+            "boxes": a["pred_boxes"][None], "scores": a["pred_scores"][None],
+            "labels": a["pred_labels"][None], "valid": a["pred_scores"][None] > 1e-6}
+        assert_same_detections(as_fixed(g), as_fixed(w), tol=1e-4)
+        gt_i = gt[i][gt[i][:, -1] > 0][:, :7]
+        rec = update_recall_record(rec, g["pred_boxes"][:, :7], gt_i, thresh)
+        jrec = j_recall(jrec, w["pred_boxes"][:, :7], gt_i, thresh)
+    assert rec == jrec and jrec["gt"] == 20
+
+
+def test_duplicate_teacher_to_radar_matches_jax(inputs):
+    """The ``ckpt.py`` surgery on the bridged JAX variables equals the JAX
+    surgery bridged, parameters and BN statistics alike."""
+    from radardistill_tpu.train.checkpoint import duplicate_teacher_to_radar as j_duplicate
+    from radardistill_tpu_torch.convert import state_dict_from_jax
+    from radardistill_tpu_torch.train.checkpoint import duplicate_teacher_to_radar
+
+    cfg, info, _, _, variables = inputs
+    model = build_network(cfg, info, device="cpu")
+    want = state_dict_from_jax(model, {k: j_duplicate(v) for k, v in variables.items()})
+    raw = state_dict_from_jax(model, variables)
+    got = duplicate_teacher_to_radar(raw)
+    assert sorted(got) == sorted(want)
+    copied = [k for k in want if not torch.equal(want[k], raw[k])]
+    assert copied and all(torch.equal(got[k], want[k]) for k in want), copied[:5]
+    assert torch.equal(got["radar_vfe.pfn_0.linear.weight"], raw["radar_vfe.pfn_0.linear.weight"])

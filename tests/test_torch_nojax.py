@@ -3,7 +3,9 @@
 forwards (radar-only val at grid 256, the distillation forward at grid 128,
 and at grid 64 under each deep-chain configuration of the teacher: ``INT8_STAGES: 5``,
 ``FP_STAGES: 5``, ``INT8: true``, and the wide conv once)
-and one distillation train step, a val forward without host tables under
+and one distillation train step, two train steps through ``tools/torch_train.py``
+on the grid-128 yaml and ``tools/torch_ckpt_surgery.py`` on its checkpoint,
+a val forward without host tables under
 ``DENSE_FROM: 3`` and the plain versions of the three probe kernels on the CPU
 with random weights from a seeded generator; afterwards neither
 ``jax`` nor ``flax`` nor any module of ``radardistill_tpu`` may be in
@@ -69,6 +71,16 @@ from radardistill_tpu_torch.ops.probes import conv_probe, mma_rate
 rows, over = gather_rows_windowed(torch.ones(600, 4), torch.arange(512, dtype=torch.int32), 1)
 dots = conv_probe(torch.ones(1, 4, 4, 8), torch.ones(9, 8, 8), "dots")
 rate = mma_rate(torch.ones(4, 8), torch.ones(8, 4), reps=2)
+# the CLIs: two train steps on the grid-128 yaml, a checkpoint, the surgery
+import os, tempfile
+os.chdir(tempfile.mkdtemp())
+from tools import torch_ckpt_surgery, torch_train
+cli_state = torch_train.main([
+    "--cfg_file", os.path.join(sys.argv[1], "tools/cfgs/synthetic/production_cert_grid128.yaml"),
+    "--device", "cpu", "--epochs", "1", "--batch_size", "2", "--workers", "0",
+    "--num_epochs_to_eval", "0"])
+torch_ckpt_surgery.main(["--src", "output/production_cert_grid128/default/ckpt/checkpoint_epoch_1",
+                         "--dst", "init"])
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "radardistill_tpu"))
 print(json.dumps({
@@ -91,13 +103,16 @@ print(json.dumps({
     "probes": [float(rows.sum()), int(over), float(dots[0, 0, 0, 0]), float(rate[0, 0])],
     "train_loss_finite": bool(torch.isfinite(metrics["loss"])),
     "train_updates": opt.count,
+    "cli_steps": cli_state.step,
+    "cli_files": sorted(os.listdir("output/production_cert_grid128/default/ckpt")) + [
+        f for f in os.listdir(".") if f == "init"],
 }))
 """
 
 
 def test_port_slice_runs_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+    res = subprocess.run([sys.executable, "-c", SCRIPT, REPO], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr
     rec = json.loads(res.stdout.strip().splitlines()[-1])
@@ -110,6 +125,7 @@ def test_port_slice_runs_without_jax():
     assert rec["teacher_finite"] and rec["teacher_hm_shape"] == [2, 16, 16, 6, 2]
     assert rec["int8_mode"] == "static" and rec["as_overflow2"] == 0
     assert rec["train_loss_finite"] and rec["train_updates"] == 1
+    assert rec["cli_steps"] == 2 and rec["cli_files"] == ["checkpoint_epoch_1", "init"]
     assert len(rec["chains"]) == 3 and all(rec["chains"].values()), rec["chains"]
     assert rec["wide_corner"] == 4 * 8.0
     assert rec["raw_batch_keys"] == [] and rec["raw_finite"] and rec["raw_overflow"] == 0
@@ -137,7 +153,9 @@ PORT_FILES = sorted(
                                     "tools/torch_mma_rate.py", "tools/torch_conv_probe.py",
                                     "tools/torch_conv_block_ab.py",
                                     "tools/torch_fp_teacher_rel.py",
-                                    "tools/torch_gather_ab.py"])
+                                    "tools/torch_gather_ab.py", "tools/torch_train.py",
+                                    "tools/torch_test.py", "tools/torch_ckpt_surgery.py",
+                                    "tools/torch_train_pace.py"])
 def test_card_scripts_import_only_torch_and_the_port(script):
     names = _imported_modules(os.path.join(REPO, script))
     roots = {n.split(".")[0] for n in names}

@@ -1,0 +1,219 @@
+"""Training entry point of the PyTorch port: ``python tools/torch_train.py
+--cfg_file tools/cfgs/synthetic/production_cert.yaml``, run from the
+repository root.
+
+Counterpart of ``tools/train.py`` (reference tools/train.py:22-259), with the
+same arguments; ``--device`` (default ``cuda``, the card) takes the place of
+``--platform``. The flow: the loader (``HostPrecompute`` on its prefetch
+thread) -> ``build_network`` -> ``create_train_state`` (the reference's
+initializers from a ``torch.Generator`` seeded with ``--seed``, the optimizer
+over the trainable parameters) -> resume from the newest checkpoint, or
+``--ckpt`` / ``--pretrained_model`` / ``--init_from_teacher`` ->
+``train_model`` -> the evaluation of the last ``--num_epochs_to_eval``
+checkpoints. One process on one device: ``--sync_bn 0`` and ``WORLD_SIZE`` > 1
+raise (ROADMAP queue 1 item 13), and so does ``--profile_dir`` (item 14).
+"""
+
+import argparse
+import datetime
+import os
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def parse_config(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--cfg_file", type=str, required=True)
+    parser.add_argument("--batch_size", type=int, default=None, help="batch size")
+    parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--workers", type=int, default=4)
+    parser.add_argument("--extra_tag", type=str, default="default")
+    parser.add_argument("--ckpt", type=str, default=None)
+    parser.add_argument("--pretrained_model", type=str, default=None)
+    parser.add_argument("--init_from_teacher", type=str, default=None,
+                        help="teacher ckpt: duplicate weights into the radar branch (ckpt.py surgery)")
+    parser.add_argument("--seed", type=int, default=666)
+    parser.add_argument("--fix_random_seed", action="store_true")
+    parser.add_argument("--ckpt_save_interval", type=int, default=1)
+    parser.add_argument("--max_ckpt_save_num", type=int, default=30)
+    parser.add_argument("--merge_all_iters_to_one_epoch", action="store_true")
+    parser.add_argument("--sync_bn", type=int, choices=(0, 1), default=None,
+                        help="1: BN statistics over the whole batch (the only mode on one "
+                             "device); 0 (per-replica statistics) is not ported")
+    parser.add_argument("--num_epochs_to_eval", type=int, default=1,
+                        help="post-train: evaluate the checkpoints of the last N epochs "
+                             "(reference tools/train.py:241-259; 0 disables)")
+    parser.add_argument("--set", dest="set_cfgs", default=None, nargs=argparse.REMAINDER)
+    parser.add_argument("--bf16", action="store_true", default=True)
+    parser.add_argument("--no-bf16", dest="bf16", action="store_false")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device (cpu for small runs without a card)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="not ported: use tools/torch_profile_slice.py")
+    parser.add_argument("--log_interval", type=int, default=50,
+                        help="iterations between train-loop log lines")
+    args = parser.parse_args(argv)
+
+    from radardistill_tpu_torch.config import ConfigDict, cfg_from_list, cfg_from_yaml_file
+
+    cfg = ConfigDict()
+    cfg_from_yaml_file(args.cfg_file, cfg)
+    cfg.TAG = Path(args.cfg_file).stem
+    if args.set_cfgs is not None:
+        cfg_from_list(args.set_cfgs, cfg)
+    return args, cfg
+
+
+def main(argv=None):
+    """Returns the trained ``TrainState``."""
+    args, cfg = parse_config(argv)
+    if args.sync_bn == 0 or cfg.OPTIMIZATION.get("SYNC_BN", True) is False:
+        raise NotImplementedError(
+            "per-replica BN statistics (--sync_bn 0) are not ported (ROADMAP queue 1, item 13)")
+    if args.profile_dir:
+        raise NotImplementedError(
+            "--profile_dir is not ported (ROADMAP queue 1, item 14); "
+            "tools/torch_profile_slice.py profiles the step")
+    import torch
+
+    from radardistill_tpu_torch.data.loader import build_dataloader
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                          duplicate_teacher_to_radar)
+    from radardistill_tpu_torch.train.train_step import create_train_state, make_train_step
+    from radardistill_tpu_torch.train.trainer import train_model
+    from radardistill_tpu_torch.utils.common import (
+        create_logger, maybe_init_distributed, set_random_seed,
+    )
+
+    maybe_init_distributed()
+
+    output_dir = Path("output") / cfg.TAG / args.extra_tag
+    ckpt_dir = output_dir / "ckpt"
+    output_dir.mkdir(parents=True, exist_ok=True)
+    log_file = output_dir / f"log_train_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt"
+    logger = create_logger(log_file)
+    device = torch.device(args.device)
+    logger.info(f"device: {device}"
+                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+
+    if args.fix_random_seed:
+        set_random_seed(args.seed)
+
+    batch_size = args.batch_size or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    epochs = args.epochs or cfg.OPTIMIZATION.NUM_EPOCHS
+
+    train_set, train_loader = build_dataloader(
+        cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+        root_path=cfg.DATA_CONFIG.get("DATA_PATH", None), workers=args.workers,
+        logger=logger, training=True, seed=args.seed, total_epochs=epochs,
+        merge_all_iters_to_one_epoch=args.merge_all_iters_to_one_epoch,
+        model_cfg=cfg.MODEL,
+    )
+
+    dataset_info = {
+        "grid_size": tuple(int(x) for x in train_set.grid_size[:2]),
+        "voxel_size": tuple(float(x) for x in train_set.voxel_size),
+        "point_cloud_range": tuple(float(x) for x in train_set.point_cloud_range),
+        "class_names": tuple(cfg.CLASS_NAMES),
+    }
+    model = build_network(
+        cfg.MODEL, dataset_info,
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device,
+        remat=bool(cfg.MODEL.get("REMAT", False)),
+    )
+    total_steps = len(train_loader) * epochs
+    state, lr_sched = create_train_state(model, cfg.OPTIMIZATION, total_steps,
+                                         torch.Generator().manual_seed(args.seed))
+
+    ckpt_mgr = CheckpointManager(ckpt_dir, args.max_ckpt_save_num)
+    start_epoch = 0
+    start_it = 0
+    if args.pretrained_model or args.ckpt:
+        state = ckpt_mgr.load_params_from_file(
+            state, args.ckpt or args.pretrained_model,
+            pretrained_overlay=args.pretrained_model if args.ckpt else None,
+        )
+    elif args.init_from_teacher:
+        state = ckpt_mgr.load_params_from_file(state, args.init_from_teacher)
+        # parameters only (not BN statistics), as the JAX tool duplicates them
+        model.load_state_dict(duplicate_teacher_to_radar(dict(model.named_parameters())),
+                              strict=False)
+        logger.info("duplicated teacher weights into radar branch")
+    else:
+        resumed = ckpt_mgr.restore(state)
+        if resumed is not None:
+            state, start_epoch, resume_it = resumed
+            # mid-epoch resume: `it` beyond the epoch boundary means a
+            # time-interval latest save — continue within the epoch
+            spe = max(len(train_loader), 1)
+            start_it = min(max(resume_it - start_epoch * spe, 0), spe - 1) \
+                if resume_it > start_epoch * spe else 0
+            logger.info(f"resumed from epoch {start_epoch} it {resume_it} "
+                        f"(mid-epoch offset {start_it})")
+
+    step_fn = make_train_step(
+        model, state.optimizer, cfg.MODEL, tuple(cfg.CLASS_NAMES),
+        dataset_info["voxel_size"], dataset_info["point_cloud_range"],
+    )
+
+    try:
+        from tensorboardX import SummaryWriter
+        tb = SummaryWriter(str(output_dir / "tensorboard"))
+    except ImportError:
+        tb = None
+
+    # optional wandb (reference: rank-0 wandb init, tools/train.py:184-198)
+    if os.environ.get("WANDB_PROJECT"):
+        try:
+            import wandb
+
+            wandb.init(project=os.environ["WANDB_PROJECT"], name=f"{cfg.TAG}/{args.extra_tag}",
+                       config={"cfg_file": args.cfg_file})
+        except ImportError:
+            logger.warning("wandb not installed; skipping")
+
+    logger.info("**********************Start training**********************")
+    state = train_model(
+        step_fn, state, train_loader, lr_sched, cfg, epochs, ckpt_dir,
+        start_epoch=start_epoch, logger=logger, tb_writer=tb,
+        ckpt_save_interval=args.ckpt_save_interval,
+        max_ckpt_save_num=args.max_ckpt_save_num, device=device,
+        start_it=start_it, log_interval=args.log_interval,
+    )
+    logger.info("**********************Training done**********************")
+
+    # post-train sweep: evaluate the last N epochs' checkpoints
+    # (reference tools/train.py:241-259 -> repeat_eval_ckpt with
+    # start_epoch = epochs - num_epochs_to_eval)
+    if args.num_epochs_to_eval > 0:
+        from tools.torch_test import eval_ckpt
+
+        logger.info("**********************Start evaluation**********************")
+        test_set, test_loader = build_dataloader(
+            cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+            root_path=cfg.DATA_CONFIG.get("DATA_PATH", None),
+            logger=logger, training=False,
+        )
+        eval_output_dir = output_dir / "eval" / "eval_with_train"
+        eval_output_dir.mkdir(parents=True, exist_ok=True)
+        eval_args = argparse.Namespace(cal_params=False, infer_time=False)
+        first_eval_epoch = max(epochs - args.num_epochs_to_eval, 0)
+        for e in sorted(ckpt_mgr.list_epochs()):
+            if e <= first_eval_epoch:
+                continue
+            restored = ckpt_mgr.restore(state, epoch=e)
+            if restored is None:
+                continue
+            st, _, _ = restored
+            result = eval_ckpt(eval_args, cfg, st, test_set, test_loader,
+                               logger, eval_output_dir, f"epoch_{e}")
+            logger.info(f"eval_with_train epoch {e}: {result}")
+        logger.info("**********************End evaluation**********************")
+    return state
+
+
+if __name__ == "__main__":
+    main()
