@@ -199,6 +199,38 @@ It prints t_iter and t_data p50 over the 6 steps (read from the train logs,
 which must give the same batches),
 the checkpoint's size, save and load seconds, and eval samples/s.
 
+Phase 26, nuScenes at full width (after phase 25): ``tools/torch_nuscenes_tree.py``
+writes a nuScenes-layout tree in a temporary directory at nuScenes' widths (8
+train and 4 val samples; a 34 720-point key lidar frame of 5 float32 features
+and 9 sweeps, about 157 000 points of a sample in range; 5 radar channels x 6
+sweeps of about 100 returns in binary .pcd; 40-60 boxes a sample over the 10
+classes; the info pkls written directly); the port's
+``create_groundtruth_database`` on it; one epoch of ``tools/torch_train.py``
+on ``radar_distill_train.yaml`` (bs2, bf16, 2 workers, GT sampling on: the
+hook's ``NUM_LAST_EPOCHS`` set to 0), ``DATA_PATH`` and the info paths by
+``--set``; then ``tools/torch_test.py`` on ``radar_distill_val.yaml`` with its
+checkpoint over the val infos (bs1), which reaches the fallback metric where
+the nuScenes devkit is not installed. Counts reset before the train run and read
+after the eval: 4 x the train step's + 4 x the val forward's (K5 x 1, K2 x 3),
+nothing else; every logged loss finite; the model on the card. It prints
+t_iter and t_data p50, the loader's seconds a batch, the items' point counts,
+eval samples/s.
+
+Phase 27, data-parallel on the card (``tools/torch_ddp_check.py``): the DDP +
+synchronized-BN step at world size 1 on NCCL against the unwrapped step of
+the same weights, 1440², bs2, bf16 (loss rel <= 1e-6, every parameter after
+one step within 1e-6 rel-L2 but the leaves whose true gradient is zero,
+within 2.1·lr), then 10 steps of each in turns (the DDP steps'
+launches counted: 11 x the train step's), and the host time of one BN's
+all-reduce on the NCCL group (the step makes none at world size 1); two ranks on the one card over gloo,
+bs1 each, against one process on the bs2 batch in float32 (TF32 off):
+``sync_bn=True`` loss rel <= 1e-4 and the parameters by the rule of
+``tests/torch_train_case.py``, ``sync_bn=False`` running statistics equal to
+the mean of the ranks' local updates, each rank's steps with the train step's
+launches; and a 2-rank ``tools/torch_test.py`` (gloo) over phase 26's val set
+whose merged detections equal the 1-process eval's entry by entry (near-tie
+rule). It prints the DDP step's p50 beside the unwrapped step's.
+
 Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
 float32 scales alike, but not every stock op around it (the VFE's sums); one
 flipped input code flips a few percent of the 9 x Co codes it reaches in the
@@ -246,7 +278,9 @@ sums over the 19 deeper links of ``INT8_STAGES: 5`` on their routes
 device time with the host's enqueue hidden, as the wrappers of the links
 below 720² cost the host more than the card); K7's ``device_ms`` is its
 wrapper's device time, the same way. ``launches_runtime`` is each
-kernel's count over phase 25. Any failed phase exits non-zero. The line before the
+kernel's count over phase 25, ``launches_nuscenes`` over phase 26 and
+``launches_ddp`` over the DDP steps of phase 27. Any failed phase exits
+non-zero. The line before the
 last is the kernels record ``{"kernels": [{"name", "route", "mma", "source",
 "replaces", "launches", "max_abs_err", "ms", "launch_ms", "plain_ms",
 "bound_ms", "bound_by", "library_ms", ...}]}``; the last line is
@@ -1790,6 +1824,208 @@ def phase_runtime(torch, dev, smi, step_p50):
     return launches
 
 
+VAL_FORWARD = {"expand_rows": 1, "dcn_sample": 3}
+
+
+def phase_nuscenes(torch, dev, smi, work, step_p50=None):
+    """Phase 26, nuScenes at full width (module docstring); ``step_p50``, the
+    device-resident step's p50 of phase 10 in the same call, to compare
+    t_iter with. Returns (launch counts, the val set's detections file, the
+    argv of the eval, seconds)."""
+    import shutil
+
+    import numpy as np
+
+    from radardistill_tpu_torch.data.loader import build_dataloader
+    from radardistill_tpu_torch.data.nuscenes.info_gen import create_groundtruth_database
+    from radardistill_tpu_torch.train.trainer import read_log
+    from tools import torch_test, torch_train
+    from tools.torch_nuscenes_tree import make_tree
+
+    t_start = time.perf_counter()
+    root = work / "nuscenes"
+    train_infos, val_infos = make_tree(root, 8, 4)
+    t0 = time.perf_counter()
+    create_groundtruth_database(root, max_sweeps=10)
+    t_db = time.perf_counter() - t0
+    tag = "chip_smoke_nuscenes"
+    sets = ["DATA_CONFIG.DATA_PATH", str(root),
+            "DATA_CONFIG.INFO_PATH.train", "[nuscenes_infos_6radar_10sweeps_train.pkl]",
+            "DATA_CONFIG.INFO_PATH.test", "[nuscenes_infos_6radar_10sweeps_val.pkl]"]
+    # one epoch: the hook's last 10 epochs would turn GT sampling off
+    train_argv = ["--cfg_file", str(ROOT / "tools/cfgs/radar_distill/radar_distill_train.yaml"),
+                  "--batch_size", "2", "--epochs", "1", "--workers", "2", "--log_interval", "1",
+                  "--extra_tag", tag, "--num_epochs_to_eval", "0",
+                  "--set", *sets, "HOOK.DisableAugmentationHook.NUM_LAST_EPOCHS", "0"]
+    _, cfg = torch_train.parse_config(train_argv)
+    out = Path("output") / cfg.TAG / tag
+    eval_out = Path("output") / "radar_distill_val" / tag
+    for d in (out, eval_out):
+        shutil.rmtree(d, ignore_errors=True)
+    test_argv = ["--cfg_file", str(ROOT / "tools/cfgs/radar_distill/radar_distill_val.yaml"),
+                 "--batch_size", "1", "--ckpt", str(out / "ckpt" / "checkpoint_epoch_1"),
+                 "--infer_time", "--set", *sets]
+
+    read = reset_launches()
+    state = torch_train.main(train_argv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = torch_test.main(["--extra_tag", tag] + test_argv)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    launches = read()
+
+    steps = read_log(next(out.glob("log_train_*.txt")))
+    n_steps, n_val = len(train_infos) // 2, len(val_infos)
+    want = {**dict.fromkeys(launches, 0),
+            **{k: n_steps * v + n_val * VAL_FORWARD.get(k, 0) for k, v in TRAIN_STEP.items()}}
+    print(f"nuscenes launches over {n_steps} train steps and {n_val} val forwards: {launches}")
+    if launches != want:
+        raise RuntimeError(f"nuscenes: launches {launches}, expected {want}")
+    if next(state.model.parameters()).device != dev or state.step != n_steps:
+        raise RuntimeError(f"nuscenes: model on {next(state.model.parameters()).device}, "
+                           f"{state.step} updates")
+    if len(steps) != n_steps or not all(r[4] == r[4] and abs(r[4]) != float("inf")
+                                        for r in steps):
+        raise RuntimeError(f"nuscenes: logged steps {steps}")
+    if not 0 <= result["mAP"] <= 1:
+        raise RuntimeError(f"nuscenes: eval result {result}")
+    (eval_log,) = eval_out.glob("eval/log_eval_*.txt")
+    infer = re.search(r"inference p50: ([\d.]+) ms/batch", eval_log.read_text())
+    if "devkit absent" not in eval_log.read_text():
+        raise RuntimeError("nuscenes: the eval did not reach the fallback metric")
+
+    # the loader alone over one epoch, and the items' point counts
+    ds, ld = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, root_path=str(root),
+                              workers=2, training=True, model_cfg=cfg.MODEL)
+    _, per_batch = loader_pass(ld)
+    np.random.seed(0)
+    raw = [len(ds.get_item_raw(i)["points"]) for i in range(len(ds))]
+    kept = [len(ds[i]["points"]) for i in range(len(ds))]
+    radar = [len(ds.get_item_raw(i)["radar_points"]) for i in range(len(ds))]
+    med = lambda v: sorted(v)[(len(v) - 1) // 2] / 2 + sorted(v)[len(v) // 2] / 2  # noqa: E731
+    print(f"nuscenes on {smi}: tree of {len(train_infos)} train + {len(val_infos)} val samples, "
+          f"GT database {t_db:.2f} s; train CLI on radar_distill_train.yaml, bs2, bf16, 2 "
+          f"workers, GT sampling on: losses {[round(r[4], 4) for r in steps]}, t_iter p50 "
+          f"{med([r[5] for r in steps]) * 1e3:.1f} ms, t_data p50 "
+          f"{med([r[6] for r in steps]) * 1e3:.1f} ms"
+          + (f" ({med([r[5] for r in steps]) * 1e3 / step_p50:.3f} x the device-resident step "
+             f"p50 {step_p50:.3f} ms)" if step_p50 else "")
+          + f"; loader alone {per_batch:.4f} s/batch; "
+          f"lidar points a train item: {raw} raw, {kept} in range after augmentation; radar "
+          f"returns {radar}; eval CLI on radar_distill_val.yaml, bs1: {n_val} samples in "
+          f"{t_eval:.3f} s (CLI start, build and checkpoint load included): "
+          f"{n_val / t_eval:.3f} samples/s, inference p50 "
+          f"{infer and float(infer[1]):.1f} ms/batch: {1e3 / float(infer[1]):.3f} samples/s, "
+          f"mAP {result['mAP']:.4f} (fallback metric); the phase "
+          f"{time.perf_counter() - t_start:.1f} s")
+    result_pkl = eval_out / "eval" / "eval_checkpoint_epoch_1" / "result.pkl"
+    return launches, result_pkl, test_argv, time.perf_counter() - t_start
+
+
+def same_annos(torch, got, want, tol):
+    """Two detection lists (``generate_prediction_dicts``' dicts) of the same
+    frames, entry by entry under the near-tie rule of ``same_detections``."""
+    got = {d["frame_id"]: d for d in got}
+    if sorted(got) != sorted(d["frame_id"] for d in want):
+        return False
+    for w in want:
+        g = got[w["frame_id"]]
+        if len(g["pred_scores"]) != len(w["pred_scores"]):
+            return False
+        as_dict = lambda d: {  # noqa: E731
+            "boxes": torch.as_tensor(d["pred_boxes"])[None],
+            "scores": torch.as_tensor(d["pred_scores"])[None],
+            "labels": torch.as_tensor(d["pred_labels"])[None],
+            "valid": torch.ones(1, len(d["pred_scores"]), dtype=torch.bool)}
+        if not same_detections(torch, as_dict(g), as_dict(w), tol):
+            return False
+    return True
+
+
+def phase_ddp(torch, dev, smi, work, result_pkl, test_argv):
+    """Phase 27, data-parallel on the card (module docstring). Returns (the
+    DDP step's launch counts, seconds)."""
+    import os
+    import pickle
+    from collections import Counter
+
+    from radardistill_tpu_torch.data.synthetic import make_batch
+    from radardistill_tpu_torch.utils.production import TRAIN_YAML
+    from tools import torch_ddp_check as ddp
+
+    t_start = time.perf_counter()
+    cfg, info, batch = make_batch(TRAIN_YAML)
+    counts = Counter()
+
+    def counted(fn):
+        read = reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts.update(read())
+        return out
+
+    runs = 10
+    one = ddp.world1_nccl(torch, dev, cfg, info, batch, runs, on_step=counted)
+    launches = {k: counts[k] for k in reset_launches()()}
+    want = {**dict.fromkeys(launches, 0), **{k: (1 + runs) * v for k, v in TRAIN_STEP.items()}}
+    if launches != want:
+        raise RuntimeError(f"DDP step: launches {launches}, expected {want}")
+    print(f"ddp, world size 1 on NCCL, bf16, 1440², bs2, on {smi}: loss {one['loss']:.6f}, "
+          f"rel {one['loss_rel']:.3e} from the unwrapped step, worst of {one['params']} "
+          f"parameters after one step rel-L2 {one['worst_param_rel_l2']:.3e} (the zero-gradient "
+          f"leaves within {one['zero_grad_max_abs']:.3e} of 2.1 lr = {2.1 * one['lr']:.3e}); "
+          f"p50 over "
+          f"{runs} steps in turns: DDP + synchronized BN {one['ddp_p50_ms']:.3f} ms, unwrapped "
+          f"{one['plain_p50_ms']:.3f} ms ({one['ddp_p50_ms'] / one['plain_p50_ms']:.3f} x); "
+          f"one BN's all-reduce on the NCCL group (2 x 256 + 1 floats, paid twice a step by "
+          f"each train-mode BN at world sizes above 1) {one['allreduce_us']:.1f} us of host "
+          f"time; "
+          f"launches over its {1 + runs} steps {launches}")
+    step = {k: TRAIN_STEP[k] for k in ("expand_rows", "dcn_sample", "conv_block",
+                                       "dcn_offset_grad", "dcn_input_grad")}
+    two = ddp.two_ranks(torch, dev, cfg, info, batch, work / "ddp", step)
+    print(f"ddp, 2 ranks on one card over gloo, f32, bs1 each against bs2 on {smi}: "
+          f"sync_bn=True loss {two['loss']:.6f} against {two['loss_one_process']:.6f} (rel "
+          f"{two['loss_rel']:.3e}), parameters worst rel-L2 {two['worst_param_rel_l2']:.3e}, "
+          f"least update cosine {two['least_update_cos']:.4f}; sync_bn=False loss "
+          f"{two['local_loss']:.6f}, its {two['stats']} running statistics within rel-L2 "
+          f"{two['stats_rel_l2']:.3e} of the mean of the ranks' local updates; the ranks "
+          f"{two['ranks_s']:.1f} s")
+    del batch
+    torch.cuda.empty_cache()
+
+    # a 2-rank eval through tools/torch_test.py against the 1-process one
+    port = ddp.free_port()
+    t0 = time.perf_counter()
+    tag = "chip_smoke_nuscenes_2ranks"
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tools/torch_test.py"), "--extra_tag", tag, *test_argv],
+        env=dict(os.environ, WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r),
+                 MASTER_ADDR="localhost", MASTER_PORT=str(port)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise RuntimeError(f"2-rank eval, rank {r} failed:\n{outs[r][-4000:]}")
+    t_eval = time.perf_counter() - t0
+    got = pickle.loads((Path("output") / "radar_distill_val" / tag / "eval"
+                        / "eval_checkpoint_epoch_1" / "result.pkl").read_bytes())
+    want = pickle.loads(result_pkl.read_bytes())
+    if len(got) != len(want) or not same_annos(torch, got, want, 1e-4):
+        raise RuntimeError("2-rank eval: the merged detections differ from the 1-process eval's")
+    print(f"ddp: tools/torch_test.py on 2 ranks (gloo, one card) over the {len(want)} val "
+          f"samples: merged detections ({sum(len(d['pred_scores']) for d in got)} boxes, rank "
+          f"order {[d['frame_id'] for d in got]}) equal the 1-process eval's entry by entry; "
+          f"{t_eval:.1f} s with the processes' start; the phase "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return launches, time.perf_counter() - t_start
+
+
 def phase_dense_from(torch, dev, yaml_name, dense_from=3):
     """``DENSE_FROM: dense_from`` against the shipped 5 on one raw val batch in
     float32 (TF32 off): the table stages and the masked-dense stages are the
@@ -1999,6 +2235,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     runtime_launches = phase_runtime(torch, dev, smi, step_p50)
     torch.cuda.empty_cache()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        nusc_launches, result_pkl, test_argv, t_nusc = phase_nuscenes(torch, dev, smi,
+                                                                      Path(work), step_p50)
+        torch.cuda.empty_cache()
+        ddp_launches, t_ddp = phase_ddp(torch, dev, smi, Path(work), result_pkl, test_argv)
+    print(f"phases 26 and 27 (nuScenes, data-parallel): {t_nusc:.1f} + {t_ddp:.1f} s")
+    torch.cuda.empty_cache()
 
     # the teacher's deep chains: the same yaml with BACKBONE_3D overrides
     deep = {"int8_stages5": {"INT8_STAGES": 5}, "fp_stages5": {"INT8_STAGES": 1, "FP_STAGES": 5}}
@@ -2068,7 +2313,9 @@ def main() -> int:
                 "launches_int8_stages5": chain_launches["int8_stages5"][name],
                 "launches_fp_stages5": chain_launches["fp_stages5"][name],
                 "launches_device_tables": dev_launches[name],
-                "launches_runtime": runtime_launches[name], "launch_ms": None,
+                "launches_runtime": runtime_launches[name],
+                "launches_nuscenes": nusc_launches[name], "launches_ddp": ddp_launches[name],
+                "launch_ms": None,
                 "mma": MMA_ROUTES.get(name), **rec}
                for name, src, replaces, rec in table]
     # K1: the stage-1 links' time on the old resident mma.sync variant, and
@@ -2079,7 +2326,8 @@ def main() -> int:
                            + str([k["name"] for k in kernels if k["launches"] < 1]))
     keys = ("name", "route", "mma", "source", "replaces", "launches", "launches_val",
             "launches_forward", "launches_int8_stages5", "launches_fp_stages5",
-            "launches_device_tables", "launches_runtime", "max_abs_err",
+            "launches_device_tables", "launches_runtime", "launches_nuscenes",
+            "launches_ddp", "max_abs_err",
             "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "aside_ms",
             "teacher_bf16_rel_l2", "alternating_ms", "alternating_library_ms",
             "k4_route", "repeats_bitwise", "old_route_ms", "device_ms",

@@ -58,7 +58,11 @@ def merge_new_config(config: ConfigDict, new_config: dict) -> ConfigDict:
 
     Matches reference pcdet/config.py:50-67: the base config is loaded first,
     then ``new_config`` entries override it key-by-key (dicts merge
-    recursively; everything else replaces).
+    recursively; everything else replaces). A dict merges into a new section
+    too, so a nested ``_BASE_CONFIG_`` (``DATA_CONFIG``'s in the shipped
+    radar_distill yamls) is expanded, as the reference's is; the JAX
+    package's copy leaves it unexpanded. A base's own nested bases are not
+    (the reference updates with the base as loaded).
     """
     if "_BASE_CONFIG_" in new_config:
         base_path = new_config.pop("_BASE_CONFIG_")
@@ -67,7 +71,9 @@ def merge_new_config(config: ConfigDict, new_config: dict) -> ConfigDict:
         config.update(ConfigDict(base))
 
     for key, val in new_config.items():
-        if isinstance(val, dict) and key in config and isinstance(config[key], dict):
+        if isinstance(val, dict):
+            if not isinstance(config.get(key), dict):
+                config[key] = ConfigDict()
             merge_new_config(config[key], val)
         else:
             config[key] = copy.deepcopy(ConfigDict._wrap(val))

@@ -12,8 +12,8 @@ pipeline.
 The port's copy of ``radardistill_tpu/data/dataset.py`` (``DatasetTemplate``,
 ``SyntheticDataset``), line for line: its scenes come from the port's
 ``synthetic.make_scene`` and its metric from the port's
-``nuscenes/eval_bridge.py``. The nuScenes dataset classes are ROADMAP queue 1
-item 12f.
+``nuscenes/eval_bridge.py``. The nuScenes datasets build on ``DatasetTemplate``
+in ``nuscenes/dataset.py``.
 """
 
 from __future__ import annotations

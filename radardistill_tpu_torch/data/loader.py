@@ -10,8 +10,10 @@ the trainer's prefetcher moves it to the card). With workers > 0 the
 per-sample pipeline (augment + encode + pad) runs in forked torch CPU worker
 processes, which touch no CUDA state; the ``batch_transform``
 (``HostPrecompute``) runs on the prefetch thread of the parent.
-``DATASETS`` registers ``SyntheticDataset``; the nuScenes datasets are ROADMAP
-queue 1 item 12f and raise.
+``DATASETS`` registers the four nuScenes datasets under the reference's names
+and ``SyntheticDataset``. Under data parallelism each process reads its slice
+of the (shuffled) indices, ``idx[process_index::process_count]``, as the
+reference's DistributedSampler does.
 """
 
 from __future__ import annotations
@@ -19,21 +21,15 @@ from __future__ import annotations
 import numpy as np
 
 from .dataset import DatasetTemplate, SyntheticDataset
-
-
-def _not_ported(name):
-    def build(**_kwargs):
-        raise NotImplementedError(
-            f"DATASET: {name} is not ported (nuScenes: ROADMAP queue 1, item 12f)")
-
-    return build
-
+from .nuscenes.dataset import (NuScenesDataset, NuScenesDatasetDistill, NuScenesDatasetRadar,
+                               NuScenesDatasetRadarTest)
 
 # registry names mirror the reference's __all__ (pcdet/datasets/__init__.py:24-38)
 DATASETS = {
-    **{name: _not_ported(name) for name in (
-        "NuScenesDataset_Distill", "NuScenesDataset_radar", "NuScenesDataset_radar_test",
-        "NuScenesDataset")},
+    "NuScenesDataset_Distill": NuScenesDatasetDistill,
+    "NuScenesDataset_radar": NuScenesDatasetRadar,
+    "NuScenesDataset_radar_test": NuScenesDatasetRadarTest,
+    "NuScenesDataset": NuScenesDataset,
     "SyntheticDataset": SyntheticDataset,
 }
 

@@ -1,1 +1,2 @@
-"""nuScenes evaluation of the port (the device-free metric only)."""
+"""nuScenes data of the port: the radar .pcd reader, the four datasets, the
+info / GT-database generation and the evaluation bridge."""

@@ -1,17 +1,27 @@
-"""The device-free detection metric of the nuScenes evaluation bridge.
+"""nuScenes evaluation bridge.
 
-Reference: the nuScenes devkit's detection_cvpr_2019 protocol (eval/detection
-evaluate.py + algo.py), surfaced in pcdet/datasets/nuscenes/nuscenes_utils.py
-:588-617. The port's copy of the fallback leg of
-``radardistill_tpu/data/nuscenes/eval_bridge.py`` (``detection_metrics``,
-``center_distance_ap`` and their helpers): center-distance matching at
-{0.5, 1, 2, 4} m in the lidar frame, TP errors at 2 m, NDS, which
-``SyntheticDataset.evaluation`` calls. The devkit legs (``evaluate_nuscenes``,
-``_official_eval``) and the nuScenes dataset classes are ROADMAP queue 1 item
-12f, not ported.
+Reference: pcdet/datasets/nuscenes/nuscenes_utils.py:500-617 (lidar→global
+box transform, attribute heuristics, submission json, result formatting) and
+nuscenes_dataset_distill.py:330-384 (devkit NuScenesEval invocation).
+
+Two paths:
+  1. Official: when nuscenes-devkit is installed, write results_nusc.json and
+     run NuScenesEval (mAP/NDS, detection_cvpr_2019 protocol).
+  2. Fallback (devkit absent — e.g. this build environment): a self-contained
+     center-distance AP in the LIDAR frame over the loaded infos. The
+     official protocol matches by 2D center distance at {0.5,1,2,4} m in
+     global coords; evaluating in the lidar frame over the same boxes is
+     rotation/translation invariant per sample, so the fallback reproduces
+     the matching semantics for sanity tracking (not leaderboard numbers).
+
+The port's copy of ``radardistill_tpu/data/nuscenes/eval_bridge.py`` (numpy
+only), line for line: both legs, the devkit's and the fallback.
 """
 
 from __future__ import annotations
+
+import json
+from pathlib import Path
 
 import numpy as np
 
@@ -46,6 +56,111 @@ def _attr_for(name, velocity):
         if name == "bus":
             return "vehicle.stopped"
     return DEFAULT_ATTR.get(name, "")
+
+
+def evaluate_nuscenes(dataset, det_annos, class_names, output_path="./eval_out"):
+    try:
+        import nuscenes  # noqa: F401
+
+        return _official_eval(dataset, det_annos, class_names, output_path)
+    except ImportError:
+        return _fallback_eval(dataset, det_annos, class_names, output_path)
+
+
+# ---------------------------------------------------------------------------
+
+
+def _official_eval(dataset, det_annos, class_names, output_path):
+    from nuscenes.nuscenes import NuScenes
+    from nuscenes.utils.data_classes import Box
+    from pyquaternion import Quaternion
+
+    nusc = NuScenes(
+        version=dataset.dataset_cfg["VERSION"], dataroot=str(dataset.root_path), verbose=True
+    )
+    results = {}
+    for det in det_annos:
+        token = det["metadata"]["token"]
+        boxes = det["pred_boxes"]
+        annos = []
+        s_record = nusc.get("sample", token)
+        sd = nusc.get("sample_data", s_record["data"]["LIDAR_TOP"])
+        cs = nusc.get("calibrated_sensor", sd["calibrated_sensor_token"])
+        pose = nusc.get("ego_pose", sd["ego_pose_token"])
+        for k in range(len(boxes)):
+            b = boxes[k]
+            vel = (b[7], b[8], 0.0) if boxes.shape[1] == 9 else (0.0, 0.0, 0.0)
+            box = Box(
+                b[:3], b[[4, 3, 5]], Quaternion(axis=[0, 0, 1], radians=b[6]),
+                label=int(det["pred_labels"][k]), score=float(det["pred_scores"][k]),
+                velocity=vel,
+            )
+            box.rotate(Quaternion(cs["rotation"]))
+            box.translate(np.array(cs["translation"]))
+            box.rotate(Quaternion(pose["rotation"]))
+            box.translate(np.array(pose["translation"]))
+            name = det["name"][k]
+            annos.append({
+                "sample_token": token,
+                "translation": box.center.tolist(),
+                "size": box.wlh.tolist(),
+                "rotation": box.orientation.elements.tolist(),
+                "velocity": box.velocity[:2].tolist(),
+                "detection_name": name,
+                "detection_score": box.score,
+                "attribute_name": _attr_for(name, box.velocity),
+            })
+        results[token] = annos
+
+    out = Path(output_path)
+    out.mkdir(parents=True, exist_ok=True)
+    res_path = out / "results_nusc.json"
+    with open(res_path, "w") as f:
+        json.dump({"results": results, "meta": {
+            "use_camera": False, "use_lidar": False, "use_radar": True,
+            "use_map": False, "use_external": False,
+        }}, f)
+
+    if dataset.dataset_cfg["VERSION"] == "v1.0-test":
+        return "No ground-truth annotations for evaluation", {}
+
+    from nuscenes.eval.detection.config import config_factory
+    from nuscenes.eval.detection.evaluate import NuScenesEval
+
+    eval_set_map = {"v1.0-mini": "mini_val", "v1.0-trainval": "val", "v1.0-test": "test"}
+    cfg = config_factory("detection_cvpr_2019")
+    nusc_eval = NuScenesEval(
+        nusc, config=cfg, result_path=str(res_path),
+        eval_set=eval_set_map[dataset.dataset_cfg["VERSION"]],
+        output_dir=str(out), verbose=True,
+    )
+    nusc_eval.main(plot_examples=0, render_curves=False)
+    with open(out / "metrics_summary.json") as f:
+        metrics = json.load(f)
+    return format_nuscene_results(metrics, class_names)
+
+
+def format_nuscene_results(metrics, class_names, version="detection_cvpr_2019"):
+    """nuscenes_utils.py:588-617 result table. The thresholds are the keys of
+    ``label_aps``: strings in the devkit's json, floats from
+    ``detection_metrics`` (the JAX package joins them as strings and so
+    raises on its fallback leg; here both read "0.5, 1.0, 2.0, 4.0")."""
+    result = f"----------------Nuscene {version} results-----------------\n"
+    for name in class_names:
+        aps = metrics["label_aps"][name]
+        result += f"***{name} | AP@{', '.join(str(k) for k in aps.keys())}\n"
+        result += ", ".join(f"{x * 100:.2f}" for x in aps.values())
+        result += f" | mean AP: {metrics['mean_dist_aps'][name]}\n"
+    details = dict(metrics.get("tp_errors", {}))
+    result += "--------------average performance-------------\n"
+    for k, v in details.items():
+        result += f"{k}:\t {v:.4f}\n"
+    result += f"mAP:\t {metrics['mean_ap']:.4f}\nNDS:\t {metrics['nd_score']:.4f}\n"
+    details.update({"mAP": metrics["mean_ap"], "NDS": metrics["nd_score"]})
+    return result, details
+
+
+# ---------------------------------------------------------------------------
 
 
 # TP metrics of the detection_cvpr_2019 protocol and the devkit's class
@@ -256,3 +371,27 @@ def center_distance_ap(gt_boxes, gt_names, det_boxes, det_scores, det_names,
             out[cls] = m["label_aps"][cls]
     return out
 
+
+def _fallback_eval(dataset, det_annos, class_names, output_path):
+    gt_boxes, gt_names, det_boxes, det_scores, det_names = [], [], [], [], []
+    token_to_info = {info["token"]: info for info in dataset.infos}
+    for det in det_annos:
+        info = token_to_info.get(det.get("metadata", {}).get("token"))
+        if info is None or "gt_boxes" not in info:
+            continue
+        gt_boxes.append(np.asarray(info["gt_boxes"]))
+        gt_names.append(np.asarray(info["gt_names"]))
+        det_boxes.append(det["pred_boxes"])
+        det_scores.append(det["pred_scores"])
+        det_names.append(det["name"])
+    metrics = detection_metrics(
+        gt_boxes, gt_names, det_boxes, det_scores, det_names, class_names
+    )
+    result, details = format_nuscene_results(
+        metrics, class_names, version="internal center-distance (devkit absent)"
+    )
+    out = Path(output_path)
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / "metrics_internal.json", "w") as f:
+        json.dump(metrics, f, indent=2)
+    return result, details

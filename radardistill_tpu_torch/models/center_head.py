@@ -11,7 +11,10 @@ BN takes the batch's statistics and updates every subhead's running ones),
 (``focal_loss_cornernet``, ``reg_l1_loss``, the IoU and DIoU terms,
 ``centerhead_loss``) and ``decode_and_nms``. Inputs NHWC; predictions
 (B, H, W, n_heads, C) per subhead; the losses carry the head axis in front
-where the JAX package maps over it.
+where the JAX package maps over it. The losses' normalizers over the batch
+(the focal loss's positives, the regression and IoU terms' object counts)
+go through ``parallel.mesh.batch_sum``: under synchronized data parallelism
+each rank's loss is its share of the global batch's.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import geometry, nms
+from ..parallel.mesh import batch_sum
 from .layers import (BN_MOM_DEFAULT, BatchNormTorch, Conv2dTorch, batch_stats, clip_sigmoid,
                      update_running_)
 
@@ -277,7 +281,7 @@ def focal_loss_cornernet(pred: torch.Tensor, gt: torch.Tensor, dims=None) -> tor
     neg_w = torch.pow(1 - gt, 4)
     pos_loss = torch.log(pred) * torch.pow(1 - pred, 2) * pos
     neg_loss = torch.log(1 - pred) * torch.pow(pred, 2) * neg_w * neg
-    num_pos = pos.sum(dim=dims)
+    num_pos = batch_sum(pos.sum(dim=dims))
     pos_l = pos_loss.sum(dim=dims)
     neg_l = neg_loss.sum(dim=dims)
     return torch.where(num_pos == 0, -neg_l, -(pos_l + neg_l) / torch.clamp(num_pos, min=1.0))
@@ -293,7 +297,7 @@ def reg_l1_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) ->
     """Per-code-dim L1 over masked object slots: pred/target (..., B, M, D),
     mask (..., B, M) -> (..., D), normalized by ``max(num_pos, 1)``."""
     m = mask.float()
-    num = m.sum(dim=(-2, -1))
+    num = batch_sum(m.sum(dim=(-2, -1)))
     diff = torch.abs(pred * m[..., None] - target * m[..., None])
     return diff.sum(dim=(-3, -2)) / torch.clamp(num, min=1.0)[..., None]
 
@@ -357,7 +361,7 @@ def centerhead_loss(preds: Dict[str, torch.Tensor], targets: Dict[str, torch.Ten
             feature_map_stride, voxel_size, point_cloud_range)  # (n, B, HW, 7)
         box_at = gather_at_inds(box_map, t_inds)  # (n, B, M, 7)
         mask = t_masks.float()
-        nmask = mask.sum(dim=(1, 2))
+        nmask = batch_sum(mask.sum(dim=(1, 2)))
         if with_iou:
             iou_pred_at = gather_at_inds(hfirst("iou").reshape(n, b, H * W, 1), t_inds)[..., 0]
             # target = 2 * IoU3D - 1 of the decoded boxes, no gradient through them

@@ -9,7 +9,10 @@ and K4 backward. In train mode each downsample leaves the share of its offsets
 beyond the kernels' clamp in ``dcn_offset_sat`` (the reference's diagnostic;
 the train step reports the mean over the three sites). The BNs follow
 ``nn.Module.training``. GELU is the exact erf form (``F.gelu``'s default), as
-in the reference.
+in the reference. The losses' batch normalizers (AFD's mask ratio, batch size
+and mask mean, PFD's TP/FN and FP counts) go through
+``parallel.mesh.batch_sum``: under synchronized data parallelism each rank's
+loss is its share of the global batch's.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dcn import DCN_MAX_OFFSET, modulated_deform_conv
+from ..parallel.mesh import batch_sum
 from .layers import (GRN, BatchNormTorch, Conv2dTorch, ConvTranspose2dTorch, Dense,
                      LayerNormTorch, clip_sigmoid)
 
@@ -113,7 +117,6 @@ def afd_low_loss(lidar_bev: torch.Tensor, radar_bev: torch.Tensor):
     """Activation-based feature distillation: masked MSE between the densified
     radar BEV and the teacher's x_conv4, plus an L1 occupancy loss. NHWC
     inputs (B, H, W, C). Returns (feature_loss, mask_loss)."""
-    B = radar_bev.shape[0]
     lidar_act = lidar_bev.sum(dim=-1, keepdim=True)
     lidar_mask = (lidar_act > 0).float()
     radar_act = radar_bev.sum(dim=-1, keepdim=True)
@@ -121,14 +124,18 @@ def afd_low_loss(lidar_bev: torch.Tensor, radar_bev: torch.Tensor):
     activate = (radar_act > 0).float() + lidar_mask * 0.5
     m_rl = (activate == 1.5).float()  # radar and lidar active
     m_rd = (activate == 1.0).float()  # radar active, lidar not
-    m_rd = m_rd * (m_rl.sum() / torch.clamp(m_rd.sum(), min=1.0))
+    # Σm_rl, Σm_rd, the batch size and the cell count of the mask mean
+    n_rl, n_rd, B, cells = batch_sum(torch.stack([
+        m_rl.sum(), m_rd.sum(), m_rl.new_tensor(radar_bev.shape[0]),
+        m_rl.new_tensor(radar_act.numel())]))
+    m_rd = m_rd * (n_rl / torch.clamp(n_rd, min=1.0))
 
     sq = (radar_bev.float() - lidar_bev.float()) ** 2
     loss_rl = (sq * m_rl).sum() / B
     loss_rd = (sq * m_rd).sum() / B
     feature_loss = 3e-4 * loss_rl + 5e-5 * loss_rd
 
-    mask_loss = torch.mean(torch.abs(torch.sigmoid(radar_act.float()) - lidar_mask))
+    mask_loss = torch.abs(torch.sigmoid(radar_act.float()) - lidar_mask).sum() / cells
     return feature_loss, mask_loss
 
 
@@ -143,8 +150,9 @@ def pfd_high_loss(radar_bev, radar_bev_8x, lidar_bev, lidar_bev_8x, gt_heatmap_m
     fn = (gt_heatmap_max > gt_thres) & (radar_heatmap_max < thres)
     tp = (gt_heatmap_max > gt_thres) & (radar_heatmap_max > thres)
     tp_fn = tp | fn
-    weight = (tp_fn.float() * (5.0 / torch.clamp(tp_fn.sum().float(), min=1.0))
-              + fp.float() * (1.0 / torch.clamp(fp.sum().float(), min=1.0)))
+    n_tp_fn, n_fp = batch_sum(torch.stack([tp_fn.sum().float(), fp.sum().float()]))
+    weight = (tp_fn.float() * (5.0 / torch.clamp(n_tp_fn, min=1.0))
+              + fp.float() * (1.0 / torch.clamp(n_fp, min=1.0)))
 
     def scaled_l1(a, b):
         sa = torch.softmax(a.float(), dim=-1)

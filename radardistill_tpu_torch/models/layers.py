@@ -11,7 +11,9 @@ are used, so one model serves the float32 reference and the bfloat16 path.
 The BatchNorms follow ``nn.Module.training``: in eval mode they read their
 running statistics, in train mode they normalize with the batch's statistics
 and update the running ones in place (the detector keeps frozen scopes in
-eval mode). Parameters are created empty; ``init_reference_`` draws them
+eval mode); their sums go through ``parallel.mesh.batch_sum``, so under
+data parallelism with synchronized BN they are the global batch's.
+Parameters are created empty; ``init_reference_`` draws them
 from the reference's initializers (``build_network(..., generator=g)`` calls
 it), ``init_random_`` fills a test model with values away from the defaults;
 both take an explicit ``torch.Generator``.
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv_block import int_conv_exact
+from ..parallel.mesh import batch_sum
 
 # reference eps and momentum (torch convention: the share of the batch's
 # statistic in the update): sparse backbone + neck BNs 1e-3 / 0.01, head and
@@ -213,10 +216,15 @@ class BNParams(nn.Module):
 def batch_stats(x32: torch.Tensor):
     """Per-channel mean and *biased* variance over every axis but the last,
     single pass in float32: ``var = max(E[x²] - E[x]², 0)`` (flax's
-    ``nn.BatchNorm``)."""
+    ``nn.BatchNorm``). Σx, Σx² and the row count go through one
+    ``batch_sum``, so inside a ``sync_batch`` scope the statistics are those
+    of the global batch."""
     axes = tuple(range(x32.dim() - 1))
-    mean = x32.mean(dim=axes)
-    var = torch.clamp((x32 * x32).mean(dim=axes) - mean * mean, min=0.0)
+    c = x32.shape[-1]
+    sums = batch_sum(torch.cat([x32.sum(dim=axes), (x32 * x32).sum(dim=axes),
+                                x32.new_full((1,), x32.numel() // c)]))
+    mean = sums[:c] / sums[2 * c]
+    var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
     return mean, var
 
 
@@ -262,7 +270,9 @@ class MaskedBatchNorm(nn.Module):
     Eval: the running statistics. Train: statistics over the rows that
     ``mask`` (broadcastable to ``x[..., 0]``) marks active, single pass
     (Σx, Σx²) with ``n = max(Σmask, 1)``; the running variance is updated with
-    the *unbiased* batch variance, as torch's BN1d does."""
+    the *unbiased* batch variance, as torch's BN1d does. Σx, Σx² and Σmask go
+    through one ``batch_sum`` (the global batch inside a ``sync_batch``
+    scope, the unbiased factor's n included)."""
 
     def __init__(self, features, eps=BN_EPS_BACKBONE, momentum=BN_MOM_BACKBONE):
         super().__init__()
@@ -278,11 +288,14 @@ class MaskedBatchNorm(nn.Module):
             if mask is None:
                 raise ValueError("MaskedBatchNorm in train mode needs the active mask")
             m = mask.to(torch.float32)
-            n = torch.clamp(m.sum(), min=1.0)
             axes = tuple(range(x.dim() - 1))
             xm = x32 * m[..., None]
-            mean = xm.sum(dim=axes) / n
-            var = torch.clamp((xm * x32).sum(dim=axes) / n - mean * mean, min=0.0)
+            c = x.shape[-1]
+            sums = batch_sum(torch.cat([xm.sum(dim=axes), (xm * x32).sum(dim=axes),
+                                        m.sum().reshape(1)]))
+            n = torch.clamp(sums[2 * c], min=1.0)
+            mean = sums[:c] / n
+            var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
             update_running_(self.running_mean, mean, self.momentum)
             update_running_(self.running_var, var * n / torch.clamp(n - 1.0, min=1.0),
                             self.momentum)

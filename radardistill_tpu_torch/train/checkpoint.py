@@ -15,6 +15,10 @@ names are the flax scope names, so a ``state_dict`` key is the JAX tree path
 joined by dots (``convert.py``), and the surgery and the overlay act on flat
 ``state_dict``s where the JAX package walks nested trees. A file is written
 to a temporary name and renamed, so a save that dies leaves no torn file.
+Under data parallelism only rank 0 writes (the reference's DDP rank-0
+``torch.save``); the model in the ``TrainState`` is the unwrapped module, so
+its keys carry no ``module.`` prefix and a checkpoint of N ranks loads into
+one process and the reverse.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import torch
+
+from ..parallel.multihost import process_index
 
 VERSION = "radardistill_tpu_torch+0.1.0"
 
@@ -93,8 +99,11 @@ class CheckpointManager:
     def save(self, state, epoch: int, it: int | None = None, tag: str | None = None):
         """Write ``state`` (a ``TrainState``: model and optimizer) as the
         checkpoint of ``epoch`` (or of ``tag``); ``it`` defaults to the
-        state's step count. Returns the path."""
+        state's step count. Returns the path. Only rank 0 writes, and no
+        rank waits for another here."""
         path = self._path(tag if tag is not None else epoch)
+        if process_index() != 0:
+            return path  # rank-0-only writes
         payload = {
             "model_state": state.model.state_dict(),
             "optimizer_state": state.optimizer.state_dict(),

@@ -7,7 +7,9 @@ thresholds vs GT).
 
 Counterpart of ``radardistill_tpu/train/eval_utils.py``: the model emits
 fixed-shape ``final_box_dicts``; recall is computed on the host with the
-port's C++ 3D-IoU op (``data/host_ops.py``).
+port's C++ 3D-IoU op (``data/host_ops.py``). Under data parallelism each
+rank evaluates its slice of the data; the caller gathers the detections
+(``parallel.multihost.gather_detections``) before the dataset's evaluation.
 """
 
 from __future__ import annotations

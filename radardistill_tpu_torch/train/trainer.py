@@ -10,7 +10,10 @@ Counterpart of ``radardistill_tpu/train/trainer.py``. The step
 the card; the trainer is orchestration: data iteration, hooks, logging,
 checkpoints. Batches reach the card through ``_DevicePrefetcher`` (pinned
 host memory, a copy stream), and the metrics of a logged step are read back
-one step late, in one copy.
+one step late, in one copy. Under data parallelism every rank runs the loop
+on its slice of the data; the logged loss is the mean over the ranks
+(``pmean_scalar``), rank 0 alone logs and writes checkpoints, and every rank
+waits at the end until the last checkpoint is written.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Callable
 import torch
 
 from ..models.detector import batch_to_torch
+from ..parallel.multihost import barrier, pmean_scalar
 from ..utils.common import AverageMeter
 from .checkpoint import CheckpointManager
 
@@ -197,7 +201,7 @@ def train_model(
                 return
             p_i, p_metrics, p_it, p_data = pending
             m = p_metrics.read()
-            loss = m["loss"]
+            loss = pmean_scalar(m["loss"])
             it_off = start_it if epoch == start_epoch else 0
             gstep = epoch * spe + it_off + p_i + 1
             lr = float(lr_sched(gstep)) if lr_sched else 0.0
@@ -241,4 +245,5 @@ def train_model(
             ckpt_mgr.save(state, epoch + 1)
             if logger:
                 logger.info(f"saved checkpoint_epoch_{epoch + 1}")
+    barrier()  # every rank reads rank 0's checkpoints from here on
     return state

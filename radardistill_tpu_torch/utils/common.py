@@ -62,12 +62,37 @@ class AverageMeter:
         self.avg = self.sum / max(self.count, 1)
 
 
-def maybe_init_distributed():
-    """One process: a no-op that returns False. ``WORLD_SIZE`` above 1 (what
-    ``torchrun`` exports, the counterpart of ``JAX_PROCESS_COUNT``) raises:
-    multi-process training is ROADMAP queue 1 item 13, not ported."""
-    n = int(os.environ.get("WORLD_SIZE", "1"))
-    if n <= 1:
+def dist_env():
+    """What ``torchrun`` exports: (world size, rank, local rank, ranks on
+    this host); 1, 0, 0, the world size when unset."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    return (world, int(os.environ.get("RANK", "0")), int(os.environ.get("LOCAL_RANK", "0")),
+            int(os.environ.get("LOCAL_WORLD_SIZE", str(world))))
+
+
+def maybe_init_distributed(device="cuda"):
+    """One process (``WORLD_SIZE`` unset or 1): a no-op that returns False.
+    Under ``torchrun`` (``WORLD_SIZE`` > 1): initializes the default process
+    group from ``WORLD_SIZE``, ``RANK`` and ``MASTER_ADDR`` / ``MASTER_PORT``
+    (the counterpart of ``jax.distributed.initialize``) and returns True. On
+    the card the process takes ``cuda:LOCAL_RANK`` and the backend is NCCL,
+    or gloo when this host runs more ranks than it has cards (NCCL refuses
+    two ranks on one card; they share the cards in turn); on the CPU it is
+    gloo. A group already initialized is kept."""
+    world, rank, local_rank, local_world = dist_env()
+    if world <= 1:
         return False
-    raise NotImplementedError(
-        f"WORLD_SIZE={n}: multi-process runs are not ported (ROADMAP queue 1, item 13)")
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return True
+    backend = "gloo"
+    if torch.device(device).type == "cuda":
+        cards = torch.cuda.device_count()
+        if cards == 0:
+            raise RuntimeError(f"WORLD_SIZE={world} on the card, but no card is visible")
+        torch.cuda.set_device(local_rank % cards)
+        backend = "nccl" if local_world <= cards else "gloo"
+    dist.init_process_group(backend, init_method="env://", world_size=world, rank=rank)
+    return True

@@ -2,7 +2,8 @@
 cpu`` on ``production_cert_grid128.yaml`` (the shipped model and optimizer
 at grid 128, ``SyntheticDataset``), one epoch of two steps at batch 2, then
 ``tools/torch_test.py --device cpu`` on its checkpoint, then
-``--init_from_teacher`` from it; the flags that are not ported raise. All run in this
+``--init_from_teacher`` from it; ``--sync_bn 0`` on one process; the flags
+that are not ported raise. All run in this
 process from a temporary working directory, as a user runs them from the
 repository root. The decode keeps 50 candidates a head instead of 500
 (``--set``): its rotated-box NMS costs about 14 s a batch on one CPU thread
@@ -65,8 +66,23 @@ def test_train_then_test_cli(tmp_path, monkeypatch):
     assert init.step == 1
 
 
+def test_train_cli_sync_bn_0_trains_on_one_process(tmp_path, monkeypatch):
+    """``--sync_bn 0`` (per-rank BN statistics) no longer raises: on one process
+    it is the step of one process; tests/test_torch_parallel.py runs it on two."""
+    from tools import torch_train
+
+    monkeypatch.chdir(tmp_path)
+    state = torch_train.main(["--cfg_file", CFG, "--device", "cpu", "--epochs", "1",
+                              "--batch_size", "2", "--workers", "0", "--sync_bn", "0",
+                              "--num_epochs_to_eval", "0", "--set", "DATA_CONFIG.NUM_SAMPLES",
+                              "2"])
+    assert state.step == 1
+    assert (tmp_path / "output" / "production_cert_grid128" / "default" / "ckpt"
+            / "checkpoint_epoch_1").exists()
+
+
 @pytest.mark.parametrize("tool, flags", [
-    ("torch_train", ["--sync_bn", "0"]), ("torch_train", ["--profile_dir", "prof"]),
+    ("torch_train", ["--profile_dir", "prof"]),
     ("torch_test", ["--bev_similarity", "spatial_features_2d"])])
 def test_unported_flags_raise(tool, flags, tmp_path, monkeypatch):
     import importlib

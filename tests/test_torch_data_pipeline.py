@@ -323,12 +323,21 @@ def test_loader_workers_and_start_iter_match_jax(loaders, training):
     assert_same(_batches(ld, epochs=(1,)), serial["jax", training][per_epoch:])
 
 
-def test_unported_datasets_raise():
+def test_unported_datasets_raise(tmp_path):
+    """The four nuScenes names no longer raise: each builds its dataset under
+    the reference's registry name (here over a tree without infos; the items
+    are held against the JAX package in tests/test_torch_nuscenes.py)."""
+    from radardistill_tpu_torch.data.nuscenes import dataset as nds
+
     cfg, _ = _cfgs()
-    for name in ("NuScenesDataset_Distill", "NuScenesDataset_radar",
-                 "NuScenesDataset_radar_test", "NuScenesDataset"):
-        with pytest.raises(NotImplementedError, match="12f"):
-            loader.build_dataloader({**cfg.DATA_CONFIG, "DATASET": name}, cfg.CLASS_NAMES, 2)
+    for name, cls in (("NuScenesDataset_Distill", nds.NuScenesDatasetDistill),
+                      ("NuScenesDataset_radar", nds.NuScenesDatasetRadar),
+                      ("NuScenesDataset_radar_test", nds.NuScenesDatasetRadarTest),
+                      ("NuScenesDataset", nds.NuScenesDataset)):
+        ds, ld = loader.build_dataloader(
+            {**cfg.DATA_CONFIG, "DATASET": name, "INFO_PATH": {"train": ["none.pkl"]}},
+            cfg.CLASS_NAMES, 2, root_path=tmp_path)
+        assert type(ds) is cls and len(ds) == 0 and len(ld) == 0
 
 
 # ------------------------------------------------------------------ metrics

@@ -49,13 +49,32 @@ def _assert_tree_equal(got, want, path=""):
         assert got == want, (path, got, want)
 
 
+def _merged(base, over):
+    """``over`` merged into ``base`` the reference's way (dicts recursively,
+    everything else replaced)."""
+    out = dict(base)
+    for k, v in over.items():
+        out[k] = _merged(out.get(k) or {}, v) if isinstance(v, dict) else v
+    return out
+
+
 @pytest.mark.parametrize("yaml_name", [production.VAL_YAML, production.TRAIN_YAML])
 @pytest.mark.parametrize("grid", [None, GRID])
 def test_production_cfg_equals_original(yaml_name, grid):
+    """Equal to the JAX package's, with ``DATA_CONFIG``'s nested
+    ``_BASE_CONFIG_`` (the nuScenes dataset yaml) expanded as the reference's
+    loader expands it: the port's loader does, the JAX package's keeps the
+    key unexpanded."""
+    import yaml
+
     cfg, info = production.production_cfg(yaml_name, grid=grid)
     jcfg, jinfo = jprod.production_cfg(yaml_name, grid=grid)
     assert type(cfg).__module__.startswith("radardistill_tpu_torch.")
-    assert dict(cfg) == dict(jcfg)
+    jdata = dict(jcfg["DATA_CONFIG"])
+    with open(jdata.pop("_BASE_CONFIG_")) as f:
+        jdata = _merged(yaml.safe_load(f), jdata)
+    assert "_BASE_CONFIG_" not in cfg["DATA_CONFIG"] and cfg["DATA_CONFIG"]["DATASET"]
+    assert dict(cfg) == {**dict(jcfg), "DATA_CONFIG": jdata}
     assert info == jinfo
 
 

@@ -10,7 +10,8 @@ a val forward without host tables under
 with random weights from a seeded generator; afterwards neither
 ``jax`` nor ``flax`` nor any module of ``radardistill_tpu`` may be in
 ``sys.modules``. An AST walk over every file of the port and over the card
-scripts finds no import of them either. Also: the port's data layer loads none
+scripts finds no import of them either (the nuScenes and data-parallel modules
+among them), also after a nuScenes item and a detection gather. Also: the port's data layer loads none
 of its model layer, and ``chip_smoke.py`` copied out of the repo fails without
 printing a result."""
 
@@ -81,6 +82,33 @@ cli_state = torch_train.main([
     "--num_epochs_to_eval", "0"])
 torch_ckpt_surgery.main(["--src", "output/production_cert_grid128/default/ckpt/checkpoint_epoch_1",
                          "--dst", "init"])
+# a nuScenes item (a key frame without sweeps, one radar channel in binary
+# .pcd) and a detection gather (one process: the identity)
+import pickle
+from pathlib import Path
+import numpy as np
+from radardistill_tpu_torch.config import ConfigDict
+from radardistill_tpu_torch.data.loader import DATASETS
+from radardistill_tpu_torch.parallel.multihost import gather_detections
+root = Path(tempfile.mkdtemp())
+(root / "samples").mkdir()
+np.random.RandomState(0).uniform(-5, 5, (64, 5)).astype(np.float32).tofile(root / "samples/l.bin")
+fields = ("x y z dyn_prop id rcs vx vy vx_comp vy_comp is_quality_valid ambig_state "
+          "x_rms y_rms invalid_state pdh0 vx_rms vy_rms").split()
+header = "\n".join(["VERSION 0.7", "FIELDS " + " ".join(fields), "SIZE " + " ".join(["4"] * 18),
+                    "TYPE " + " ".join(["F"] * 18), "COUNT " + " ".join(["1"] * 18),
+                    "WIDTH 7", "HEIGHT 1", "POINTS 7", "DATA binary", ""])
+(root / "samples/r.pcd").write_bytes(header.encode() + np.ones((7, 18), np.float32).tobytes())
+pickle.dump([{"lidar_path": "samples/l.bin", "token": "t0", "sweeps": [], "radars": {
+    "RADAR_FRONT": [{"data_path": "samples/r.pcd", "timestamp": 0,
+                     "sensor2lidar_rotation": np.eye(3), "sensor2lidar_translation": np.zeros(3)}]},
+    "gt_boxes": np.zeros((1, 9), np.float32), "gt_names": np.array(["car"]),
+    "num_lidar_pts": np.array([5]), "num_radar_pts": np.array([1])}], open(root / "val.pkl", "wb"))
+nds = DATASETS["NuScenesDataset_Distill"](
+    ConfigDict(DATA_PATH=str(root), INFO_PATH={"test": ["val.pkl"]},
+               POINT_CLOUD_RANGE=[-54.0, -54.0, -5.0, 54.0, 54.0, 3.0]), ["car"], training=False)
+nitem = nds[0]
+merged = gather_detections([{"frame_id": "f0"}])
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "radardistill_tpu"))
 print(json.dumps({
@@ -106,6 +134,8 @@ print(json.dumps({
     "cli_steps": cli_state.step,
     "cli_files": sorted(os.listdir("output/production_cert_grid128/default/ckpt")) + [
         f for f in os.listdir(".") if f == "init"],
+    "nusc": [list(nitem["points"].shape), list(nitem["radar_points"].shape), nitem["frame_id"]],
+    "merged": merged,
 }))
 """
 
@@ -131,6 +161,9 @@ def test_port_slice_runs_without_jax():
     assert rec["raw_batch_keys"] == [] and rec["raw_finite"] and rec["raw_overflow"] == 0
     # 512 rows of 4 ones, no overflow; 9 taps x 8 channels; (1 + 2) x 8
     assert rec["probes"] == [2048.0, 0, 72.0, 24.0]
+    # 64 lidar points (x, y, z, intensity, time lag); 7 radar returns, 6 features
+    assert rec["nusc"][0][1] == 5 and 0 < rec["nusc"][0][0] <= 64
+    assert rec["nusc"][1:] == [[7, 6], "l"] and rec["merged"] == [{"frame_id": "f0"}]
 
 
 def _imported_modules(path):
@@ -155,12 +188,18 @@ PORT_FILES = sorted(
                                     "tools/torch_fp_teacher_rel.py",
                                     "tools/torch_gather_ab.py", "tools/torch_train.py",
                                     "tools/torch_test.py", "tools/torch_ckpt_surgery.py",
-                                    "tools/torch_train_pace.py"])
+                                    "tools/torch_train_pace.py", "tools/torch_ddp_check.py"])
 def test_card_scripts_import_only_torch_and_the_port(script):
     names = _imported_modules(os.path.join(REPO, script))
     roots = {n.split(".")[0] for n in names}
     assert {"torch", "radardistill_tpu_torch"} & roots
     assert not roots & {"jax", "jaxlib", "flax", "radardistill_tpu", "chip_smoke"}, names
+
+
+def test_the_walk_covers_the_nuscenes_and_parallel_modules():
+    for mod in ("data/nuscenes/pcd", "data/nuscenes/dataset", "data/nuscenes/info_gen",
+                "data/nuscenes/eval_bridge", "parallel/mesh", "parallel/multihost"):
+        assert f"radardistill_tpu_torch/{mod}.py" in PORT_FILES, mod
 
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():

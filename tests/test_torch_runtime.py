@@ -423,9 +423,17 @@ def test_common_utilities_match_jax(monkeypatch):
     assert common.create_logger(rank=0).name == "radardistill_tpu_torch.rank0"
     monkeypatch.setenv("WORLD_SIZE", "1")
     assert common.maybe_init_distributed() is False
+    # torchrun's variables; the 2-process job of tests/test_torch_parallel.py
+    # initializes through them
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        common.maybe_init_distributed()
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert common.dist_env() == (2, 1, 1, 2)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
+    assert common.dist_env() == (2, 1, 1, 1)
+    if not torch.cuda.is_available():  # no fallback to the CPU
+        with pytest.raises(RuntimeError, match="no card"):
+            common.maybe_init_distributed()
 
 
 # ------------------------------------------------- train state and resume

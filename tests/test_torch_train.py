@@ -13,6 +13,7 @@ import torch
 
 from radardistill_tpu_torch.convert import state_dict_from_jax
 from radardistill_tpu_torch.models import build_network, compute_training_loss
+from radardistill_tpu_torch.parallel.mesh import make_mesh
 from radardistill_tpu_torch.train.optim import build_optimizer, freeze_mask
 from radardistill_tpu_torch.train.train_step import make_train_step
 from tests.torch_train_case import (  # noqa: F401  the tests of the case, collected here
@@ -116,8 +117,10 @@ def test_unported_train_legs_raise_by_name(inputs):
         compute_training_loss({"NAME": "PointPillar"}, {}, (), (), ())
     model = build_network(full.MODEL, info, device="cpu")
     opt, _ = build_optimizer(full.OPTIMIZATION, model, 10, model.frozen)
-    with pytest.raises(NotImplementedError, match="shard_map"):
-        make_train_step(model, opt, full.MODEL, (), (), (), mesh=object(), sync_bn=False)
+    # the shard_map leg no longer raises: one process is a mesh of one, no DDP
+    step = make_train_step(model, opt, full.MODEL, (), (), (), mesh=make_mesh("cpu"),
+                           sync_bn=False)
+    assert step.ddp is None and step.state.model is model
     cfg = copy.deepcopy(full.MODEL)
     cfg.FREEZE_PIPELINE = [n for n in cfg.FREEZE_PIPELINE if n != "PillarRes18BackBone8x"]
     with pytest.raises(NotImplementedError, match="S2D teacher"):

@@ -8,7 +8,9 @@ result record; --infer_time latency meter), with the same arguments;
 It prints recall, the inference p50 with ``--infer_time`` and
 ``dataset.evaluation``'s result. ``--cal_params`` (XLA's cost analysis) has
 no counterpart here and raises; ``--bev_similarity`` raises (ROADMAP queue 1
-item 14), and so does more than one process (item 13).
+item 14). Under ``torchrun --nproc_per_node=N`` each rank evaluates its
+slice of the data and the detections are gathered in rank order before the
+evaluation, which rank 0 runs and shares.
 """
 
 import argparse
@@ -92,12 +94,15 @@ def repeat_eval_ckpt(ckpt_mgr, record_file, max_waiting_mins, restore_fn,
 
 def eval_ckpt(args, cfg, state, test_set, test_loader, logger, output_dir, epoch_tag):
     """Evaluate ``state``'s model over ``test_loader`` where the model lives:
-    recall, the inference p50 (``args.infer_time``), the detections written
-    to ``eval_{epoch_tag}/result.pkl``, then ``test_set.evaluation``.
-    Returns the evaluation's dict."""
+    recall, the inference p50 (``args.infer_time``), the detections of every
+    rank gathered, written to ``eval_{epoch_tag}/result.pkl``, then
+    ``test_set.evaluation`` (rank 0 writes and evaluates; every rank returns
+    rank 0's dict). Returns the evaluation's dict."""
     if args.cal_params:
         raise NotImplementedError("--cal_params (XLA's cost analysis) is not ported")
     from radardistill_tpu_torch.models.detector import batch_to_torch
+    from radardistill_tpu_torch.parallel.multihost import (all_gather_object,
+                                                           gather_detections, process_index)
     from radardistill_tpu_torch.train.eval_utils import eval_one_epoch
     from radardistill_tpu_torch.train.train_step import make_eval_step
 
@@ -114,16 +119,19 @@ def eval_ckpt(args, cfg, state, test_set, test_loader, logger, output_dir, epoch
     )
     if args.infer_time and timing["p50_ms"]:
         logger.info(f"inference p50: {timing['p50_ms']:.1f} ms/batch")
-    # raw detections for offline analysis (reference eval_utils.py result.pkl)
-    eval_dir = output_dir / f"eval_{epoch_tag}"
-    eval_dir.mkdir(parents=True, exist_ok=True)
-    with open(eval_dir / "result.pkl", "wb") as f:
-        pickle.dump(det_annos, f)
-    result_str, result_dict = test_set.evaluation(
-        det_annos, cfg.CLASS_NAMES, output_path=str(eval_dir)
-    )
-    logger.info(result_str)
-    return result_dict
+    det_annos = gather_detections(det_annos)  # every rank's, in rank order
+    result_dict = None
+    if process_index() == 0:
+        # raw detections for offline analysis (reference eval_utils.py result.pkl)
+        eval_dir = output_dir / f"eval_{epoch_tag}"
+        eval_dir.mkdir(parents=True, exist_ok=True)
+        with open(eval_dir / "result.pkl", "wb") as f:
+            pickle.dump(det_annos, f)
+        result_str, result_dict = test_set.evaluation(
+            det_annos, cfg.CLASS_NAMES, output_path=str(eval_dir)
+        )
+        logger.info(result_str)
+    return all_gather_object(result_dict)[0]
 
 
 def main(argv=None):
@@ -137,19 +145,25 @@ def main(argv=None):
     from radardistill_tpu_torch.models import build_network
     from radardistill_tpu_torch.train.checkpoint import CheckpointManager
     from radardistill_tpu_torch.train.train_step import create_train_state
+    from radardistill_tpu_torch.parallel.multihost import process_count, process_index
     from radardistill_tpu_torch.utils.common import create_logger, maybe_init_distributed
 
-    maybe_init_distributed()  # one process: detections need no gathering
+    maybe_init_distributed(args.device)
+    device = torch.device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
 
     output_dir = Path("output") / cfg.TAG / args.extra_tag / "eval"
     output_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(output_dir / f"log_eval_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt")
+    logger = create_logger(output_dir / f"log_eval_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt",
+                           rank=process_index())
 
     batch_size = args.batch_size or cfg.OPTIMIZATION.get("BATCH_SIZE_PER_GPU", 1)
     test_set, test_loader = build_dataloader(
         cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
         root_path=cfg.DATA_CONFIG.get("DATA_PATH", None),
         logger=logger, training=False,
+        process_index=process_index(), process_count=process_count(),
     )
     dataset_info = {
         "grid_size": tuple(int(x) for x in test_set.grid_size[:2]),
@@ -158,7 +172,7 @@ def main(argv=None):
         "class_names": tuple(cfg.CLASS_NAMES),
     }
     model = build_network(cfg.MODEL, dataset_info, compute_dtype=torch.bfloat16,
-                          device=args.device)
+                          device=device)
     state, _ = create_train_state(model, cfg.OPTIMIZATION, total_steps=1)
 
     ckpt_mgr = CheckpointManager(args.ckpt_dir or output_dir.parent / "ckpt")

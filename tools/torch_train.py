@@ -10,8 +10,12 @@ initializers from a ``torch.Generator`` seeded with ``--seed``, the optimizer
 over the trainable parameters) -> resume from the newest checkpoint, or
 ``--ckpt`` / ``--pretrained_model`` / ``--init_from_teacher`` ->
 ``train_model`` -> the evaluation of the last ``--num_epochs_to_eval``
-checkpoints. One process on one device: ``--sync_bn 0`` and ``WORLD_SIZE`` > 1
-raise (ROADMAP queue 1 item 13), and so does ``--profile_dir`` (item 14).
+checkpoints. Under ``torchrun --nproc_per_node=N`` it trains data-parallel:
+each rank reads its slice of the data, the model trains under DDP, and
+``--sync_bn`` / ``OPTIMIZATION.SYNC_BN`` pick the leg (1, the default: BN
+statistics and loss normalizers over the global batch; 0: per-rank ones, the
+running statistics averaged). Rank 0 logs and writes the checkpoints.
+``--profile_dir`` raises (ROADMAP queue 1 item 14).
 """
 
 import argparse
@@ -40,8 +44,8 @@ def parse_config(argv=None):
     parser.add_argument("--max_ckpt_save_num", type=int, default=30)
     parser.add_argument("--merge_all_iters_to_one_epoch", action="store_true")
     parser.add_argument("--sync_bn", type=int, choices=(0, 1), default=None,
-                        help="1: BN statistics over the whole batch (the only mode on one "
-                             "device); 0 (per-replica statistics) is not ported")
+                        help="1: BN statistics and loss normalizers over the global batch "
+                             "(default, also OPTIMIZATION.SYNC_BN); 0: per-rank ones")
     parser.add_argument("--num_epochs_to_eval", type=int, default=1,
                         help="post-train: evaluate the checkpoints of the last N epochs "
                              "(reference tools/train.py:241-259; 0 disables)")
@@ -69,9 +73,6 @@ def parse_config(argv=None):
 def main(argv=None):
     """Returns the trained ``TrainState``."""
     args, cfg = parse_config(argv)
-    if args.sync_bn == 0 or cfg.OPTIMIZATION.get("SYNC_BN", True) is False:
-        raise NotImplementedError(
-            "per-replica BN statistics (--sync_bn 0) are not ported (ROADMAP queue 1, item 13)")
     if args.profile_dir:
         raise NotImplementedError(
             "--profile_dir is not ported (ROADMAP queue 1, item 14); "
@@ -80,6 +81,8 @@ def main(argv=None):
 
     from radardistill_tpu_torch.data.loader import build_dataloader
     from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.parallel.mesh import make_mesh
+    from radardistill_tpu_torch.parallel.multihost import process_count, process_index
     from radardistill_tpu_torch.train.checkpoint import (CheckpointManager,
                                                           duplicate_teacher_to_radar)
     from radardistill_tpu_torch.train.train_step import create_train_state, make_train_step
@@ -88,16 +91,22 @@ def main(argv=None):
         create_logger, maybe_init_distributed, set_random_seed,
     )
 
-    maybe_init_distributed()
+    maybe_init_distributed(args.device)
+    rank, world = process_index(), process_count()
+    sync_bn = (args.sync_bn if args.sync_bn is not None
+               else int(cfg.OPTIMIZATION.get("SYNC_BN", True))) == 1
 
     output_dir = Path("output") / cfg.TAG / args.extra_tag
     ckpt_dir = output_dir / "ckpt"
     output_dir.mkdir(parents=True, exist_ok=True)
     log_file = output_dir / f"log_train_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt"
-    logger = create_logger(log_file)
+    logger = create_logger(log_file, rank=rank)
     device = torch.device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     logger.info(f"device: {device}"
-                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+                + (f", {world} ranks, sync_bn {int(sync_bn)}" if world > 1 else ""))
 
     if args.fix_random_seed:
         set_random_seed(args.seed)
@@ -110,7 +119,7 @@ def main(argv=None):
         root_path=cfg.DATA_CONFIG.get("DATA_PATH", None), workers=args.workers,
         logger=logger, training=True, seed=args.seed, total_epochs=epochs,
         merge_all_iters_to_one_epoch=args.merge_all_iters_to_one_epoch,
-        model_cfg=cfg.MODEL,
+        process_index=rank, process_count=world, model_cfg=cfg.MODEL,
     )
 
     dataset_info = {
@@ -157,16 +166,19 @@ def main(argv=None):
     step_fn = make_train_step(
         model, state.optimizer, cfg.MODEL, tuple(cfg.CLASS_NAMES),
         dataset_info["voxel_size"], dataset_info["point_cloud_range"],
+        mesh=make_mesh(device) if world > 1 else None, sync_bn=sync_bn,
     )
 
-    try:
-        from tensorboardX import SummaryWriter
-        tb = SummaryWriter(str(output_dir / "tensorboard"))
-    except ImportError:
-        tb = None
+    tb = None
+    if rank == 0:
+        try:
+            from tensorboardX import SummaryWriter
+            tb = SummaryWriter(str(output_dir / "tensorboard"))
+        except ImportError:
+            pass
 
     # optional wandb (reference: rank-0 wandb init, tools/train.py:184-198)
-    if os.environ.get("WANDB_PROJECT"):
+    if os.environ.get("WANDB_PROJECT") and rank == 0:
         try:
             import wandb
 
@@ -195,7 +207,7 @@ def main(argv=None):
         test_set, test_loader = build_dataloader(
             cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
             root_path=cfg.DATA_CONFIG.get("DATA_PATH", None),
-            logger=logger, training=False,
+            logger=logger, training=False, process_index=rank, process_count=world,
         )
         eval_output_dir = output_dir / "eval" / "eval_with_train"
         eval_output_dir.mkdir(parents=True, exist_ok=True)
