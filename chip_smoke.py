@@ -18,7 +18,11 @@ at full width and the full 1440² grid, with random weights from a seeded
   - the distillation forward under two deeper configurations of the teacher,
     built from the same yaml with ``BACKBONE_3D`` overrides: ``INT8_STAGES: 5``
     (the int8 chain through every stage) and ``FP_STAGES: 5`` (stages 2-5 as
-    fused float links); and one train step with the ``INT8_STAGES: 5`` teacher.
+    fused float links); and one train step with the ``INT8_STAGES: 5`` teacher;
+  - the dense-input route through the CLIs: the LiDAR teacher of
+    ``pillarnet.yaml`` trained on its own and evaluated, its checkpoint
+    loaded into the distillation model, and the radar-only baseline of
+    ``pillarnet_radar.yaml`` initialized from it, trained and evaluated.
 
 It imports only ``torch`` and ``radardistill_tpu_torch``. Phases:
 
@@ -31,17 +35,18 @@ It imports only ``torch`` and ``radardistill_tpu_torch``. Phases:
      cells, bfloat16 and float32; batch 1 and 2) and the teacher's entry (int8
      table 2 x 163841 rows of 32 bytes into 2 x 1440² cells);
   4. K2 ``dcn_sample`` vs its plain version at the three CMA sites
-     (180²->90², 90²->45², 180²->90², C 256, clamp R = 5), batch 1 and 2:
-     float32 within 1e-5 x max|ref| (summation order), bfloat16 within 1e-2 x
-     max|ref| (one bfloat16 rounding of the same float32 sum); then with NaN
-     offsets (NaN taps read exactly 0, as in the plain version). K3
-     ``dcn_offset_grad`` and K4 ``dcn_input_grad`` at the same three sites,
-     batch 2, the same tolerances, offsets 3 x randn (a tenth on the clamp),
+     (180²->90², 90²->45², 180²->90², C 256, clamp R = 5), batch 1, 2 and 8
+     (the radar baseline's): float32 within 1e-5 x max|ref| (summation
+     order), bfloat16 within 1e-2 x max|ref| (one bfloat16 rounding of the
+     same float32 sum); then with NaN offsets (NaN taps read exactly 0, as in
+     the plain version). K3 ``dcn_offset_grad`` and K4 ``dcn_input_grad`` at
+     the same three sites, batch 2 and 8, the same tolerances, offsets 3 x
+     randn (a tenth on the clamp),
      K4 on its tile route and bit-equal over two calls; one unclamped float32
      case at 64² on K4's atomic route; NaN offsets on both routes (NaNs
      compared as equal); the four gradients of ``modulated_deform_conv`` vs
      autograd through ``dcn_sample_plain`` (float32, within 1e-4 x max|ref|).
-     Each of K2, K3, K4 timed as the wrapper, as the bare launch, as the
+     Each of K2, K3, K4 timed at batch 2 as the wrapper, as the bare launch, as the
      plain version, and beside them, as an aside that is not the same
      function (NCHW, no mask), ``F.grid_sample`` (K2) and
      ``grid_sampler_2d_backward`` with the mask folded into the cotangent
@@ -214,7 +219,11 @@ the nuScenes devkit is not installed. Counts reset before the train run and read
 after the eval: 4 x the train step's + 4 x the val forward's (K5 x 1, K2 x 3),
 nothing else; every logged loss finite; the model on the card. It prints
 t_iter and t_data p50, the loader's seconds a batch, the items' point counts,
-eval samples/s.
+eval samples/s. The tree is written once (``make_nuscenes_tree``) for phases
+26 and 28-30, and phase 26 trains from phase 28's teacher, loaded with
+``--pretrained_model``: every one of the distillation model's teacher entries
+must load (``TrainState.loaded``) and, frozen, still equal the file's after
+training.
 
 Phase 27, data-parallel on the card (``tools/torch_ddp_check.py``): the DDP +
 synchronized-BN step at world size 1 on NCCL against the unwrapped step of
@@ -230,6 +239,34 @@ the mean of the ranks' local updates, each rank's steps with the train step's
 launches; and a 2-rank ``tools/torch_test.py`` (gloo) over phase 26's val set
 whose merged detections equal the 1-process eval's entry by entry (near-tie
 rule). It prints the DDP step's p50 beside the unwrapped step's.
+
+Phase 28, the teacher's pretraining (before phase 26, on its tree): one epoch
+of ``tools/torch_train.py`` on ``nuscenes_models/pillarnet.yaml`` at full
+width (1440², bs4, ``MAX_LIDAR_POINTS`` 180 000, bf16, 2 workers, 2 steps, GT
+sampling on), its checkpoint, then ``tools/torch_test_teacher.py`` on it over
+the 4 val samples (bs1). Counts reset before the one and read after the
+other: K5 x 1 per step and per val forward (the dense VFE's densify), nothing
+else; losses finite; every ``backbone_3d`` kernel moved from the CLI's initial
+draw (seed 666). Phase 29, the radar-only baseline: ``pillarnet_radar.yaml``,
+bs8, 1440², 2 epochs of one step, ``--init_from_teacher`` with phase 28's
+checkpoint (the log's count of copied parameters must be every radar
+parameter with a teacher twin of its shape: backbone, neck, head, and the VFE
+but its first linear), then ``tools/torch_test.py`` over the val samples:
+K5 x 1 and K2 x 3 per forward, K3 x 3 and K4 x 3 (tile route) per step.
+Both print t_iter and t_data p50 (train log), the resident step's p50 and
+peak memory (5 steps on one device-resident batch of the yaml's loader after
+the CLI), the CLI train's peak memory, and the eval's inference p50. Phase
+30, the hand-off at float32 (TF32 off): phase 28's checkpoint in the dense
+teacher and in ``radar_distill_train.yaml``'s S2D teacher with ``INT8:
+False`` (every entry loaded in both); their ``x_conv4`` / ``x_conv5`` on the
+distillation batch within 1e-4 rel-L2. Phase 32: ``synthetic/smoke.yaml``
+(grid 256) and ``pillarnet.yaml`` with an ``_AS`` teacher (1440², bs2) built
+and run forward in bf16 (the reference's initializers from a seed), outputs
+finite, no overflow.
+Phase 31 (before the tree): K5 at the
+dense VFE's shapes, bs4 LiDAR (a table of 180 001 rows of 32 bfloat16 a
+sample, 100 000 occupied pillars) and bs8 radar (8193 rows, 3000 pillars),
+onto 1440², bit-equal to plain, timed beside ``index_select``.
 
 Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
 float32 scales alike, but not every stock op around it (the VFE's sums); one
@@ -278,8 +315,10 @@ sums over the 19 deeper links of ``INT8_STAGES: 5`` on their routes
 device time with the host's enqueue hidden, as the wrappers of the links
 below 720² cost the host more than the card); K7's ``device_ms`` is its
 wrapper's device time, the same way. ``launches_runtime`` is each
-kernel's count over phase 25, ``launches_nuscenes`` over phase 26 and
-``launches_ddp`` over the DDP steps of phase 27. Any failed phase exits
+kernel's count over phase 25, ``launches_nuscenes`` over phase 26,
+``launches_ddp`` over the DDP steps of phase 27, ``launches_teacher_pretrain``
+over phase 28 and ``launches_radar_baseline`` over phase 29; K5's
+``dense_vfe`` holds phase 31's records. Any failed phase exits
 non-zero. The line before the
 last is the kernels record ``{"kernels": [{"name", "route", "mma", "source",
 "replaces", "launches", "max_abs_err", "ms", "launch_ms", "plain_ms",
@@ -481,8 +520,9 @@ def grid_of(torch, off, h, ho, max_offset):
 
 
 def phase_k2(torch, dev):
-    """The three CMA sites at batch 1 (val path) and 2 (distillation forward),
-    then NaN offsets; returns the batch-2 sums. Timed: the wrapper, the bare
+    """The three CMA sites at batch 1 (val path), 2 (distillation forward)
+    and 8 (the radar baseline's forward, checked, not timed), then NaN
+    offsets; returns the batch-2 sums. Timed: the wrapper, the bare
     launch into a preallocated output, the plain version, and as an aside
     ``F.grid_sample`` of the same samples (NCHW, no mask: not the same
     function)."""
@@ -496,7 +536,7 @@ def phase_k2(torch, dev):
     sites = ((180, 90), (90, 45), (180, 90))  # the CMA's three downsamples at 1440²
     R = DCN_MAX_OFFSET
     recs = {}
-    for b in (1, 2):
+    for b in (1, 2, 8):
         rec = dict.fromkeys(("max_abs_err", "ms", "launch_ms", "plain_ms", "aside_ms",
                              "bytes_ms", "ops_ms"), 0.0)
         for h, ho in sites:
@@ -515,8 +555,9 @@ def phase_k2(torch, dev):
                 print(f"K2 dcn_sample {str(dtype)[6:]} x {tuple(x.shape)} -> {tuple(got.shape)}: "
                       f"max_abs_err {err:.3e} (limit {tol * ref:.3e})")
                 if not err <= tol * ref:
-                    raise RuntimeError(f"K2 {dtype} at {h}²: error {err} over {tol} x {ref}")
-                if dtype != torch.bfloat16:
+                    raise RuntimeError(f"K2 {dtype} bs{b} at {h}²: error {err} over {tol} x "
+                                       f"{ref}")
+                if dtype != torch.bfloat16 or b == 8:
                     continue
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 out = torch.empty_like(got)
@@ -570,7 +611,8 @@ def phase_k2(torch, dev):
 
 
 def phase_k34(torch, dev):
-    """K3 and K4 at the three CMA sites, batch 2: kernel vs plain (K4 on the
+    """K3 and K4 at the three CMA sites, batch 2 (and checked, not timed, at
+    batch 8, the radar baseline's): kernel vs plain (K4 on the
     route the dispatch gives it, counted; the tile route twice, bit for bit),
     the bare launches timed beside the wrappers, and as asides the grid
     gradient (K3) and the input gradient (K4) of ``grid_sampler_2d_backward``
@@ -599,6 +641,32 @@ def phase_k34(torch, dev):
         if not err <= tol * ref:
             raise RuntimeError(f"{tag}: error {err} over {tol} x {ref}")
         return err, ref
+
+    def at_batch_8():
+        """The radar baseline's CMA (``pillarnet_radar.yaml``, batch 8): K3
+        and K4 against their plain versions at the three sites, both dtypes,
+        K4 on the tile route."""
+        for h, ho, max_offset in cases[:3]:
+            x32 = torch.randn(8, h, h, c, generator=gen)
+            ds32 = torch.randn(8, ho, ho, 9 * c, generator=gen)
+            off = (3.0 * torch.randn(8, ho, ho, 18, generator=gen)).to(dev)
+            msk = (torch.rand(8, ho, ho, 9, generator=gen) * 0.9 + 0.05).to(dev)
+            geo = (2, 1, 3, max_offset)
+            for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+                x, ds = x32.to(dev, dtype), ds32.to(dev, dtype)
+                g18, dm9 = dcn_offset_grad(x, off, ds, msk, *geo)
+                dx, route = routed(ds, off, msk, h, geo)
+                g18_p, dm9_p = dcn_offset_grad_plain(x, off, ds, msk, *geo)
+                dx_p = dcn_input_grad_plain(ds, off, msk, h, h, *geo)
+                torch.cuda.synchronize()
+                tag = f"{str(dtype)[6:]} bs8 {h}²->{ho}² clamp {max_offset}"
+                errs = [check(f"{name} {tag}", g, p, tol) for name, g, p in (
+                    ("K3 g18", g18, g18_p), ("K3 dm9", dm9, dm9_p), ("K4 dx", dx, dx_p))]
+                if route != "tile":
+                    raise RuntimeError(f"K4: the clamped CMA site at bs8 took the {route} route")
+                print(f"K3/K4 {tag}: g18 / dm9 / dx ({route} route) max_abs_err "
+                      + " / ".join(f"{e:.3e} (limit {tol * r:.3e})" for e, r in errs))
+                del x, ds, g18, dm9, dx, g18_p, dm9_p, dx_p
 
     def routed(ds, off, msk, h, geo):
         """dx through the wrapper, and the route it was counted on."""
@@ -731,6 +799,7 @@ def phase_k34(torch, dev):
               f"dmask {errs[2]:.3e}, dweight {errs[3]:.3e} (each within 1e-4 x max|ref|)")
     if not k4["repeats_bitwise"]:
         raise RuntimeError("K4: the tile route did not repeat bit for bit")
+    at_batch_8()
     return (bound_of(dict(k3, library_ms=None)),
             bound_of(dict(k4, library_ms=None, k4_route="tile")))
 
@@ -1827,36 +1896,55 @@ def phase_runtime(torch, dev, smi, step_p50):
 VAL_FORWARD = {"expand_rows": 1, "dcn_sample": 3}
 
 
-def phase_nuscenes(torch, dev, smi, work, step_p50=None):
-    """Phase 26, nuScenes at full width (module docstring); ``step_p50``, the
-    device-resident step's p50 of phase 10 in the same call, to compare
-    t_iter with. Returns (launch counts, the val set's detections file, the
-    argv of the eval, seconds)."""
+def make_nuscenes_tree(work):
+    """The nuScenes-layout tree of phases 26 and 28-30 (module docstring) and
+    its GT database. Returns (root, train infos, val infos, database s)."""
+    from radardistill_tpu_torch.data.nuscenes.info_gen import create_groundtruth_database
+    from tools.torch_nuscenes_tree import make_tree
+
+    root = work / "nuscenes"
+    train_infos, val_infos = make_tree(root, 8, 4)
+    t0 = time.perf_counter()
+    create_groundtruth_database(root, max_sweeps=10)
+    return root, train_infos, val_infos, time.perf_counter() - t0
+
+
+def tree_sets(root):
+    """``--set`` arguments that point a shipped yaml at the tree."""
+    return ["DATA_CONFIG.DATA_PATH", str(root),
+            "DATA_CONFIG.INFO_PATH.train", "[nuscenes_infos_6radar_10sweeps_train.pkl]",
+            "DATA_CONFIG.INFO_PATH.test", "[nuscenes_infos_6radar_10sweeps_val.pkl]"]
+
+
+TEACHER_SCOPES = ("vfe.", "backbone_3d.", "backbone_2d.", "dense_head.")
+
+
+def phase_nuscenes(torch, dev, smi, tree, step_p50=None, teacher_ckpt=None):
+    """Phase 26, nuScenes at full width (module docstring); ``tree`` from
+    :func:`make_nuscenes_tree`; ``step_p50``, the device-resident step's p50
+    of phase 10 in the same call, to compare t_iter with; ``teacher_ckpt``,
+    phase 28's checkpoint, loaded as ``--pretrained_model``, whose every
+    teacher entry must load. Returns (launch counts, the val set's
+    detections file, the argv of the eval, seconds)."""
     import shutil
 
     import numpy as np
 
     from radardistill_tpu_torch.data.loader import build_dataloader
-    from radardistill_tpu_torch.data.nuscenes.info_gen import create_groundtruth_database
     from radardistill_tpu_torch.train.trainer import read_log
     from tools import torch_test, torch_train
-    from tools.torch_nuscenes_tree import make_tree
 
     t_start = time.perf_counter()
-    root = work / "nuscenes"
-    train_infos, val_infos = make_tree(root, 8, 4)
-    t0 = time.perf_counter()
-    create_groundtruth_database(root, max_sweeps=10)
-    t_db = time.perf_counter() - t0
+    root, train_infos, val_infos, t_db = tree
     tag = "chip_smoke_nuscenes"
-    sets = ["DATA_CONFIG.DATA_PATH", str(root),
-            "DATA_CONFIG.INFO_PATH.train", "[nuscenes_infos_6radar_10sweeps_train.pkl]",
-            "DATA_CONFIG.INFO_PATH.test", "[nuscenes_infos_6radar_10sweeps_val.pkl]"]
+    sets = tree_sets(root)
     # one epoch: the hook's last 10 epochs would turn GT sampling off
     train_argv = ["--cfg_file", str(ROOT / "tools/cfgs/radar_distill/radar_distill_train.yaml"),
                   "--batch_size", "2", "--epochs", "1", "--workers", "2", "--log_interval", "1",
-                  "--extra_tag", tag, "--num_epochs_to_eval", "0",
-                  "--set", *sets, "HOOK.DisableAugmentationHook.NUM_LAST_EPOCHS", "0"]
+                  "--extra_tag", tag, "--num_epochs_to_eval", "0"]
+    if teacher_ckpt is not None:
+        train_argv += ["--pretrained_model", str(teacher_ckpt)]
+    train_argv += ["--set", *sets, "HOOK.DisableAugmentationHook.NUM_LAST_EPOCHS", "0"]
     _, cfg = torch_train.parse_config(train_argv)
     out = Path("output") / cfg.TAG / tag
     eval_out = Path("output") / "radar_distill_val" / tag
@@ -1890,6 +1978,20 @@ def phase_nuscenes(torch, dev, smi, work, step_p50=None):
         raise RuntimeError(f"nuscenes: logged steps {steps}")
     if not 0 <= result["mAP"] <= 1:
         raise RuntimeError(f"nuscenes: eval result {result}")
+    handoff = ""
+    if teacher_ckpt is not None:
+        # the recipe's hand-off: every teacher entry of the distillation model
+        # came from the checkpoint and, frozen, still equals it
+        teacher = [k for k in state.model.state_dict() if k.startswith(TEACHER_SCOPES)]
+        src = torch.load(teacher_ckpt, map_location="cpu", weights_only=True)["model_state"]
+        now = state.model.state_dict()
+        same = sum(torch.equal(now[k].cpu(), src[k]) for k in teacher if k in src)
+        if state.loaded != len(teacher) or same != len(teacher):
+            raise RuntimeError(f"nuscenes: --pretrained_model loaded {state.loaded} entries and "
+                               f"{same} teacher entries equal the file, of {len(teacher)}")
+        handoff = (f"; --pretrained_model: all {len(teacher)} teacher entries of the "
+                   f"distillation model loaded from the dense teacher's checkpoint and equal to "
+                   f"it after training")
     (eval_log,) = eval_out.glob("eval/log_eval_*.txt")
     infer = re.search(r"inference p50: ([\d.]+) ms/batch", eval_log.read_text())
     if "devkit absent" not in eval_log.read_text():
@@ -1917,7 +2019,7 @@ def phase_nuscenes(torch, dev, smi, work, step_p50=None):
           f"{t_eval:.3f} s (CLI start, build and checkpoint load included): "
           f"{n_val / t_eval:.3f} samples/s, inference p50 "
           f"{infer and float(infer[1]):.1f} ms/batch: {1e3 / float(infer[1]):.3f} samples/s, "
-          f"mAP {result['mAP']:.4f} (fallback metric); the phase "
+          f"mAP {result['mAP']:.4f} (fallback metric){handoff}; the phase "
           f"{time.perf_counter() - t_start:.1f} s")
     result_pkl = eval_out / "eval" / "eval_checkpoint_epoch_1" / "result.pkl"
     return launches, result_pkl, test_argv, time.perf_counter() - t_start
@@ -2024,6 +2126,304 @@ def phase_ddp(torch, dev, smi, work, result_pkl, test_argv):
           f"{t_eval:.1f} s with the processes' start; the phase "
           f"{time.perf_counter() - t_start:.1f} s")
     return launches, time.perf_counter() - t_start
+
+
+TEACHER_YAML = ROOT / "tools/cfgs/nuscenes_models/pillarnet.yaml"
+RADAR_YAML = ROOT / "tools/cfgs/nuscenes_models/pillarnet_radar.yaml"
+# the dense-input paths' launches: the dense VFE's densify (K5) in every
+# forward; the radar baseline's CMA adds K2 x 3, and K3 x 3, K4 x 3 (tile
+# route) in its backward
+DENSE_TEACHER = {"expand_rows": 1}
+RADAR_BASELINE_FORWARD = {"expand_rows": 1, "dcn_sample": 3}
+RADAR_BASELINE_STEP = {**RADAR_BASELINE_FORWARD, "dcn_offset_grad": 3, "dcn_input_grad": 3,
+                       "dcn_input_grad.tile": 3}
+
+
+def phase_k5_dense(torch, dev):
+    """Phase 31: K5 at the dense VFE's shapes, bs4 LiDAR (a table of one row
+    per point, 180 000 + 1 rows of 32 bfloat16 a sample) and bs8 radar (8192 +
+    1 rows), each onto the 1440² grid. Returns one record per shape."""
+    from radardistill_tpu_torch.ops.active_site import site_index_grid
+
+    gen = torch.Generator().manual_seed(31)
+    hw, recs = 1440 * 1440, {}
+    for name, b, cap, n_active in (("teacher_bs4", 4, 180000, 100000),
+                                   ("radar_bs8", 8, 8192, 3000)):
+        uids = torch.full((b, cap), hw, dtype=torch.int32)
+        for i in range(b):
+            uids[i, :n_active] = torch.sort(
+                torch.randperm(hw, generator=gen)[:n_active]).values.to(torch.int32)
+        inv = site_index_grid(uids, hw, cap)
+        flat = (inv + (torch.arange(b, dtype=torch.int32) * (cap + 1))[:, None]).reshape(-1)
+        table = torch.randn(b, cap + 1, 32, generator=gen).to(dev, torch.bfloat16)
+        table[:, cap] = 0
+        rec = check_expand(torch, f"dense VFE {name} ({n_active} pillars a sample)",
+                           table.reshape(-1, 32), flat.to(dev), iters=20)
+        recs[name] = bound_of(dict(rec, ops_ms=0.0))
+        del table, flat
+        torch.cuda.empty_cache()
+    return recs
+
+
+def resident_step(torch, dev, state, cfg, batch_size, runs=5):
+    """(p50 ms, peak GiB) of the train step on one device-resident batch of
+    the yaml's train loader, with the CLI's trained model and optimizer."""
+    from radardistill_tpu_torch.data.loader import build_dataloader
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+    from radardistill_tpu_torch.train.train_step import make_train_step
+
+    ds, ld = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+                              root_path=cfg.DATA_CONFIG.DATA_PATH, workers=0, training=True,
+                              model_cfg=cfg.MODEL)
+    batch, _ = next(iter(ld))
+    bdev = batch_to_torch(batch, dev)
+    step = make_train_step(state.model, state.optimizer, cfg.MODEL, tuple(cfg.CLASS_NAMES),
+                           tuple(ds.voxel_size), tuple(ds.point_cloud_range))
+    torch.cuda.reset_peak_memory_stats()
+    step(bdev)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        step(bdev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return (times[(runs - 1) // 2] + times[runs // 2]) / 2, \
+        torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_dense_cli(torch, dev, smi, tree, name, yaml, batch_size, epochs, step_launches,
+                    forward_launches, evaluate, train_extra=()):
+    """Phases 28 and 29: ``tools/torch_train.py`` on ``yaml`` over the tree
+    at full width, then ``evaluate(ckpt, tag, sets)`` (an eval CLI) over its
+    val samples, the counts reset before the one and read after the other;
+    then the resident step. Returns (launches, state, cfg, checkpoint, the
+    train log's text, a line of numbers)."""
+    import shutil
+
+    from radardistill_tpu_torch.train.trainer import read_log
+    from tools import torch_train
+
+    root, train_infos, val_infos, _ = tree
+    tag = f"chip_smoke_{name}"
+    sets = tree_sets(root)
+    train_argv = ["--cfg_file", str(yaml), "--batch_size", str(batch_size), "--epochs",
+                  str(epochs), "--workers", "2", "--log_interval", "1", "--extra_tag", tag,
+                  "--num_epochs_to_eval", "0", *train_extra, "--set", *sets]
+    _, cfg = torch_train.parse_config(train_argv)
+    out = Path("output") / cfg.TAG / tag
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    read = reset_launches()
+    state = torch_train.main(train_argv)
+    torch.cuda.synchronize()
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    ckpt = out / "ckpt" / f"checkpoint_epoch_{epochs}"
+    t0 = time.perf_counter()
+    result = evaluate(ckpt, tag, sets)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    launches = read()
+
+    n_steps, n_val = len(train_infos) // batch_size * epochs, len(val_infos)
+    want = {**dict.fromkeys(launches, 0),
+            **{k: n_steps * step_launches.get(k, 0) + n_val * forward_launches.get(k, 0)
+               for k in {**step_launches, **forward_launches}}}
+    print(f"{name} launches over {n_steps} train steps and {n_val} val forwards: {launches}")
+    if launches != want:
+        raise RuntimeError(f"{name}: launches {launches}, expected {want}")
+    (log,) = out.glob("log_train_*.txt")
+    steps = read_log(log)
+    if next(state.model.parameters()).device != dev or state.step != n_steps:
+        raise RuntimeError(f"{name}: model on {next(state.model.parameters()).device}, "
+                           f"{state.step} updates")
+    if len(steps) != n_steps or not all(r[4] == r[4] and abs(r[4]) != float("inf")
+                                        for r in steps):
+        raise RuntimeError(f"{name}: logged steps {steps}")
+    (eval_log,) = out.glob("eval/log_eval_*.txt")
+    text = eval_log.read_text()
+    if not 0 <= result["mAP"] <= 1 or "devkit absent" not in text:
+        raise RuntimeError(f"{name}: eval result {result}")
+    infer = float(re.search(r"inference p50: ([\d.]+) ms/batch", text)[1])
+    if cfg.DATA_CONFIG.CAPACITIES.get("MAX_LIDAR_POINTS", 180000) != 180000 or \
+            tuple(state.model.grid_size) != (1440, 1440):
+        raise RuntimeError(f"{name}: not at full width")
+    med = lambda v: sorted(v)[(len(v) - 1) // 2] / 2 + sorted(v)[len(v) // 2] / 2  # noqa: E731
+    t_iter, t_data = med([r[5] for r in steps]) * 1e3, med([r[6] for r in steps]) * 1e3
+    p50, peak_step = resident_step(torch, dev, state, cfg, batch_size)
+    numbers = (f"{yaml.name}, bs{batch_size}, 1440², bf16, {n_steps} steps: losses "
+               f"{[round(r[4], 4) for r in steps]}, t_iter p50 {t_iter:.1f} ms, t_data p50 "
+               f"{t_data:.1f} ms (steps' t_iter {[round(r[5] * 1e3, 1) for r in steps]} ms, "
+               f"t_data {[round(r[6] * 1e3, 1) for r in steps]} ms); the resident step p50 "
+               f"{p50:.3f} ms ({batch_size / p50 * 1e3:.3f} "
+               f"samples/s), peak {peak_step:.2f} GiB (the CLI's train {peak_train:.2f} GiB); "
+               f"eval CLI bs1: {n_val} samples in {t_eval:.3f} s, inference p50 {infer:.1f} "
+               f"ms/batch, mAP {result['mAP']:.4f} (fallback metric), on {smi}")
+    return launches, state, cfg, ckpt, log.read_text(), numbers
+
+
+def phase_teacher_pretrain(torch, dev, smi, tree):
+    """Phase 28: stage 1 of the recipe, the LiDAR teacher trained on its own
+    (module docstring). Returns (launches, its checkpoint, seconds)."""
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.train.train_step import create_train_state
+    from tools import torch_test_teacher
+
+    t_start = time.perf_counter()
+
+    def evaluate(ckpt, tag, sets):
+        return torch_test_teacher.main(["--teacher_ckpt", str(ckpt), "--extra_tag", tag,
+                                        "--infer_time", "--set", *sets])
+
+    launches, state, cfg, ckpt, _, numbers = phase_dense_cli(
+        torch, dev, smi, tree, "teacher", TEACHER_YAML, 4, 1, DENSE_TEACHER, DENSE_TEACHER,
+        evaluate)
+    # the teacher trained: its initial weights are the CLI's draw (seed 666)
+    m = state.model
+    info = {"grid_size": m.grid_size, "voxel_size": m.voxel_size,
+            "point_cloud_range": m.point_cloud_range, "class_names": tuple(cfg.CLASS_NAMES)}
+    init, _ = create_train_state(build_network(cfg.MODEL, info, torch.bfloat16, device=dev),
+                                 cfg.OPTIMIZATION, 1, torch.Generator().manual_seed(666))
+    before = dict(init.model.named_parameters())
+    backbone = [(n, p) for n, p in m.named_parameters() if n.startswith("backbone_3d.")]
+    moved = [n for n, p in backbone if not torch.equal(p, before[n])]
+    kernels = [n for n, p in backbone if p.dim() >= 2]
+    if not set(kernels) <= set(moved) or not all(p.requires_grad for _, p in backbone):
+        raise RuntimeError(f"teacher: backbone_3d kernels unmoved "
+                           f"{sorted(set(kernels) - set(moved))[:5]}")
+    del init, before
+    print(f"teacher pretraining: {numbers}; backbone_3d: {len(moved)} of {len(backbone)} "
+          f"parameters moved, all {len(kernels)} kernels among them; the phase "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return launches, ckpt, time.perf_counter() - t_start
+
+
+def phase_radar_baseline(torch, dev, smi, tree, teacher_ckpt):
+    """Phase 29: the radar-only baseline, initialized from the teacher
+    (module docstring). Returns (launches, seconds)."""
+    from tools import torch_test
+
+    t_start = time.perf_counter()
+
+    def evaluate(ckpt, tag, sets):
+        return torch_test.main(["--cfg_file", str(RADAR_YAML), "--batch_size", "1", "--ckpt",
+                                str(ckpt), "--extra_tag", tag, "--infer_time", "--set", *sets])
+
+    launches, state, _, _, log, numbers = phase_dense_cli(
+        torch, dev, smi, tree, "radar_baseline", RADAR_YAML, 8, 2, RADAR_BASELINE_STEP,
+        RADAR_BASELINE_FORWARD, evaluate, ("--init_from_teacher", str(teacher_ckpt)))
+    # --init_from_teacher: every radar parameter with a teacher twin of its
+    # shape, which is all of the backbone, neck and head and the VFE but its
+    # first linear (6 radar features against 5)
+    names = [n for n, _ in state.model.named_parameters()]
+    want = [n for n in names if n.startswith(("radar_backbone_3d.", "radar_neck.",
+                                              "radar_dense_head.", "radar_vfe."))
+            and n != "radar_vfe.pfn_0.linear.weight"]
+    got = re.search(r"duplicated teacher weights into radar branch \((\d+) parameters\)", log)
+    if got is None or int(got[1]) != len(want):
+        raise RuntimeError(f"radar baseline: --init_from_teacher copied "
+                           f"{got and got[1]} parameters, expected {len(want)}")
+    print(f"radar baseline: {numbers}; --init_from_teacher copied {len(want)} parameters "
+          f"(backbone, neck, head, VFE but its first linear); the phase "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return launches, time.perf_counter() - t_start
+
+
+def phase_teacher_handoff(torch, dev, smi, teacher_ckpt):
+    """Phase 30: the teacher's checkpoint in both teachers at float32 (TF32
+    off): the dense one of ``pillarnet.yaml`` and the table-input S2D one of
+    ``radar_distill_train.yaml`` with ``INT8: False`` (beside its random
+    student), each loading every teacher entry; their ``x_conv4`` /
+    ``x_conv5`` on the distillation batch within 1e-4 rel-L2."""
+    from radardistill_tpu_torch.config import ConfigDict, cfg_from_yaml_file
+    from radardistill_tpu_torch.data.synthetic import make_batch
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+    from radardistill_tpu_torch.models.layers import init_random_
+    from radardistill_tpu_torch.train.checkpoint import CheckpointManager
+    from radardistill_tpu_torch.train.train_step import TrainState
+    from radardistill_tpu_torch.utils.production import TRAIN_YAML
+
+    s2d_cfg, info, batch = make_batch(TRAIN_YAML, backbone_3d={"INT8": False})
+    dense = ConfigDict()
+    cfg_from_yaml_file(str(TEACHER_YAML), dense)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    feats, loaded = {}, {}
+    for name, mcfg in (("dense", dense.MODEL), ("s2d", s2d_cfg)):
+        model = build_network(mcfg, info, compute_dtype=torch.float32, device=dev)
+        if name == "s2d":  # the student beside it: random, not compared
+            init_random_(model, torch.Generator().manual_seed(30))
+        state = TrainState(model, None)  # no optimizer: the teacher comes from the file
+        CheckpointManager(teacher_ckpt.parent).load_params_from_file(state, teacher_ckpt)
+        teacher = [k for k in model.state_dict() if k.startswith(TEACHER_SCOPES)]
+        loaded[name] = (state.loaded, len(teacher))
+        with torch.no_grad():
+            out = model.eval()(batch_to_torch(batch, dev))
+        feats[name] = {k: out[k].float() for k in ("x_conv4", "x_conv5")}
+        del model, state, out
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    rel = {k: rel_l2(torch, feats["s2d"][k], feats["dense"][k]) for k in feats["dense"]}
+    print(f"teacher hand-off, f32 at 1440², bs2, TF32 off: entries loaded (of the teacher's) "
+          f"{loaded}; S2D teacher vs dense teacher rel-L2 {rel}")
+    if any(n != total for n, total in loaded.values()) or not all(v <= 1e-4 for v in rel.values()):
+        raise RuntimeError(f"teacher hand-off: loaded {loaded}, rel-L2 {rel}")
+    torch.cuda.empty_cache()
+
+
+def phase_other_dense_topologies(torch, dev, smi):
+    """Phase 32: the two other topologies of the dense-input route on the
+    card, one bf16 eval forward each from ``build_network`` with the reference's
+    initializers drawn from a seed:
+    ``synthetic/smoke.yaml`` (a dense teacher beside a dense radar branch) at
+    its own range (grid 256), and ``pillarnet.yaml`` with an ``_AS`` teacher
+    backbone at 1440² (bs2, 160 000 lidar points a scene, its pillar and tap
+    tables from ``HostPrecompute``). Outputs finite, no site over a capacity."""
+    from radardistill_tpu_torch.config import ConfigDict, cfg_from_yaml_file
+    from radardistill_tpu_torch.data.collate import collate_batch
+    from radardistill_tpu_torch.data.host_precompute import HostPrecompute
+    from radardistill_tpu_torch.data.synthetic import make_scene
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+
+    smoke, teacher = ConfigDict(), ConfigDict()
+    cfg_from_yaml_file(str(ROOT / "tools/cfgs/synthetic/smoke.yaml"), smoke)
+    cfg_from_yaml_file(str(TEACHER_YAML), teacher)
+    teacher.MODEL.BACKBONE_3D = ConfigDict(NAME="PillarRes18BackBone8x_AS",
+                                           MAX_ACTIVE=[262144, 196608, 131072, 65536],
+                                           DENSE_FROM=3)
+    cases = (("smoke.yaml", smoke, 3000, 300, 4096), ("pillarnet.yaml _AS teacher", teacher,
+                                                      160000, 0, 160000))
+    for name, full, n_lidar, n_radar, cap in cases:
+        pc = [float(v) for v in full.DATA_CONFIG.POINT_CLOUD_RANGE]
+        info = {"grid_size": (round((pc[3] - pc[0]) / 0.075),) * 2,
+                "voxel_size": (0.075, 0.075, 0.2), "point_cloud_range": tuple(pc),
+                "class_names": tuple(full.CLASS_NAMES)}
+        scenes = [make_scene(i, num_lidar=n_lidar, num_radar=max(n_radar, 1), num_boxes=20,
+                             pc_range=pc) for i in range(2)]
+        batch = collate_batch(scenes, {"MAX_LIDAR_POINTS": cap, "MAX_RADAR_POINTS": 512,
+                                       "NUM_MAX_OBJS": 64})
+        batch.pop("_host", None)
+        batch = HostPrecompute(full.MODEL, info["grid_size"], info["voxel_size"],
+                               info["point_cloud_range"])(batch)
+        model = build_network(full.MODEL, info, compute_dtype=torch.bfloat16,
+                              generator=torch.Generator().manual_seed(32))
+        read = reset_launches()
+        with torch.no_grad():
+            out = model(batch_to_torch(batch))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read().items() if v}
+        if not all_finite(torch, out) or int(out.get("as_overflow", 0)) != 0:
+            raise RuntimeError(f"{name}: finite {all_finite(torch, out)}, as_overflow "
+                               f"{int(out.get('as_overflow', 0))}")
+        print(f"{name}, bs2, grid {info['grid_size'][0]}, bf16 eval forward on {smi}: "
+              f"{type(model.backbone_3d).__name__} teacher"
+              + (f" beside {type(model.radar_backbone_3d).__name__}" if model.has_radar else "")
+              + f", outputs finite, launches {launches}, "
+              f"{int(out['final_box_dicts']['valid'].sum())} boxes")
+        del model, out
+    torch.cuda.empty_cache()
 
 
 def phase_dense_from(torch, dev, yaml_name, dense_from=3):
@@ -2237,13 +2637,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     import tempfile
 
+    k5_dense = phase_k5_dense(torch, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        nusc_launches, result_pkl, test_argv, t_nusc = phase_nuscenes(torch, dev, smi,
-                                                                      Path(work), step_p50)
+        tree = make_nuscenes_tree(Path(work))
+        teacher_launches, teacher_ckpt, t_teacher = phase_teacher_pretrain(torch, dev, smi, tree)
         torch.cuda.empty_cache()
+        nusc_launches, result_pkl, test_argv, t_nusc = phase_nuscenes(
+            torch, dev, smi, tree, step_p50, teacher_ckpt)
+        torch.cuda.empty_cache()
+        radar_launches, t_radar = phase_radar_baseline(torch, dev, smi, tree, teacher_ckpt)
+        torch.cuda.empty_cache()
+        phase_teacher_handoff(torch, dev, smi, teacher_ckpt)
+        phase_other_dense_topologies(torch, dev, smi)
         ddp_launches, t_ddp = phase_ddp(torch, dev, smi, Path(work), result_pkl, test_argv)
-    print(f"phases 26 and 27 (nuScenes, data-parallel): {t_nusc:.1f} + {t_ddp:.1f} s")
+    print(f"phases 26-30 (nuScenes, teacher, radar baseline, data-parallel): {t_nusc:.1f} + "
+          f"{t_teacher:.1f} + {t_radar:.1f} + {t_ddp:.1f} s")
     torch.cuda.empty_cache()
+    k5["dense_vfe"] = k5_dense
 
     # the teacher's deep chains: the same yaml with BACKBONE_3D overrides
     deep = {"int8_stages5": {"INT8_STAGES": 5}, "fp_stages5": {"INT8_STAGES": 1, "FP_STAGES": 5}}
@@ -2315,6 +2725,8 @@ def main() -> int:
                 "launches_device_tables": dev_launches[name],
                 "launches_runtime": runtime_launches[name],
                 "launches_nuscenes": nusc_launches[name], "launches_ddp": ddp_launches[name],
+                "launches_teacher_pretrain": teacher_launches[name],
+                "launches_radar_baseline": radar_launches[name],
                 "launch_ms": None,
                 "mma": MMA_ROUTES.get(name), **rec}
                for name, src, replaces, rec in table]
@@ -2327,12 +2739,13 @@ def main() -> int:
     keys = ("name", "route", "mma", "source", "replaces", "launches", "launches_val",
             "launches_forward", "launches_int8_stages5", "launches_fp_stages5",
             "launches_device_tables", "launches_runtime", "launches_nuscenes",
-            "launches_ddp", "max_abs_err",
+            "launches_ddp", "launches_teacher_pretrain", "launches_radar_baseline",
+            "max_abs_err",
             "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "aside_ms",
             "teacher_bf16_rel_l2", "alternating_ms", "alternating_library_ms",
             "k4_route", "repeats_bitwise", "old_route_ms", "device_ms",
             "deep_ms", "deep_old_route_ms", "deep_device_ms", "deep_device_old_route_ms",
-            "deep_plain_ms", "deep_bound_ms")
+            "deep_plain_ms", "deep_bound_ms", "dense_vfe")
     print(f"chip_smoke.py: every phase passed; {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included, on {smi}")
     print(json.dumps({"kernels": [{k: kern.get(k) for k in keys} for kern in kernels]}))

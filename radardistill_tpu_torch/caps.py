@@ -1,10 +1,11 @@
 """What the host precompute and the models both read off a backbone config.
 
-The active-site capacities of the radar backbone: the host precompute
-(``data/``) sizes its rulebooks with them and the backbone (``models/``) sizes
-its site tables with them. And whether the teacher backbone takes the sparse
-pillar table: the host builds that table, the detector wires it. Both layers
-read these from here and neither imports the other.
+The active-site capacities of a backbone: the host precompute (``data/``)
+sizes its rulebooks with them and the backbone (``models/``) sizes its site
+tables with them. And whether a backbone takes the sparse pillar table (an
+active-site one, or the table-input S2D teacher): the host builds that table,
+the detector wires it. Both layers read these from here and neither imports
+the other.
 """
 
 from __future__ import annotations
@@ -24,6 +25,11 @@ def as_caps(bk_cfg, grid_size) -> Tuple[int, ...]:
     """The backbone config's capacities (``MAX_ACTIVE``) for a (nx, ny) grid."""
     nx, ny = grid_size
     return stage_caps(bk_cfg.get("MAX_ACTIVE", DEFAULT_CAPS), (ny, nx))
+
+
+def is_as(bk_cfg) -> bool:
+    """An active-site backbone, fed by the VFE's pillar table."""
+    return bk_cfg.get("NAME", "PillarRes18BackBone8x").endswith("_AS")
 
 
 def is_table_s2d(bk_cfg) -> bool:

@@ -14,10 +14,12 @@ each leaf by one rule per leaf kind:
     LayerNorm scale -> weight;
   - GRN gamma/beta (1, 1, 1, C), the DCN's HWIO ``down_weight`` and its
     ``down_bias`` unchanged;
-  - the space-to-depth teacher's ``KernelHolder`` kernels
-    (``conv1_0/conv1/conv/kernel``, ``conv2_down/conv/conv/kernel``) stay HWIO
-    under the name ``kernel``, because the packed kernels are assembled from
-    that layout; its ``PackedMaskedBatchNorm`` vectors map like any BatchNorm.
+  - the ``KernelHolder`` kernels of a teacher's stage 1
+    (``conv1_0/conv1/conv/kernel``, ``conv2_down/conv/conv/kernel``, in the
+    space-to-depth teacher and in the dense ``PillarRes18BackBone8x`` alike)
+    stay HWIO under the name ``kernel``, because the packed kernels are
+    assembled from that layout; the S2D teacher's ``PackedMaskedBatchNorm``
+    vectors map like any BatchNorm. So both teachers take one ``state_dict``.
 
 A reference pcdet ``.pth`` loads by composition: ``tools/convert_torch_ckpt.py``'s
 ``Converter`` makes the flax tree from it, and this bridge the ``state_dict``.
@@ -31,9 +33,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.backbone_s2d import KernelHolder
 from .models.center_head import _BlockDiagConv
-from .models.layers import ConvParams, ConvTranspose2dTorch, Dense
+from .models.layers import ConvParams, ConvTranspose2dTorch, Dense, KernelHolder
 
 LEAF_NAMES = {
     "params": {"kernel": "weight", "scale": "weight", "bias": "bias", "gamma": "gamma",

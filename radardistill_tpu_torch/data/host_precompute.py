@@ -3,10 +3,13 @@
 The port's copy of ``radardistill_tpu/data/host_precompute.py``:
 ``pillar_encode`` (the C++ pillar sort), ``as_tables`` (the C++ rulebook
 build), ``mask_pyramid`` and the ``HostPrecompute`` batch transform, for the
-two sparse-table consumers the port has: the radar active-site backbone and
-the table-input space-to-depth LiDAR teacher. It differs from the original in
-one place: the uint16 rulebooks that ``as_tables`` ships are widened to int32
-in ``HostPrecompute``, because PyTorch indexes with int32/int64.
+sparse-table consumers: an active-site backbone (the radar student's, or an
+``_AS`` LiDAR teacher's) and the table-input space-to-depth LiDAR teacher. A
+branch with a dense VFE (``pillarnet.yaml``, ``pillarnet_radar.yaml``) gets
+no tables: its VFE sorts the points on the device. It differs from the
+original in one place: the uint16 rulebooks that ``as_tables`` ships are
+widened to int32 in ``HostPrecompute``, because PyTorch indexes with
+int32/int64.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ..caps import as_caps, is_table_s2d
+from ..caps import as_caps, is_as, is_table_s2d
 from ..utils.bitpack import pack_bool_np
 from . import host_ops
 
@@ -128,17 +131,21 @@ def mask_pyramid(uids: np.ndarray, hw: Tuple[int, int], n_levels: int = 3):
     return tuple(pack_bool_np(m) for m in out)
 
 
-def _is_as(bk: dict) -> bool:
-    return bk.get("NAME", "PillarRes18BackBone8x").endswith("_AS")
+def _widen(tables: dict) -> dict:
+    """The uint16 rulebooks of ``as_tables`` as int32."""
+    return {k: tuple(a.astype(np.int32) if a.dtype == np.uint16 else a for a in v)
+            if isinstance(v, tuple) else v for k, v in tables.items()}
 
 
 class HostPrecompute:
     """Batch transform adding the host-built inputs to a collated fixed-shape
-    batch: ``hp_lidar`` + ``hp_masks`` for the table-input S2D teacher (sorted
-    points, pillar table slots, unique pillar ids, counts, cluster means; the
-    strided stages' occupancy masks, bit-packed) and ``hp_radar`` + ``hp_as``
-    for the radar active-site backbone (the same pillar tables, and the
-    per-stage active sets and tap tables)."""
+    batch: ``hp_lidar`` for a table-input LiDAR teacher (sorted points, pillar
+    table slots, unique pillar ids, counts, cluster means) with ``hp_masks``
+    for the S2D teacher (the strided stages' occupancy masks, bit-packed) or
+    ``hp_as_lidar`` for an ``_AS`` teacher (its per-stage active sets and tap
+    tables), and ``hp_radar`` + ``hp_as`` for the radar active-site backbone
+    (the same pillar tables and tap tables). A no-op for the branches with a
+    dense VFE."""
 
     def __init__(self, model_cfg, grid_size, voxel_size, point_cloud_range):
         self.grid_size = (int(grid_size[0]), int(grid_size[1]))
@@ -147,18 +154,20 @@ class HostPrecompute:
 
         self.lidar_cap: Optional[int] = None
         self.lidar_packed = False
+        self.lidar_as: Optional[dict] = None
         bk = model_cfg.get("BACKBONE_3D", {}) if "VFE" in model_cfg else {}
-        if is_table_s2d(bk):
+        if is_as(bk):
+            caps = as_caps(bk, self.grid_size)
+            self.lidar_cap = caps[0]
+            self.lidar_as = {"caps": caps, "dense_from": int(bk.get("DENSE_FROM", 3))}
+        elif is_table_s2d(bk):
             self.lidar_cap = int(bk.get("TABLE_CAPACITY", 163840))
             # must match the model wiring (models/detector.py PACKED_TABLE default)
             self.lidar_packed = bool(bk.get("PACKED_TABLE", True))
-        elif "VFE" in model_cfg:
-            raise NotImplementedError(
-                f"teacher backbone {bk.get('NAME')} without TABLE_INPUT is not ported")
 
         self.radar_cap: Optional[int] = None
         rbk = model_cfg.get("RADAR_BACKBONE_3D", {}) if "RADAR_VFE" in model_cfg else {}
-        if _is_as(rbk):
+        if is_as(rbk):
             self.caps = as_caps(rbk, self.grid_size)
             self.radar_cap = self.caps[0]
             self.dense_from = int(rbk.get("DENSE_FROM", 3))
@@ -180,7 +189,11 @@ class HostPrecompute:
                 self.grid_size, self.lidar_cap, packed=self.lidar_packed)
             batch["points"], batch["points_mask"] = pts, msk
             batch["hp_lidar"] = self._drop_ids(pre, self.lidar_cap, pts.shape[1])
-            batch["hp_masks"] = mask_pyramid(pre["uids"], (ny, nx), 3)
+            if self.lidar_as is not None:
+                batch["hp_as_lidar"] = _widen(as_tables(
+                    pre["uids"], (ny, nx), self.lidar_as["caps"], self.lidar_as["dense_from"]))
+            else:
+                batch["hp_masks"] = mask_pyramid(pre["uids"], (ny, nx), 3)
         # radar-only eval datasets carry the radar returns in `points`
         rkey = "radar_points" if "radar_points" in batch else (
             "points" if self.lidar_cap is None else None)
@@ -189,10 +202,6 @@ class HostPrecompute:
                                           self.voxel_size, self.grid_size, self.radar_cap)
             batch[rkey], batch[f"{rkey}_mask"] = pts, msk
             batch["hp_radar"] = self._drop_ids(pre, self.radar_cap, pts.shape[1])
-            tables = as_tables(pre["uids"], (ny, nx), self.caps, self.dense_from)
-            batch["hp_as"] = {
-                k: tuple(a.astype(np.int32) if a.dtype == np.uint16 else a for a in v)
-                if isinstance(v, tuple) else v
-                for k, v in tables.items()
-            }
+            batch["hp_as"] = _widen(as_tables(pre["uids"], (ny, nx), self.caps,
+                                              self.dense_from))
         return batch

@@ -29,9 +29,12 @@ does not cover as fused float links (``ops.conv_block.fp_block_conv``, K6).
 ``INT8: true`` quantizes every conv's input on the fly (``layers.int8_conv``).
 All of it is eval-only, as in the JAX module: a frozen teacher stays in eval
 mode. Stages 2-4 otherwise run the masked dense float blocks of
-``backbone_sparse2d.py`` on host-built occupancy masks, conv5 dense. Still
-raising ``NotImplementedError``: ``pack_stage2`` (the ``_S2D2`` backbone),
-``TABLE_INPUT: false`` and ``PACKED_TABLE: false``.
+``backbone_sparse2d.py`` on host-built occupancy masks, conv5 dense. Its
+``state_dict`` is the one of the dense-input ``PillarRes18BackBone8x`` (the
+teacher of ``pillarnet.yaml``, ``backbone_sparse2d.py``), so a teacher trained
+there loads here. The S2D variants that raise ``NotImplementedError`` are the
+next port item: ``pack_stage2`` (the ``_S2D2`` backbone), ``TABLE_INPUT:
+false`` and ``PACKED_TABLE: false``, and the S2D teacher's train mode.
 """
 
 from __future__ import annotations
@@ -49,8 +52,9 @@ from ..ops.conv_block import fp_block_conv, int8_block
 from ..ops.int8_conv import int8_block_conv
 from ..utils.bitpack import unpack_bool
 from .backbone_sparse2d import DenseBasicBlock, SparseBasicBlock, SparseDownBlock
-from .layers import (BN_EPS_BACKBONE, BatchNormTorch, Conv2dTorch, MaskedBatchNorm, bn_affine,
-                     deq8, int8_conv, int8_conv_affine, int8_qkernel, max_pool_mask, q8)
+from .layers import (BN_EPS_BACKBONE, BN_MOM_BACKBONE, BatchNormTorch, Conv2dTorch,
+                     KernelHolder, MaskedBatchNorm, bn_affine, deq8, int8_conv, int8_conv_affine,
+                     int8_qkernel, max_pool_mask, q8)
 
 # ---------------------------------------------------------------------------
 # pack / unpack
@@ -173,16 +177,6 @@ def _conv(x, kernel, padding, stride=1):
 # ---------------------------------------------------------------------------
 # packed modules: the parameter trees of the dense variants
 # ---------------------------------------------------------------------------
-
-
-class KernelHolder(nn.Module):
-    """The original-layout conv parameters: ``kernel`` (3, 3, Cin, Cout) HWIO
-    and an optional ``bias`` (the flax scope an ``nn.Conv`` would create)."""
-
-    def __init__(self, cin, cout, use_bias):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(3, 3, cin, cout))
-        self.bias = nn.Parameter(torch.empty(cout)) if use_bias else None
 
 
 class _PackedSubmConv(nn.Module):
@@ -346,7 +340,7 @@ class PillarRes18BackBone8xS2D(nn.Module):
             self.add_module(f"conv{n}_0", SparseBasicBlock(cout, dtype, q, qs[n], fp[n]))
             self.add_module(f"conv{n}_1", SparseBasicBlock(cout, dtype, q, qs[n], fp[n]))
         self.conv5_down_conv = Conv2dTorch(256, 256, 3, 2, 1, use_bias=False, int8=q)
-        self.conv5_down_bn = BatchNormTorch(256, BN_EPS_BACKBONE)
+        self.conv5_down_bn = BatchNormTorch(256, BN_EPS_BACKBONE, BN_MOM_BACKBONE)
         self.conv5_0 = DenseBasicBlock(256, dtype, q, qs[5], fp[5])
         self.conv5_1 = DenseBasicBlock(256, dtype, q, qs[5], fp[5])
 

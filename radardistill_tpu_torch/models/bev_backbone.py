@@ -1,9 +1,12 @@
-"""Dense BEV neck, NHWC: ``ConvStack`` and ``BaseBEVBackboneV2``.
+"""Dense BEV necks, NHWC: ``ConvStack``, ``BaseBEVBackboneV2`` and
+``BaseBEVBackboneV1``.
 
-Counterpart of ``radardistill_tpu/models/bev_backbone.py`` (the two-level
-neck over x_conv4 @8x and x_conv5 @16x; the level-0 deblock the reference
-builds and discards is never built). Its BNs (eps 1e-3, momentum 0.01)
-follow ``nn.Module.training``.
+Counterpart of ``radardistill_tpu/models/bev_backbone.py``: the two-level
+necks over x_conv4 @8x and x_conv5 @16x. V2 runs x_conv5 up to 8x and
+concatenates it to x_conv4 before its level-0 stack (the level-0 deblock the
+reference builds and discards is never built); V1 runs a stack on each level,
+deconvolves both to 8x and concatenates them. Their BNs (eps 1e-3, momentum
+0.01) follow ``nn.Module.training``.
 """
 
 from __future__ import annotations
@@ -57,3 +60,30 @@ class BaseBEVBackboneV2(nn.Module):
         x8 = torch.relu(self.deblock1_bn(self.deblock1_deconv(x)))
         out = self.block0(torch.cat([x_conv4, x8], dim=-1))
         return out, x8
+
+
+class BaseBEVBackboneV1(nn.Module):
+    """Returns (concatenated deblocks, the x_conv5 level's deblock); the
+    output has ``sum(num_upsample_filters)`` channels."""
+
+    def __init__(self, in_channels: Sequence[int] = (256, 256),
+                 layer_nums: Sequence[int] = (5, 5),
+                 num_filters: Sequence[int] = (256, 256),
+                 upsample_strides: Sequence[int] = (1, 2),
+                 num_upsample_filters: Sequence[int] = (128, 128)):
+        super().__init__()
+        for i in range(2):
+            s = max(upsample_strides[i], 1)
+            self.add_module(f"block{i}", ConvStack(in_channels[i], num_filters[i], layer_nums[i]))
+            self.add_module(f"deblock{i}_deconv", ConvTranspose2dTorch(
+                num_filters[i], num_upsample_filters[i], s, s, 0))
+            self.add_module(f"deblock{i}_bn", BatchNormTorch(
+                num_upsample_filters[i], BN_EPS_BACKBONE, BN_MOM_BACKBONE))
+
+    def forward(self, x_conv4, x_conv5):
+        ups = []
+        for i, x in enumerate((x_conv4, x_conv5)):
+            x = getattr(self, f"block{i}")(x)
+            x = getattr(self, f"deblock{i}_deconv")(x)
+            ups.append(torch.relu(getattr(self, f"deblock{i}_bn")(x)))
+        return torch.cat(ups, dim=-1), ups[1]

@@ -1,17 +1,29 @@
 """PillarNet, the dual-branch teacher/student detector.
 
-Counterpart of ``radardistill_tpu/models/detector.py::PillarNet`` for the two
-shipped configurations:
+Counterpart of ``radardistill_tpu/models/detector.py::PillarNet``: the
+topology slots of the JAX ``setup``, built by name from the same registries
+(``VFE_REGISTRY``, ``BACKBONE3D_REGISTRY``, ``NECK_REGISTRY``; a ``Radar_``
+twin is the same class in its own scope). Each branch's VFE and 3D backbone
+come in three kinds:
 
-- radar-only serving (``radar_distill_val.yaml``): radar VFE table ->
-  active-site backbone (``DENSE_FROM`` 2..5; the yaml ships 5) -> CMA hourglass -> neck ->
-  merged-hidden CenterHead -> decode + NMS;
-- distillation (``radar_distill_train.yaml``), eval forward and train
-  forward: beside that student, the frozen LiDAR teacher: lidar VFE table (packed order) ->
-  ``PillarRes18BackBone8x_S2D`` (table input, static int8 stage 1) ->
-  ``BaseBEVBackboneV2`` -> ``CenterHead``. Its ``x_conv4``, ``x_conv5``,
-  ``spatial_features_2d``, ``spatial_features_2d_8x`` and ``lidar_preds``
-  are what the distillation losses and the teacher's eval consume.
+- dense input: a dense VFE (``DynamicPillarVFESimple2D``, ``DynamicPillarVFE``
+  or ``MeanVFE``) -> ``PillarRes18BackBone8x`` or ``PillarBackBone8x``: the
+  LiDAR teacher of ``pillarnet.yaml``, the radar baseline of
+  ``pillarnet_radar.yaml`` and both branches of ``synthetic/smoke.yaml``;
+- active-site: a pillar-table VFE -> ``PillarRes18BackBone8x_AS`` (``DENSE_FROM``
+  2..5): the radar student of ``radar_distill_*.yaml``, or a LiDAR teacher;
+- table-input space-to-depth (teacher only): a packed-order pillar table ->
+  ``PillarRes18BackBone8x_S2D`` (``INT8`` false, true or ``static``,
+  ``INT8_STAGES``, ``FP_STAGES``), the frozen teacher of
+  ``radar_distill_train.yaml``.
+
+Then the neck (``BaseBEVBackboneV2`` or ``V1``; the radar branch runs the CMA
+hourglass before it) and a ``CenterHead``. The widths flax infers are computed
+here: the first PFN linear's input (``vfe.vfe_input_dim``), the backbone's
+input (the VFE's output: 32, or 5 / 6 raw features after ``MeanVFE``) and the
+head's (the neck's output). The teacher's ``x_conv4``, ``x_conv5``,
+``spatial_features_2d``, ``spatial_features_2d_8x`` and ``lidar_preds`` are
+what the distillation losses and the teacher's eval consume.
 
 Submodule names are the flax scope names (``vfe``, ``backbone_3d``,
 ``backbone_2d``, ``dense_head`` and their ``radar_`` twins, ``radar_cma``,
@@ -21,7 +33,9 @@ The reference's ``train`` flag is ``nn.Module.training``. ``model.eval()``:
 the whole forward runs without gradients and ends in decode + NMS.
 ``model.train()``: the scopes of ``FREEZE_PIPELINE`` (kept as ``frozen``) stay
 in eval mode (running BN statistics); a frozen *teacher* scope also runs
-without gradients, which is the reference's ``stop_gradient`` on its outputs;
+without gradients, which is the reference's ``stop_gradient`` on its outputs,
+and a teacher outside ``FREEZE_PIPELINE`` trains (``pillarnet.yaml``; the S2D
+teacher has no train mode and raises);
 the teacher's head is skipped when a radar branch exists; ``assign_targets``
 puts ``target_dicts`` into the output when the batch has ``gt_boxes``; nothing
 is decoded. One quirk of the reference is kept: the CMA and the radar neck ask
@@ -33,10 +47,11 @@ optimizer).
 The input is a collated batch as tensors on the model's device
 (``batch_to_torch``), with or without the keys that
 ``data.host_precompute.HostPrecompute`` adds (``hp_radar``, ``hp_as``,
-``hp_lidar``, ``hp_masks``: sorted points, pillar tables, tap tables,
-occupancy masks). Whatever is absent is built on the device: the VFEs sort the
-points and compact the pillar ids, the active-site backbone builds its tap
-tables, the teacher dilates its masks.
+``hp_lidar``, ``hp_masks``, ``hp_as_lidar``: sorted points, pillar tables,
+tap tables, occupancy masks). Whatever is absent is built on the device: the
+VFEs sort the points and compact the pillar ids, the active-site backbones
+build their tap tables, the teacher dilates its masks. A dense VFE always
+sorts on the device.
 """
 
 from __future__ import annotations
@@ -50,19 +65,48 @@ from torch import nn
 
 from torch.profiler import record_function
 
-from ..caps import as_caps, is_table_s2d
+from ..caps import as_caps, is_as, is_table_s2d
 from .backbone_as import PillarRes18BackBone8xAS
 from .backbone_s2d import PillarRes18BackBone8xS2D
-from .bev_backbone import BaseBEVBackboneV2
+from .backbone_sparse2d import PillarBackBone8x, PillarRes18BackBone8x
+from .bev_backbone import BaseBEVBackboneV1, BaseBEVBackboneV2
 from .center_head import CenterHead, HeadSpec, assign_targets, decode_and_nms
 from .distill import CMAHourglass
-from .vfe import DynamicPillarVFESparse
+from .vfe import DynamicPillarVFE, DynamicPillarVFESimple2D, DynamicPillarVFESparse, MeanVFE
 
 LIDAR_FEATURES = 5  # x, y, z, intensity, time
 RADAR_FEATURES = 6  # x, y, z, rcs, vx, vy
 TEACHER_STAGES = ("vfe", "backbone_3d", "backbone_2d", "dense_head")
 RADAR_STAGES = ("radar_vfe", "radar_backbone_3d", "radar_cma", "radar_neck", "radar_dense_head")
 STAGES = TEACHER_STAGES + RADAR_STAGES + ("assign_targets", "decode_and_nms")
+
+# the reference's per-stage registries; a Radar_ twin is the same class in
+# another scope
+VFE_REGISTRY = {
+    "DynamicPillarVFESimple2D": DynamicPillarVFESimple2D,
+    "Radar_DynamicPillarVFESimple2D": DynamicPillarVFESimple2D,
+    "Radar_DynamicPillarVFESimple2D_Test": DynamicPillarVFESimple2D,
+    "DynamicPillarVFE": DynamicPillarVFE,
+    "MeanVFE": MeanVFE,
+    "RADAR_MeanVFE": MeanVFE,
+    "DynamicMeanVFE": MeanVFE,
+}
+BACKBONE3D_REGISTRY = {
+    "PillarRes18BackBone8x": PillarRes18BackBone8x,
+    "Radar_PillarRes18BackBone8x": PillarRes18BackBone8x,
+    "PillarBackBone8x": PillarBackBone8x,
+    "PillarRes18BackBone8x_S2D": PillarRes18BackBone8xS2D,
+    "Radar_PillarRes18BackBone8x_S2D": PillarRes18BackBone8xS2D,
+    "PillarRes18BackBone8x_S2D2": PillarRes18BackBone8xS2D,
+    "Radar_PillarRes18BackBone8x_S2D2": PillarRes18BackBone8xS2D,
+    "PillarRes18BackBone8x_AS": PillarRes18BackBone8xAS,
+    "Radar_PillarRes18BackBone8x_AS": PillarRes18BackBone8xAS,
+}
+NECK_REGISTRY = {
+    "BaseBEVBackboneV2": BaseBEVBackboneV2,
+    "BaseBEVBackboneV1": BaseBEVBackboneV1,
+    "Radar_Distill": BaseBEVBackboneV2,  # Radar_Distill = CMA + the inherited V2 neck
+}
 
 # FREEZE_PIPELINE class names of the reference -> the scopes they freeze
 FREEZE_NAME_TO_SCOPE = {
@@ -76,6 +120,13 @@ FREEZE_NAME_TO_SCOPE = {
     "Radar_Distill": ("radar_cma", "radar_neck"),
     "Radar_CenterHead": ("radar_dense_head",),
 }
+
+
+def _registered(registry, kind, name):
+    if name not in registry:
+        raise NotImplementedError(f"{kind} {name} is not ported")
+    return registry[name]
+
 
 
 class PillarNet(nn.Module):
@@ -96,20 +147,62 @@ class PillarNet(nn.Module):
         nx, ny = self.grid_size
         dt = compute_dtype
 
-        def make_vfe(sub, num_point_features, capacity, packed_order=False):
-            return DynamicPillarVFESparse(
+        def make_vfe(sub, bk, num_point_features):
+            """The VFE of a branch; an active-site or table-input S2D backbone
+            takes the pillar table (``DynamicPillarVFESparse``) instead of the
+            grid."""
+            cls = _registered(VFE_REGISTRY, "VFE", sub.get("NAME", "DynamicPillarVFESimple2D"))
+            if cls is MeanVFE:
+                return MeanVFE(self.voxel_size, self.point_cloud_range, self.grid_size,
+                               num_point_features)
+            kwargs = dict(
                 num_filters=tuple(sub["NUM_FILTERS"]), voxel_size=self.voxel_size,
                 point_cloud_range=self.point_cloud_range, grid_size=self.grid_size,
-                num_point_features=num_point_features, capacity=capacity,
-                use_norm=sub.get("USE_NORM", True), with_distance=sub.get("WITH_DISTANCE", False),
+                num_point_features=num_point_features, use_norm=sub.get("USE_NORM", True),
+                with_distance=sub.get("WITH_DISTANCE", False),
                 use_absolute_xyz=sub.get("USE_ABSLOTE_XYZ", True),
-                use_cluster_xyz=sub.get("USE_CLUSTER_XYZ", True), dtype=dt,
-                packed_order=packed_order)
+                use_cluster_xyz=sub.get("USE_CLUSTER_XYZ", True), dtype=dt)
+            if cls is DynamicPillarVFESimple2D and is_as(bk):
+                return DynamicPillarVFESparse(capacity=as_caps(bk, self.grid_size)[0], **kwargs)
+            if cls is DynamicPillarVFESimple2D and is_table_s2d(bk):
+                return DynamicPillarVFESparse(capacity=int(bk.get("TABLE_CAPACITY", 163840)),
+                                              packed_order=bool(bk.get("PACKED_TABLE", True)),
+                                              **kwargs)
+            return cls(**kwargs)
+
+        def make_backbone(bk, in_ch):
+            name = bk.get("NAME", "PillarRes18BackBone8x")
+            cls = _registered(BACKBONE3D_REGISTRY, "3D backbone", name)
+            int8_mode = bk.get("INT8", False)
+            if int8_mode and cls not in (PillarRes18BackBone8x, PillarRes18BackBone8xS2D):
+                raise ValueError(f"INT8: {int8_mode} takes a PillarRes18 teacher, not {name}")
+            if int8_mode == "static" and cls is not PillarRes18BackBone8xS2D:
+                raise ValueError("INT8: static takes the space-to-depth teacher")
+            if cls is PillarRes18BackBone8xAS:
+                return PillarRes18BackBone8xAS((ny, nx), as_caps(bk, self.grid_size),
+                                               int(bk.get("DENSE_FROM", 3)))
+            if cls is PillarRes18BackBone8xS2D:
+                if not is_table_s2d(bk):
+                    raise NotImplementedError(
+                        f"PillarRes18BackBone8x_S2D: TABLE_INPUT: false (dense input) is not "
+                        f"ported")
+                return PillarRes18BackBone8xS2D(
+                    (ny, nx), dtype=dt, int8=bool(int8_mode) and int8_mode != "static",
+                    int8_static=int8_mode == "static", int8_stages=int(bk.get("INT8_STAGES", 1)),
+                    fp_stages=int(bk.get("FP_STAGES", 0)), table_input=True,
+                    packed_table=bool(bk.get("PACKED_TABLE", True)),
+                    pack_stage2=name.endswith("_S2D2"))
+            if cls is PillarRes18BackBone8x:
+                return PillarRes18BackBone8x(in_ch, dt, int8=bool(int8_mode))
+            return cls(in_ch, dt)
 
         def make_neck(sub):
-            return BaseBEVBackboneV2(
-                (256, 256), tuple(sub["LAYER_NUMS"]), tuple(sub["NUM_FILTERS"]),
-                tuple(sub["UPSAMPLE_STRIDES"]), tuple(sub["NUM_UPSAMPLE_FILTERS"]))
+            cls = _registered(NECK_REGISTRY, "neck", sub.get("NAME", "BaseBEVBackboneV2"))
+            neck = cls((256, 256), tuple(sub["LAYER_NUMS"]), tuple(sub["NUM_FILTERS"]),
+                       tuple(sub["UPSAMPLE_STRIDES"]), tuple(sub["NUM_UPSAMPLE_FILTERS"]))
+            out_ch = (sum(sub["NUM_UPSAMPLE_FILTERS"]) if cls is BaseBEVBackboneV1
+                      else sub["NUM_FILTERS"][0])
+            return neck, out_ch
 
         def make_head(sub, in_ch):
             spec = HeadSpec(sub["CLASS_NAMES_EACH_HEAD"], class_names)
@@ -120,41 +213,27 @@ class PillarNet(nn.Module):
 
         if self.has_teacher:
             bk = cfg.get("BACKBONE_3D", {})
-            if not is_table_s2d(bk):
-                raise NotImplementedError(
-                    f"teacher backbone {bk.get('NAME')} without TABLE_INPUT is not ported")
-            int8_mode = bk.get("INT8", False)
-            self.vfe = make_vfe(cfg["VFE"], LIDAR_FEATURES, int(bk.get("TABLE_CAPACITY", 163840)),
-                                packed_order=bool(bk.get("PACKED_TABLE", True)))
-            self.backbone_3d = PillarRes18BackBone8xS2D(
-                (ny, nx), dtype=dt, int8=bool(int8_mode) and int8_mode != "static",
-                int8_static=int8_mode == "static", int8_stages=int(bk.get("INT8_STAGES", 1)),
-                fp_stages=int(bk.get("FP_STAGES", 0)), table_input=True,
-                packed_table=bool(bk.get("PACKED_TABLE", True)),
-                pack_stage2=bk["NAME"].endswith("_S2D2"))
-            neck = cfg["BACKBONE_2D"]
-            self.backbone_2d = make_neck(neck)
-            self.head_spec, self.dense_head = make_head(cfg["DENSE_HEAD"], neck["NUM_FILTERS"][0])
+            self.as_teacher, self.s2dt_teacher = is_as(bk), is_table_s2d(bk)
+            self.vfe = make_vfe(cfg["VFE"], bk, LIDAR_FEATURES)
+            self.backbone_3d = make_backbone(bk, self.vfe.output_dim)
+            self.backbone_2d, neck_ch = make_neck(cfg["BACKBONE_2D"])
+            self.head_spec, self.dense_head = make_head(cfg["DENSE_HEAD"], neck_ch)
         if self.has_radar:
-            bk = cfg["RADAR_BACKBONE_3D"]
-            if not bk.get("NAME", "").endswith("_AS"):
-                raise NotImplementedError(f"radar backbone {bk.get('NAME')} is not ported")
-            caps = as_caps(bk, self.grid_size)
-            self.radar_vfe = make_vfe(cfg["RADAR_VFE"], RADAR_FEATURES, caps[0])
-            self.radar_backbone_3d = PillarRes18BackBone8xAS(
-                (ny, nx), caps, int(bk.get("DENSE_FROM", 3)))
+            bk = cfg.get("RADAR_BACKBONE_3D", {})
+            self.as_radar = is_as(bk)
+            self.radar_vfe = make_vfe(cfg["RADAR_VFE"], bk, RADAR_FEATURES)
+            self.radar_backbone_3d = make_backbone(bk, self.radar_vfe.output_dim)
             self.radar_cma = CMAHourglass(256)
-            neck = cfg["RADAR_BACKBONE_2D"]
-            self.radar_neck = make_neck(neck)
+            self.radar_neck, neck_ch = make_neck(cfg["RADAR_BACKBONE_2D"])
             self.radar_head_spec, self.radar_dense_head = make_head(
-                cfg["RADAR_DENSE_HEAD"], neck["NUM_FILTERS"][0])
+                cfg["RADAR_DENSE_HEAD"], neck_ch)
             if not self.has_teacher:
                 self.head_spec = self.radar_head_spec
 
     def train(self, mode: bool = True):
         """Frozen scopes stay in eval mode; the CMA and the radar neck follow
         ``mode`` whatever ``FREEZE_PIPELINE`` says (see the module docstring)."""
-        if mode and self.has_teacher and "backbone_3d" not in self.frozen:
+        if mode and self.has_teacher and self.s2dt_teacher and "backbone_3d" not in self.frozen:
             raise NotImplementedError(
                 "training the PillarRes18BackBone8x_S2D teacher (BACKBONE_3D outside "
                 "FREEZE_PIPELINE) is not ported: its blocks have no train mode")
@@ -175,12 +254,20 @@ class PillarNet(nn.Module):
 
     def _teacher(self, batch, out):
         with self._scope("vfe"):
-            tfeats, tuids, tcnt = self.vfe(batch["points"], batch["points_mask"],
-                                           batch.get("hp_lidar"))
+            if self.as_teacher or self.s2dt_teacher:
+                tfeats, tuids, tcnt = self.vfe(batch["points"], batch["points_mask"],
+                                               batch.get("hp_lidar"))
+                _overflow(out, torch.clamp(tcnt - self.vfe.capacity, min=0).sum())
+            else:
+                bev, mask = self.vfe(batch["points"], batch["points_mask"])
         with self._scope("backbone_3d"):
-            ms = self.backbone_3d(tfeats, tuids, batch.get("hp_masks"))
-        out["as_overflow"] = out["as_overflow"] + torch.clamp(
-            tcnt - self.vfe.capacity, min=0).sum().to(torch.int32)
+            if self.as_teacher:
+                ms = self.backbone_3d(tfeats, tuids, batch.get("hp_as_lidar"))
+                _overflow(out, ms["as_overflow"])
+            elif self.s2dt_teacher:
+                ms = self.backbone_3d(tfeats, tuids, batch.get("hp_masks"))
+            else:
+                ms = self.backbone_3d(bev, mask)
         out["x_conv4"], out["x_conv5"] = ms["x_conv4"], ms["x_conv5"]
         with self._scope("backbone_2d"):
             sp2d, sp2d_8x = self.backbone_2d(ms["x_conv4"], ms["x_conv5"])
@@ -194,12 +281,18 @@ class PillarNet(nn.Module):
         # radar-only eval datasets carry the radar returns in `points`
         key = "radar_points" if "radar_points" in batch else "points"
         with record_function("radar_vfe"):
-            rfeats, ruids, rcnt = self.radar_vfe(batch[key], batch[f"{key}_mask"],
-                                                 batch.get("hp_radar"))
+            if self.as_radar:
+                rfeats, ruids, rcnt = self.radar_vfe(batch[key], batch[f"{key}_mask"],
+                                                     batch.get("hp_radar"))
+                _overflow(out, torch.clamp(rcnt - self.radar_vfe.capacity, min=0).sum())
+            else:
+                rbev, rmask = self.radar_vfe(batch[key], batch[f"{key}_mask"])
         with record_function("radar_backbone_3d"):
-            rms = self.radar_backbone_3d(rfeats, ruids, batch.get("hp_as"))
-        out["as_overflow"] = out["as_overflow"] + rms["as_overflow"] + torch.clamp(
-            rcnt - self.radar_vfe.capacity, min=0).sum().to(torch.int32)
+            if self.as_radar:
+                rms = self.radar_backbone_3d(rfeats, ruids, batch.get("hp_as"))
+                _overflow(out, rms["as_overflow"])
+            else:
+                rms = self.radar_backbone_3d(rbev, rmask)
         out["radar_x_conv4"] = rms["x_conv4"]
         with record_function("radar_cma"):
             dense_8x_2, dense_8x_1 = self.radar_cma(rms["x_conv4"])
@@ -219,9 +312,7 @@ class PillarNet(nn.Module):
             return self._forward(batch)
 
     def _forward(self, batch):
-        points = batch["radar_points" if self.has_radar and "radar_points" in batch else "points"]
-        out: Dict[str, Any] = {
-            "as_overflow": torch.zeros((), dtype=torch.int32, device=points.device)}
+        out: Dict[str, Any] = {}
         if self.has_teacher:
             self._teacher(batch, out)
         if self.has_radar:
@@ -258,6 +349,13 @@ class PillarNet(nn.Module):
                 nms_post=pp["NMS_CONFIG"]["NMS_POST_MAXSIZE"],
                 with_iou="iou" in heads, with_vel="vel" in heads)
         return out
+
+
+def _overflow(out, n):
+    """Add ``n`` sites dropped by a capacity to ``out["as_overflow"]``, which
+    exists, as in the reference, only where a branch takes pillar tables."""
+    n = n.to(torch.int32)
+    out["as_overflow"] = out["as_overflow"] + n if "as_overflow" in out else n
 
 
 def batch_to_torch(batch: Dict[str, Any], device="cuda"):

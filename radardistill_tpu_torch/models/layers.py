@@ -27,8 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+import torch.distributed as dist
+
 from ..ops.conv_block import int_conv_exact
-from ..parallel.mesh import batch_sum
+from ..parallel.mesh import batch_sum, sync_group
 
 # reference eps and momentum (torch convention: the share of the batch's
 # statistic in the update): sparse backbone + neck BNs 1e-3 / 0.01, head and
@@ -139,23 +141,48 @@ class ConvParams(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_ch)) if use_bias else None
 
 
+class KernelHolder(nn.Module):
+    """Conv parameters in the original HWIO layout: ``kernel`` (k, k, Cin,
+    Cout) and an optional ``bias``, the flax scope an ``nn.Conv`` creates. The
+    space-to-depth teacher assembles its packed kernels from this layout, and
+    the dense PillarRes18 backbone keeps its stage-1 convs in it, so that the
+    two teachers have one ``state_dict``."""
+
+    def __init__(self, cin, cout, use_bias, kernel_size=3):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(kernel_size, kernel_size, cin, cout))
+        self.bias = nn.Parameter(torch.empty(cout)) if use_bias else None
+
+
 class Conv2dTorch(nn.Module):
-    """NHWC conv with torch-style symmetric padding (params under ``conv``).
+    """NHWC conv with torch-style symmetric padding (params under ``conv``:
+    an OIHW ``weight``, or with ``hwio`` a ``KernelHolder``'s HWIO ``kernel``).
     With ``int8`` the forward is the dynamic int8 conv (``int8_conv``). The
     teacher's fused chains read the parameters instead of calling the module:
     ``raw()`` and ``qpieces()``."""
 
     def __init__(self, in_ch, features, kernel_size=3, stride=1, padding=0,
-                 use_bias=False, groups=1, int8=False):
+                 use_bias=False, groups=1, int8=False, hwio=False):
         super().__init__()
         if int8 and groups != 1:
             raise ValueError("Conv2dTorch: the int8 path takes groups == 1")
+        if hwio and groups != 1:
+            raise ValueError("Conv2dTorch: an HWIO kernel takes groups == 1")
         self.stride, self.padding, self.groups, self.int8 = stride, padding, groups, int8
-        self.conv = ConvParams(in_ch, features, kernel_size, groups, use_bias)
+        self.conv = (KernelHolder(in_ch, features, use_bias, kernel_size) if hwio
+                     else ConvParams(in_ch, features, kernel_size, groups, use_bias))
+
+    def _weight(self):
+        """The kernel in the OIHW layout ``F.conv2d`` takes."""
+        if isinstance(self.conv, KernelHolder):
+            return self.conv.kernel.permute(3, 2, 0, 1)
+        return self.conv.weight
 
     def raw(self):
         """(kernel in HWIO layout, bias or None): the float parameters, for a
         caller that packs or casts the kernel itself."""
+        if isinstance(self.conv, KernelHolder):
+            return self.conv.kernel, self.conv.bias
         return self.conv.weight.permute(2, 3, 1, 0).contiguous(), self.conv.bias
 
     def qpieces(self):
@@ -168,7 +195,7 @@ class Conv2dTorch(nn.Module):
             kernel, bias = self.raw()
             pad = (self.padding, self.padding)
             return int8_conv(x, kernel, self.stride, (pad, pad), bias, out_dtype=x.dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.conv.weight.to(x.dtype),
+        y = F.conv2d(x.permute(0, 3, 1, 2), self._weight().to(x.dtype),
                      _cast(self.conv.bias, x.dtype), self.stride, self.padding,
                      groups=self.groups)
         return y.permute(0, 2, 3, 1)
@@ -264,6 +291,42 @@ class BatchNormTorch(nn.Module):
         return bn_affine(bn.weight, bn.bias, bn.running_mean, bn.running_var, self.eps)
 
 
+class _MaskedBatchNormTrain(torch.autograd.Function):
+    """The train-mode normalization of ``MaskedBatchNorm`` by the statistics of
+    the masked rows (``mean``, the variance before its clamp ``var_raw``, the
+    row count ``n``, computed without gradients), differentiated by hand. It
+    keeps x in its own dtype and the mask for the backward; autograd of the
+    float32 expression would keep four float32 copies of x (at the 1440² grid,
+    32 channels and batch 8, 8.5 GB a BatchNorm). The gradient is autograd's:
+    through the normalization, and through the statistics to the masked rows
+    only; inside a ``sync_batch`` scope the statistics' share of it is summed
+    over the group, as ``batch_sum``'s backward sums it."""
+
+    @staticmethod
+    def forward(ctx, x, m, weight, bias, mean, var_raw, n, eps, group):
+        inv = torch.rsqrt(torch.clamp(var_raw, min=0.0) + eps)
+        y = (x.float() - mean) * inv * weight + bias
+        ctx.save_for_backward(x, m, weight, mean, inv, var_raw, n)
+        ctx.group = group
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, m, weight, mean, inv, var_raw, n = ctx.saved_tensors
+        axes, c = tuple(range(x.dim() - 1)), x.shape[-1]
+        xc = x.float() - mean
+        g = gy.float()
+        dbias = g.sum(dim=axes)
+        dweight = (g * xc).sum(dim=axes) * inv
+        gw = g * weight
+        s = torch.cat([gw.sum(dim=axes), (gw * xc).sum(dim=axes)])
+        if ctx.group is not None:
+            dist.all_reduce(s, group=ctx.group)
+        dvar = -0.5 * inv ** 3 * s[c:] * (var_raw > 0)
+        dx = gw * inv + m[..., None] * ((2.0 * dvar * xc - inv * s[:c]) / n)
+        return dx.to(x.dtype), None, dweight, dbias, None, None, None, None, None
+
+
 class MaskedBatchNorm(nn.Module):
     """The reference's BN1d over active-site lists: every row is normalized and
     callers re-mask inactive rows. Computed in float32, returned in x's dtype.
@@ -272,7 +335,8 @@ class MaskedBatchNorm(nn.Module):
     (Σx, Σx²) with ``n = max(Σmask, 1)``; the running variance is updated with
     the *unbiased* batch variance, as torch's BN1d does. Σx, Σx² and Σmask go
     through one ``batch_sum`` (the global batch inside a ``sync_batch``
-    scope, the unbiased factor's n included)."""
+    scope, the unbiased factor's n included). The train forward's backward is
+    ``_MaskedBatchNormTrain``'s."""
 
     def __init__(self, features, eps=BN_EPS_BACKBONE, momentum=BN_MOM_BACKBONE):
         super().__init__()
@@ -283,25 +347,29 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x, mask=None):
-        x32 = x.float()
         if self.training:
             if mask is None:
                 raise ValueError("MaskedBatchNorm in train mode needs the active mask")
             m = mask.to(torch.float32)
-            axes = tuple(range(x.dim() - 1))
-            xm = x32 * m[..., None]
-            c = x.shape[-1]
-            sums = batch_sum(torch.cat([xm.sum(dim=axes), (xm * x32).sum(dim=axes),
-                                        m.sum().reshape(1)]))
-            n = torch.clamp(sums[2 * c], min=1.0)
-            mean = sums[:c] / n
-            var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
-            update_running_(self.running_mean, mean, self.momentum)
-            update_running_(self.running_var, var * n / torch.clamp(n - 1.0, min=1.0),
-                            self.momentum)
-        else:
-            mean, var = self.running_mean, self.running_var
-        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+            with torch.no_grad():
+                x32 = x.float()
+                axes = tuple(range(x.dim() - 1))
+                xm = x32 * m[..., None]
+                c = x.shape[-1]
+                sums = batch_sum(torch.cat([xm.sum(dim=axes), (xm * x32).sum(dim=axes),
+                                            m.sum().reshape(1)]))
+                del x32, xm
+                n = torch.clamp(sums[2 * c], min=1.0)
+                mean = sums[:c] / n
+                var_raw = sums[c:2 * c] / n - mean * mean
+                update_running_(self.running_mean, mean, self.momentum)
+                update_running_(self.running_var, torch.clamp(var_raw, min=0.0) * n
+                                / torch.clamp(n - 1.0, min=1.0), self.momentum)
+            return _MaskedBatchNormTrain.apply(x, m, self.weight, self.bias, mean, var_raw, n,
+                                               self.eps, sync_group())
+        x32 = x.float()
+        y = (x32 - self.running_mean) * torch.rsqrt(self.running_var + self.eps) * self.weight \
+            + self.bias
         return y.to(x.dtype)
 
     def affine(self):

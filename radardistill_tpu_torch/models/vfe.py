@@ -1,16 +1,33 @@
-"""Dynamic pillar VFE on a sorted pillar table.
+"""Dynamic pillar VFEs: the point features reduced into a sorted pillar
+table, and from it the dense BEV grid; and the mean VFE.
 
-Counterpart of ``radardistill_tpu/models/vfe.py``: ``DynamicPillarVFESparse``
-(``encode_table``) and ``PFNLayerV2Sparse``. The points arrive either sorted
-by the host with their slots, unique pillar ids and cluster means (``pre``),
-or raw (``pre=None``): then the device computes the pillar ids, sorts the
-points (stable), compacts the unique ids and takes the cluster means itself.
-It serves the radar student (6 point features) and the LiDAR teacher (5
-features, capacity 163840): the row order of the table is linear for the
-student and space-to-depth packed for the teacher (``packed_order``), while
-the id values stay linear. Point features are float32
-(coordinate precision); the pillar table leaves in the compute dtype.
-Layouts: points (B, N, F), table (B, capacity, C).
+Counterpart of ``radardistill_tpu/models/vfe.py``:
+
+- ``DynamicPillarVFESimple2D`` (the dense VFE of ``pillarnet.yaml`` and
+  ``pillarnet_radar.yaml``, and its ``Radar_`` twins): ``encode_table`` at a
+  capacity of one row per point (no pillar can overflow), then
+  ``ops.active_site.densify_batch`` to the (B, H, W, C) grid and its
+  (B, H, W) occupancy. On the card that densify is kernel K5, with its
+  gather-formulated backward.
+- ``DynamicPillarVFESparse``: the same encoder at a fixed capacity, emitting
+  the table itself (``table`` (B, cap, C), ``uids`` (B, cap), ``count``
+  (B,)): the front end of the active-site backbone (6 radar features, or an
+  ``_AS`` LiDAR teacher) and of the space-to-depth teacher (5 features,
+  capacity 163840, rows in space-to-depth packed order, ``packed_order``;
+  the id values stay linear).
+- ``DynamicPillarVFE``: the dense VFE with the original feature order
+  ``[raw, f_cluster, f_center]`` (no ``f_relative``).
+- ``MeanVFE``: the per-pillar mean of the raw point features, no parameters.
+
+The points arrive either sorted by the host with their slots, unique pillar
+ids and cluster means (``pre``, the table VFEs only), or raw: then the device
+computes the pillar ids, sorts the points (stable), compacts the unique ids
+and takes the cluster means itself. ``PFNLayerV2Sparse`` reduces through a
+segment max. Parameters are ``pfn_{i}`` with ``linear`` and ``norm`` in every
+variant, as in the JAX tree. Point features are float32 (coordinate
+precision); the pillar table leaves in the compute dtype. Layouts: points
+(B, N, F), table (B, capacity, C). ``vfe_input_dim`` is the first linear's
+input width.
 """
 
 from __future__ import annotations
@@ -25,6 +42,21 @@ from ..ops import voxelize
 from .layers import Dense, MaskedBatchNorm
 
 
+def vfe_input_dim(num_raw_features: int, cfg) -> int:
+    """Width of the first PFN linear's input for a VFE config
+    (dynamic_pillar_vfe.py:150-163): f_center, the raw features (without xyz
+    unless ``USE_ABSLOTE_XYZ``), f_cluster, the distance, f_relative."""
+    n = 3
+    n += num_raw_features if cfg.get("USE_ABSLOTE_XYZ", True) else num_raw_features - 3
+    if cfg.get("USE_CLUSTER_XYZ", True):
+        n += 3
+    if cfg.get("WITH_DISTANCE", False):
+        n += 1
+    if cfg.get("USE_RELATIVE_XYZ", True):
+        n += 3
+    return n
+
+
 class PFNLayerV2Sparse(nn.Module):
     """Linear -> BN1d (over the valid points in train mode) -> ReLU ->
     per-pillar max into a (B, capacity, C) table (segment max through a junk
@@ -32,15 +64,14 @@ class PFNLayerV2Sparse(nn.Module):
     of the max is shared evenly among tied points (``scatter_reduce`` with
     ``amax``), as the reference's ``scatter_max`` shares it."""
 
-    def __init__(self, in_channels, out_channels, capacity, use_norm=True,
-                 last_layer=False, dtype=None):
+    def __init__(self, in_channels, out_channels, use_norm=True, last_layer=False, dtype=None):
         super().__init__()
-        self.capacity, self.last_layer, self.dtype = capacity, last_layer, dtype
+        self.last_layer, self.dtype = last_layer, dtype
         out_ch = out_channels if last_layer else out_channels // 2
         self.linear = Dense(in_channels, out_ch, use_bias=not use_norm)
         self.norm = MaskedBatchNorm(out_ch) if use_norm else None
 
-    def forward(self, feats, slot, point_mask):
+    def forward(self, feats, slot, point_mask, capacity: int):
         x = self.linear(feats)
         if self.norm is not None:
             x = self.norm(x, point_mask)
@@ -49,46 +80,48 @@ class PFNLayerV2Sparse(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         b, n_pts, ch = x.shape
-        cap1 = self.capacity + 1
+        cap1 = capacity + 1
         flat = (slot.long() + (torch.arange(b, device=slot.device) * cap1)[:, None]).reshape(-1)
         t = torch.full((b * cap1, ch), float("-inf"), dtype=x.dtype, device=x.device)
         t = t.scatter_reduce(0, flat[:, None].expand(-1, ch), x.reshape(-1, ch),
                              reduce="amax", include_self=True)
         t = torch.where(torch.isneginf(t), 0.0, t)
-        table = t.reshape(b, cap1, ch)[:, : self.capacity]
+        table = t.reshape(b, cap1, ch)[:, :capacity]
         if self.last_layer:
             return x, table
         back = t[flat].reshape(b, n_pts, ch)
-        back = torch.where((slot < self.capacity)[..., None], back, 0.0)
+        back = torch.where((slot < capacity)[..., None], back, 0.0)
         return torch.cat([x, back], dim=-1), None
 
 
-class DynamicPillarVFESparse(nn.Module):
-    """Pillar encoder emitting a sorted pillar table (feats (B, cap, C), uids
-    (B, cap), count (B,)) from host-precomputed inputs (``pre``) or from the
-    raw points."""
+class DynamicPillarVFESimple2D(nn.Module):
+    """The dense VFE: ``forward(points, point_mask)`` -> (bev (B, H, W, C),
+    pillar_mask (B, H, W) bool), through a pillar table of one row per point
+    (:meth:`encode_table`) and one densify (K5 on the card)."""
+
+    use_relative_xyz = True
+    capacity = None  # the table's: one row per point, set per call
 
     def __init__(self, num_filters: Sequence[int], voxel_size, point_cloud_range,
-                 grid_size: Tuple[int, int], num_point_features: int, capacity: int,
-                 use_norm=True, with_distance=False, use_absolute_xyz=True,
-                 use_cluster_xyz=True, dtype=None, packed_order=False):
+                 grid_size: Tuple[int, int], num_point_features: int, use_norm=True,
+                 with_distance=False, use_absolute_xyz=True, use_cluster_xyz=True, dtype=None,
+                 packed_order=False):
         super().__init__()
-        if with_distance:
-            raise NotImplementedError("WITH_DISTANCE is not in the ported configs")
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
         self.grid_size = tuple(grid_size)
-        self.capacity = capacity
+        self.with_distance = with_distance
         self.use_absolute_xyz = use_absolute_xyz
         self.use_cluster_xyz = use_cluster_xyz
         self.packed_order = packed_order
-        in_ch = 3 + (num_point_features if use_absolute_xyz else num_point_features - 3)
-        in_ch += 3 * int(use_cluster_xyz) + 3  # + f_cluster, f_relative
+        in_ch = vfe_input_dim(num_point_features, {
+            "USE_ABSLOTE_XYZ": use_absolute_xyz, "USE_CLUSTER_XYZ": use_cluster_xyz,
+            "WITH_DISTANCE": with_distance, "USE_RELATIVE_XYZ": self.use_relative_xyz})
         self.n_layers = len(num_filters)
+        self.output_dim = num_filters[-1]
         for i, out_ch in enumerate(num_filters):
             last = i >= self.n_layers - 1
-            self.add_module(f"pfn_{i}", PFNLayerV2Sparse(
-                in_ch, out_ch, capacity, use_norm, last, dtype))
+            self.add_module(f"pfn_{i}", PFNLayerV2Sparse(in_ch, out_ch, use_norm, last, dtype))
             in_ch = out_ch  # a non-last layer emits [x, max_back]: out_ch wide
 
     def _f_center(self, points, ids):
@@ -106,18 +139,21 @@ class DynamicPillarVFESparse(nn.Module):
         ], dim=-1)
 
     def _assemble_features(self, points, valid, ids, mean):
-        """[f_center, abs xyz + extras | extras, f_cluster, f_relative]."""
+        """[f_center, abs xyz + extras | extras, f_cluster, distance,
+        f_relative], zero for invalid points."""
         xyz = points[..., 0:3]
         feats = [self._f_center(points, ids),
                  points if self.use_absolute_xyz else points[..., 3:]]
         if self.use_cluster_xyz:
             feats.append(xyz - mean)
+        if self.with_distance:
+            feats.append(torch.linalg.vector_norm(xyz, dim=-1, keepdim=True))
         pc0 = torch.tensor(self.point_cloud_range[:3], dtype=xyz.dtype, device=xyz.device)
         feats.append(xyz - pc0)
         out = torch.cat(feats, dim=-1)
         return torch.where(valid[..., None], out, 0.0)
 
-    def _slot_mean(self, xyz, valid, slot):
+    def _slot_mean(self, xyz, valid, slot, capacity):
         """Cluster mean of each point's pillar: a float32 ``index_add_`` of
         [xyz, 1] into a (B * (cap + 1), 4) table and a gather back. The
         reference takes the same sums with two segmented scans, so the means
@@ -125,7 +161,7 @@ class DynamicPillarVFESparse(nn.Module):
         capacity (invalid, or in a pillar beyond the capacity) share one junk
         row, as they share one trailing segment there."""
         b, n, _ = xyz.shape
-        cap1 = self.capacity + 1
+        cap1 = capacity + 1
         xyz1 = torch.cat([torch.where(valid[..., None], xyz, 0.0),
                           valid[..., None].to(xyz.dtype)], dim=-1).reshape(b * n, 4)
         flat = (slot.long() + (torch.arange(b, device=slot.device) * cap1)[:, None]).reshape(-1)
@@ -133,12 +169,14 @@ class DynamicPillarVFESparse(nn.Module):
         total = sums.index_add_(0, flat, xyz1)[flat].reshape(b, n, 4)
         return total[..., :3] / total[..., 3:].clamp(min=1.0)
 
-    def sort_and_compact(self, points, point_mask):
+    def sort_and_compact(self, points, point_mask, capacity=None):
         """The device twin of ``data/host_precompute.pillar_encode``: points
         (B, N, F) in any order -> (points sorted by pillar id, or by the
         packed key under ``packed_order``; ``pre`` = dict(ids, slot, uids,
-        count) with the host's values). The sort is stable: the max's tie
-        rule and the mean's summation order follow the point order."""
+        count) with the host's values), at ``capacity`` rows (default: the
+        module's). The sort is stable: the max's tie rule and the mean's
+        summation order follow the point order."""
+        capacity = self.capacity if capacity is None else capacity
         coords, in_range = voxelize.compute_pillar_coords(
             points[..., :2], self.point_cloud_range, self.voxel_size, self.grid_size)
         ids = voxelize.pillar_ids(coords, point_mask & in_range, self.grid_size)
@@ -147,14 +185,15 @@ class DynamicPillarVFESparse(nn.Module):
         ids = torch.gather(ids, 1, order)
         points = torch.gather(points, 1, order[..., None].expand(-1, -1, points.shape[-1]))
         nx, ny = self.grid_size
-        uids, slot, count = asx.compact_unique_sorted(ids, self.capacity, nx * ny)
+        uids, slot, count = asx.compact_unique_sorted(ids, capacity, nx * ny)
         return points, {"ids": ids, "slot": slot, "uids": uids, "count": count}
 
-    def forward(self, points, point_mask, pre=None):
-        """points (B, N, F). With ``pre`` = dict(slot, uids, count[, ids, mean])
-        they are already sorted by pillar id on the host and ``point_mask`` is
-        implied by the sentinel ids. Without it the device builds the same
-        table (:meth:`sort_and_compact`) and takes the cluster means itself.
+    def encode_table(self, points, point_mask, capacity: int, pre=None):
+        """points (B, N, F) -> (table (B, capacity, C), uids, count). With
+        ``pre`` = dict(slot, uids, count[, ids, mean]) they are already sorted
+        by pillar id on the host and ``point_mask`` is implied by the sentinel
+        ids. Without it the device builds the same table
+        (:meth:`sort_and_compact`) and takes the cluster means itself.
 
         The host's mean and the device's agree only for points of pillars
         within the capacity: a point of an overflowed pillar gets its true
@@ -165,7 +204,7 @@ class DynamicPillarVFESparse(nn.Module):
         nx, ny = self.grid_size
         sent = nx * ny
         if pre is None:
-            points, pre = self.sort_and_compact(points, point_mask)
+            points, pre = self.sort_and_compact(points, point_mask, capacity)
         slot, uids, count = pre["slot"], pre["uids"], pre["count"]
         if "ids" in pre:
             ids = pre["ids"]
@@ -181,9 +220,66 @@ class DynamicPillarVFESparse(nn.Module):
         mean = None
         if self.use_cluster_xyz:
             mean = (pre["mean"].to(points.dtype) if "mean" in pre
-                    else self._slot_mean(points[..., 0:3], valid, slot))
+                    else self._slot_mean(points[..., 0:3], valid, slot, capacity))
         feats = self._assemble_features(points, valid, ids, mean)
         table = None
         for i in range(self.n_layers):
-            feats, table = getattr(self, f"pfn_{i}")(feats, slot, valid)
+            feats, table = getattr(self, f"pfn_{i}")(feats, slot, valid, capacity)
         return table, uids, count
+
+    def forward(self, points, point_mask):
+        table, uids, _ = self.encode_table(points, point_mask, points.shape[1])
+        nx, ny = self.grid_size
+        return asx.densify_batch(table, uids, (ny, nx))
+
+
+class DynamicPillarVFESparse(DynamicPillarVFESimple2D):
+    """The encoder at a fixed ``capacity``, emitting the sorted pillar table
+    (feats (B, cap, C), uids (B, cap), count (B,)) from host-precomputed
+    inputs (``pre``) or from the raw points."""
+
+    def __init__(self, *args, capacity: int, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.capacity = capacity
+
+    def forward(self, points, point_mask, pre=None):
+        return self.encode_table(points, point_mask, self.capacity, pre)
+
+
+class DynamicPillarVFE(DynamicPillarVFESimple2D):
+    """The dense VFE with the original feature order ``[raw (abs xyz +
+    extras | extras), f_cluster, f_center, distance]`` and no
+    ``f_relative``."""
+
+    use_relative_xyz = False
+
+    def _assemble_features(self, points, valid, ids, mean):
+        xyz = points[..., 0:3]
+        feats = [points if self.use_absolute_xyz else points[..., 3:], xyz - mean,
+                 self._f_center(points, ids)]
+        if self.with_distance:
+            feats.append(torch.linalg.vector_norm(xyz, dim=-1, keepdim=True))
+        return torch.where(valid[..., None], torch.cat(feats, dim=-1), 0.0)
+
+
+class MeanVFE(nn.Module):
+    """The per-pillar mean of the raw point features into the dense grid
+    (``scatter_sum_bev / pillar_count``), no parameters: ``forward(points,
+    point_mask)`` -> (bev (B, H, W, F), pillar_mask (B, H, W) bool)."""
+
+    def __init__(self, voxel_size, point_cloud_range, grid_size, num_point_features: int):
+        super().__init__()
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.grid_size = tuple(grid_size)
+        self.output_dim = num_point_features
+
+    def forward(self, points, point_mask):
+        coords, in_range = voxelize.compute_pillar_coords(
+            points[..., :2], self.point_cloud_range, self.voxel_size, self.grid_size)
+        valid = point_mask & in_range
+        ids = voxelize.pillar_ids(coords, valid, self.grid_size)
+        feats = torch.where(valid[..., None], points, 0.0)
+        sums = voxelize.scatter_sum_bev(feats, ids, self.grid_size)
+        cnt = voxelize.pillar_count(ids, self.grid_size)
+        return sums / cnt.clamp(min=1.0)[..., None], cnt > 0

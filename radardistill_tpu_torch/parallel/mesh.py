@@ -108,6 +108,11 @@ def sync_batch(group):
         _SYNC_GROUP = prev
 
 
+def sync_group():
+    """The process group of the open ``sync_batch`` scope, or None."""
+    return _SYNC_GROUP
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Σ over the ranks, on every rank; the gradient of each rank's input is
     the Σ over the ranks of the output's gradients (each rank holds one

@@ -50,20 +50,25 @@ def duplicate_teacher_to_radar(state: Dict[str, torch.Tensor]) -> Dict[str, torc
     where the twin exists with the same shape (the radar VFE's first linear
     differs in input dim, 6 raw radar features against 5 lidar ones, and
     keeps its own values)."""
-    out = dict(state)
-    for src, dst in TEACHER_TO_RADAR.items():
-        for key in state:
-            if key.startswith(dst + "."):
-                value = _twin(state, src + key[len(dst):])
-                if value is not None and value.shape == state[key].shape:
-                    out[key] = value
+    return {**state, **_teacher_twins(state, state)}
+
+
+def _teacher_twins(src, dst) -> Dict[str, torch.Tensor]:
+    """For each radar entry of ``dst``, the teacher twin in ``src`` of the
+    same shape, where there is one."""
+    out = {}
+    for teacher, radar in TEACHER_TO_RADAR.items():
+        for key, value in dst.items():
+            if key.startswith(radar + "."):
+                twin = _twin(src, teacher + key[len(radar):])
+                if twin is not None and twin.shape == value.shape:
+                    out[key] = twin
     return out
 
 
 def _twin(state, name):
-    """``state[name]``; for a conv ``weight`` (OIHW) that the space-to-depth
-    teacher keeps as an HWIO ``kernel`` (``convert.py``), that kernel in
-    OIHW."""
+    """``state[name]``; for a conv ``weight`` (OIHW) that a teacher keeps as
+    an HWIO ``kernel`` at stage 1 (``convert.py``), that kernel in OIHW."""
     if name in state:
         return state[name]
     kernel = state.get(name[:-len("weight")] + "kernel") if name.endswith(".weight") else None
@@ -75,10 +80,28 @@ def _overlay(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]):
     return {k: src[k] if k in src and src[k].shape == v.shape else v for k, v in dst.items()}
 
 
-def _load_overlay(model: torch.nn.Module, src: Dict[str, torch.Tensor]):
+def _load_overlay(model: torch.nn.Module, src: Dict[str, torch.Tensor]) -> int:
     """Copy the matching entries of src into model's parameters and buffers
-    in place (``requires_grad`` and devices kept)."""
-    model.load_state_dict(_overlay(model.state_dict(), src), strict=True)
+    in place (``requires_grad`` and devices kept); returns how many."""
+    dst = model.state_dict()
+    model.load_state_dict(_overlay(dst, src), strict=True)
+    return sum(k in src and src[k].shape == v.shape for k, v in dst.items())
+
+
+def init_radar_from_teacher(model: torch.nn.Module, src: Dict[str, torch.Tensor]) -> int:
+    """``--init_from_teacher``: the surgery from the teacher entries of a
+    checkpoint's ``model_state`` ``src`` onto ``model``'s radar parameters
+    (not its BN statistics, as the JAX tool copies ``params`` only). The
+    JAX tool reads the teacher off the model after its overlay, and so does
+    this where the model has a teacher branch; a model without one
+    (``pillarnet_radar.yaml``) takes the teacher from ``src``, where the JAX
+    tool copies nothing into it. Returns the number of radar parameters
+    copied from a teacher twin."""
+    own = dict(model.named_parameters())
+    twins = _teacher_twins({**src, **own}, {k: p for k, p in own.items()
+                                            if k.startswith("radar_")})
+    model.load_state_dict(twins, strict=False)
+    return len(twins)
 
 
 def _read(path: Path) -> dict:
@@ -174,11 +197,19 @@ class CheckpointManager:
             return state, int(payload["epoch"]), int(payload["it"])
         return None
 
-    def load_params_from_file(self, state, path, pretrained_overlay: Optional[str] = None):
+    def load_params_from_file(self, state, path, pretrained_overlay: Optional[str] = None,
+                              teacher_to_radar: bool = False):
         """Non-strict load: overlay the matching parameters and BN statistics
         (detector3d_template.py:442-465: `--pretrained_model` dict-updates
-        over `--ckpt`). The optimizer and which parameters train are kept."""
-        _load_overlay(state.model, _read(Path(path))["model_state"])
+        over `--ckpt`). The optimizer and which parameters train are kept.
+        ``state.loaded`` is the number of the model's entries the file at
+        ``path`` supplied. ``teacher_to_radar`` (``--init_from_teacher``):
+        then ``init_radar_from_teacher`` from the same read of the file, its
+        count in ``state.duplicated``."""
+        src = _read(Path(path))["model_state"]
+        state.loaded = _load_overlay(state.model, src)
+        if teacher_to_radar:
+            state.duplicated = init_radar_from_teacher(state.model, src)
         if pretrained_overlay:
             _load_overlay(state.model, _read(Path(pretrained_overlay))["model_state"])
         return state

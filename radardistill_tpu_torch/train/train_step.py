@@ -13,7 +13,7 @@ statistics and optimizer moments are updated in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -29,10 +29,14 @@ class TrainState:
     """What a train step changes: the model (parameters and BN statistics)
     and the optimizer (moments, update count). ``step``, the number of steps
     taken, is the optimizer's update count, so a restored optimizer restores
-    it too."""
+    it too. ``loaded``: how many of the model's entries the last
+    ``CheckpointManager.load_params_from_file`` took from its file, and
+    ``duplicated`` how many radar parameters its teacher surgery copied."""
 
     model: nn.Module
     optimizer: OneCycleAdamW
+    loaded: Optional[int] = None
+    duplicated: Optional[int] = None
 
     @property
     def step(self) -> int:

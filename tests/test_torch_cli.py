@@ -92,3 +92,86 @@ def test_unported_flags_raise(tool, flags, tmp_path, monkeypatch):
         importlib.import_module(f"tools.{tool}").main(["--cfg_file", CFG, "--device", "cpu"]
                                                       + flags)
     assert not (tmp_path / "output").exists()
+
+
+def _dense_yaml(tmp_path, name):
+    """``tools/cfgs/nuscenes_models/{name}.yaml``'s model and optimizer over
+    the grid-128 synthetic data of ``production_cert_grid128.yaml``."""
+    import json
+
+    import yaml
+
+    from radardistill_tpu_torch.config import ConfigDict, cfg_from_yaml_file
+
+    data, model = ConfigDict(), ConfigDict()
+    cfg_from_yaml_file(CFG, data)
+    base = data.DATA_CONFIG.get("_BASE_CONFIG_")  # a base's base, left to the next load
+    if base:
+        data.DATA_CONFIG["_BASE_CONFIG_"] = str(REPO / "tools" / base)
+    cfg_from_yaml_file(str(REPO / "tools" / "cfgs" / "nuscenes_models" / f"{name}.yaml"), model)
+    cfg = {"CLASS_NAMES": model.CLASS_NAMES, "DATA_CONFIG": data.DATA_CONFIG,
+           "MODEL": model.MODEL, "OPTIMIZATION": model.OPTIMIZATION}
+    path = tmp_path / f"{name}_grid128.yaml"
+    path.write_text(yaml.safe_dump(json.loads(json.dumps(cfg))))
+    return str(path)
+
+
+def test_teacher_pretraining_then_test_teacher_and_radar_init_clis(tmp_path, monkeypatch):
+    """Stage 1 of the recipe on the CPU: ``tools/torch_train.py`` trains the
+    dense LiDAR teacher of ``pillarnet.yaml`` (2 steps; every backbone kernel
+    moves), ``tools/torch_test_teacher.py`` evaluates its checkpoint, and
+    ``pillarnet_radar.yaml`` takes it with ``--init_from_teacher``: every
+    radar parameter with a teacher twin of its shape is copied (the backbone,
+    neck and head; the radar VFE but its first linear)."""
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.train.checkpoint import init_radar_from_teacher
+    from radardistill_tpu_torch.train.train_step import create_train_state
+    from tools import torch_test_teacher, torch_train
+
+    monkeypatch.chdir(tmp_path)
+    teacher_yaml, radar_yaml = (_dense_yaml(tmp_path, n) for n in ("pillarnet", "pillarnet_radar"))
+    fewer = ["--set", "MODEL.DENSE_HEAD.POST_PROCESSING.MAX_OBJ_PER_SAMPLE", "50"]
+    tcfg, rcfg = (torch_train.parse_config(["--cfg_file", y])[1] for y in (teacher_yaml,
+                                                                           radar_yaml))
+    info = {"grid_size": (128, 128), "voxel_size": (0.075, 0.075, 0.2),
+            "point_cloud_range": (-4.8, -4.8, -5.0, 4.8, 4.8, 3.0),
+            "class_names": tuple(tcfg.CLASS_NAMES)}
+    init = build_network(tcfg.MODEL, info, device="cpu")
+    state = torch_train.main(["--cfg_file", teacher_yaml, "--device", "cpu", "--epochs", "1",
+                              "--batch_size", "2", "--workers", "0", "--num_epochs_to_eval", "0"]
+                             + fewer)
+    assert state.step == 2 and not state.model.frozen
+    # the CLI's initial draw (--seed 666)
+    create_train_state(init, tcfg.OPTIMIZATION, 1, torch.Generator().manual_seed(666))
+    before = dict(init.named_parameters())
+    kernels = [n for n, p in state.model.named_parameters()
+               if n.startswith("backbone_3d.") and p.dim() >= 2]
+    assert len(kernels) > 20
+    assert not any(torch.equal(state.model.get_parameter(n), before[n]) for n in kernels)
+
+    ckpt = tmp_path / "output" / "pillarnet_grid128" / "default" / "ckpt" / "checkpoint_epoch_1"
+    result = torch_test_teacher.main(["--cfg_file", teacher_yaml, "--teacher_ckpt", str(ckpt),
+                                      "--device", "cpu", "--batch_size", "2"] + fewer)
+    assert 0 <= result["mAP"] <= 1
+    out = tmp_path / "output" / "pillarnet_grid128" / "teacher" / "eval"
+    assert (out / "eval_checkpoint_epoch_1" / "result.pkl").is_file()
+
+    radar = build_network(rcfg.MODEL, info, device="cpu")
+    n = init_radar_from_teacher(radar, torch.load(ckpt, weights_only=True)["model_state"])
+    # the CMA has no twin, the VFE's first linear another width
+    names = [k for k, _ in radar.named_parameters() if not k.startswith("radar_cma.")
+             and k != "radar_vfe.pfn_0.linear.weight"]
+    assert n == len(names) > 150 and not hasattr(radar, "backbone_3d")
+    teacher = torch.load(ckpt, weights_only=True)["model_state"]
+    twin = {"radar_neck": "backbone_2d"}
+    for k in names:
+        scope, rest = k.split(".", 1)
+        assert torch.equal(radar.get_parameter(k),
+                           teacher[f"{twin.get(scope, scope[len('radar_'):])}.{rest}"]), k
+    state = torch_train.main(["--cfg_file", radar_yaml, "--device", "cpu", "--epochs", "1",
+                              "--batch_size", "2", "--workers", "0", "--num_epochs_to_eval", "0",
+                              "--init_from_teacher", str(ckpt), "--set",
+                              "DATA_CONFIG.NUM_SAMPLES", "2"])
+    (log,) = (tmp_path / "output" / "pillarnet_radar_grid128" / "default").glob("log_train_*")
+    assert f"duplicated teacher weights into radar branch ({n} parameters)" in log.read_text()
+    assert state.step == 1

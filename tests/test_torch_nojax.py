@@ -6,7 +6,8 @@ and at grid 64 under each deep-chain configuration of the teacher: ``INT8_STAGES
 and one distillation train step, two train steps through ``tools/torch_train.py``
 on the grid-128 yaml and ``tools/torch_ckpt_surgery.py`` on its checkpoint,
 a val forward without host tables under
-``DENSE_FROM: 3`` and the plain versions of the three probe kernels on the CPU
+``DENSE_FROM: 3``, the dense-input route of ``synthetic/smoke.yaml`` at grid
+64 and the plain versions of the three probe kernels on the CPU
 with random weights from a seeded generator; afterwards neither
 ``jax`` nor ``flax`` nor any module of ``radardistill_tpu`` may be in
 ``sys.modules``. An AST walk over every file of the port and over the card
@@ -109,6 +110,22 @@ nds = DATASETS["NuScenesDataset_Distill"](
                POINT_CLOUD_RANGE=[-54.0, -54.0, -5.0, 54.0, 54.0, 3.0]), ["car"], training=False)
 nitem = nds[0]
 merged = gather_detections([{"frame_id": "f0"}])
+# the dense-input route: smoke.yaml's dense teacher and dense radar branch
+from radardistill_tpu_torch.config import cfg_from_yaml_file
+from radardistill_tpu_torch.data.collate import collate_batch
+from radardistill_tpu_torch.data.synthetic import make_scene
+smoke = ConfigDict()
+cfg_from_yaml_file(os.path.join(sys.argv[1], "tools/cfgs/synthetic/smoke.yaml"), smoke)
+info5 = {"grid_size": (64, 64), "voxel_size": (0.075, 0.075, 0.2),
+         "point_cloud_range": (-2.4, -2.4, -5.0, 2.4, 2.4, 3.0),
+         "class_names": tuple(smoke.CLASS_NAMES)}
+model5 = init_random_(build_network(smoke.MODEL, info5, device="cpu"),
+                      torch.Generator().manual_seed(0))
+batch5 = collate_batch([make_scene(0, num_lidar=500, num_radar=50, num_boxes=3,
+                                   pc_range=info5["point_cloud_range"])],
+                       {"MAX_LIDAR_POINTS": 512, "MAX_RADAR_POINTS": 64, "NUM_MAX_OBJS": 8})
+batch5.pop("_host", None)
+out5 = model5(batch_to_torch(batch5, "cpu"))
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "radardistill_tpu"))
 print(json.dumps({
@@ -136,6 +153,9 @@ print(json.dumps({
         f for f in os.listdir(".") if f == "init"],
     "nusc": [list(nitem["points"].shape), list(nitem["radar_points"].shape), nitem["frame_id"]],
     "merged": merged,
+    "dense": [bool(torch.isfinite(out5["x_conv5"]).all()
+                   and torch.isfinite(out5["radar_preds"]["hm"]).all()),
+              type(model5.backbone_3d).__name__, "as_overflow" in out5],
 }))
 """
 
@@ -164,6 +184,7 @@ def test_port_slice_runs_without_jax():
     # 64 lidar points (x, y, z, intensity, time lag); 7 radar returns, 6 features
     assert rec["nusc"][0][1] == 5 and 0 < rec["nusc"][0][0] <= 64
     assert rec["nusc"][1:] == [[7, 6], "l"] and rec["merged"] == [{"frame_id": "f0"}]
+    assert rec["dense"] == [True, "PillarRes18BackBone8x", False]
 
 
 def _imported_modules(path):
@@ -194,6 +215,17 @@ def test_card_scripts_import_only_torch_and_the_port(script):
     roots = {n.split(".")[0] for n in names}
     assert {"torch", "radardistill_tpu_torch"} & roots
     assert not roots & {"jax", "jaxlib", "flax", "radardistill_tpu", "chip_smoke"}, names
+
+
+def test_teacher_eval_tool_imports_only_the_ports_eval_cli():
+    """``tools/torch_test_teacher.py`` is ``tools/torch_test.py`` with the
+    teacher's yaml and checkpoint; it imports nothing else of note."""
+    path = os.path.join(REPO, "tools/torch_test_teacher.py")
+    froms = {(node.module, a.name) for node in ast.walk(ast.parse(open(path).read()))
+             if isinstance(node, ast.ImportFrom) for a in node.names}
+    assert ("tools", "torch_test") in froms, froms
+    names = _imported_modules(path)
+    assert not {n.split(".")[0] for n in names} & {"jax", "jaxlib", "flax", "radardistill_tpu"}
 
 
 def test_the_walk_covers_the_nuscenes_and_parallel_modules():

@@ -56,7 +56,9 @@ from radardistill_tpu_torch.train.optim import build_optimizer
 from radardistill_tpu_torch.train.train_step import make_train_step
 from radardistill_tpu_torch.utils.production import TRAIN_YAML
 from tests.test_torch_device_tables import _collated, _numpy_variables
+from tests.test_torch_masked_bn import assert_close, bn_grads
 from tests.test_torch_slice import _rel_l2
+from tests.torch_parallel_worker import MASKED_BN_SHAPE, masked_bn_inputs
 from tests.torch_train_case import FROZEN, SCOPES, STEP_TOL, ZERO_GRAD
 
 torch.set_num_threads(1)
@@ -246,6 +248,21 @@ def test_sync_leg_matches_jax_mesh_step(case, job, scope):
         assert _rel_l2(after[n].numpy(), want[n].numpy()) <= rel_tol, n
         dt, dj = ((x[n] - before[n]).flatten().double() for x in (after, want))
         assert dt @ dj >= cos_tol * dt.norm() * dj.norm(), n
+
+
+def test_sync_masked_bn_backward_matches_one_process(job):
+    """The group branch of the train-mode ``MaskedBatchNorm``'s hand-written
+    backward: on each rank's share of the batch, dx equals the one-process
+    dx of those rows and the summed dweight / dbias equal the one-process
+    ones (``tests/test_torch_masked_bn.py``'s tolerance)."""
+    (r0, r1), _ = job
+    for case in ("float32", "constant_channel"):
+        x, mask, gy, weight, bias = masked_bn_inputs(case, MASKED_BN_SHAPE)
+        dx, dw, db = bn_grads(*(torch.from_numpy(a) for a in (x, mask, gy)), weight, bias)
+        for rank, res in enumerate((r0, r1)):
+            got_dx, got_dwb = res["masked_bn"][case]
+            assert_close(got_dx.numpy(), dx[rank::2].numpy(), f"{case} dx rank {rank}")
+            assert_close(got_dwb.numpy(), torch.cat([dw, db]).numpy(), f"{case} dw, db")
 
 
 # ------------------------------------------------ local leg (sync_bn=False)

@@ -12,6 +12,8 @@ once and writes what the tests read to ``<workdir>/rank<rank>.pt``:
   through the checkpoint manager (rank 0 only);
 - the local leg (``sync_bn=False``) and the synchronized leg on the
   heterogeneous batch;
+- the train-mode ``MaskedBatchNorm`` on each rank's share of a batch,
+  its statistics' gradient summed over the group in its backward;
 - the cases of ``tests/_multihost_worker.py`` through the port's
   ``parallel/multihost.py``;
 - ``tools/torch_train.py --sync_bn 0`` on two ranks, its post-train
@@ -48,6 +50,53 @@ def _step(inputs, batch, mesh, sync_bn):
     grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
     state = {k: v.clone() for k, v in model.state_dict().items()}
     return step, metrics, grads, state
+
+
+def masked_bn_inputs(case, shape=(2, 6, 5, 8), seed=0):
+    """(x, mask, cotangent, weight, bias) of a ``MaskedBatchNorm`` case as
+    numpy float32, seeded (``tests/test_torch_masked_bn.py``'s cases)."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(*shape) * 1.5 + 0.3).astype(np.float32)
+    mask = rng.rand(*shape[:-1]) < 0.66
+    if case == "all_inactive":
+        mask[:] = False
+    if case == "constant_channel":
+        x[..., 2] = np.where(mask, 0.5, x[..., 2])
+    gy = rng.randn(*shape).astype(np.float32)
+    weight = rng.uniform(0.5, 1.5, shape[-1]).astype(np.float32)
+    bias = rng.uniform(-0.2, 0.2, shape[-1]).astype(np.float32)
+    return x, mask, gy, weight, bias
+
+
+MASKED_BN_SHAPE = (4, 6, 5, 8)
+
+
+def _masked_bn(rank, mesh):
+    """The train-mode ``MaskedBatchNorm`` on this rank's share (rows
+    ``rank::2``) of a global batch, its forward inside a ``sync_batch``
+    scope: dx of the share, dweight and dbias summed over the ranks (each
+    rank's loss is its share of the global one), per case."""
+    import torch.distributed as dist
+
+    from radardistill_tpu_torch.models.layers import MaskedBatchNorm
+    from radardistill_tpu_torch.parallel.mesh import sync_batch
+
+    out = {}
+    for case in ("float32", "constant_channel"):
+        x, mask, gy, weight, bias = (a[rank::2] if a.ndim > 1 else a
+                                     for a in masked_bn_inputs(case, MASKED_BN_SHAPE))
+        bn = MaskedBatchNorm(x.shape[-1]).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(weight))
+            bn.bias.copy_(torch.from_numpy(bias))
+        xt = torch.from_numpy(np.ascontiguousarray(x)).requires_grad_()
+        with sync_batch(mesh.group):
+            y = bn(xt, torch.from_numpy(np.ascontiguousarray(mask)))
+        y.backward(torch.from_numpy(np.ascontiguousarray(gy)))
+        dwb = torch.cat([bn.weight.grad, bn.bias.grad])
+        dist.all_reduce(dwb, group=mesh.group)
+        out[case] = (xt.grad, dwb)
+    return out
 
 
 def _multihost(rank):
@@ -113,6 +162,7 @@ def main(rank, port, work):
     barrier()
     _, res["local_metrics"], _, res["local_state"] = _step(inputs, inputs["hetero"], mesh, False)
     res["sync_hetero_metrics"] = _step(inputs, inputs["hetero"], mesh, True)[1]
+    res["masked_bn"] = _masked_bn(rank, mesh)
     res["multihost"] = _multihost(rank)
     res["cli"] = _train_cli(Path(work) / "cli")
     torch.save(res, Path(work) / f"rank{rank}.pt")

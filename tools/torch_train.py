@@ -83,8 +83,7 @@ def main(argv=None):
     from radardistill_tpu_torch.models import build_network
     from radardistill_tpu_torch.parallel.mesh import make_mesh
     from radardistill_tpu_torch.parallel.multihost import process_count, process_index
-    from radardistill_tpu_torch.train.checkpoint import (CheckpointManager,
-                                                          duplicate_teacher_to_radar)
+    from radardistill_tpu_torch.train.checkpoint import CheckpointManager
     from radardistill_tpu_torch.train.train_step import create_train_state, make_train_step
     from radardistill_tpu_torch.train.trainer import train_model
     from radardistill_tpu_torch.utils.common import (
@@ -145,12 +144,15 @@ def main(argv=None):
             state, args.ckpt or args.pretrained_model,
             pretrained_overlay=args.pretrained_model if args.ckpt else None,
         )
+        logger.info(f"loaded {state.loaded} of {len(model.state_dict())} model entries from "
+                    f"{args.ckpt or args.pretrained_model}")
     elif args.init_from_teacher:
-        state = ckpt_mgr.load_params_from_file(state, args.init_from_teacher)
-        # parameters only (not BN statistics), as the JAX tool duplicates them
-        model.load_state_dict(duplicate_teacher_to_radar(dict(model.named_parameters())),
-                              strict=False)
-        logger.info("duplicated teacher weights into radar branch")
+        state = ckpt_mgr.load_params_from_file(state, args.init_from_teacher,
+                                               teacher_to_radar=True)
+        logger.info(f"loaded {state.loaded} of {len(model.state_dict())} model entries from "
+                    f"{args.init_from_teacher}")
+        logger.info(f"duplicated teacher weights into radar branch "
+                    f"({state.duplicated} parameters)")
     else:
         resumed = ckpt_mgr.restore(state)
         if resumed is not None:
