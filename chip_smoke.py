@@ -22,7 +22,11 @@ at full width and the full 1440² grid, with random weights from a seeded
   - the dense-input route through the CLIs: the LiDAR teacher of
     ``pillarnet.yaml`` trained on its own and evaluated, its checkpoint
     loaded into the distillation model, and the radar-only baseline of
-    ``pillarnet_radar.yaml`` initialized from it, trained and evaluated.
+    ``pillarnet_radar.yaml`` initialized from it, trained and evaluated;
+  - the space-to-depth teacher trained: on its own through the CLIs
+    (``pillarnet.yaml`` with the S2D backbone), and beside the student with
+    ``FREEZE_PIPELINE: []``; its ``INT8: static`` eval on the dense-input,
+    linear-order-table and ``_S2D2`` routes; the two accuracy gates, cut.
 
 It imports only ``torch`` and ``radardistill_tpu_torch``. Phases:
 
@@ -267,6 +271,40 @@ Phase 31 (before the tree): K5 at the
 dense VFE's shapes, bs4 LiDAR (a table of 180 001 rows of 32 bfloat16 a
 sample, 100 000 occupied pillars) and bs8 radar (8193 rows, 3000 pillars),
 onto 1440², bit-equal to plain, timed beside ``index_select``.
+
+Phases 33-38, the space-to-depth teacher. Phase 33 (after phase 32, on the
+tree): one epoch of ``tools/torch_train.py`` on ``pillarnet.yaml`` with
+``--set MODEL.BACKBONE_3D.NAME PillarRes18BackBone8x_S2D`` (the dense VFE's
+grid into the S2D backbone, trained), bs4, 1440², as phase 28, then
+``tools/torch_test_teacher.py`` on it: K5 x 1 per step and per val forward,
+nothing else; every ``backbone_3d`` kernel moved; its resident step's p50 and
+peak printed beside phase 28's. Its checkpoint then goes through phase 30's
+hand-off (every teacher entry into the dense teacher and into
+``radar_distill_train.yaml``'s, x_conv4 / x_conv5 within 1e-4). Phase 34: one
+float32 train step of that trained S2D backbone and of the dense one on the
+same grid (``phase_s2d_dense_step`` states its bounds). Phase 35 (after phase
+19's deep chains): ``radar_distill_train.yaml`` with ``FREEZE_PIPELINE: []``,
+bs2, 1440², bf16: 1 warm + 5 timed steps, per step K5 x 2, K2 x 3, K3 x 3, K4
+x 3 (tile), K1 x 0 (train mode is float), every parameter changed, the
+teacher's included (its head, which does not run while a student trains, by
+weight decay only), p50 and peak; then one eval forward of the same model,
+K1 x 4. Phase 36: the ``INT8: static`` distillation forward on the other
+routes of the S2D teacher (``S2D_ROUTES``), bf16, bs2, 1440², with their
+launches (K1 x 4, x 4, x 8 with K5 x 2, K2 x 3), then each in float32 at grid
+512 on the card against the CPU (teacher 1e-3, ``radar_preds`` 1e-4). Phase 37:
+K1 at the ``_S2D2`` packed stage-2 links, (2, 360, 360, 256) x (3, 3, 256,
+256) with 4 mask phases, with and without a residual, every code equal to
+plain; the wrapper, the bare launch and plain timed. K5 in the two packed
+densifies at the 163 840-row table, bs2: rows, masks and the table's
+gradient bit-equal to the CPU, float32 and int8 tables; K5 alone at that shape
+against plain and ``index_select``. Phase 38: ``tools/torch_overfit_check.py``
+(``OVERFIT_STEPS`` at grid 256, it must converge) and
+``tools/torch_quality_gate.py --variant int8 --scenes 1`` with 30 + 30 steps,
+each printing its result lines. K1's record carries ``packed_stage2`` (the
+sums over the four stage-2 links of a ``_S2D2`` forward), K5's
+``packed_densify``; ``launches_s2d_teacher_pretrain``,
+``launches_teacher_unfrozen`` (one step) and ``launches_static_*`` (one
+forward of each route) count phases 33, 35 and 36.
 
 Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
 float32 scales alike, but not every stock op around it (the VFE's sums); one
@@ -1451,10 +1489,13 @@ def build_trainer(torch, yaml_name, cfg, info, dtype, device):
     return model, step, lr_sched
 
 
-def phase_train_bf16(torch, dev, yaml_name, cfg, info, batch, expect_launches, runs):
+def phase_train_bf16(torch, dev, yaml_name, cfg, info, batch, expect_launches, runs,
+                     eval_launches=None):
     """The train step in bfloat16 at full size: launch counts of one step,
     finite losses, no overflow, trained parameters moved and frozen ones
-    untouched, p50 of synced steps. Returns (launches, p50 ms)."""
+    untouched, p50 of synced steps; with ``eval_launches``, one eval forward
+    of the trained model after them, whose counts must be those. Returns
+    (launches, p50 ms)."""
     from radardistill_tpu_torch.models.detector import batch_to_torch
 
     model, step, _ = build_trainer(torch, yaml_name, cfg, info, torch.bfloat16, None)
@@ -1500,7 +1541,10 @@ def phase_train_bf16(torch, dev, yaml_name, cfg, info, batch, expect_launches, r
     stuck = [n for n in trainable if torch.equal(after[n], before[n])]
     moved = [n for n in after if n not in trainable and not torch.equal(after[n], before[n])
              and (n.split(".", 1)[0] in frozen_scopes or n.endswith("down_bias"))]
-    stats = [n for n in after if n not in trainable and n.split(".", 1)[0] not in frozen_scopes
+    # the teacher's head does not run while a student trains (as in the
+    # reference), so its statistics stay where they were
+    idle = frozen_scopes + (("dense_head",) if model.has_radar else ())
+    stats = [n for n in after if n not in trainable and n.split(".", 1)[0] not in idle
              and not n.endswith("down_bias") and torch.equal(after[n], before[n])]
     if stuck or moved or stats or not all_finite(torch, dict(after)):
         raise RuntimeError(f"train step: trainable parameters unchanged {stuck[:5]}, frozen "
@@ -1516,6 +1560,17 @@ def phase_train_bf16(torch, dev, yaml_name, cfg, info, batch, expect_launches, r
           f"(min {times[0] * 1e3:.3f}, max {times[-1] * 1e3:.3f}); "
           f"{bdev['gt_boxes'].shape[0] / p50 * 1e3:.3f} samples/s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if eval_launches is not None:
+        read = reset_launches()
+        with torch.no_grad():
+            out = model.eval()(bdev)
+        torch.cuda.synchronize()
+        got = read()
+        want = {**dict.fromkeys(got, 0), **eval_launches}
+        print(f"  then one eval forward of the trained model: launches {got}")
+        if got != want or not all_finite(torch, out):
+            raise RuntimeError(f"eval forward after training: launches {got}, expected {want}, "
+                               f"finite {all_finite(torch, out)}")
     return launches, p50
 
 
@@ -2194,12 +2249,13 @@ def resident_step(torch, dev, state, cfg, batch_size, runs=5):
 
 
 def phase_dense_cli(torch, dev, smi, tree, name, yaml, batch_size, epochs, step_launches,
-                    forward_launches, evaluate, train_extra=()):
-    """Phases 28 and 29: ``tools/torch_train.py`` on ``yaml`` over the tree
-    at full width, then ``evaluate(ckpt, tag, sets)`` (an eval CLI) over its
-    val samples, the counts reset before the one and read after the other;
-    then the resident step. Returns (launches, state, cfg, checkpoint, the
-    train log's text, a line of numbers)."""
+                    forward_launches, evaluate, train_extra=(), extra_sets=()):
+    """Phases 28, 29 and 33: ``tools/torch_train.py`` on ``yaml`` over the tree
+    at full width (``extra_sets``: more ``--set`` pairs), then
+    ``evaluate(ckpt, tag, sets)`` (an eval CLI) over its val samples, the
+    counts reset before the one and read after the other; then the resident
+    step. Returns (launches, state, cfg, checkpoint, the train log's text, a
+    line of numbers, the resident step's (p50 ms, peak GiB))."""
     import shutil
 
     from radardistill_tpu_torch.train.trainer import read_log
@@ -2207,7 +2263,7 @@ def phase_dense_cli(torch, dev, smi, tree, name, yaml, batch_size, epochs, step_
 
     root, train_infos, val_infos, _ = tree
     tag = f"chip_smoke_{name}"
-    sets = tree_sets(root)
+    sets = tree_sets(root) + list(extra_sets)
     train_argv = ["--cfg_file", str(yaml), "--batch_size", str(batch_size), "--epochs",
                   str(epochs), "--workers", "2", "--log_interval", "1", "--extra_tag", tag,
                   "--num_epochs_to_eval", "0", *train_extra, "--set", *sets]
@@ -2260,14 +2316,13 @@ def phase_dense_cli(torch, dev, smi, tree, name, yaml, batch_size, epochs, step_
                f"samples/s), peak {peak_step:.2f} GiB (the CLI's train {peak_train:.2f} GiB); "
                f"eval CLI bs1: {n_val} samples in {t_eval:.3f} s, inference p50 {infer:.1f} "
                f"ms/batch, mAP {result['mAP']:.4f} (fallback metric), on {smi}")
-    return launches, state, cfg, ckpt, log.read_text(), numbers
+    return launches, state, cfg, ckpt, log.read_text(), numbers, (p50, peak_step)
 
 
 def phase_teacher_pretrain(torch, dev, smi, tree):
     """Phase 28: stage 1 of the recipe, the LiDAR teacher trained on its own
-    (module docstring). Returns (launches, its checkpoint, seconds)."""
-    from radardistill_tpu_torch.models import build_network
-    from radardistill_tpu_torch.train.train_step import create_train_state
+    (module docstring). Returns (launches, its checkpoint, seconds, the
+    resident step's (p50 ms, peak GiB))."""
     from tools import torch_test_teacher
 
     t_start = time.perf_counter()
@@ -2276,10 +2331,23 @@ def phase_teacher_pretrain(torch, dev, smi, tree):
         return torch_test_teacher.main(["--teacher_ckpt", str(ckpt), "--extra_tag", tag,
                                         "--infer_time", "--set", *sets])
 
-    launches, state, cfg, ckpt, _, numbers = phase_dense_cli(
+    launches, state, cfg, ckpt, _, numbers, resident = phase_dense_cli(
         torch, dev, smi, tree, "teacher", TEACHER_YAML, 4, 1, DENSE_TEACHER, DENSE_TEACHER,
         evaluate)
-    # the teacher trained: its initial weights are the CLI's draw (seed 666)
+    moved, backbone, kernels = backbone_moved(torch, dev, state, cfg)
+    print(f"teacher pretraining: {numbers}; backbone_3d: {moved} of {backbone} "
+          f"parameters moved, all {kernels} kernels among them; the phase "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return launches, ckpt, time.perf_counter() - t_start, resident
+
+
+def backbone_moved(torch, dev, state, cfg):
+    """(moved, parameters, kernels) of the CLI-trained teacher's
+    ``backbone_3d``, against the CLI's initial draw (seed 666); raises unless
+    every kernel moved and every parameter trains."""
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.train.train_step import create_train_state
+
     m = state.model
     info = {"grid_size": m.grid_size, "voxel_size": m.voxel_size,
             "point_cloud_range": m.point_cloud_range, "class_names": tuple(cfg.CLASS_NAMES)}
@@ -2292,11 +2360,7 @@ def phase_teacher_pretrain(torch, dev, smi, tree):
     if not set(kernels) <= set(moved) or not all(p.requires_grad for _, p in backbone):
         raise RuntimeError(f"teacher: backbone_3d kernels unmoved "
                            f"{sorted(set(kernels) - set(moved))[:5]}")
-    del init, before
-    print(f"teacher pretraining: {numbers}; backbone_3d: {len(moved)} of {len(backbone)} "
-          f"parameters moved, all {len(kernels)} kernels among them; the phase "
-          f"{time.perf_counter() - t_start:.1f} s")
-    return launches, ckpt, time.perf_counter() - t_start
+    return len(moved), len(backbone), len(kernels)
 
 
 def phase_radar_baseline(torch, dev, smi, tree, teacher_ckpt):
@@ -2310,7 +2374,7 @@ def phase_radar_baseline(torch, dev, smi, tree, teacher_ckpt):
         return torch_test.main(["--cfg_file", str(RADAR_YAML), "--batch_size", "1", "--ckpt",
                                 str(ckpt), "--extra_tag", tag, "--infer_time", "--set", *sets])
 
-    launches, state, _, _, log, numbers = phase_dense_cli(
+    launches, state, _, _, log, numbers, _ = phase_dense_cli(
         torch, dev, smi, tree, "radar_baseline", RADAR_YAML, 8, 2, RADAR_BASELINE_STEP,
         RADAR_BASELINE_FORWARD, evaluate, ("--init_from_teacher", str(teacher_ckpt)))
     # --init_from_teacher: every radar parameter with a teacher twin of its
@@ -2424,6 +2488,321 @@ def phase_other_dense_topologies(torch, dev, smi):
               f"{int(out['final_box_dicts']['valid'].sum())} boxes")
         del model, out
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------- phases 33-38: the S2D teacher
+
+S2D_SETS = ("MODEL.BACKBONE_3D.NAME", "PillarRes18BackBone8x_S2D")
+# INT8: static eval of the distillation forward on each input route of the
+# S2D teacher (make_batch's BACKBONE_3D overrides), and its launches: the
+# dense VFE's densify or the teacher's packed densify (K5 x 1) beside the
+# student's (K5 x 1, K2 x 3); K1 at the four stage-1 links, and under _S2D2
+# at the four packed stage-2 links as well
+S2D_ROUTES = {
+    "TABLE_INPUT: false": ({"TABLE_INPUT": False}, K1_STAGE1),
+    "PACKED_TABLE: false": ({"PACKED_TABLE": False}, K1_STAGE1),
+    "_S2D2": ({"NAME": "PillarRes18BackBone8x_S2D2"},
+              {"conv_block": 8, "conv_block.wgmma": 8, "conv_block.mma_sync": 0}),
+}
+# overfit_check steps at grid 256 on the card: the reference's default 600.
+# On an H100 a 300-step run (its one-cycle schedule over 300 steps) brought the
+# loss from 891.3 to 0.939 but the scene's AP only to 0.188; 600 steps read
+# 1.000 (0.2 s a step, host-bound)
+OVERFIT_STEPS = 600
+
+
+def phase_s2d_pretrain(torch, dev, smi, tree, dense_resident):
+    """Phase 33: the space-to-depth teacher trained on its own through the
+    CLIs, ``pillarnet.yaml`` with ``--set MODEL.BACKBONE_3D.NAME
+    PillarRes18BackBone8x_S2D`` (the dense VFE's grid into the S2D backbone),
+    as phase 28 trains the dense one. Returns (launches, checkpoint, seconds,
+    the trained backbone's ``state_dict`` on the host)."""
+    from radardistill_tpu_torch.models.backbone_s2d import PillarRes18BackBone8xS2D
+    from tools import torch_test_teacher
+
+    t_start = time.perf_counter()
+
+    def evaluate(ckpt, tag, sets):
+        return torch_test_teacher.main(["--teacher_ckpt", str(ckpt), "--extra_tag", tag,
+                                        "--infer_time", "--set", *sets])
+
+    launches, state, cfg, ckpt, _, numbers, (p50, peak) = phase_dense_cli(
+        torch, dev, smi, tree, "s2d_teacher", TEACHER_YAML, 4, 1, DENSE_TEACHER, DENSE_TEACHER,
+        evaluate, extra_sets=S2D_SETS)
+    bb = state.model.backbone_3d
+    if not isinstance(bb, PillarRes18BackBone8xS2D) or bb.table_input:
+        raise RuntimeError(f"S2D teacher: the CLI built {type(bb).__name__}")
+    moved, backbone, kernels = backbone_moved(torch, dev, state, cfg)
+    print(f"S2D teacher pretraining: {numbers}; backbone_3d: {moved} of {backbone} parameters "
+          f"moved, all {kernels} kernels among them; resident step p50 {p50:.3f} ms, peak "
+          f"{peak:.2f} GiB against the dense teacher's {dense_resident[0]:.3f} ms, "
+          f"{dense_resident[1]:.2f} GiB (phase 28, this run); the phase "
+          f"{time.perf_counter() - t_start:.1f} s")
+    weights = {k: v.detach().float().cpu() for k, v in bb.state_dict().items()}
+    return launches, ckpt, time.perf_counter() - t_start, weights
+
+
+def phase_s2d_dense_step(torch, dev, smi, weights):
+    """Phase 34: one float32 train step (TF32 off) of the S2D backbone on the
+    dense VFE's route and one of the dense ``PillarRes18BackBone8x``, from the
+    same weights (phase 33's trained backbone) and one batch: the occupancy
+    of the distillation batch's two scenes at 1440² under seeded features.
+    The loss is a fixed weighted sum of x_conv1..5. Outputs within 1e-5 rel-L2
+    of each other, every running statistic within 1e-5 of the largest. The
+    gradients of the input and of the parameters (one vector) part by float32
+    summation order through twenty train-mode BatchNorms, so their distance is
+    held to what the order alone makes of it: the dense step once more with
+    cuDNN off (PyTorch's own convolutions, another order of the same sums);
+    the S2D step's gradient may be at most 3 x as far from the dense one's as
+    that run's is, plus 1e-6. A conv bias that feeds a train-mode BatchNorm
+    has a true gradient of zero, rounding noise on every side, held to 1e-5 of
+    the largest gradient element. Returns (outputs' rel-L2, the gradient's
+    rel-L2 to the dense step, that of the dense step without cuDNN)."""
+    from radardistill_tpu_torch.data.synthetic import make_batch
+    from radardistill_tpu_torch.models.backbone_s2d import PillarRes18BackBone8xS2D
+    from radardistill_tpu_torch.models.backbone_sparse2d import PillarRes18BackBone8x
+    from radardistill_tpu_torch.utils.production import TRAIN_YAML
+
+    _, _, batch = make_batch(TRAIN_YAML)
+    g, hw = 1440, 1440 * 1440
+    uids = torch.from_numpy(batch["hp_lidar"]["uids"]).long()
+    mask = torch.zeros(2 * hw, dtype=torch.bool)
+    mask[(uids + torch.arange(2)[:, None] * hw)[uids < hw]] = True
+    mask = mask.view(2, g, g).to(dev)
+    gen = torch.Generator().manual_seed(34)
+    bev = (torch.rand(2, g, g, 32, generator=gen) * 2.0).to(dev) * mask[..., None]
+    keys = ("x_conv1", "x_conv2", "x_conv3", "x_conv4", "x_conv5")
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.enabled)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    runs, cot = {}, None
+    for name, model in (
+            ("s2d", PillarRes18BackBone8xS2D((g, g), table_input=False, unpack_outputs=True)),
+            ("dense", PillarRes18BackBone8x()), ("dense_no_cudnn", PillarRes18BackBone8x())):
+        torch.backends.cudnn.enabled = name != "dense_no_cudnn"
+        model.load_state_dict(weights)
+        model = model.to(dev).train()
+        x = bev.clone().requires_grad_()
+        out = model(x, mask)
+        if cot is None:
+            cot = {k: torch.randn(out[k].shape, generator=gen).to(dev) for k in keys}
+        sum((out[k] * cot[k]).sum() for k in keys).backward()
+        runs[name] = ({k: out[k].detach() for k in keys}, x.grad,
+                      {n: p.grad for n, p in model.named_parameters()},
+                      {n: b for n, b in model.named_buffers() if "running_" in n})
+        del model, out, x
+        torch.cuda.empty_cache()
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.enabled) = saved
+    (so, sx, sg, ss), (do, dx, dg, ds), (_, nx, ng, _) = (runs[k] for k in (
+        "s2d", "dense", "dense_no_cudnn"))
+    out_err = {k: rel_l2(torch, so[k], do[k]) for k in keys}
+    stat_err = max(float((ss[n] - ds[n]).abs().max() / ds[n].abs().max()) for n in ds)
+    top = max(float(v.abs().max()) for v in dg.values())
+    zero = {n for n in dg if re.fullmatch(r"conv\d_\d\.conv[12]\.conv\.bias", n)}
+    live = [n for n in dg if n not in zero]
+
+    def flat(x, grads):
+        return torch.cat([x.reshape(-1)] + [grads[n].reshape(-1) for n in live])
+
+    ref = flat(dx, dg)
+    err = {k: rel_l2(torch, flat(x, gr), ref) for k, (x, gr) in (("s2d", (sx, sg)),
+                                                                 ("no_cudnn", (nx, ng)))}
+    leaf = {k: max(rel_l2(torch, gr[n], dg[n]) for n in live)
+            for k, gr in (("s2d", sg), ("no_cudnn", ng))}
+    zero_max = max(max(float(sg[n].abs().max()), float(dg[n].abs().max())) for n in zero) / top
+    print(f"S2D vs dense backbone, one f32 train step (TF32 off), 1440², bs2, "
+          f"{int(mask.sum())} occupied pillars, on {smi}: outputs rel-L2 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in out_err.items())
+          + f"; running statistics max rel {stat_err:.2e} over {len(ds)}; gradient (input and "
+          f"{len(live)} parameters) rel-L2 to the dense step's: S2D {err['s2d']:.2e}, the "
+          f"dense step without cuDNN {err['no_cudnn']:.2e} (worst leaf {leaf['s2d']:.2e} / "
+          f"{leaf['no_cudnn']:.2e}); the {len(zero)} zero-true-gradient biases at most "
+          f"{zero_max:.2e} of the largest gradient element")
+    if not (max(out_err.values()) <= 1e-5 and stat_err <= 1e-5 and zero_max <= 1e-5
+            and err["s2d"] <= 3 * err["no_cudnn"] + 1e-6):
+        raise RuntimeError("S2D vs dense train step: outside the stated bounds")
+    torch.cuda.empty_cache()
+    return max(out_err.values()), err["s2d"], err["no_cudnn"]
+
+
+def phase_s2d_routes(torch, dev, small):
+    """Phase 36: ``INT8: static`` eval on each input route of the S2D teacher
+    (``S2D_ROUTES``): the distillation forward in bf16 at 1440², bs2, with its
+    launch counts, finite outputs, p50 of 3 runs; then in float32 at grid 512
+    on the card against the CPU (teacher <= 1e-3, ``radar_preds`` <= 1e-4).
+    Returns each route's launches."""
+    from radardistill_tpu_torch.data.synthetic import make_batch
+    from radardistill_tpu_torch.utils.production import TRAIN_YAML
+
+    launches = {}
+    teacher = ("x_conv4", "x_conv5", "spatial_features_2d", "spatial_features_2d_8x",
+               "lidar_preds")
+    for name, (over, k1) in S2D_ROUTES.items():
+        cfg, info, batch = make_batch(TRAIN_YAML, backbone_3d=over)
+        launches[name] = phase_forward_bf16(
+            torch, dev, f"distillation forward {name}", cfg, info, batch,
+            {"expand_rows": 2, "dcn_sample": 3, **k1}, 3)
+        del batch
+        torch.cuda.empty_cache()
+        cfg, info, batch = make_batch(TRAIN_YAML, backbone_3d=over, **small)
+        phase_forward_f32(torch, dev, f"distillation forward {name}", cfg, info, batch,
+                          {**{k: 1e-3 for k in teacher}, "radar_preds": 1e-4})
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    return launches
+
+
+def phase_k1_s2d2(torch, dev):
+    """Phase 37: K1 at the ``_S2D2`` packed stage-2 links, x (2, 360, 360, 256)
+    int8, kernel (3, 3, 256, 256), 4 mask phases (64 channels a phase), a
+    chain's first link (zero 0, no residual) and a later one (zero 127, with
+    residual), on the route the dispatch gives it (``wgmma``): every int8 code
+    equal to the plain version; the wrapper, the bare launch and the plain
+    version timed. Returns the sums over the four links of a forward."""
+    from radardistill_tpu_torch.ops import conv3x3_wgmma
+    from radardistill_tpu_torch.ops.conv_block import (conv_block, conv_block_plain,
+                                                       int8_block_conv_v2, link_constants,
+                                                       route_of, tap_sums)
+
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "launch_ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0,
+           "ops_ms": 0.0}
+    gen = torch.Generator().manual_seed(36)
+    route = route_of(3, 256, 256, 4, torch.int8)
+    if route != "wgmma":
+        raise RuntimeError(f"K1: the packed stage-2 link is dispatched to {route}")
+    for zero, with_res in ((0.0, False), (127.0, True)):
+        link = int8_link(torch, dev, gen, 2, 360, 360, 256, 256, 3, 4, zero, with_res)
+        run = lambda block: int8_block_conv_v2(block=block, **link)  # noqa: E731
+        read = reset_launches()
+        got = run(conv_block)[0]
+        routes = read()
+        want = run(conv_block_plain)[0]
+        torch.cuda.synchronize()
+        if routes["conv_block.wgmma"] != 1:
+            raise RuntimeError(f"K1 packed stage 2: ran on {routes}")
+        diff = (got.int() - want.int()).abs()
+        n_bad, err = int((diff != 0).sum()), int(diff.max())
+        spread = [int((want == v).sum()) for v in (-127, 127)]
+        xq, kq, res = link["xc"][0], link["kq"], link["res"]
+        ab = link_constants(link["xc"], kq, link["sw"], link["bias"], link["gt"], link["sh"],
+                            link["bound"], res)[0]
+        wk, wsum, out = conv3x3_wgmma.wgmma_taps(kq), tap_sums(kq), torch.empty_like(got)
+        alone = lambda: conv3x3_wgmma.launch_link(  # noqa: E731
+            xq, wk, ab, link["mask_c"], None if res is None else res[0], wsum, out, -int(zero))
+        alone()
+        torch.cuda.synchronize()
+        if not torch.equal(out, got):
+            raise RuntimeError("K1 packed stage 2: the bare launch differs from the wrapper")
+        bound_ops, bound_bytes = int8_link_bound(link, link["mask_c"].numel())
+        ms, plain_ms = paired_ms(torch, lambda: run(conv_block), lambda: run(conv_block_plain),
+                                 iters=20, plain_iters=2)
+        launch_ms = (cuda_ms(torch, alone, 20) + cuda_ms(torch, alone, 20)) / 2
+        print(f"K1 conv_block (wgmma) packed stage 2 x {tuple(xq.shape)} k {tuple(kq.shape)} "
+              f"nph 4 zero {zero:.0f} res {res is not None}: {n_bad} of {got.numel()} codes "
+              f"differ from plain (max {err}); codes at -127/127: {spread}; wrapper {ms:.4f} "
+              f"ms, launch alone {launch_ms:.4f} ms "
+              f"({bound_ops * PEAK_INT8_OPS / 1e12 / launch_ms:.1f} TOP/s), plain "
+              f"{plain_ms:.4f} ms, bound {max(bound_ops, bound_bytes):.4f} ms (operations "
+              f"{bound_ops:.4f}, bytes {bound_bytes:.4f})")
+        if n_bad:
+            raise RuntimeError(f"K1 packed stage 2: {n_bad} codes differ from plain")
+        rec["max_abs_err"] = max(rec["max_abs_err"], float(err))
+        for key, v in (("ms", ms), ("launch_ms", launch_ms), ("plain_ms", plain_ms),
+                       ("bytes_ms", bound_bytes), ("ops_ms", bound_ops)):
+            rec[key] += 2 * v  # two links of each kind in a forward
+        del link, got, want, out
+    torch.cuda.empty_cache()
+    return bound_of(dict(rec, library_ms=None))
+
+
+def phase_k5_packed(torch, dev):
+    """Phase 37, K5: the two packed densifies of the S2D teacher, the
+    linear-order table's (``densify_packed_batch``) and the packed-order one's
+    (``densify_packed_direct_batch``), at the teacher's 163 840-row table,
+    bs2, 1440², 150 000 occupied pillars a scene: a float32 table with its
+    backward (the row gather of the cotangent), and the int8 table of the
+    static route; every output and gradient bit-equal to the same function
+    on the CPU (plain versions), one K5 launch a densify. Times: the forward
+    and the backward on the card."""
+    from radardistill_tpu_torch.ops import active_site as asx
+
+    gen = torch.Generator().manual_seed(37)
+    g, hw, cap, n = 1440, 1440 * 1440, 163840, 150000
+    lin = torch.full((2, cap), hw, dtype=torch.int32)
+    for i in range(2):
+        lin[i, :n] = torch.sort(torch.randperm(hw, generator=gen)[:n]).values.to(torch.int32)
+    addr = asx.packed_addr(lin, g, g)
+    packed = torch.gather(lin, 1, torch.argsort(addr, dim=1))
+    table = torch.randn(2, cap, 32, generator=gen) * (lin < hw)[..., None]
+    recs = {}
+    for name, fn, uids in (("linear", asx.densify_packed_batch, lin),
+                           ("packed", asx.densify_packed_direct_batch, packed)):
+        cot = torch.randn(2, g // 2, g // 2, 128, generator=gen)
+        t_cpu = table.clone().requires_grad_()
+        want, want_m = fn(t_cpu, uids, (g, g))
+        want.backward(cot)
+        t_dev = table.to(dev).requires_grad_()
+        u_dev, c_dev = uids.to(dev), cot.to(dev)
+        read = reset_launches()
+        got, got_m = fn(t_dev, u_dev, (g, g))
+        n_fwd = read()["expand_rows"]
+        got.backward(c_dev)
+        torch.cuda.synchronize()
+        q = torch.round(table * 40).clamp(-127, 127).to(torch.int8)
+        q_equal = torch.equal(fn(q.to(dev), u_dev, (g, g))[0].cpu(), fn(q, uids, (g, g))[0])
+        equal = (torch.equal(got.detach().cpu(), want.detach()) and
+                 torch.equal(got_m.cpu(), want_m) and torch.equal(t_dev.grad.cpu(), t_cpu.grad))
+
+        def fwd():
+            with torch.no_grad():
+                fn(t_dev, u_dev, (g, g))
+
+        def fwd_bwd():
+            t_dev.grad = None
+            fn(t_dev, u_dev, (g, g))[0].backward(c_dev)
+
+        ms = cuda_ms(torch, fwd, 20)
+        bwd_ms = cuda_ms(torch, fwd_bwd, 10) - ms
+        print(f"K5 in the {name}-order packed densify, bs2, {cap}-row tables, {n} pillars a "
+              f"scene, 1440²: launches {n_fwd}, rows, mask and table gradient bit-equal to the "
+              f"CPU: {equal}, int8 table bit-equal: {q_equal}; the densify's forward {ms:.4f} "
+              f"ms (the index build and K5), its backward {bwd_ms:.4f} ms")
+        if not (equal and q_equal) or n_fwd != 1:
+            raise RuntimeError(f"K5 {name}-order packed densify: equal {equal}, int8 {q_equal}, "
+                               f"launches {n_fwd}")
+        # K5 alone on the flat table and rows this densify hands it
+        seen, real = {}, asx.expand_rows
+        asx.expand_rows = lambda t, i: seen.update(t=t, i=i) or real(t, i)  # noqa: E731
+        try:
+            fwd()
+        finally:
+            asx.expand_rows = real
+        rec = check_expand(torch, f"{name}-order packed densify", seen["t"], seen["i"], 20)
+        recs[name] = bound_of(dict(rec, densify_ms=ms, backward_ms=bwd_ms, ops_ms=0.0))
+        del t_dev, got, c_dev
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_gates(torch, dev, smi):
+    """Phase 38: the two accuracy gates, cut: ``tools/torch_overfit_check.py``
+    at grid 256 for ``OVERFIT_STEPS`` steps (it raises unless the loss halves
+    and the scene's AP passes 0.25), and ``tools/torch_quality_gate.py
+    --variant int8 --scenes 1`` with 30 + 30 steps (one scene gives no error
+    bar: the line is printed, not judged). Returns the overfit AP."""
+    from tools import torch_overfit_check, torch_quality_gate
+
+    t0 = time.perf_counter()
+    res = torch_overfit_check.main([str(OVERFIT_STEPS), "256"])
+    t1 = time.perf_counter()
+    gate = torch_quality_gate.main(["--variant", "int8", "--scenes", "1", "--steps_a", "30",
+                                    "--steps_b", "30"])
+    t2 = time.perf_counter()
+    print(f"gates on {smi}: overfit check {OVERFIT_STEPS} steps at grid 256 in {t1 - t0:.1f} s "
+          f"(AP {res['ap']:.3f}); quality gate --variant int8 --scenes 1, 30 + 30 steps, in "
+          f"{t2 - t1:.1f} s (d_loss {gate['d_loss']}, d_ap {gate['d_ap']})")
+    torch.cuda.empty_cache()
+    return res["ap"]
 
 
 def phase_dense_from(torch, dev, yaml_name, dense_from=3):
@@ -2640,7 +3019,8 @@ def main() -> int:
     k5_dense = phase_k5_dense(torch, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         tree = make_nuscenes_tree(Path(work))
-        teacher_launches, teacher_ckpt, t_teacher = phase_teacher_pretrain(torch, dev, smi, tree)
+        teacher_launches, teacher_ckpt, t_teacher, dense_resident = phase_teacher_pretrain(
+            torch, dev, smi, tree)
         torch.cuda.empty_cache()
         nusc_launches, result_pkl, test_argv, t_nusc = phase_nuscenes(
             torch, dev, smi, tree, step_p50, teacher_ckpt)
@@ -2649,9 +3029,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_teacher_handoff(torch, dev, smi, teacher_ckpt)
         phase_other_dense_topologies(torch, dev, smi)
+        t0 = time.perf_counter()
+        s2d_launches, s2d_ckpt, _, s2d_weights = phase_s2d_pretrain(torch, dev, smi, tree,
+                                                                    dense_resident)
+        torch.cuda.empty_cache()
+        phase_teacher_handoff(torch, dev, smi, s2d_ckpt)  # the S2D teacher's checkpoint
+        phase_s2d_dense_step(torch, dev, smi, s2d_weights)
+        t_s2d = time.perf_counter() - t0
         ddp_launches, t_ddp = phase_ddp(torch, dev, smi, Path(work), result_pkl, test_argv)
-    print(f"phases 26-30 (nuScenes, teacher, radar baseline, data-parallel): {t_nusc:.1f} + "
-          f"{t_teacher:.1f} + {t_radar:.1f} + {t_ddp:.1f} s")
+    print(f"phases 26-30, 33-34 (nuScenes, teacher, radar baseline, data-parallel, S2D "
+          f"teacher): {t_nusc:.1f} + {t_teacher:.1f} + {t_radar:.1f} + {t_ddp:.1f} + "
+          f"{t_s2d:.1f} s")
     torch.cuda.empty_cache()
     k5["dense_vfe"] = k5_dense
 
@@ -2694,6 +3082,24 @@ def main() -> int:
                            f"mma.sync route's {FP_TEACHER_BF16_REL_BEFORE}")
     k6["teacher_bf16_rel_l2"] = fp_rel
 
+    # the S2D teacher: trained beside the student, its INT8: static routes,
+    # K1 at the packed stage 2, K5 in the packed densifies, the gates
+    t0 = time.perf_counter()
+    cfg, info, batch = make_batch(TRAIN_YAML)
+    cfg.FREEZE_PIPELINE = []
+    unfrozen_launches, _ = phase_train_bf16(
+        torch, dev, TRAIN_YAML, cfg, info, batch,
+        {"expand_rows": 2, "dcn_sample": 3, **DCN_BACKWARD}, 5,
+        eval_launches={"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1})
+    del batch
+    torch.cuda.empty_cache()
+    route_launches = phase_s2d_routes(torch, dev, small)
+    k1["packed_stage2"] = phase_k1_s2d2(torch, dev)
+    k5["packed_densify"] = phase_k5_packed(torch, dev)
+    phase_gates(torch, dev, smi)
+    print(f"phases 35-38 (unfrozen teacher, INT8: static routes, K1 and K5 at the S2D shapes, "
+          f"gates): {time.perf_counter() - t0:.1f} s")
+
     dcn_py = "radardistill_tpu/ops/pallas_dcn.py"
     block_py = "radardistill_tpu/ops/pallas_conv_block.py"
     table = [
@@ -2727,6 +3133,11 @@ def main() -> int:
                 "launches_nuscenes": nusc_launches[name], "launches_ddp": ddp_launches[name],
                 "launches_teacher_pretrain": teacher_launches[name],
                 "launches_radar_baseline": radar_launches[name],
+                "launches_s2d_teacher_pretrain": s2d_launches[name],
+                "launches_teacher_unfrozen": unfrozen_launches[name],
+                **{f"launches_static_{r}": route_launches[k][name] for r, k in (
+                    ("dense_input", "TABLE_INPUT: false"), ("linear_table", "PACKED_TABLE: false"),
+                    ("s2d2", "_S2D2"))},
                 "launch_ms": None,
                 "mma": MMA_ROUTES.get(name), **rec}
                for name, src, replaces, rec in table]
@@ -2740,12 +3151,14 @@ def main() -> int:
             "launches_forward", "launches_int8_stages5", "launches_fp_stages5",
             "launches_device_tables", "launches_runtime", "launches_nuscenes",
             "launches_ddp", "launches_teacher_pretrain", "launches_radar_baseline",
-            "max_abs_err",
+            "launches_s2d_teacher_pretrain", "launches_teacher_unfrozen",
+            "launches_static_dense_input", "launches_static_linear_table",
+            "launches_static_s2d2", "max_abs_err",
             "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "aside_ms",
             "teacher_bf16_rel_l2", "alternating_ms", "alternating_library_ms",
             "k4_route", "repeats_bitwise", "old_route_ms", "device_ms",
             "deep_ms", "deep_old_route_ms", "deep_device_ms", "deep_device_old_route_ms",
-            "deep_plain_ms", "deep_bound_ms", "dense_vfe")
+            "deep_plain_ms", "deep_bound_ms", "dense_vfe", "packed_stage2", "packed_densify")
     print(f"chip_smoke.py: every phase passed; {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included, on {smi}")
     print(json.dumps({"kernels": [{k: kern.get(k) for k in keys} for kern in kernels]}))

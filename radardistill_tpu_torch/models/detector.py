@@ -12,10 +12,10 @@ come in three kinds:
   ``pillarnet_radar.yaml`` and both branches of ``synthetic/smoke.yaml``;
 - active-site: a pillar-table VFE -> ``PillarRes18BackBone8x_AS`` (``DENSE_FROM``
   2..5): the radar student of ``radar_distill_*.yaml``, or a LiDAR teacher;
-- table-input space-to-depth (teacher only): a packed-order pillar table ->
-  ``PillarRes18BackBone8x_S2D`` (``INT8`` false, true or ``static``,
-  ``INT8_STAGES``, ``FP_STAGES``), the frozen teacher of
-  ``radar_distill_train.yaml``.
+- space-to-depth (teacher only): ``PillarRes18BackBone8x_S2D`` or ``_S2D2``
+  (``INT8`` false, true or ``static``, ``INT8_STAGES``, ``FP_STAGES``) fed by
+  a pillar table (``TABLE_INPUT``, packed or linear order: the frozen teacher
+  of ``radar_distill_train.yaml``) or by a dense VFE's grid.
 
 Then the neck (``BaseBEVBackboneV2`` or ``V1``; the radar branch runs the CMA
 hourglass before it) and a ``CenterHead``. The widths flax infers are computed
@@ -34,9 +34,9 @@ the whole forward runs without gradients and ends in decode + NMS.
 ``model.train()``: the scopes of ``FREEZE_PIPELINE`` (kept as ``frozen``) stay
 in eval mode (running BN statistics); a frozen *teacher* scope also runs
 without gradients, which is the reference's ``stop_gradient`` on its outputs,
-and a teacher outside ``FREEZE_PIPELINE`` trains (``pillarnet.yaml``; the S2D
-teacher has no train mode and raises);
-the teacher's head is skipped when a radar branch exists; ``assign_targets``
+and a teacher outside ``FREEZE_PIPELINE`` trains (``pillarnet.yaml``, or the
+S2D teacher of the accuracy gates, ``FREEZE_PIPELINE: []``); the teacher's
+head is skipped when a radar branch exists; ``assign_targets``
 puts ``target_dicts`` into the output when the batch has ``gt_boxes``; nothing
 is decoded. One quirk of the reference is kept: the CMA and the radar neck ask
 for the scope ``radar_backbone_2d``, which ``FREEZE_NAME_TO_SCOPE`` never
@@ -182,14 +182,16 @@ class PillarNet(nn.Module):
                 return PillarRes18BackBone8xAS((ny, nx), as_caps(bk, self.grid_size),
                                                int(bk.get("DENSE_FROM", 3)))
             if cls is PillarRes18BackBone8xS2D:
-                if not is_table_s2d(bk):
-                    raise NotImplementedError(
-                        f"PillarRes18BackBone8x_S2D: TABLE_INPUT: false (dense input) is not "
-                        f"ported")
+                if in_ch != 32:
+                    raise ValueError(f"{name}: its first residual block takes 32 channels, "
+                                     f"not {in_ch}")
+                # pack_stage2 beside the INT8 switches: the JAX detector sets
+                # kwargs = dict(pack_stage2=True) for _S2D2, which drops them
+                # and silently runs a float teacher (a fault kept there)
                 return PillarRes18BackBone8xS2D(
                     (ny, nx), dtype=dt, int8=bool(int8_mode) and int8_mode != "static",
                     int8_static=int8_mode == "static", int8_stages=int(bk.get("INT8_STAGES", 1)),
-                    fp_stages=int(bk.get("FP_STAGES", 0)), table_input=True,
+                    fp_stages=int(bk.get("FP_STAGES", 0)), table_input=is_table_s2d(bk),
                     packed_table=bool(bk.get("PACKED_TABLE", True)),
                     pack_stage2=name.endswith("_S2D2"))
             if cls is PillarRes18BackBone8x:
@@ -233,10 +235,6 @@ class PillarNet(nn.Module):
     def train(self, mode: bool = True):
         """Frozen scopes stay in eval mode; the CMA and the radar neck follow
         ``mode`` whatever ``FREEZE_PIPELINE`` says (see the module docstring)."""
-        if mode and self.has_teacher and self.s2dt_teacher and "backbone_3d" not in self.frozen:
-            raise NotImplementedError(
-                "training the PillarRes18BackBone8x_S2D teacher (BACKBONE_3D outside "
-                "FREEZE_PIPELINE) is not ported: its blocks have no train mode")
         super().train(mode)
         for scope in self.frozen - {"radar_cma", "radar_neck"}:
             if hasattr(self, scope):

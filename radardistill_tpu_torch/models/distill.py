@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.dcn import DCN_MAX_OFFSET, modulated_deform_conv
+from ..ops.dcn import dcn_max_offset, modulated_deform_conv
 from ..parallel.mesh import batch_sum
 from .layers import (GRN, BatchNormTorch, Conv2dTorch, ConvTranspose2dTorch, Dense,
                      LayerNormTorch, clip_sigmoid)
@@ -54,7 +54,7 @@ class ConvNeXtBlock(nn.Module):
             offset = torch.cat([o1, o2], dim=-1)  # read as [dy_k, dx_k] pairs
             if self.training:
                 with torch.no_grad():
-                    self.dcn_offset_sat = (offset.float().abs() > DCN_MAX_OFFSET).float().mean()
+                    self.dcn_offset_sat = (offset.float().abs() > dcn_max_offset()).float().mean()
             x = modulated_deform_conv(x, offset, torch.sigmoid(m), self.down_weight,
                                       stride=2, padding=1)
             x = x + self.down_bias.to(x.dtype)

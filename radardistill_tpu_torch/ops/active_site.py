@@ -14,8 +14,11 @@ reference's gather-formulated backward passes: ``gather_taps_inv_b`` (a gather
 of the cotangent through ``inv``/``imsk``) and ``densify_batch`` (a row gather
 at the site ids). Both are deterministic; plain autograd of the index ops
 would give the same numbers through ``index_add_``, whose order of additions
-on CUDA changes from run to run. The teacher's ``densify_packed_direct_batch``
-runs under ``no_grad`` and has no backward.
+on CUDA changes from run to run. The space-to-depth teacher's two packed
+densifies (``densify_packed_batch`` for a linear-order table,
+``densify_packed_direct_batch`` for a packed-order one) have the same kind of
+backward, a row gather of the cotangent at each table row's packed address,
+so a teacher outside ``FREEZE_PIPELINE`` trains through them.
 """
 
 from __future__ import annotations
@@ -210,8 +213,7 @@ class _DensifyRows(torch.autograd.Function):
         ctx.save_for_backward(uids)
         ctx.hw_flat = hw_flat
         feats_z = torch.cat([feats, feats.new_zeros((b, 1, c))], dim=1).reshape(b * (cap + 1), c)
-        flat_idx = inv + (torch.arange(b, dtype=torch.int32, device=inv.device) * (cap + 1))[:, None]
-        return expand_rows(feats_z, flat_idx.reshape(-1))
+        return expand_rows(feats_z, _batch_rows(inv, cap))
 
     @staticmethod
     def backward(ctx, g_dense):
@@ -242,12 +244,66 @@ def packed_addr(uids: torch.Tensor, h: int, w: int) -> torch.Tensor:
     parent-major, phase = (y%2)*2 + x%2. The sentinel h*w maps to itself.
     The address pairs rows and columns, so h and w must be even (an odd grid
     would alias neighbouring parents)."""
-    if h % 2 or w % 2:
-        raise ValueError(f"packed_addr: the packed layout needs an even grid, not {(h, w)}")
+    _check_even(h, w)
     y = torch.div(uids, w, rounding_mode="floor")
     x = uids - y * w
     addr = (((y >> 1) * (w >> 1) + (x >> 1)) << 2) + ((y & 1) << 1) + (x & 1)
     return torch.where(uids >= h * w, h * w, addr)
+
+
+def _check_even(h: int, w: int):
+    if h % 2 or w % 2:
+        raise ValueError(f"packed_addr: the packed layout needs an even grid, not {(h, w)}")
+
+
+class _DensifyPackedRows(torch.autograd.Function):
+    """(B, cap, C) tables -> (B*h*w, C) rows of the packed grid through K5:
+    ``flat_idx`` holds the flat table row (``B*(cap+1)`` rows, the last of
+    each sample zero) of every packed cell. The backward is the row gather of
+    the cotangent at each table row's packed address (site ids are unique, so
+    no two rows share a cell); sentinel rows take zero. An int8 table takes
+    no gradient (autograd tracks no integer tensor)."""
+
+    @staticmethod
+    def forward(ctx, feats, uids, flat_idx, hw):
+        b, cap, c = feats.shape
+        ctx.save_for_backward(uids)
+        ctx.hw = hw
+        feats_z = torch.cat([feats, feats.new_zeros((b, 1, c))], dim=1).reshape(b * (cap + 1), c)
+        return expand_rows(feats_z, flat_idx)
+
+    @staticmethod
+    def backward(ctx, g_rows):
+        (uids,) = ctx.saved_tensors
+        h, w = ctx.hw
+        b, cap = uids.shape
+        valid = uids < h * w
+        addr = packed_addr(uids, h, w).long().clamp(0, h * w - 1) + (
+            torch.arange(b, device=uids.device) * (h * w))[:, None]
+        g = g_rows[addr.reshape(-1)].reshape(b, cap, -1)
+        return g * valid[..., None].to(g.dtype), None, None, None
+
+
+def _batch_rows(inv: torch.Tensor, cap: int) -> torch.Tensor:
+    """(B, M) per-sample table rows -> (B*M,) int32 rows of the flat
+    (B*(cap+1), C) table."""
+    b = inv.shape[0]
+    flat = inv + (torch.arange(b, dtype=torch.int32, device=inv.device) * (cap + 1))[:, None]
+    return flat.reshape(-1)
+
+
+def densify_packed_batch(feats: torch.Tensor, uids: torch.Tensor, hw: Tuple[int, int]):
+    """LINEAR-ORDER (B, cap, C) tables (rows sorted by site id) -> (B, H/2,
+    W/2, 4*C) packed dense + (B, H, W) bool mask. The inverse site map is built
+    in linear order and read in the packed layout, so K5 (``expand_rows``)
+    writes the packed grid directly, also for int8 tables."""
+    h, w = hw
+    _check_even(h, w)
+    b, cap, c = feats.shape
+    inv = site_index_grid(uids, h * w, cap)  # (B, hw), linear order
+    inv_p = inv.view(b, h // 2, 2, w // 2, 2).permute(0, 1, 3, 2, 4).reshape(b, h * w)
+    rows = _DensifyPackedRows.apply(feats, uids, _batch_rows(inv_p, cap), (h, w))
+    return rows.reshape(b, h // 2, w // 2, 4 * c), (inv < cap).reshape(b, h, w)
 
 
 def densify_packed_direct_batch(feats: torch.Tensor, uids: torch.Tensor, hw: Tuple[int, int]):
@@ -255,11 +311,9 @@ def densify_packed_direct_batch(feats: torch.Tensor, uids: torch.Tensor, hw: Tup
     values linear) -> (B, H/2, W/2, 4*C) packed dense + (B, H/2, W/2, 4) bool
     packed mask (phase-major). The inverse site map is scattered directly at
     packed addresses, so the row gather lands in the packed layout with no
-    transpose; K5 (``expand_rows``) does the gather, also for int8 tables.
-    No backward: only the frozen teacher takes it, without gradients."""
+    transpose; K5 (``expand_rows``) does the gather, also for int8 tables."""
     h, w = hw
     b, cap, c = feats.shape
-    feats_z = torch.cat([feats, feats.new_zeros((b, 1, c))], dim=1).reshape(b * (cap + 1), c)
     addr = packed_addr(uids, h, w)  # (B, cap)
     inv = torch.full((b * h * w,), cap, dtype=torch.int32, device=uids.device)
     rows = torch.arange(cap, dtype=torch.int32, device=uids.device).expand(b, cap)
@@ -267,6 +321,5 @@ def densify_packed_direct_batch(feats: torch.Tensor, uids: torch.Tensor, hw: Tup
     flat = addr.long() + (torch.arange(b, device=uids.device) * (h * w))[:, None]
     inv[flat[keep]] = rows[keep]
     inv = inv.view(b, h * w)
-    flat_idx = inv + (torch.arange(b, dtype=torch.int32, device=inv.device) * (cap + 1))[:, None]
-    dense = expand_rows(feats_z, flat_idx.reshape(-1))
+    dense = _DensifyPackedRows.apply(feats, uids, _batch_rows(inv, cap), (h, w))
     return dense.reshape(b, h // 2, w // 2, 4 * c), (inv < cap).reshape(b, h // 2, w // 2, 4)

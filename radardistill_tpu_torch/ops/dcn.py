@@ -23,12 +23,22 @@ row-major). Layouts are NHWC; the weight is HWIO ``(K, K, Cin, Cout)``.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .dcn_grad import dcn_input_grad, dcn_offset_grad
 from .dcn_sample import dcn_sample
 
 DCN_MAX_OFFSET = 5  # production clamp of the reference's kernel path (cells)
+
+
+def dcn_max_offset() -> int:
+    """The clamp R in cells: ``DCN_R`` from the environment, else the
+    production ``DCN_MAX_OFFSET``. Read at every call, so one process can run
+    two legs with different clamps (``tools/torch_quality_gate.py --variant
+    dcn_r8``); the gate below keeps the reference's default R of 5."""
+    return int(os.environ.get("DCN_R", str(DCN_MAX_OFFSET)))
 
 # the Pallas kernels' geometry, as far as the gate reads it
 # (radardistill_tpu/ops/pallas_dcn.py: patch_rows, grad_rows, GRAD_IR)
@@ -96,4 +106,4 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor, mask: torch.Ten
     clamp = shapes_supported(x.shape, offset.shape, stride, padding, kernel_size)
     return _ModulatedDeformConv.apply(
         x.contiguous(), offset.float().contiguous(), mask.float().contiguous(), weight,
-        stride, padding, kernel_size, DCN_MAX_OFFSET if clamp else None)
+        stride, padding, kernel_size, dcn_max_offset() if clamp else None)

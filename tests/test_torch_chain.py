@@ -777,3 +777,24 @@ def test_float_kernels_raise_on_shapes_they_do_not_take(cuda):
     link = _fp_link(34, kh=3, w=8, c=20, co=64, res=False)  # C 20: not a multiple of 8
     with pytest.raises(ValueError):
         _run_fp_torch(link, torch.float32, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_res", [False, True], ids=["first", "residual"])
+def test_k1_at_the_packed_stage2_link_equals_plain_on_card(cuda, with_res):
+    """The ``_S2D2`` teacher's packed stage-2 link: 3x3, C = Co = 256, 4 mask
+    phases of 64 channels (a 128-channel tile of the epilogue spans two
+    phases), 2 x 12 x 4 x 2 = 192 tiles of 4 x 64 pixels x 128 channels, more
+    than the card's CTAs. Every code equal to the plain version's, on the
+    ``wgmma`` route."""
+    from tests.test_torch_conv_block import _run_torch
+
+    link = _link(35, kh=3, zero=127.0 if with_res else 0.0, nph=4, c=256, co=256, h=48, w=200,
+                 with_res=with_res)
+    assert cb.route_of(3, 256, 256, 4, torch.int8) == "wgmma"
+    before = cb.conv_block.route_launches["wgmma"]
+    got = _run_torch(link, None, cuda)[0]
+    assert cb.conv_block.route_launches["wgmma"] == before + 1
+    want = _run_torch(link, None, cuda, block=cb.conv_block_plain)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

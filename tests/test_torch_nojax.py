@@ -209,7 +209,9 @@ PORT_FILES = sorted(
                                     "tools/torch_fp_teacher_rel.py",
                                     "tools/torch_gather_ab.py", "tools/torch_train.py",
                                     "tools/torch_test.py", "tools/torch_ckpt_surgery.py",
-                                    "tools/torch_train_pace.py", "tools/torch_ddp_check.py"])
+                                    "tools/torch_train_pace.py", "tools/torch_ddp_check.py",
+                                    "tools/torch_overfit_check.py",
+                                    "tools/torch_quality_gate.py"])
 def test_card_scripts_import_only_torch_and_the_port(script):
     names = _imported_modules(os.path.join(REPO, script))
     roots = {n.split(".")[0] for n in names}
@@ -230,7 +232,8 @@ def test_teacher_eval_tool_imports_only_the_ports_eval_cli():
 
 def test_the_walk_covers_the_nuscenes_and_parallel_modules():
     for mod in ("data/nuscenes/pcd", "data/nuscenes/dataset", "data/nuscenes/info_gen",
-                "data/nuscenes/eval_bridge", "parallel/mesh", "parallel/multihost"):
+                "data/nuscenes/eval_bridge", "parallel/mesh", "parallel/multihost",
+                "utils/testing"):
         assert f"radardistill_tpu_torch/{mod}.py" in PORT_FILES, mod
 
 

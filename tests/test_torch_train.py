@@ -121,7 +121,10 @@ def test_unported_train_legs_raise_by_name(inputs):
     step = make_train_step(model, opt, full.MODEL, (), (), (), mesh=make_mesh("cpu"),
                            sync_bn=False)
     assert step.ddp is None and step.state.model is model
+    # the S2D teacher outside FREEZE_PIPELINE no longer raises: it trains
     cfg = copy.deepcopy(full.MODEL)
     cfg.FREEZE_PIPELINE = [n for n in cfg.FREEZE_PIPELINE if n != "PillarRes18BackBone8x"]
-    with pytest.raises(NotImplementedError, match="S2D teacher"):
-        build_network(cfg, info, device="cpu").train()
+    model = build_network(cfg, info, device="cpu").train()
+    assert model.backbone_3d.training and not model.vfe.training
+    mask = freeze_mask(model.named_parameters(), model.frozen)
+    assert all(ok for n, ok in mask.items() if n.startswith("backbone_3d."))

@@ -2,10 +2,12 @@
 the configurations, batch and weights that ``tests/test_torch_dense_*.py``
 share, and the train-step case that ``tests/test_torch_dense_teacher.py``
 (``pillarnet.yaml``'s topology: the dense LiDAR teacher alone, ``DISTILL``
-absent, trained) and ``tests/test_torch_dense_radar.py``
+absent, trained), ``tests/test_torch_dense_radar.py``
 (``pillarnet_radar.yaml``'s: the dense radar branch alone, ``DISTILL:
-False``) run, one configuration a file so that the two JAX compiles land on
-two workers. Importing the tests below into a test module collects them
+False``) and ``tests/test_torch_s2d_teacher.py`` (``pillarnet.yaml``'s
+topology with the space-to-depth teacher ``PillarRes18BackBone8x_S2D`` on
+the dense VFE's grid) run, one configuration a file so that the JAX compiles
+land on separate workers. Importing the tests below into a test module collects them
 there; this module holds no tests of its own.
 
 The configurations come from ``radardistill_tpu.utils.testing.make_model_cfg``
@@ -80,14 +82,18 @@ def model_cfg(kind):
     """(JAX cfg, port cfg, dataset info) of a topology: ``teacher`` (the dense
     LiDAR teacher alone, trained), ``radar`` (the dense radar branch alone,
     ``DISTILL: False``), ``smoke`` (both dense, the teacher frozen,
-    ``DISTILL: True``: ``synthetic/smoke.yaml``) or ``as_teacher`` (an
-    ``_AS`` LiDAR teacher alone)."""
-    teacher = kind in ("teacher", "smoke", "as_teacher")
-    distill = {"teacher": None, "as_teacher": None, "radar": False, "smoke": True}[kind]
+    ``DISTILL: True``: ``synthetic/smoke.yaml``), ``as_teacher`` (an
+    ``_AS`` LiDAR teacher alone) or ``s2d_teacher`` (the space-to-depth
+    teacher alone on the dense VFE's grid, trained)."""
+    teacher = kind in ("teacher", "smoke", "as_teacher", "s2d_teacher")
+    distill = {"teacher": None, "as_teacher": None, "s2d_teacher": None, "radar": False,
+               "smoke": True}[kind]
     cfg, info = make_model_cfg(grid=GRID, teacher=teacher, radar=kind in ("radar", "smoke"),
                                distill=distill, num_max_objs=16, k_per_head=32, nms_post=8)
-    if kind in ("teacher", "as_teacher"):
+    if kind in ("teacher", "as_teacher", "s2d_teacher"):
         cfg.pop("FREEZE_PIPELINE")
+    if kind == "s2d_teacher":
+        cfg.BACKBONE_3D = JConfigDict(NAME="PillarRes18BackBone8x_S2D")
     if kind == "as_teacher":
         cfg.BACKBONE_3D = JConfigDict(NAME="PillarRes18BackBone8x_AS",
                                       MAX_ACTIVE=[2048, 2048, 1024, 512], DENSE_FROM=3)
@@ -242,7 +248,7 @@ def make_run(setup):
 
 
 def test_eval_forward_matches_jax(run, setup):
-    branch = "teacher" if setup["kind"] == "teacher" else "radar"
+    branch = "radar" if setup["kind"] == "radar" else "teacher"
     assert_eval_matches(run["jeval"], run["teval"], [branch])
 
 
