@@ -26,7 +26,11 @@ at full width and the full 1440² grid, with random weights from a seeded
   - the space-to-depth teacher trained: on its own through the CLIs
     (``pillarnet.yaml`` with the S2D backbone), and beside the student with
     ``FREEZE_PIPELINE: []``; its ``INT8: static`` eval on the dense-input,
-    linear-order-table and ``_S2D2`` routes; the two accuracy gates, cut.
+    linear-order-table and ``_S2D2`` routes; the two accuracy gates, cut;
+  - the last modules: the anchor family (``pointpillar_smoke.yaml``) through
+    the CLIs and at full size, ``adam`` and ``sgd``, ``MODEL.REMAT`` on the
+    radar baseline, the tile-sparse radar backbone, and the tools' last
+    flags.
 
 It imports only ``torch`` and ``radardistill_tpu_torch``. Phases:
 
@@ -300,11 +304,33 @@ gradient bit-equal to the CPU, float32 and int8 tables; K5 alone at that shape
 against plain and ``index_select``. Phase 38: ``tools/torch_overfit_check.py``
 (``OVERFIT_STEPS`` at grid 256, it must converge) and
 ``tools/torch_quality_gate.py --variant int8 --scenes 1`` with 30 + 30 steps,
-each printing its result lines. K1's record carries ``packed_stage2`` (the
+each printing its result lines; the gate also with ``--variant fp`` and
+``--variant dcn_r8``. K1's record carries ``packed_stage2`` (the
 sums over the four stage-2 links of a ``_S2D2`` forward), K5's
 ``packed_densify``; ``launches_s2d_teacher_pretrain``,
 ``launches_teacher_unfrozen`` (one step) and ``launches_static_*`` (one
 forward of each route) count phases 33, 35 and 36.
+
+The last modules (``phase_*`` docstrings hold the bounds). Phase 0, after
+phase 4: K2, K3 and K4 at the clamp R = 8 (``DCN_R=8``) against their plain
+versions at the CMA sites, K4's tile window's shared memory at R = 5 and 8
+(and at stride 1, where a clamp of 20 sends K4 to its atomic route by rule),
+K4's time at R = 8 beside R = 5 in turns (K4's record: ``r5_ms_in_turns``,
+``r8_ms_in_turns``). Phases 42-43, on the tree of phase 26: the radar
+baseline's step (``pillarnet_radar.yaml``, bs8, 1440², bf16) with
+``MODEL.REMAT`` beside one without (running statistics against a repeat of
+the plain leg, gradients, p50, peak GiB, K2 x 6 a remat step); and the
+tile-sparse radar backbone in eval (active tiles and overflow at ``MAX_TILES``
+512, float32 against the dense backbone where nothing overflows, the bf16
+forward's p50 beside the dense one). Phases 39-41, after phase 38: the anchor
+family, ``pointpillar_smoke.yaml`` through ``tools/torch_train.py`` (with
+``--profile_dir``) and ``tools/torch_test.py`` (with ``--bev_similarity``),
+``tools/torch_demo.py`` and ``tools/torch_calc_caps.py``; its MODEL at full
+size on ``pillarnet.yaml``'s 1440² grid, bs4, 160 000 points and 64 boxes a
+scene, with the dense VFE (K5 x 1 a forward) and with ``PillarVFE`` (no
+kernel); ``OPTIMIZER: adam`` and ``sgd`` on the card against the CPU.
+``launches_anchor_cli``, ``launches_anchor_step``, ``launches_remat`` (5
+steps) and ``launches_tile_sparse_forward`` count them.
 
 Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
 float32 scales alike, but not every stock op around it (the VFE's sums); one
@@ -1887,7 +1913,7 @@ def phase_runtime(torch, dev, smi, step_p50):
     t_save = time.perf_counter() - t0
     a, b = fresh.model.state_dict(), trained.model.state_dict()
     differ = [k for k in b if not torch.equal(a[k], b[k])]
-    ma, mb = fresh.optimizer.adamw.state_dict()["state"], trained.optimizer.adamw.state_dict()[
+    ma, mb = fresh.optimizer.inner.state_dict()["state"], trained.optimizer.inner.state_dict()[
         "state"]
     differ += [f"adam {i}.{k}" for i in mb for k in mb[i] if not torch.equal(ma[i][k], mb[i][k])]
     if (restored is None or restored[1:] != (2, 6) or fresh.step != 6 or differ
@@ -2788,19 +2814,25 @@ def phase_gates(torch, dev, smi):
     """Phase 38: the two accuracy gates, cut: ``tools/torch_overfit_check.py``
     at grid 256 for ``OVERFIT_STEPS`` steps (it raises unless the loss halves
     and the scene's AP passes 0.25), and ``tools/torch_quality_gate.py
-    --variant int8 --scenes 1`` with 30 + 30 steps (one scene gives no error
-    bar: the line is printed, not judged). Returns the overfit AP."""
+    --scenes 1`` with 30 + 30 steps for each variant, ``int8``, ``fp`` (the
+    ``FP_STAGES: 5`` teacher, K6 x 19 a forward) and ``dcn_r8`` (K2, K3, K4
+    at R = 8): one scene gives no error bar, so each ``RESULT`` line is
+    printed, not judged. Returns the overfit AP."""
     from tools import torch_overfit_check, torch_quality_gate
 
     t0 = time.perf_counter()
     res = torch_overfit_check.main([str(OVERFIT_STEPS), "256"])
     t1 = time.perf_counter()
-    gate = torch_quality_gate.main(["--variant", "int8", "--scenes", "1", "--steps_a", "30",
-                                    "--steps_b", "30"])
-    t2 = time.perf_counter()
+    gates = {}
+    for variant in ("int8", "fp", "dcn_r8"):
+        t = time.perf_counter()
+        gate = torch_quality_gate.main(["--variant", variant, "--scenes", "1", "--steps_a", "30",
+                                        "--steps_b", "30"])
+        gates[variant] = (time.perf_counter() - t, gate["d_loss"], gate["d_ap"])
     print(f"gates on {smi}: overfit check {OVERFIT_STEPS} steps at grid 256 in {t1 - t0:.1f} s "
-          f"(AP {res['ap']:.3f}); quality gate --variant int8 --scenes 1, 30 + 30 steps, in "
-          f"{t2 - t1:.1f} s (d_loss {gate['d_loss']}, d_ap {gate['d_ap']})")
+          f"(AP {res['ap']:.3f}); quality gate --scenes 1, 30 + 30 steps: "
+          + "; ".join(f"--variant {v} in {t:.1f} s (d_loss {dl}, d_ap {da})"
+                      for v, (t, dl, da) in gates.items()))
     torch.cuda.empty_cache()
     return res["ap"]
 
@@ -2939,6 +2971,547 @@ def cudnn_bf16_conv_aside(torch, dev):
     print(f"aside: cuDNN bf16 conv2d (2, 720, 720, 128) x (3, 3, 128, 128), no epilogue: {ms:.4f} ms")
 
 
+# ------------------------------------------------------------------------
+# The DCN kernels at R = 8 (phase 0), and the modules that
+# close the port (phases 39-43): the anchor family, adam and sgd, remat, the
+# tile-sparse backbone, the tools' last flags.
+
+ANCHOR_YAML = ROOT / "tools/cfgs/synthetic/pointpillar_smoke.yaml"
+ANCHOR_FORWARD = {"expand_rows": 1}  # the dense VFE's densify, once a forward
+# the radar baseline's step under MODEL.REMAT: the CMA's forward runs again
+# in the backward, so K2 twice
+REMAT_STEP = {**RADAR_BASELINE_STEP, "dcn_sample": 6}
+
+
+def check_launches(name, got, want):
+    """Raise unless the counts ``got`` are ``want`` (absent keys 0)."""
+    want = {**dict.fromkeys(got, 0), **want}
+    if got != want:
+        raise RuntimeError(f"{name}: launches {got}, expected {want}")
+
+
+def median(v):
+    v = sorted(v)
+    return (v[(len(v) - 1) // 2] + v[len(v) // 2]) / 2
+
+
+def phase_dcn_r8(torch, dev):
+    """Phase 0: K2, K3 and K4 at the clamp R = 8 (``DCN_R=8``, the quality
+    gate's ``dcn_r8`` variant) at the CMA's three sites, bs2, float32 and
+    bfloat16, against their plain versions (the tolerances of R = 5); K4 on
+    its ``tile`` route by rule, its window's shared memory printed beside R =
+    5's, and its time at R = 8 beside R = 5, in turns (bf16, the three
+    sites); then stride 1 at 90² at R = 8 (its window fits: the tile route)
+    and at a clamp of 20 (it does not: the atomic route by rule). Returns K4's
+    (ms at R = 5, ms at R = 8) over the three sites."""
+    from radardistill_tpu_torch.ops import dcn_grad
+    from radardistill_tpu_torch.ops.dcn_sample import dcn_sample, dcn_sample_plain
+
+    gen = torch.Generator().manual_seed(16)
+    b, c = 2, 256
+    ms = {5.0: 0.0, 8.0: 0.0}
+    for h, ho, stride in ((180, 90, 2), (90, 45, 2), (180, 90, 2), (90, 90, 1)):
+        x32 = torch.randn(b, h, h, c, generator=gen)
+        ds32 = torch.randn(b, ho, ho, 9 * c, generator=gen)
+        off = (4.0 * torch.randn(b, ho, ho, 18, generator=gen)).to(dev)
+        msk = (torch.rand(b, ho, ho, 9, generator=gen) * 0.9 + 0.05).to(dev)
+        for r in (5.0, 8.0) if stride == 2 else (8.0, 20.0):
+            geo = (stride, 1, 3, r)
+            th, tw, _ = dcn_grad.tile_plan(h, h)
+            cap = dcn_grad.tile_windows(h, h, ho, ho, stride, 1, 3, r, th, tw, dev)[1]
+            smem = dcn_grad.tile_smem_bytes(cap, th, tw)
+            route = dcn_grad.input_grad_route(r, stride, 1, c, torch.bfloat16, (h, h, ho, ho, 3))
+            if route != ("tile" if smem <= dcn_grad.TILE_SMEM_LIMIT else "atomic"):
+                raise RuntimeError(f"K4 at R {r}, stride {stride}: route {route}")
+            for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+                x, ds = x32.to(dev, dtype), ds32.to(dev, dtype)
+                before = dict(dcn_grad.dcn_input_grad.route_launches)
+                y = dcn_sample(x, off, msk, *geo)
+                g18, dm9 = dcn_grad.dcn_offset_grad(x, off, ds, msk, *geo)
+                dx = dcn_grad.dcn_input_grad(ds, off, msk, h, h, *geo)
+                torch.cuda.synchronize()
+                moved = [k for k, n in dcn_grad.dcn_input_grad.route_launches.items()
+                         if n != before[k]]
+                if moved != [route]:
+                    raise RuntimeError(f"K4 at R {r}: counted on {moved}, not {route}")
+                errs = []
+                g18_p, dm9_p = dcn_grad.dcn_offset_grad_plain(x, off, ds, msk, *geo)
+                for name, got, want in (
+                        ("K2 y", y, dcn_sample_plain(x, off, msk, *geo)),
+                        ("K3 g18", g18, g18_p), ("K3 dm9", dm9, dm9_p),
+                        ("K4 dx", dx, dcn_grad.dcn_input_grad_plain(ds, off, msk, h, h, *geo))):
+                    err = (got.float() - want.float()).abs().max().item()
+                    ref = want.float().abs().max().item()
+                    if not err <= tol * ref:
+                        raise RuntimeError(f"{name} {dtype} R {r} at {h}²: error {err} over "
+                                           f"{tol} x {ref}")
+                    errs.append(f"{name} {err:.3e} (limit {tol * ref:.3e})")
+                sat = (off.abs() >= r).float().mean().item()
+                print(f"DCN R {r:g} stride {stride} {str(dtype)[6:]} bs{b} {h}²->{ho}² "
+                      f"({100 * sat:.1f}% of offsets at or beyond the clamp): {', '.join(errs)}; "
+                      f"K4 on its {route} route, the tile window {cap} (site, tap) pairs = "
+                      f"{smem} B of shared memory (limit {dcn_grad.TILE_SMEM_LIMIT})")
+        if stride != 2:
+            continue
+        ds = ds32.to(dev, torch.bfloat16)
+        t = {r: lambda r=r: dcn_grad.dcn_input_grad(ds, off, msk, h, h, 2, 1, 3, r)
+             for r in (5.0, 8.0)}
+        t5, t8 = paired_ms(torch, t[5.0], t[8.0], iters=10)
+        ms[5.0] += t5
+        ms[8.0] += t8
+        print(f"K4 dcn_input_grad bfloat16 bs{b} {h}²->{ho}² tile route: R 5 {t5:.4f} ms, R 8 "
+              f"{t8:.4f} ms (in turns)")
+    print(f"K4 over the three CMA sites, bfloat16 bs{b}: R 5 {ms[5.0]:.4f} ms, R 8 "
+          f"{ms[8.0]:.4f} ms")
+    return ms[5.0], ms[8.0]
+
+
+def anchor_cfg(grid=None):
+    """``pointpillar_smoke.yaml`` (the port's config), and its dataset info;
+    with ``grid`` 1440 on ``pillarnet.yaml``'s range and voxel: [-54, 54] m
+    at 0.075 m."""
+    from radardistill_tpu_torch.config import ConfigDict, cfg_from_yaml_file
+
+    cfg = ConfigDict()
+    cfg_from_yaml_file(str(ANCHOR_YAML), cfg)
+    pcr = [-54.0, -54.0, -5.0, 54.0, 54.0, 3.0] if grid else [-9.6, -9.6, -5.0, 9.6, 9.6, 3.0]
+    vs = (0.075, 0.075, 8.0) if grid else (0.15, 0.15, 8.0)
+    n = int(round((pcr[3] - pcr[0]) / vs[0]))
+    return cfg, {"grid_size": (n, n), "voxel_size": vs, "point_cloud_range": tuple(pcr),
+                 "class_names": tuple(cfg.CLASS_NAMES)}
+
+
+def anchor_batch(info, batch_size, num_lidar, num_boxes, seed=0):
+    """Synthetic scenes over ``info``'s range as the anchor family's batch:
+    points (B, N, 5), their mask, and GT boxes of the two classes (1-based,
+    0 padding)."""
+    import numpy as np
+
+    from radardistill_tpu_torch.data.collate import collate_batch
+    from radardistill_tpu_torch.data.synthetic import make_scene
+
+    scenes = [make_scene(seed + i, num_lidar=num_lidar, num_radar=10, num_boxes=num_boxes,
+                         pc_range=np.asarray(info["point_cloud_range"], np.float32))
+              for i in range(batch_size)]
+    for s in scenes:
+        del s["radar_points"]
+    batch = collate_batch(scenes, {"MAX_LIDAR_POINTS": num_lidar, "NUM_MAX_OBJS": num_boxes})
+    batch.pop("_host", None)
+    gt = batch["gt_boxes"]
+    gt[..., -1] = np.where(gt[..., -1] > 0, 1 + gt[..., -1] % 2, 0)
+    batch["gt_boxes"] = gt[..., [0, 1, 2, 3, 4, 5, 6, -1]]
+    return batch
+
+
+def voxel_batch(batch, info, max_points=32):
+    """The fixed voxels of ``PillarVFE`` from a points batch, as the data
+    processor's ``transform_points_to_voxels`` makes them (points sorted by
+    voxel, stable; the first ``max_points`` of a voxel kept; coords (z, y,
+    x)), every voxel of a sample kept and padded to the batch's most, -1
+    coords on the padding."""
+    import numpy as np
+
+    nx, ny = info["grid_size"]
+    lo = np.asarray(info["point_cloud_range"][:3], np.float32)
+    vs = np.asarray(info["voxel_size"], np.float32)
+    per = []
+    for pts, m in zip(batch["points"], batch["points_mask"]):
+        p = pts[m]
+        c = np.floor((p[:, :3] - lo) / vs).astype(np.int64)
+        ok = (c[:, 0] >= 0) & (c[:, 0] < nx) & (c[:, 1] >= 0) & (c[:, 1] < ny) & (c[:, 2] == 0)
+        p, c = p[ok], c[ok]
+        key = c[:, 1] * nx + c[:, 0]
+        order = np.argsort(key, kind="stable")
+        p, key = p[order], key[order]
+        uniq, start, count = np.unique(key, return_index=True, return_counts=True)
+        rank = np.arange(len(key)) - np.repeat(start, count)
+        keep = rank < max_points
+        per.append((p[keep], np.repeat(np.arange(len(uniq)), count)[keep], rank[keep], uniq,
+                    np.minimum(count, max_points)))
+    v = max(len(u) for *_, u, _ in per)
+    b, f = len(per), batch["points"].shape[-1]
+    voxels = np.zeros((b, v, max_points, f), np.float32)
+    nums = np.zeros((b, v), np.int32)
+    coords = np.full((b, v, 3), -1, np.int32)
+    for i, (p, vid, rank, uniq, cnt) in enumerate(per):
+        voxels[i, vid, rank] = p
+        nums[i, :len(uniq)] = cnt
+        coords[i, :len(uniq)] = np.stack([np.zeros_like(uniq), uniq // nx, uniq % nx], -1)
+    return {"voxels": voxels, "voxel_num_points": nums, "voxel_coords": coords,
+            "gt_boxes": batch["gt_boxes"]}
+
+
+def phase_anchor_cli(torch, dev, smi, work):
+    """Phase 39: the anchor family's shipped config through the CLIs and the
+    tools' last flags: ``tools/torch_train.py`` on ``pointpillar_smoke.yaml``
+    (1 epoch, bs2, ``--profile_dir``: one warm and 3 traced steps first),
+    ``tools/torch_test.py`` on its checkpoint with ``--bev_similarity
+    spatial_features_2d``, ``tools/torch_demo.py`` and
+    ``tools/torch_calc_caps.py``; K5 once a forward. Returns (launches,
+    seconds)."""
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+    from radardistill_tpu_torch.train.trainer import read_log
+    from radardistill_tpu_torch.train.train_step import make_eval_step
+    from tools import torch_calc_caps, torch_demo, torch_test, torch_train
+
+    t_start = time.perf_counter()
+    tag = "chip_smoke_anchor"
+    out = Path("output") / "pointpillar_smoke" / tag
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    prof = work / "prof"
+    common = ["--cfg_file", str(ANCHOR_YAML), "--batch_size", "2", "--extra_tag", tag]
+    read = reset_launches()
+    state = torch_train.main(common + ["--epochs", "1", "--workers", "2", "--log_interval", "1",
+                                       "--num_epochs_to_eval", "0", "--profile_dir", str(prof)])
+    result = torch_test.main(common + ["--infer_time", "--bev_similarity", "spatial_features_2d"])
+    torch.cuda.synchronize()
+    launches = read()
+    n_train = len(read_log(next(out.glob("log_train_*.txt"))))
+    n_steps = 1 + torch_train.PROFILE_STEPS + n_train
+    check_launches("anchor family CLIs", launches,
+                   {"expand_rows": n_steps + 4})  # 8 val samples at bs2: 4 forwards
+    losses = [r[4] for r in read_log(next(out.glob("log_train_*.txt")))]
+    traces = list(prof.glob("trace_*.json"))
+    sim = out / "eval" / "similarity" / "spatial_features_2d"
+    if not (all(abs(v) < float("inf") for v in losses) and traces
+            and (sim / "cosine.csv").is_file() and 0 <= result["mAP"] <= 1):
+        raise RuntimeError(f"anchor CLIs: losses {losses}, traces {traces}, result {result}")
+    from radardistill_tpu_torch.data.loader import build_dataloader
+
+    cfg, _ = anchor_cfg()
+    _, ld = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, training=False)
+    fbd = make_eval_step(state.model)(batch_to_torch(next(iter(ld))[0], dev))["final_box_dicts"]
+    shapes = {k: tuple(v.shape) for k, v in fbd.items()}
+    if shapes != {"boxes": (2, 50, 7), "scores": (2, 50), "labels": (2, 50), "valid": (2, 50)} \
+            or not all_finite(torch, fbd):
+        raise RuntimeError(f"anchor eval: final_box_dicts {shapes}")
+    png = torch_demo.main(["--cfg_file", str(ANCHOR_YAML), "--ckpt_dir", str(out / "ckpt"),
+                           "--out", str(work / "demo.png")])
+    caps = torch_calc_caps.main(["--n_samples", "4"])
+    print(f"anchor family CLIs on {smi}: pointpillar_smoke.yaml, 1 epoch of {n_train} steps at "
+          f"bs2 (losses {[round(v, 4) for v in losses]}), --profile_dir: "
+          f"{torch_train.PROFILE_STEPS} steps traced into {traces[0].name} "
+          f"({traces[0].stat().st_size / 1e6:.1f} MB); eval mAP {result['mAP']:.4f}, "
+          f"final_box_dicts {shapes}, --bev_similarity wrote {sorted(p.name for p in sim.iterdir())}; "
+          f"torch_demo wrote {Path(png).stat().st_size} B; torch_calc_caps: {caps}; "
+          f"launches {launches}; {time.perf_counter() - t_start:.1f} s")
+    return launches, time.perf_counter() - t_start
+
+
+def phase_anchor_full(torch, dev, smi, batch_size=4, num_lidar=160000, grid=1440, runs=10):
+    """Phase 40: the anchor family's model at full size: ``pointpillar_smoke.yaml``'s
+    MODEL on ``pillarnet.yaml``'s 1440² grid (720² x 4 = 2 073 600 anchors),
+    bs4, scenes of 160 000 LiDAR points and 64 boxes, bf16: the resident train
+    step (p50 of ``runs``, peak GiB, K5 x 1 a step) and the eval forward (p50,
+    K5 x 1, the detections' shapes), with the dense VFE; then the same with
+    ``VFE.NAME: PillarVFE`` on fixed voxels (no K5; 20 points a voxel, the
+    ``MAX_POINTS_PER_VOXEL`` of OpenPCDet's nuScenes PointPillars, and every
+    voxel kept). Returns the dense VFE's launches per step."""
+    import copy
+
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+    from radardistill_tpu_torch.train.optim import build_optimizer
+    from radardistill_tpu_torch.train.train_step import make_eval_step, make_train_step
+
+    cfg, info = anchor_cfg(grid)
+    t0 = time.perf_counter()
+    points = anchor_batch(info, batch_size, num_lidar, 64)
+    t_batch = time.perf_counter() - t0
+    step_launches = None
+    for vfe in ("DynamicPillarVFESimple2D", "PillarVFE"):
+        t0 = time.perf_counter()
+        host = points if vfe != "PillarVFE" else voxel_batch(points, info, max_points=20)
+        t_vox = time.perf_counter() - t0
+        model_cfg = copy.deepcopy(cfg.MODEL)
+        model_cfg.VFE.NAME = vfe
+        model = build_network(model_cfg, info, compute_dtype=torch.bfloat16, device=dev,
+                              generator=torch.Generator().manual_seed(40))
+        opt, _ = build_optimizer(cfg.OPTIMIZATION, model, 1000, model.frozen)
+        step = make_train_step(model, opt, model_cfg, info["class_names"], info["voxel_size"],
+                               info["point_cloud_range"])
+        batch = batch_to_torch(host, dev)
+        want = ANCHOR_FORWARD if vfe != "PillarVFE" else {}
+        torch.cuda.reset_peak_memory_stats()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        read = reset_launches()
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            metrics = step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = read()
+        check_launches(f"anchor {vfe} train", launches, {k: runs * n for k, n in want.items()})
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all_finite(torch, metrics):
+            raise RuntimeError(f"anchor {vfe}: metrics {metrics}")
+        eval_step = make_eval_step(model)
+        out = eval_step(batch)
+        torch.cuda.synchronize()
+        read = reset_launches()
+        etimes = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            out = eval_step(batch)
+            torch.cuda.synchronize()
+            etimes.append((time.perf_counter() - t0) * 1e3)
+        check_launches(f"anchor {vfe} eval", read(), {k: runs * n for k, n in want.items()})
+        shapes = {k: tuple(v.shape) for k, v in out["final_box_dicts"].items()}
+        if shapes["boxes"] != (batch_size, 50, 7) or not all_finite(torch,
+                                                                    out["final_box_dicts"]):
+            raise RuntimeError(f"anchor {vfe} eval: {shapes}")
+        extra = (f"; {host['voxels'].shape[1]} voxels a sample at most, made on the host in "
+                 f"{t_vox:.1f} s" if vfe == "PillarVFE" else "")
+        print(f"anchor family at full size, VFE {vfe}, {info['grid_size'][0]}², "
+              f"{model.anchors_flat.shape[0]} anchors, bs{batch_size}, bf16, on {smi}: resident "
+              f"train step p50 {median(times):.3f} ms ({batch_size / median(times) * 1e3:.3f} "
+              f"samples/s; loss {float(metrics['loss']):.4f}), peak {peak:.2f} GiB; eval "
+              f"forward p50 {median(etimes):.3f} ms, {int(out['final_box_dicts']['valid'].sum())} "
+              f"valid detections of {shapes['valid']}; launches per {runs} steps {launches}"
+              f"{extra}; batch made in {t_batch:.1f} s")
+        if vfe != "PillarVFE":
+            step_launches = {k: v // runs for k, v in launches.items()}
+        del model, opt, step, batch, out, eval_step
+        torch.cuda.empty_cache()
+    return step_launches
+
+
+def phase_optimizers(torch, dev, smi, steps=2):
+    """Phase 41: ``OPTIMIZER: adam`` and ``sgd`` on ``pointpillar_smoke.yaml``,
+    float32 (TF32 off), ``steps`` steps on one loader batch at bs2 on the card
+    and on the CPU from the same weights, held to the bounds phase 20 and the
+    port's CPU train tests state (``tests/torch_train_case.py``): the first
+    loss within 1e-4, the loss falling on both, and after the steps every
+    parameter within 2 x sum(lr) of the CPU's (Adam's first updates are
+    sign-like, so float32 noise in a near-zero gradient moves a parameter by
+    up to lr), the parameters' rel-L2 <= 5e-3 and the updates' cosine >= 0.9."""
+    from radardistill_tpu_torch.data.loader import build_dataloader
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+    from radardistill_tpu_torch.train.optim import build_optimizer
+    from radardistill_tpu_torch.train.train_step import make_train_step
+
+    cfg, info = anchor_cfg()
+    _, ld = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, training=True)
+    host = next(iter(ld))[0]
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for name in ("adam", "sgd"):
+        ocfg = dict(cfg.OPTIMIZATION, OPTIMIZER=name)
+        runs = []
+        for where in (dev, torch.device("cpu")):
+            model = build_network(cfg.MODEL, info, device=where,
+                                  generator=torch.Generator().manual_seed(41))
+            init = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+            opt, lr_sched = build_optimizer(ocfg, model, 100, model.frozen)
+            step = make_train_step(model, opt, cfg.MODEL, info["class_names"],
+                                   info["voxel_size"], info["point_cloud_range"])
+            batch = batch_to_torch(host, where)
+            losses = [float(step(batch)["loss"]) for _ in range(steps)]
+            runs.append((losses, {k: v.detach().cpu() for k, v in model.named_parameters()},
+                         init))
+        lr_sum = sum(lr_sched(i) for i in range(steps))
+        (lc, pc, init), (lh, ph, _) = runs
+        worst = max((pc[k] - ph[k]).abs().max().item() for k in pc)
+        flat = lambda p: torch.cat([p[k].reshape(-1) for k in pc])  # noqa: E731
+        params_rel = rel_l2(torch, flat(pc), flat(ph))
+        du_c, du_h = flat(pc) - flat(init), flat(ph) - flat(init)
+        cosine = float((du_c.double() @ du_h.double()) / (du_c.double().norm()
+                                                         * du_h.double().norm()))
+        print(f"OPTIMIZER {name} on {smi}: {steps} steps, f32, losses card "
+              f"{[round(v, 5) for v in lc]}, CPU {[round(v, 5) for v in lh]}; parameters "
+              f"card vs CPU max |diff| {worst:.3e} (limit 2 x sum(lr) = {2 * lr_sum:.3e}), "
+              f"rel-L2 {params_rel:.3e} (limit 5e-3), the updates' cosine {cosine:.5f} "
+              f"(limit 0.9)")
+        if not (abs(lc[0] - lh[0]) <= 1e-4 * abs(lh[0]) and lc[-1] < lc[0] and lh[-1] < lh[0]
+                and worst <= 2 * lr_sum and params_rel <= 5e-3 and cosine >= 0.9):
+            raise RuntimeError(f"OPTIMIZER {name}: card and CPU disagree or the loss rose")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def radar_batch(torch, dev, tree, batch_size=8, sets=()):
+    """(cfg, dataset info, device batch) of ``pillarnet_radar.yaml`` over the
+    tree (``sets``: more ``--set`` pairs), the first train batch at
+    ``batch_size``."""
+    from radardistill_tpu_torch.data.loader import build_dataloader
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+    from tools import torch_train
+
+    _, cfg = torch_train.parse_config(["--cfg_file", str(RADAR_YAML), "--set",
+                                       *tree_sets(tree[0]), *sets])
+    ds, ld = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+                              root_path=cfg.DATA_CONFIG.DATA_PATH, workers=0, training=True,
+                              model_cfg=cfg.MODEL)
+    info = {"grid_size": tuple(int(x) for x in ds.grid_size[:2]),
+            "voxel_size": tuple(float(x) for x in ds.voxel_size),
+            "point_cloud_range": tuple(float(x) for x in ds.point_cloud_range),
+            "class_names": tuple(cfg.CLASS_NAMES)}
+    return cfg, info, batch_to_torch(next(iter(ld))[0], dev)
+
+
+def phase_remat(torch, dev, smi, tree, runs=5, sets=()):
+    """Phase 42: ``MODEL.REMAT`` on the radar baseline (``pillarnet_radar.yaml``,
+    bs8, 1440², bf16): one model, its weights and statistics restored before
+    each leg. A forward + backward without remat, again without (the
+    repeatability floor), and with remat: the running statistics bit-equal to
+    the first leg's, and the gradients' rel-L2 beside the floor's; then the
+    train step's p50 and peak GiB both ways, the launches read per step (K2
+    x 3 without, x 6 with: the CMA's forward runs again in the backward).
+    Returns the launches of a remat step."""
+    import copy
+
+    from radardistill_tpu_torch.models import build_network, compute_training_loss
+    from radardistill_tpu_torch.train.optim import build_optimizer
+    from radardistill_tpu_torch.train.train_step import make_train_step
+
+    cfg, info, batch = radar_batch(torch, dev, tree, sets=sets)
+    model = build_network(cfg.MODEL, info, compute_dtype=torch.bfloat16, device=dev,
+                          generator=torch.Generator().manual_seed(42))
+    start = copy.deepcopy(model.state_dict())
+    legs = {}
+    for leg, remat in (("plain", False), ("again", False), ("remat", True)):
+        model.load_state_dict(start)
+        model.remat = remat
+        model.train()
+        model.zero_grad(set_to_none=True)
+        out = model(batch)
+        loss, _ = compute_training_loss(cfg.MODEL, out, info["class_names"],
+                                        info["voxel_size"], info["point_cloud_range"])
+        loss.backward()
+        torch.cuda.synchronize()
+        legs[leg] = ({k: v.clone() for k, v in model.named_buffers() if "running" in k},
+                     torch.cat([p.grad.float().reshape(-1) for p in model.parameters()
+                                if p.grad is not None]), loss.detach().item())
+        del out, loss
+    (b0, g0, l0), (b1, g1, l1), (b2, g2, l2) = legs["plain"], legs["again"], legs["remat"]
+    worst = {leg: max((b0[k].float() - b[k].float()).abs().max().item() for k in b0)
+             for leg, b in (("again", b1), ("remat", b2))}
+    g_floor, g_remat = rel_l2(torch, g1, g0), rel_l2(torch, g2, g0)
+    print(f"remat, radar baseline bs8 1440² bf16 on {smi}: losses {l0:.6f} / {l1:.6f} / "
+          f"{l2:.6f} (plain / again / remat); running statistics of {len(b0)} buffers, max "
+          f"|diff| to the plain leg: again {worst['again']:.3e}, remat {worst['remat']:.3e} "
+          f"(bit-equal: {worst['remat'] == 0}); gradients rel-L2 to the plain leg: again "
+          f"{g_floor:.3e}, remat {g_remat:.3e} (limit max(1e-2, 10 x the floor))")
+    # a second update of the statistics would move them by a momentum step,
+    # far beyond the repeatability floor
+    if worst["remat"] > 10 * worst["again"] or g_remat > max(1e-2, 10 * g_floor):
+        raise RuntimeError("remat: running statistics or gradients differ")
+    del legs, g0, g1, g2
+    numbers = {}
+    for remat in (False, True):
+        model.load_state_dict(start)
+        model.remat = remat
+        opt, _ = build_optimizer(cfg.OPTIMIZATION, model, 1000, model.frozen)
+        step = make_train_step(model, opt, cfg.MODEL, info["class_names"], info["voxel_size"],
+                               info["point_cloud_range"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step(batch)
+        torch.cuda.synchronize()
+        read = reset_launches()
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = read()
+        want = REMAT_STEP if remat else RADAR_BASELINE_STEP
+        check_launches(f"radar baseline step, remat {remat}", launches,
+                       {k: runs * n for k, n in want.items()})
+        numbers[remat] = (median(times), torch.cuda.max_memory_allocated() / 2**30,
+                          {k: v // runs for k, v in launches.items() if v})
+        del opt, step
+    print(f"radar baseline train step bs8 1440² bf16 on {smi}: without remat p50 "
+          f"{numbers[False][0]:.3f} ms, peak {numbers[False][1]:.2f} GiB, launches a step "
+          f"{numbers[False][2]}; with remat p50 {numbers[True][0]:.3f} ms, peak "
+          f"{numbers[True][1]:.2f} GiB, launches a step {numbers[True][2]}")
+    del model, batch, start
+    torch.cuda.empty_cache()
+    return {k: v * runs for k, v in numbers[True][2].items()}
+
+
+def phase_tile_sparse(torch, dev, smi, tree, runs=3, sets=()):
+    """Phase 43: ``Radar_PillarRes18BackBone8x_TileSparse`` in place of the
+    radar baseline's backbone (``pillarnet_radar.yaml``, eval, bs8, 1440²),
+    the dense model's weights carried across
+    (``backbone_tile_sparse.state_from_dense``): the active tiles and the
+    overflow flag of each stage at the JAX defaults (``TILE`` 32,
+    ``MAX_TILES`` 512); where they overflow, again at a ``MAX_TILES`` that
+    holds every active tile; there float32 (TF32 off) outputs against the
+    dense backbone's (rel-L2 <= 1e-4), and the bf16 forward's p50 beside the
+    dense model's, in turns. Returns the eval forward's launches."""
+    import copy
+
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.models.backbone_tile_sparse import state_from_dense
+
+    cfg, info, batch = radar_batch(torch, dev, tree, sets=sets)
+    dense = build_network(cfg.MODEL, info, compute_dtype=torch.bfloat16, device=dev,
+                          generator=torch.Generator().manual_seed(43))
+
+    def tile_model(max_tiles, dtype):
+        mcfg = copy.deepcopy(cfg.MODEL)
+        mcfg.RADAR_BACKBONE_3D.NAME = "Radar_PillarRes18BackBone8x_TileSparse"
+        if max_tiles:
+            mcfg.RADAR_BACKBONE_3D.MAX_TILES = max_tiles
+        m = build_network(mcfg, info, compute_dtype=dtype, device=dev)
+        state = {k: v for k, v in dense.state_dict().items()
+                 if not k.startswith("radar_backbone_3d.")}
+        state.update({f"radar_backbone_3d.{k}": v for k, v in state_from_dense(
+            m.radar_backbone_3d, {k[18:]: v for k, v in dense.state_dict().items()
+                                  if k.startswith("radar_backbone_3d.")}).items()})
+        m.load_state_dict(state)
+        return m
+
+    tile = tile_model(None, torch.bfloat16)
+    with torch.no_grad():
+        tile(batch)
+    stats = {k: (int(v["active"]), bool(v["overflow"]), v["tile"])
+             for k, v in tile.radar_backbone_3d.tile_stats().items()}
+    overflow = any(o for _, o, _ in stats.values())
+    need = max(a for a, _, _ in stats.values())
+    print(f"tile-sparse radar backbone, bs8 1440², MAX_TILES 512 (the JAX default): per stage "
+          f"(active tiles, overflow, tile) {stats}" + (
+              f"; it overflows, so again at MAX_TILES {need}" if overflow else ""))
+    max_tiles = need if overflow else None
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    t32 = tile_model(max_tiles, torch.float32)
+    d32 = build_network(cfg.MODEL, info, device=dev)
+    d32.load_state_dict(dense.state_dict())
+    with torch.no_grad():
+        ot, od = t32(batch), d32(batch)
+    errs = {k: rel_l2(torch, ot[k].float(), od[k].float())
+            for k in ("radar_x_conv4", "radar_spatial_features_2d")}
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    if any(bool(v["overflow"]) for v in t32.radar_backbone_3d.tile_stats().values()) or \
+            not all(e <= 1e-4 for e in errs.values()):
+        raise RuntimeError(f"tile-sparse backbone: rel-L2 to the dense one {errs}")
+    del t32, d32, ot, od
+    tile = tile_model(max_tiles, torch.bfloat16)
+    for m in (tile, dense):
+        m.eval()
+    fwd = {name: (lambda m=m: m(batch)) for name, m in (("tile", tile), ("dense", dense))}
+    read = reset_launches()
+    fwd["tile"]()
+    torch.cuda.synchronize()
+    launches = read()
+    check_launches("tile-sparse radar forward", launches, RADAR_BASELINE_FORWARD)
+    t_tile, t_dense = paired_ms(torch, fwd["tile"], fwd["dense"], iters=runs)
+    print(f"tile-sparse radar backbone on {smi}: float32 against the dense backbone rel-L2 "
+          f"{errs} (limit 1e-4); eval forward bs8 bf16 p50-of-turns: tile-sparse "
+          f"{t_tile:.3f} ms, dense {t_dense:.3f} ms (MAX_TILES {max_tiles or 512}); launches "
+          f"a forward {launches}")
+    del tile, dense, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "radardistill_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -2974,6 +3547,7 @@ def main() -> int:
     k5 = phase_k5(torch, dev)
     k2 = phase_k2(torch, dev)
     k3, k4 = phase_k34(torch, dev)
+    k4["r5_ms_in_turns"], k4["r8_ms_in_turns"] = phase_dcn_r8(torch, dev)
     k1 = phase_k1(torch, dev)
     cudnn_bf16_conv_aside(torch, dev)
     k1_deep = phase_k1_deep(torch, dev)
@@ -3037,6 +3611,11 @@ def main() -> int:
         phase_s2d_dense_step(torch, dev, smi, s2d_weights)
         t_s2d = time.perf_counter() - t0
         ddp_launches, t_ddp = phase_ddp(torch, dev, smi, Path(work), result_pkl, test_argv)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        remat_launches = phase_remat(torch, dev, smi, tree)
+        tile_launches = phase_tile_sparse(torch, dev, smi, tree)
+        t_remat_tile = time.perf_counter() - t0
     print(f"phases 26-30, 33-34 (nuScenes, teacher, radar baseline, data-parallel, S2D "
           f"teacher): {t_nusc:.1f} + {t_teacher:.1f} + {t_radar:.1f} + {t_ddp:.1f} + "
           f"{t_s2d:.1f} s")
@@ -3100,6 +3679,17 @@ def main() -> int:
     print(f"phases 35-38 (unfrozen teacher, INT8: static routes, K1 and K5 at the S2D shapes, "
           f"gates): {time.perf_counter() - t0:.1f} s")
 
+    # the last modules: the anchor family, adam and sgd, remat and the
+    # tile-sparse backbone (phases 42-43, run above on the tree), the tools
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        anchor_cli_launches, _ = phase_anchor_cli(torch, dev, smi, Path(work))
+    anchor_launches = phase_anchor_full(torch, dev, smi)
+    phase_optimizers(torch, dev, smi)
+    print(f"phases 39-41 (the anchor family's CLIs and tools, at full size, adam and sgd): "
+          f"{time.perf_counter() - t0:.1f} s; phases 42-43 (remat, tile-sparse): "
+          f"{t_remat_tile:.1f} s")
+
     dcn_py = "radardistill_tpu/ops/pallas_dcn.py"
     block_py = "radardistill_tpu/ops/pallas_conv_block.py"
     table = [
@@ -3135,6 +3725,10 @@ def main() -> int:
                 "launches_radar_baseline": radar_launches[name],
                 "launches_s2d_teacher_pretrain": s2d_launches[name],
                 "launches_teacher_unfrozen": unfrozen_launches[name],
+                "launches_anchor_cli": anchor_cli_launches[name],
+                "launches_anchor_step": anchor_launches[name],
+                "launches_remat": remat_launches.get(name, 0),
+                "launches_tile_sparse_forward": tile_launches[name],
                 **{f"launches_static_{r}": route_launches[k][name] for r, k in (
                     ("dense_input", "TABLE_INPUT: false"), ("linear_table", "PACKED_TABLE: false"),
                     ("s2d2", "_S2D2"))},
@@ -3153,10 +3747,12 @@ def main() -> int:
             "launches_ddp", "launches_teacher_pretrain", "launches_radar_baseline",
             "launches_s2d_teacher_pretrain", "launches_teacher_unfrozen",
             "launches_static_dense_input", "launches_static_linear_table",
-            "launches_static_s2d2", "max_abs_err",
+            "launches_static_s2d2", "launches_anchor_cli", "launches_anchor_step",
+            "launches_remat", "launches_tile_sparse_forward", "max_abs_err",
             "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "aside_ms",
             "teacher_bf16_rel_l2", "alternating_ms", "alternating_library_ms",
-            "k4_route", "repeats_bitwise", "old_route_ms", "device_ms",
+            "k4_route", "repeats_bitwise", "r5_ms_in_turns", "r8_ms_in_turns", "old_route_ms",
+            "device_ms",
             "deep_ms", "deep_old_route_ms", "deep_device_ms", "deep_device_old_route_ms",
             "deep_plain_ms", "deep_bound_ms", "dense_vfe", "packed_stage2", "packed_densify")
     print(f"chip_smoke.py: every phase passed; {time.perf_counter() - t_start:.1f} s in all, the "

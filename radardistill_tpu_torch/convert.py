@@ -19,7 +19,11 @@ each leaf by one rule per leaf kind:
     space-to-depth teacher and in the dense ``PillarRes18BackBone8x`` alike)
     stay HWIO under the name ``kernel``, because the packed kernels are
     assembled from that layout; the S2D teacher's ``PackedMaskedBatchNorm``
-    vectors map like any BatchNorm. So both teachers take one ``state_dict``.
+    vectors map like any BatchNorm. So both teachers take one ``state_dict``;
+  - a tile-sparse stage's flat leaves (``b0_conv1_kernel`` HWIO,
+    ``b0_conv1_bias``) keep their names and layout;
+  - the anchor head's flax ``nn.Conv`` kernels (k, k, I, O) -> (O, I, k, k),
+    as any conv's.
 
 A reference pcdet ``.pth`` loads by composition: ``tools/convert_torch_ckpt.py``'s
 ``Converter`` makes the flax tree from it, and this bridge the ``state_dict``.
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.backbone_tile_sparse import TileSparseResStage
 from .models.center_head import _BlockDiagConv
 from .models.layers import ConvParams, ConvTranspose2dTorch, Dense, KernelHolder
 
@@ -70,7 +75,7 @@ def state_dict_from_jax(model: nn.Module, variables) -> Dict[str, torch.Tensor]:
         for path, arr in _walk(variables.get(coll, {})):
             *scope, leaf = path
             module = model.get_submodule(".".join(scope))
-            name = leaf if isinstance(module, KernelHolder) else names[leaf]
+            name = leaf if isinstance(module, (KernelHolder, TileSparseResStage)) else names[leaf]
             state[".".join([*scope, name])] = torch.from_numpy(
                 np.array(_layout(module, leaf, arr), dtype=np.float32, order="C"))
     return state

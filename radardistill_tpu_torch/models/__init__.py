@@ -1,5 +1,6 @@
 """Model layer of the port: ``build_network`` for the PillarNet detector and
-the assembly of its training loss (``compute_training_loss``)."""
+the anchor family (``PointPillar``, ``SECONDNet``), and the assembly of their
+training loss (``compute_training_loss``)."""
 
 from __future__ import annotations
 
@@ -7,19 +8,20 @@ from typing import Any, Dict
 
 import torch
 
+from .anchor_detector import AnchorDetector, anchor_training_loss
 from .center_head import (HeadSpec, centerhead_loss, flatten_class_channels,
                           flatten_target_heatmaps)
 from .detector import PillarNet
 from .distill import distill_loss
 from .layers import init_reference_
 
-DETECTORS = {"PillarNet": PillarNet}
+DETECTORS = {"PillarNet": PillarNet, "PointPillar": AnchorDetector, "SECONDNet": AnchorDetector}
 ANCHOR_DETECTORS = ("PointPillar", "SECONDNet")
 
 
 def build_network(model_cfg, dataset_info: Dict[str, Any], compute_dtype=torch.float32,
                   device="cuda", remat=False, generator: torch.Generator | None = None
-                  ) -> PillarNet:
+                  ) -> torch.nn.Module:
     """dataset_info: grid_size (nx, ny), voxel_size, point_cloud_range,
     class_names (as ``utils.production.production_cfg`` returns them). The
     model is built in eval mode on ``device``: the card unless the caller asks
@@ -27,13 +29,14 @@ def build_network(model_cfg, dataset_info: Dict[str, Any], compute_dtype=torch.f
     With ``generator`` every parameter is drawn from the reference's
     initializers (``layers.init_reference_``); without, parameters are created
     empty: load them with ``convert.load_jax_variables`` (or, in a test, fill
-    them with ``layers.init_random_``)."""
-    if remat:
-        raise NotImplementedError("remat (activation rematerialization) is not ported")
+    them with ``layers.init_random_``). ``remat`` (``MODEL.REMAT``) runs the
+    3D backbones and the CMA (``PillarNet``) or the BEV backbone (the anchor
+    family) under ``torch.utils.checkpoint`` in a train forward
+    (``utils.remat``)."""
     cls = DETECTORS[model_cfg["NAME"]]
     model = cls(model_cfg, tuple(dataset_info["grid_size"]), tuple(dataset_info["voxel_size"]),
                 tuple(dataset_info["point_cloud_range"]), tuple(dataset_info["class_names"]),
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype, remat=remat)
     if generator is not None:
         init_reference_(model, generator)
     return model.to(device).eval()
@@ -49,8 +52,9 @@ def compute_training_loss(model_cfg, out: Dict[str, Any], class_names, voxel_siz
 
     Returns (loss, tb): the scalar to differentiate and a dict of its terms."""
     if model_cfg["NAME"] in ANCHOR_DETECTORS:
-        raise NotImplementedError(
-            f"anchor_training_loss (the {model_cfg['NAME']} anchor family) is not ported")
+        grid = tuple(int(round((point_cloud_range[3 + i] - point_cloud_range[i])
+                               / voxel_size[i])) for i in (0, 1))
+        return anchor_training_loss(model_cfg, out, class_names, grid, point_cloud_range)
     distill_flag = model_cfg.get("DISTILL", None)
     # the radar head carries the supervised loss whenever a radar branch is
     # trained (distillation or student only)

@@ -1,5 +1,5 @@
-"""Dense BEV necks, NHWC: ``ConvStack``, ``BaseBEVBackboneV2`` and
-``BaseBEVBackboneV1``.
+"""Dense BEV necks, NHWC: ``ConvStack``, ``BaseBEVBackbone`` (the anchor
+family's multi-level FPN), ``BaseBEVBackboneV2`` and ``BaseBEVBackboneV1``.
 
 Counterpart of ``radardistill_tpu/models/bev_backbone.py``: the two-level
 necks over x_conv4 @8x and x_conv5 @16x. V2 runs x_conv5 up to 8x and
@@ -37,6 +37,66 @@ class ConvStack(nn.Module):
         for k in range(self.layer_num):
             x = torch.relu(getattr(self, f"bn_{k}")(getattr(self, f"conv_{k}")(x)))
         return x
+
+
+class BaseBEVBackbone(nn.Module):
+    """The classic multi-level BEV FPN of the anchor family over one
+    ``spatial_features`` map: per level a strided ``ConvStack`` (``block{i}``)
+    and, where an upsample stride is given, ``deblock{i}_deconv`` (stride >=
+    1) or ``deblock{i}_conv`` (stride < 1: a strided conv) + BN + ReLU; the
+    levels concatenated, then an optional ``deblock_final`` deconv + BN + ReLU
+    when one more upsample stride than levels is given. Returns (x, ret),
+    ``ret`` the levels' outputs as ``spatial_features_{k}x``. ``out_channels``
+    is the output's width."""
+
+    def __init__(self, in_ch: int, layer_nums: Sequence[int], layer_strides: Sequence[int],
+                 num_filters: Sequence[int], upsample_strides: Sequence[int] = (),
+                 num_upsample_filters: Sequence[int] = ()):
+        super().__init__()
+        self.n_levels = len(layer_nums)
+        self.upsample_strides = tuple(upsample_strides)
+        widths = []
+        for i in range(self.n_levels):
+            self.add_module(f"block{i}", ConvStack(in_ch, num_filters[i], layer_nums[i],
+                                                   layer_strides[i]))
+            in_ch = num_filters[i]
+            if len(upsample_strides) > i:
+                s, co = upsample_strides[i], num_upsample_filters[i]
+                if s < 1:
+                    k = max(int(round(1 / s)), 1)
+                    self.add_module(f"deblock{i}_conv", Conv2dTorch(in_ch, co, k, k, 0))
+                else:
+                    k = int(s)
+                    self.add_module(f"deblock{i}_deconv", ConvTranspose2dTorch(in_ch, co, k, k))
+                self.add_module(f"deblock{i}_bn", BatchNormTorch(co, BN_EPS_BACKBONE,
+                                                                 BN_MOM_BACKBONE))
+                widths.append(co)
+            else:
+                widths.append(in_ch)
+        self.out_channels = sum(widths)
+        if len(upsample_strides) > self.n_levels:
+            s = int(upsample_strides[-1])
+            self.deblock_final = ConvTranspose2dTorch(self.out_channels, self.out_channels, s, s)
+            self.deblock_final_bn = BatchNormTorch(self.out_channels, BN_EPS_BACKBONE,
+                                                   BN_MOM_BACKBONE)
+
+    def forward(self, spatial_features):
+        ups, ret = [], {}
+        x = spatial_features
+        h0 = spatial_features.shape[1]
+        for i in range(self.n_levels):
+            x = getattr(self, f"block{i}")(x)
+            ret[f"spatial_features_{h0 // x.shape[1]}x"] = x
+            if len(self.upsample_strides) > i:
+                kind = "conv" if self.upsample_strides[i] < 1 else "deconv"
+                up = getattr(self, f"deblock{i}_{kind}")
+                ups.append(torch.relu(getattr(self, f"deblock{i}_bn")(up(x))))
+            else:
+                ups.append(x)
+        x = torch.cat(ups, dim=-1) if len(ups) > 1 else ups[0]
+        if len(self.upsample_strides) > self.n_levels:
+            x = torch.relu(self.deblock_final_bn(self.deblock_final(x)))
+        return x, ret
 
 
 class BaseBEVBackboneV2(nn.Module):

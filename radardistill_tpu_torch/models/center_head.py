@@ -1,5 +1,6 @@
-"""CenterPoint multi-task head (merged-hidden form), its targets and losses,
-and its decode + NMS.
+"""CenterPoint multi-task head (merged-hidden form, and each subhead alone
+where ``NUM_HM_CONV`` is not 2), its targets and losses, and its decode +
+NMS.
 
 Counterpart of ``radardistill_tpu/models/center_head.py``: ``HeadSpec``,
 ``StackedSubHead`` (its ``conv_0`` a dense conv on the shared features, its
@@ -28,6 +29,7 @@ from torch import nn
 
 from ..ops import geometry, nms
 from ..parallel.mesh import batch_sum
+from .anchor_head import HeadConv
 from .layers import (BN_MOM_DEFAULT, BatchNormTorch, Conv2dTorch, batch_stats, clip_sigmoid,
                      update_running_)
 
@@ -78,42 +80,62 @@ class _BlockDiagConv(nn.Module):
 
 
 class StackedSubHead(nn.Module):
-    """One subhead type across all task heads: conv_0 (shared -> n·shared) +
-    bn_0, then conv_out (grouped). Run through ``CenterHead``'s merged form.
-    ``init_bias`` is the reference's field: set (``hm``, -2.19), the output
-    bias starts there and both kernels keep the conv default; unset, both
-    kernels are kaiming-normal and the bias 0."""
+    """One subhead type across all task heads: ``num_conv - 1`` hidden layers
+    (conv_0 dense shared -> n·shared, deeper ones grouped over the heads, each
+    + ``bn_k`` + ReLU), then ``conv_out`` (grouped). With ``num_conv`` 1
+    ``conv_out`` is a dense conv on the shared features (flax ``nn.Conv``,
+    ``anchor_head.HeadConv``). The merged form of ``CenterHead`` runs
+    conv_0 + bn_0 of every subhead as one conv and then :meth:`tail`;
+    :meth:`forward` is the subhead alone. ``init_bias`` is the reference's
+    field: set (``hm``, -2.19), the output bias starts there and the kernels
+    keep the conv default; unset, the kernels are kaiming-normal and the
+    bias 0."""
 
     def __init__(self, shared_channels: int, num_heads: int, out_channels: int,
-                 use_bias: bool = True, init_bias=None):
+                 use_bias: bool = True, init_bias=None, num_conv: int = 2):
         super().__init__()
-        self.num_heads, self.out_channels = num_heads, out_channels
-        self.conv_0 = Conv2dTorch(shared_channels, num_heads * shared_channels, 3, 1, 1,
-                                  use_bias=use_bias)
-        self.bn_0 = BatchNormTorch(num_heads * shared_channels)
-        self.conv_out = _BlockDiagConv(num_heads * shared_channels, num_heads, out_channels)
-        if init_bias is None:
-            self.conv_0.conv.kernel_init = self.conv_out.kernel_init = "kaiming"
+        self.num_heads, self.out_channels, self.num_conv = num_heads, out_channels, num_conv
+        kinit = "conv" if init_bias is not None else "kaiming"
+        hidden = num_heads * shared_channels
+        for k in range(num_conv - 1):
+            conv = Conv2dTorch(shared_channels if k == 0 else hidden, hidden, 3, 1, 1,
+                               use_bias=use_bias, groups=1 if k == 0 else num_heads)
+            conv.conv.kernel_init = kinit
+            self.add_module(f"conv_{k}", conv)
+            self.add_module(f"bn_{k}", BatchNormTorch(hidden))
+        if num_conv == 1:
+            self.conv_out = HeadConv(shared_channels, num_heads * out_channels, 3, kinit,
+                                     init_bias or 0.0)
         else:
-            self.conv_out.bias_init = init_bias
+            self.conv_out = _BlockDiagConv(hidden, num_heads, out_channels)
+            self.conv_out.kernel_init = kinit
+            if init_bias is not None:
+                self.conv_out.bias_init = init_bias
 
     def tail(self, hidden):
         y = self.conv_out(hidden)
         b, h, w, _ = y.shape
         return y.reshape(b, h, w, self.num_heads, self.out_channels)
 
+    def forward(self, x):
+        for k in range(self.num_conv - 1):
+            x = torch.relu(getattr(self, f"bn_{k}")(getattr(self, f"conv_{k}")(x)))
+        return self.tail(x)
+
 
 class CenterHead(nn.Module):
-    """Shared conv + stacked subheads, merged hidden layer. Returns a dict of
-    (B, H, W, n_heads, C) predictions."""
+    """Shared conv + stacked subheads. Returns a dict of (B, H, W, n_heads, C)
+    predictions. With ``num_hm_conv`` 2 (the shipped configs) the subheads'
+    hidden layers run merged; otherwise each subhead runs alone (the JAX
+    package's ``HEAD_MERGED=0`` form, the same math, which the port does not
+    read from the environment)."""
 
     def __init__(self, spec: HeadSpec, in_channels: int, shared_channels: int = 64,
                  num_hm_conv: int = 2, use_bias_before_norm: bool = True,
                  with_iou: bool = True):
         super().__init__()
-        if num_hm_conv != 2:
-            raise NotImplementedError("the merged head needs NUM_HM_CONV = 2 (shipped configs)")
         self.spec = spec
+        self.merged = num_hm_conv == 2
         n = spec.num_heads
         self.shared_conv = Conv2dTorch(in_channels, shared_channels, 3, 1, 1,
                                        use_bias=use_bias_before_norm)
@@ -121,13 +143,15 @@ class CenterHead(nn.Module):
         self.sub_names = [name for name, _ in REG_HEADS if with_iou or name != "iou"] + ["hm"]
         out_ch = dict(REG_HEADS, hm=spec.max_cls)
         for name in self.sub_names:
-            self.add_module(name, StackedSubHead(shared_channels, n, out_ch[name],
-                                                 use_bias_before_norm,
-                                                 HM_INIT_BIAS if name == "hm" else None))
+            self.add_module(name, StackedSubHead(
+                shared_channels, n, out_ch[name], use_bias_before_norm,
+                HM_INIT_BIAS if name == "hm" else None, num_hm_conv if name == "hm" else 2))
 
     def forward(self, spatial_features_2d) -> Dict[str, torch.Tensor]:
         x = torch.relu(self.shared_bn(self.shared_conv(spatial_features_2d)))
         subs = [getattr(self, name) for name in self.sub_names]
+        if not self.merged:
+            return {name: sub(x) for name, sub in zip(self.sub_names, subs)}
         dt = x.dtype
         # the 7 per-subhead conv_0 + BN + ReLU stacks as ONE conv and one BN
         # (per-channel BN statistics equal the separate BNs)

@@ -69,8 +69,10 @@ from ..caps import as_caps, is_as, is_table_s2d
 from .backbone_as import PillarRes18BackBone8xAS
 from .backbone_s2d import PillarRes18BackBone8xS2D
 from .backbone_sparse2d import PillarBackBone8x, PillarRes18BackBone8x
+from .backbone_tile_sparse import PillarRes18BackBone8xTileSparse
 from .bev_backbone import BaseBEVBackboneV1, BaseBEVBackboneV2
 from .center_head import CenterHead, HeadSpec, assign_targets, decode_and_nms
+from ..utils.remat import remat_call
 from .distill import CMAHourglass
 from .vfe import DynamicPillarVFE, DynamicPillarVFESimple2D, DynamicPillarVFESparse, MeanVFE
 
@@ -101,6 +103,8 @@ BACKBONE3D_REGISTRY = {
     "Radar_PillarRes18BackBone8x_S2D2": PillarRes18BackBone8xS2D,
     "PillarRes18BackBone8x_AS": PillarRes18BackBone8xAS,
     "Radar_PillarRes18BackBone8x_AS": PillarRes18BackBone8xAS,
+    "PillarRes18BackBone8x_TileSparse": PillarRes18BackBone8xTileSparse,
+    "Radar_PillarRes18BackBone8x_TileSparse": PillarRes18BackBone8xTileSparse,
 }
 NECK_REGISTRY = {
     "BaseBEVBackboneV2": BaseBEVBackboneV2,
@@ -124,7 +128,7 @@ FREEZE_NAME_TO_SCOPE = {
 
 def _registered(registry, kind, name):
     if name not in registry:
-        raise NotImplementedError(f"{kind} {name} is not ported")
+        raise ValueError(f"unknown {kind} {name!r}: the registry has {sorted(registry)}")
     return registry[name]
 
 
@@ -133,10 +137,11 @@ class PillarNet(nn.Module):
     """Build with ``models.build_network``."""
 
     def __init__(self, model_cfg, grid_size, voxel_size, point_cloud_range, class_names,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, remat=False):
         super().__init__()
         cfg = model_cfg
         self.model_cfg = cfg
+        self.remat = remat
         self.grid_size = tuple(grid_size)
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
@@ -196,6 +201,9 @@ class PillarNet(nn.Module):
                     pack_stage2=name.endswith("_S2D2"))
             if cls is PillarRes18BackBone8x:
                 return PillarRes18BackBone8x(in_ch, dt, int8=bool(int8_mode))
+            if cls is PillarRes18BackBone8xTileSparse:
+                return cls(in_ch, dt, tile=int(bk.get("TILE", 32)),
+                           max_tiles=int(bk.get("MAX_TILES", 512)))
             return cls(in_ch, dt)
 
         def make_neck(sub):
@@ -241,6 +249,12 @@ class PillarNet(nn.Module):
                 getattr(self, scope).train(False)
         return self
 
+    def _remat(self, module, *args):
+        """``module(*args)``; with ``remat``, in a train forward that takes
+        gradients, under ``torch.utils.checkpoint`` (``utils.remat``), as the
+        reference's ``nn.remat`` of the 3D backbones and the CMA."""
+        return remat_call(self.remat and self.training, module, *args)
+
     @contextlib.contextmanager
     def _scope(self, scope: str):
         """Profiler span of a teacher scope; without gradients when frozen
@@ -260,12 +274,12 @@ class PillarNet(nn.Module):
                 bev, mask = self.vfe(batch["points"], batch["points_mask"])
         with self._scope("backbone_3d"):
             if self.as_teacher:
-                ms = self.backbone_3d(tfeats, tuids, batch.get("hp_as_lidar"))
+                ms = self._remat(self.backbone_3d, tfeats, tuids, batch.get("hp_as_lidar"))
                 _overflow(out, ms["as_overflow"])
             elif self.s2dt_teacher:
-                ms = self.backbone_3d(tfeats, tuids, batch.get("hp_masks"))
+                ms = self._remat(self.backbone_3d, tfeats, tuids, batch.get("hp_masks"))
             else:
-                ms = self.backbone_3d(bev, mask)
+                ms = self._remat(self.backbone_3d, bev, mask)
         out["x_conv4"], out["x_conv5"] = ms["x_conv4"], ms["x_conv5"]
         with self._scope("backbone_2d"):
             sp2d, sp2d_8x = self.backbone_2d(ms["x_conv4"], ms["x_conv5"])
@@ -287,13 +301,13 @@ class PillarNet(nn.Module):
                 rbev, rmask = self.radar_vfe(batch[key], batch[f"{key}_mask"])
         with record_function("radar_backbone_3d"):
             if self.as_radar:
-                rms = self.radar_backbone_3d(rfeats, ruids, batch.get("hp_as"))
+                rms = self._remat(self.radar_backbone_3d, rfeats, ruids, batch.get("hp_as"))
                 _overflow(out, rms["as_overflow"])
             else:
-                rms = self.radar_backbone_3d(rbev, rmask)
+                rms = self._remat(self.radar_backbone_3d, rbev, rmask)
         out["radar_x_conv4"] = rms["x_conv4"]
         with record_function("radar_cma"):
-            dense_8x_2, dense_8x_1 = self.radar_cma(rms["x_conv4"])
+            dense_8x_2, dense_8x_1 = self._remat(self.radar_cma, rms["x_conv4"])
         out["radar_spatial_features_8x_2"] = dense_8x_2
         out["radar_spatial_features_8x_1"] = dense_8x_1
         with record_function("radar_neck"):

@@ -31,6 +31,7 @@ import torch.distributed as dist
 
 from ..ops.conv_block import int_conv_exact
 from ..parallel.mesh import batch_sum, sync_group
+from ..utils.remat import replaying
 
 # reference eps and momentum (torch convention: the share of the batch's
 # statistic in the update): sparse backbone + neck BNs 1e-3 / 0.01, head and
@@ -257,7 +258,11 @@ def batch_stats(x32: torch.Tensor):
 
 @torch.no_grad()
 def update_running_(running: torch.Tensor, value: torch.Tensor, momentum: float):
-    """``running <- (1 - momentum) * running + momentum * value``, in place."""
+    """``running <- (1 - momentum) * running + momentum * value``, in place;
+    nothing while a checkpointed forward is recomputed (``utils.remat``): the
+    forward moved the statistics already."""
+    if replaying():
+        return
     running.mul_(1.0 - momentum).add_(value.to(running.dtype), alpha=momentum)
 
 
@@ -427,17 +432,13 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     def uni(t, bound):
         t.copy_(torch.rand(t.shape, generator=generator) * (2 * bound) - bound)
 
+    owner = {f"{m}.{leaf}" if m else leaf: mod for m, mod in model.named_modules()
+             for leaf, _ in mod.named_parameters(recurse=False)}
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if p.dim() >= 2 and leaf not in ("gamma", "beta"):
-                if leaf in ("down_weight", "kernel"):  # HWIO
-                    fan_in = p.shape[0] * p.shape[1] * p.shape[2]
-                elif p.dim() == 4 and name.endswith("deconv.weight"):
-                    fan_in = p.shape[0] * p.shape[2] * p.shape[3]
-                else:
-                    fan_in = math.prod(p.shape[1:])
-                uni(p, math.sqrt(6.0 / fan_in))
+                uni(p, math.sqrt(6.0 / _fan_in(owner[name], leaf, p)))
             elif name.endswith("hm.conv_out.bias"):
                 p.fill_(-2.19)
             elif leaf == "weight":  # BN / LayerNorm scale
@@ -460,7 +461,7 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 def _fan_in(mod: nn.Module, leaf: str, p: torch.Tensor) -> int:
     """fan_in as the reference computes it from its HWIO kernel (k, k, I, O)
     (a Dense kernel: (I, O)), read off the port's layout of the same leaf."""
-    if leaf in ("kernel", "down_weight"):  # HWIO already
+    if leaf in ("kernel", "down_weight") or leaf.endswith("_kernel"):  # HWIO already
         return p.shape[0] * p.shape[1] * p.shape[2]
     if isinstance(mod, ConvTranspose2dTorch):  # (I, O, k, k)
         return p.shape[0] * p.shape[2] * p.shape[3]
@@ -478,9 +479,13 @@ def init_reference_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     - the head's regression subheads (``conv_0``, ``conv_out``):
       ``kaiming_normal_torch``, normal with std sqrt(2 / fan_in); ``hm`` keeps
       the conv default;
-    - ``Dense`` kernels: flax's default, lecun normal (a normal truncated at
-      +-2 std with std sqrt(1 / fan_in) after the truncation);
-    - biases 0, except the ``hm`` output bias -2.19; BN and LayerNorm scales 1
+    - ``Dense`` kernels and the flax ``nn.Conv`` kernels of the anchor head
+      (``kernel_init = "lecun"``): flax's default, lecun normal (a normal
+      truncated at +-2 std with std sqrt(1 / fan_in) after the truncation);
+      the anchor head's ``conv_box``: normal with std 1e-3;
+    - biases 0, except where a module names another ``bias_init`` (the
+      ``hm`` output bias -2.19, the anchor head's focal prior
+      -log(99)); BN and LayerNorm scales 1
       and shifts 0, running means 0 and variances 1; GRN gamma and beta 0; the
       DCN's frozen ``down_bias`` 0.
 
@@ -491,12 +496,15 @@ def init_reference_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             for leaf, p in mod.named_parameters(recurse=False):
                 if p.dim() >= 2 and leaf not in ("gamma", "beta"):
                     fan_in = _fan_in(mod, leaf, p)
-                    if isinstance(mod, Dense):
+                    law = getattr(mod, "kernel_init", "conv")
+                    if isinstance(mod, Dense) or law == "lecun":
                         std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                         v = nn.init.trunc_normal_(torch.empty(p.shape), 0.0, std, -2 * std,
                                                   2 * std, generator=generator)
-                    elif getattr(mod, "kernel_init", "conv") == "kaiming":
+                    elif law == "kaiming":
                         v = torch.randn(p.shape, generator=generator) * math.sqrt(2.0 / fan_in)
+                    elif law == "normal_1e-3":
+                        v = torch.randn(p.shape, generator=generator) * 1e-3
                     else:
                         bound = 1.0 / math.sqrt(fan_in)
                         v = torch.rand(p.shape, generator=generator) * (2 * bound) - bound

@@ -283,3 +283,73 @@ class MeanVFE(nn.Module):
         sums = voxelize.scatter_sum_bev(feats, ids, self.grid_size)
         cnt = voxelize.pillar_count(ids, self.grid_size)
         return sums / cnt.clamp(min=1.0)[..., None], cnt > 0
+
+
+class PillarVFE(nn.Module):
+    """The fixed-size pillar VFE of the anchor family (vfe/pillar_vfe.py):
+    ``forward(voxels (B, V, P, F), voxel_num_points (B, V), voxel_coords (B,
+    V, 3) int (z, y, x), -1 rows padding)`` -> (bev (B, H, W, C),
+    pillar_mask (B, H, W) bool). Each point gets its pillar's cluster-mean
+    and centre offsets, PFN layers (``pfn_{i}_linear``, ``pfn_{i}_norm``: a
+    ``MaskedBatchNorm`` over the valid points) reduce with a max over the P
+    points, and the pillars scatter into the grid with a max
+    (``voxelize.scatter_max_bev``). Both maxima share their gradient evenly
+    among tied values (``amax`` and ``scatter_reduce``), as the reference's
+    do. The inputs are the data processor's ``transform_points_to_voxels``
+    output, padded per sample."""
+
+    def __init__(self, num_filters: Sequence[int], voxel_size, point_cloud_range,
+                 grid_size: Tuple[int, int], num_point_features: int, use_norm=True,
+                 with_distance=False, use_absolute_xyz=True):
+        super().__init__()
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.grid_size = tuple(grid_size)
+        self.with_distance, self.use_absolute_xyz = with_distance, use_absolute_xyz
+        self.use_norm = use_norm
+        in_ch = (num_point_features if use_absolute_xyz else num_point_features - 3) + 6
+        in_ch += int(with_distance)
+        self.n_layers = len(num_filters)
+        self.output_dim = num_filters[-1]
+        for i, out_ch in enumerate(num_filters):
+            ch = out_ch if i == self.n_layers - 1 else out_ch // 2
+            self.add_module(f"pfn_{i}_linear", Dense(in_ch, ch, use_bias=not use_norm))
+            if use_norm:
+                self.add_module(f"pfn_{i}_norm", MaskedBatchNorm(ch))
+            in_ch = 2 * ch
+
+    def forward(self, voxels, voxel_num_points, voxel_coords):
+        b, v, p, f = voxels.shape
+        vx, vy, vz = self.voxel_size[:3]
+        x0, y0, z0 = self.point_cloud_range[:3]
+        voxels = voxels.float()
+        vmask = voxel_coords[..., 0] >= 0
+        pmask = (torch.arange(p, device=voxels.device)[None, None, :]
+                 < voxel_num_points[..., None]) & vmask[..., None]
+        xyz = voxels[..., :3]
+        n = torch.clamp(voxel_num_points[..., None, None].float(), min=1.0)
+        mean = torch.sum(xyz * pmask[..., None], dim=2, keepdim=True) / n
+        coords = voxel_coords.float()
+        center = torch.stack([coords[..., 2] * vx + vx / 2 + x0, coords[..., 1] * vy + vy / 2 + y0,
+                              coords[..., 0] * vz + vz / 2 + z0], dim=-1)[..., None, :]
+        feats = [voxels if self.use_absolute_xyz else voxels[..., 3:], xyz - mean, xyz - center]
+        if self.with_distance:
+            feats.append(torch.linalg.vector_norm(xyz, dim=-1, keepdim=True))
+        x = torch.where(pmask[..., None], torch.cat(feats, dim=-1), 0.0)
+        for i in range(self.n_layers):
+            y = getattr(self, f"pfn_{i}_linear")(x)
+            if self.use_norm:
+                y = getattr(self, f"pfn_{i}_norm")(y, pmask)
+            y = torch.relu(y)
+            y_max = torch.where(pmask[..., None], y, float("-inf")).amax(dim=2, keepdim=True)
+            y_max = torch.where(torch.isneginf(y_max), 0.0, y_max)
+            if i == self.n_layers - 1:
+                pillar_feats = y_max[:, :, 0]
+            else:
+                x = torch.cat([torch.where(pmask[..., None], y, 0.0), y_max.expand_as(y)], dim=-1)
+        nx, ny = self.grid_size
+        ids = voxel_coords[..., 1].long() * nx + voxel_coords[..., 2].long()
+        ids = torch.where(vmask, ids, nx * ny)
+        bev = voxelize.scatter_max_bev(
+            torch.where(vmask[..., None], pillar_feats, float("-inf")), ids, self.grid_size)
+        return bev, voxelize.pillar_count(ids, self.grid_size) > 0

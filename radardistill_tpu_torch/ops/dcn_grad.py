@@ -178,17 +178,35 @@ def dcn_input_grad_plain(dsampled: torch.Tensor, offset: torch.Tensor, mask: tor
 TILE = 8
 TILE_WARPS = 8
 TILE_CHANNELS = 8  # the route takes C in multiples of this (16 bytes of bfloat16)
+TILE_SMEM_LIMIT = 227 * 1024  # Hopper's opt-in dynamic shared memory per block
 ROUTES = ("tile", "atomic")
 
 
+def tile_smem_bytes(cap: int, th: int, tw: int) -> int:
+    """The tile kernel's dynamic shared memory (``launch_tile`` in
+    ``csrc/dcn_input_grad.cu``): 24 bytes per (site, tap) pair of a tile's
+    window, and 12 per cell bucket bound."""
+    return cap * 24 + (th + 1) * (tw + 1) * 12
+
+
 def input_grad_route(max_offset: Optional[float], stride: int, padding: int, C: int,
-                     dtype: torch.dtype) -> str:
+                     dtype: torch.dtype, geometry: Optional[Tuple[int, int, int, int, int]] = None
+                     ) -> str:
     """K4's route: ``"tile"`` where the offsets are clamped (the clamp bounds
     the sites that reach a tile) and the tile kernel takes the geometry,
-    else ``"atomic"``."""
+    else ``"atomic"``. With ``geometry`` = (H, W, Ho, Wo, kernel_size) the
+    tile route also needs its window to fit in shared memory
+    (``TILE_SMEM_LIMIT``): a wide clamp at stride 1 goes to ``"atomic"``."""
     takes = (dtype in DTYPE_CODES and C > 0 and C % TILE_CHANNELS == 0 and stride >= 1
              and padding >= 0)
     if max_offset is not None and math.isfinite(max_offset) and takes:
+        if geometry is not None:
+            H, W, Ho, Wo, kernel_size = geometry
+            th, tw, _ = tile_plan(H, W)
+            cap = tile_windows(H, W, Ho, Wo, stride, padding, kernel_size, max_offset, th, tw,
+                               "cpu")[1]
+            if tile_smem_bytes(cap, th, tw) > TILE_SMEM_LIMIT:
+                return "atomic"
         return "tile"
     return "atomic"
 
@@ -272,7 +290,8 @@ def dcn_input_grad(dsampled: torch.Tensor, offset: torch.Tensor, mask: torch.Ten
     if dsampled.data_ptr() % 16:
         raise ValueError("dcn_input_grad: the kernels read dsampled in 16-byte vectors; it lies "
                          f"at {dsampled.data_ptr():#x}")
-    route = input_grad_route(max_offset, stride, padding, C, dsampled.dtype)
+    route = input_grad_route(max_offset, stride, padding, C, dsampled.dtype,
+                             (H, W, Ho, Wo, kernel_size))
     if route == "tile":
         plan = tile_plan(H, W)
         window = tile_windows(H, W, Ho, Wo, stride, padding, kernel_size, max_offset, *plan[:2],

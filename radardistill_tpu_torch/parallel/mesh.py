@@ -33,6 +33,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..utils.remat import reduced
+
 
 @dataclass(frozen=True)
 class Mesh:
@@ -135,10 +137,13 @@ class _AllReduceSum(torch.autograd.Function):
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the processes of the open ``sync_batch`` scope,
     differentiably; ``x`` itself outside one. One collective a call: callers
-    concatenate what they reduce."""
+    concatenate what they reduce. While a checkpointed forward is
+    recomputed (``utils.remat``) it returns the sum it took in the forward,
+    without a collective."""
     if _SYNC_GROUP is None:
         return x
-    return _AllReduceSum.apply(x, _SYNC_GROUP)
+    group = _SYNC_GROUP
+    return reduced(lambda t: _AllReduceSum.apply(t, group), x)
 
 
 @torch.no_grad()

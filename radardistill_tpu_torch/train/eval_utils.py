@@ -58,11 +58,9 @@ def eval_one_epoch(
     similarity_engines=None,
 ):
     """``eval_step(batch) -> outputs`` (``train_step.make_eval_step``) over
-    the (batch, host_meta) pairs of ``dataloader``. Returns (det_annos,
-    recall_dict, timing)."""
-    if similarity_engines:
-        raise NotImplementedError(
-            "BEV similarity analytics are not ported (ROADMAP queue 1, item 14)")
+    the (batch, host_meta) pairs of ``dataloader``; each batch's outputs
+    also feed the ``similarity_engines`` (``utils.similarity``). Returns
+    (det_annos, recall_dict, timing)."""
     det_annos = []
     recall_dict: Dict = {}
     t_infer = []
@@ -75,6 +73,9 @@ def eval_one_epoch(
         fb = _numpy(out["final_box_dicts"])  # the readback waits for the forward
         if infer_time:
             t_infer.append(time.perf_counter() - t0)
+
+        for eng in similarity_engines or []:
+            eng.process_batch(out, batch)
 
         annos = dataset.generate_prediction_dicts(host, fb)
         gt = _numpy(batch["gt_boxes"]) if "gt_boxes" in batch else None

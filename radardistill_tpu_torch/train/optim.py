@@ -1,10 +1,11 @@
-"""Optimizer and the one-cycle learning-rate / momentum schedule.
+"""Optimizers and the one-cycle learning-rate / momentum schedule.
 
-Counterpart of ``radardistill_tpu/train/optim.py`` for ``adam_onecycle`` (the
+Counterpart of ``radardistill_tpu/train/optim.py``: ``adam_onecycle`` (the
 RadarDistill recipe: AdamW with betas (b1(t), 0.99), decoupled weight decay on
 every trained parameter, cosine one-cycle of the learning rate ``lr/div ->
 lr_max`` over ``pct_start`` then ``lr_max -> lr/div/1e4``, and of b1
-``moms[0] -> moms[1]`` and back; stepped per iteration).
+``moms[0] -> moms[1]`` and back; stepped per iteration), and ``adam`` and
+``sgd`` at a constant learning rate (``build_optimizer``).
 
 The reference expresses FREEZE_PIPELINE as an optax mask that cancels the
 decoupled weight decay on frozen scopes (their gradients are zero already).
@@ -12,7 +13,7 @@ Here the optimizer is simply given the trainable parameters only
 (``freeze_mask``): no moments, no decay and no update for the frozen teacher
 or for the DCN's ``down_bias``.
 
-``OneCycleAdamW.step`` is the optax chain ``clip_by_global_norm -> adamw``
+``ClippedOptimizer.step`` is the optax chain ``clip_by_global_norm -> adamw``
 with the schedules read at the update count *before* the increment (the first
 update uses ``sched(0)``): ``p <- p - lr·(m̂/(sqrt(v̂) + eps) + wd·p)`` with
 the bias correction ``1 - b1ᵗ`` taken with the step's own b1, which is what
@@ -70,23 +71,25 @@ def freeze_mask(params: Iterable[Tuple[str, nn.Parameter]], frozen_scopes=()) ->
             for name, _ in params}
 
 
-class OneCycleAdamW:
-    """``clip_by_global_norm(clip) -> AdamW(lr(t), b1(t), b2, wd)`` over the
-    trainable parameters. ``count`` is the number of updates made,
-    ``grad_norm`` the gradients' global norm before the clip in the last one
-    (a tensor on the parameters' device; None before the first)."""
+class ClippedOptimizer:
+    """``clip_by_global_norm(clip) -> rule`` over the trainable parameters,
+    ``inner`` the torch optimizer of the rule, ``kind`` its name in the
+    saved state (``"adamw"`` or ``"sgd"``). Before each update the learning
+    rate (and, with ``mom_sched``, Adam's b1) of its one parameter group are
+    rewritten from the schedules at ``count``, the number of updates made;
+    ``grad_norm`` is the gradients' global norm before the clip in the last
+    one (a tensor on the parameters' device; None before the first)."""
 
-    def __init__(self, params, lr_sched, mom_sched, b2: float, weight_decay: float,
-                 clip=None, eps: float = 1e-8):
+    def __init__(self, params, inner: torch.optim.Optimizer, kind: str, lr_sched,
+                 mom_sched=None, clip=None):
         self.params = list(params)
+        self.inner, self.kind = inner, kind
         self.lr_sched, self.mom_sched, self.clip = lr_sched, mom_sched, clip
         self.count = 0
         self.grad_norm = None
-        self.adamw = torch.optim.AdamW(self.params, lr=lr_sched(0), betas=(mom_sched(0), b2),
-                                       eps=eps, weight_decay=weight_decay)
 
     def zero_grad(self):
-        self.adamw.zero_grad(set_to_none=True)
+        self.inner.zero_grad(set_to_none=True)
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
@@ -101,31 +104,38 @@ class OneCycleAdamW:
         if self.clip:
             scale = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
             torch._foreach_mul_(grads, scale)
-        group = self.adamw.param_groups[0]
+        group = self.inner.param_groups[0]
         group["lr"] = self.lr_sched(self.count)
-        group["betas"] = (self.mom_sched(self.count), group["betas"][1])
-        self.adamw.step()
+        if self.mom_sched is not None:
+            group["betas"] = (self.mom_sched(self.count), group["betas"][1])
+        self.inner.step()
         self.count += 1
         self.grad_norm = norm
         return norm
 
     def state_dict(self) -> dict:
-        """The update count (it sets the next update's lr and b1) and
-        AdamW's moments."""
-        return {"count": self.count, "adamw": self.adamw.state_dict()}
+        """The update count (it sets the next update's schedules) and the
+        rule's state (AdamW's moments, or SGD's momentum buffers) under
+        ``kind``."""
+        return {"count": self.count, self.kind: self.inner.state_dict()}
 
     def load_state_dict(self, state: dict):
-        """Raises ValueError where ``state`` was saved over other parameters
-        (another number of them, or another shape of any moment)."""
-        adamw = state["adamw"]
-        if len(adamw["param_groups"]) != 1 or len(adamw["param_groups"][0]["params"]) != len(
+        """Raises ValueError where ``state`` was saved by another rule or over
+        other parameters (another number of them, or another shape of any
+        moment or buffer)."""
+        if self.kind not in state:
+            raise ValueError(f"optimizer state of another rule ({sorted(state)}), not "
+                             f"{self.kind}")
+        inner = state[self.kind]
+        if len(inner["param_groups"]) != 1 or len(inner["param_groups"][0]["params"]) != len(
                 self.params):
             raise ValueError("optimizer state of other parameters")
         for i, p in enumerate(self.params):
-            moments = adamw["state"].get(i, {})
-            if any(k != "step" and v.shape != p.shape for k, v in moments.items()):
+            moments = inner["state"].get(i, {})
+            if any(torch.is_tensor(v) and k != "step" and v.shape != p.shape
+                   for k, v in moments.items()):
                 raise ValueError(f"optimizer state of parameter {i}: other shape")
-        self.adamw.load_state_dict(adamw)
+        self.inner.load_state_dict(inner)
         self.count = int(state["count"])
 
 
@@ -134,20 +144,39 @@ def build_optimizer(optim_cfg, model: nn.Module, total_steps: int, frozen_scopes
     parameters (it marks the others ``requires_grad = False``), and its
     learning-rate schedule. Returns (optimizer, lr_sched). The optimizer's
     state lives where the parameters live: the card, unless the model was
-    built with ``device="cpu"``."""
+    built with ``device="cpu"``. The rules, each after the global-norm clip
+    (``GRAD_NORM_CLIP``):
+
+      adam_onecycle: AdamW at the one-cycle lr and b1 (``BETAS``' b2);
+      adam: AdamW at the constant ``LR``, optax's b1 0.9, b2 0.999, eps
+        1e-8, decoupled ``WEIGHT_DECAY``;
+      sgd: ``WEIGHT_DECAY · p`` added to the gradient, then heavy-ball
+        ``MOMENTUM`` without dampening, at the constant ``LR`` (optax's
+        ``add_decayed_weights -> sgd``)."""
     name = optim_cfg["OPTIMIZER"]
-    if name in ("adam", "sgd"):
-        raise NotImplementedError(f"OPTIMIZER: {name} is not ported (adam_onecycle is)")
-    if name != "adam_onecycle":
-        raise NotImplementedError(name)
+    if name not in ("adam_onecycle", "adam", "sgd"):
+        raise ValueError(f"unknown OPTIMIZER {name!r}: adam_onecycle, adam or sgd")
     mask = freeze_mask(model.named_parameters(), frozen_scopes)
     for pname, p in model.named_parameters():
         p.requires_grad_(mask[pname])
-    lr_sched = one_cycle_lr(total_steps, optim_cfg["LR"], optim_cfg["DIV_FACTOR"],
-                            optim_cfg["PCT_START"])
-    mom_sched = one_cycle_mom(total_steps, list(optim_cfg["MOMS"]), optim_cfg["PCT_START"])
-    betas = tuple(optim_cfg.get("BETAS", (0.9, 0.99)))
-    opt = OneCycleAdamW([p for n, p in model.named_parameters() if mask[n]], lr_sched, mom_sched,
-                        b2=betas[1], weight_decay=optim_cfg.get("WEIGHT_DECAY", 0.0),
-                        clip=optim_cfg.get("GRAD_NORM_CLIP", None))
-    return opt, lr_sched
+    params = [p for n, p in model.named_parameters() if mask[n]]
+    wd = optim_cfg.get("WEIGHT_DECAY", 0.0)
+    clip = optim_cfg.get("GRAD_NORM_CLIP", None)
+    if name == "adam_onecycle":
+        lr_sched = one_cycle_lr(total_steps, optim_cfg["LR"], optim_cfg["DIV_FACTOR"],
+                                optim_cfg["PCT_START"])
+        mom_sched = one_cycle_mom(total_steps, list(optim_cfg["MOMS"]), optim_cfg["PCT_START"])
+        betas = tuple(optim_cfg.get("BETAS", (0.9, 0.99)))
+        inner = torch.optim.AdamW(params, lr=lr_sched(0), betas=(mom_sched(0), betas[1]),
+                                  eps=1e-8, weight_decay=wd)
+        return ClippedOptimizer(params, inner, "adamw", lr_sched, mom_sched, clip), lr_sched
+    lr = float(optim_cfg["LR"])
+    lr_sched = lambda step: lr  # noqa: E731
+    if name == "adam":
+        # optax.adamw's defaults: b1 0.9, b2 0.999, eps 1e-8, decoupled decay
+        inner = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
+        return ClippedOptimizer(params, inner, "adamw", lr_sched, clip=clip), lr_sched
+    # decay added to the gradient, then heavy-ball momentum without dampening
+    inner = torch.optim.SGD(params, lr=lr, momentum=float(optim_cfg["MOMENTUM"]),
+                            weight_decay=wd)
+    return ClippedOptimizer(params, inner, "sgd", lr_sched, clip=clip), lr_sched

@@ -21,7 +21,7 @@ from torch import nn
 
 from ..models import compute_training_loss
 from ..parallel.mesh import Mesh, all_reduce_mean_, sync_batch, wrap_ddp
-from .optim import OneCycleAdamW
+from .optim import ClippedOptimizer
 
 
 @dataclass
@@ -34,7 +34,7 @@ class TrainState:
     ``duplicated`` how many radar parameters its teacher surgery copied."""
 
     model: nn.Module
-    optimizer: OneCycleAdamW
+    optimizer: ClippedOptimizer
     loaded: Optional[int] = None
     duplicated: Optional[int] = None
 
@@ -69,7 +69,7 @@ def dcn_offset_sat(model: nn.Module):
     return sum(sats) / len(sats) if sats else None
 
 
-def make_train_step(model: nn.Module, optimizer: OneCycleAdamW, model_cfg, class_names,
+def make_train_step(model: nn.Module, optimizer: ClippedOptimizer, model_cfg, class_names,
                     voxel_size, point_cloud_range, mesh: Mesh | None = None, sync_bn=True
                     ) -> Callable[[Dict[str, Any]], Dict[str, torch.Tensor]]:
     """Returns ``step(batch) -> metrics`` (``loss``, the loss terms,

@@ -2,8 +2,9 @@
 cpu`` on ``production_cert_grid128.yaml`` (the shipped model and optimizer
 at grid 128, ``SyntheticDataset``), one epoch of two steps at batch 2, then
 ``tools/torch_test.py --device cpu`` on its checkpoint, then
-``--init_from_teacher`` from it; ``--sync_bn 0`` on one process; the flags
-that are not ported raise. All run in this
+``--init_from_teacher`` from it; ``--sync_bn 0`` on one process;
+``--profile_dir``, ``--bev_similarity`` and ``tools/torch_demo.py`` on
+``pointpillar_smoke.yaml`` (the anchor family). All run in this
 process from a temporary working directory, as a user runs them from the
 repository root. The decode keeps 50 candidates a head instead of 500
 (``--set``): its rotated-box NMS costs about 14 s a batch on one CPU thread
@@ -81,17 +82,51 @@ def test_train_cli_sync_bn_0_trains_on_one_process(tmp_path, monkeypatch):
             / "checkpoint_epoch_1").exists()
 
 
+def _pointpillar_yaml(tmp_path):
+    """``tools/cfgs/synthetic/pointpillar_smoke.yaml`` (the anchor family)
+    with two samples a split, under its own name."""
+    text = (REPO / "tools" / "cfgs" / "synthetic" / "pointpillar_smoke.yaml").read_text()
+    text = text.replace("    DATA_PATH: '.'\n", "    DATA_PATH: '.'\n    NUM_SAMPLES: 2\n")
+    path = tmp_path / "cfg" / "pointpillar_smoke.yaml"
+    path.parent.mkdir()
+    path.write_text(text)
+    return str(path)
+
+
 @pytest.mark.parametrize("tool, flags", [
     ("torch_train", ["--profile_dir", "prof"]),
-    ("torch_test", ["--bev_similarity", "spatial_features_2d"])])
+    ("torch_test", ["--bev_similarity", "spatial_features_2d", "--sim_pooling", "avg"])])
 def test_unported_flags_raise(tool, flags, tmp_path, monkeypatch):
-    import importlib
+    """The two flags that once raised, on ``pointpillar_smoke.yaml``:
+    ``tools/torch_train.py --profile_dir`` writes a trace of its steps before
+    one epoch; ``tools/torch_test.py --bev_similarity`` on that checkpoint
+    writes the class x class similarity CSVs beside the evaluation, and
+    ``tools/torch_demo.py`` draws it."""
+    from tools import torch_demo, torch_test, torch_train
 
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 1[34]"):
-        importlib.import_module(f"tools.{tool}").main(["--cfg_file", CFG, "--device", "cpu"]
-                                                      + flags)
-    assert not (tmp_path / "output").exists()
+    cfg = _pointpillar_yaml(tmp_path)
+    args = ["--cfg_file", cfg, "--device", "cpu"]
+    state = torch_train.main(args + ["--epochs", "1", "--batch_size", "2", "--workers", "0",
+                                     "--num_epochs_to_eval", "0"]
+                             + (flags if tool == "torch_train" else []))
+    out = tmp_path / "output" / "pointpillar_smoke" / "default"
+    assert (out / "ckpt" / "checkpoint_epoch_1").is_file()
+    (log,) = out.glob("log_train_*.txt")
+    if tool == "torch_train":
+        (trace,) = (tmp_path / "prof").iterdir()
+        assert trace.suffix == ".json" and trace.stat().st_size > 1000
+        assert "profiler trace of 3 steps written to prof" in log.read_text()
+        assert state.step == 1 + 3 + 1  # the warm step, the traced ones, the epoch's
+        return
+    result = torch_test.main(args + ["--batch_size", "2"] + flags)
+    assert set(result) == {"mAP"}
+    sim = out / "eval" / "similarity" / "spatial_features_2d"
+    assert sorted(p.name for p in sim.iterdir()) == [
+        "cka_linear.csv", "cka_rbf.csv", "cosine.csv", "counts.csv"]
+    assert (sim / "cosine.csv").read_text().startswith(",car,pedestrian\n")
+    assert torch_demo.main(args + ["--ckpt_dir", str(out / "ckpt"), "--out", "demo.png"]) \
+        == "demo.png" and (tmp_path / "demo.png").stat().st_size > 1000
 
 
 def _dense_yaml(tmp_path, name):

@@ -192,7 +192,7 @@ def _windowed_corners(stride, max_offset, h, seed):
 
 
 @pytest.mark.parametrize("stride", [2, 1])
-@pytest.mark.parametrize("max_offset", [5.0, 4.5])
+@pytest.mark.parametrize("max_offset", [5.0, 4.5, 8.0])
 def test_reach_window_holds_every_corner(stride, max_offset):
     """Every on-grid corner lies in a tile whose windows, in the table the
     wrapper passes to the tile kernel, hold the corner's site on both axes;
@@ -236,6 +236,20 @@ def test_input_grad_route():
         assert route(None, 2, 1, 256, dtype) == "atomic"
         assert route(5.0, 2, 1, 36, dtype) == "atomic"  # not whole 16-byte vectors
     assert route(float("inf"), 2, 1, 256, torch.float32) == "atomic"
+    # with the geometry, the tile route also needs its window in shared
+    # memory: at R = 8 both strides fit (the CMA's stride 2 in 41 KB), at
+    # stride 1 a clamp of 20 does not
+    smem = {}
+    for stride, r, h in ((2, 5.0, 180), (2, 8.0, 180), (1, 5.0, 90), (1, 8.0, 90),
+                         (1, 20.0, 90)):
+        ho = h // stride
+        th, tw, _ = dcn_grad.tile_plan(h, h)
+        cap = dcn_grad.tile_windows(h, h, ho, ho, stride, 1, 3, r, th, tw, "cpu")[1]
+        smem[stride, r] = dcn_grad.tile_smem_bytes(cap, th, tw)
+        want = "tile" if smem[stride, r] <= dcn_grad.TILE_SMEM_LIMIT else "atomic"
+        assert route(r, stride, 1, 256, torch.bfloat16, (h, h, ho, ho, 3)) == want
+    assert smem == {(2, 5.0): 22572, (2, 8.0): 43308, (1, 5.0): 96228, (1, 8.0): 158436,
+                    (1, 20.0): 562788}
     assert [dcn_grad.tile_plan(h, w) for h, w in ((180, 180), (90, 45), (7, 64))] == [
         (8, 8, 8), (8, 8, 8), (7, 8, 8)]
 

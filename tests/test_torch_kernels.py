@@ -209,7 +209,7 @@ def test_cuda_expand_rows_matches_plain(cuda, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("max_offset", [5.0, None])
+@pytest.mark.parametrize("max_offset", [5.0, 8.0, None])
 @pytest.mark.parametrize("stride", [2, 1])
 def test_cuda_dcn_sample_matches_plain(cuda, dtype, max_offset, stride):
     x, offset, mask, _ = _dcn_case(3, 40, 40, 128, off_scale=3.0, stride=stride)
@@ -248,7 +248,7 @@ def _max_err_ratio(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("max_offset", [5.0, None])
+@pytest.mark.parametrize("max_offset", [5.0, 8.0, None])
 @pytest.mark.parametrize("stride", [2, 1])
 def test_cuda_dcn_grad_kernels_match_plain(cuda, dtype, max_offset, stride):
     """K3 and K4 against their plain versions: float32 within 1e-5 x max|ref|
@@ -293,7 +293,7 @@ def _nan_equal_within(got, want, tol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("max_offset", [5.0, None])
+@pytest.mark.parametrize("max_offset", [5.0, 8.0, None])
 def test_cuda_dcn_kernels_keep_nan_offsets_as_plain(cuda, dtype, max_offset):
     """K2, K3 and K4 (both routes) with NaN offsets against their plain
     versions, NaNs compared as equal: the clamp keeps a NaN, so its tap
@@ -319,6 +319,29 @@ def test_cuda_dcn_kernels_keep_nan_offsets_as_plain(cuda, dtype, max_offset):
     dx_p = dcn_grad.dcn_input_grad_plain(ds, offset, mask, 40, 40, *args)
     assert torch.isfinite(dx_p.float()).all()
     assert _nan_equal_within(dx, dx_p, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dcn_input_grad_takes_atomic_where_the_tile_window_does_not_fit(cuda, dtype):
+    """A clamp of 20 cells at stride 1: the tile route's window would need
+    more shared memory than a block may have, so the dispatch sends the call
+    to the atomic route by rule (never a failed launch caught), counted
+    there, equal to the plain version."""
+    x, offset, mask, _ = _dcn_case(6, 40, 40, 128, off_scale=12.0, stride=1)
+    ds = torch.from_numpy(np.random.RandomState(9).randn(1, 40, 40, 9 * 128).astype(
+        np.float32)).to(cuda, dtype)
+    offset, mask = torch.from_numpy(offset).to(cuda), torch.from_numpy(mask).to(cuda)
+    args = (1, 1, 3, 20.0)
+    assert dcn_grad.input_grad_route(20.0, 1, 1, 128, dtype) == "tile"
+    assert dcn_grad.input_grad_route(20.0, 1, 1, 128, dtype, (40, 40, 40, 40, 3)) == "atomic"
+    routes = dict(dcn_grad.dcn_input_grad.route_launches)
+    dx = dcn_grad.dcn_input_grad(ds, offset, mask, 40, 40, *args)
+    torch.cuda.synchronize()
+    routes["atomic"] += 1
+    assert dcn_grad.dcn_input_grad.route_launches == routes
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _max_err_ratio(dx, dcn_grad.dcn_input_grad_plain(ds, offset, mask, 40, 40, *args)) <= tol
 
 
 @pytest.mark.gpu

@@ -359,8 +359,43 @@ def test_adam_onecycle_updates_match_jax():
 
 @pytest.mark.parametrize("name", ["adam", "sgd"])
 def test_other_optimizers_raise_by_name(name):
-    cfg = dict(production_cfg(TRAIN_YAML)[0].OPTIMIZATION, OPTIMIZER=name)
-    with pytest.raises(NotImplementedError, match=name):
-        toptim.build_optimizer(cfg, _Tree({"a": {"w": np.zeros((1, 1), np.float32),
-                                                 "down_bias": np.zeros(1, np.float32)},
-                                           "frozen": {"w": np.zeros((1, 1), np.float32)}}), 10)
+    """``OPTIMIZER: adam`` (AdamW at a constant lr, optax's betas and eps,
+    decoupled decay) and ``sgd`` (decay added to the gradient, heavy-ball
+    momentum): three updates on a small tree against the JAX package's optax
+    chain, the first above the clip of 10; the frozen scope and
+    ``down_bias`` keep their values. Within 1e-6 per update."""
+    rng = np.random.RandomState(9)
+    shapes = {"a": {"w": (7, 5), "down_bias": (5,)}, "frozen": {"w": (4, 3)}}
+    draw = lambda scale: jax.tree.map(  # noqa: E731
+        lambda s: (scale * rng.randn(*s)).astype(np.float32), shapes,
+        is_leaf=lambda s: isinstance(s, tuple))
+    params, grads = draw(1.0), [draw(5.0), draw(0.1), draw(0.3)]
+    cfg = dict(production_cfg(TRAIN_YAML)[0].OPTIMIZATION, OPTIMIZER=name, LR=3e-3,
+               MOMENTUM=0.9)
+    tx, _ = joptim.build_optimizer(jlayers_cfg(cfg), params, 1000, ("frozen",))
+    jparams = jax.tree.map(jnp.asarray, params)
+    state = tx.init(jparams)
+    model = _Tree(params)
+    opt, lr_sched = toptim.build_optimizer(cfg, model, 1000, ("frozen",))
+    assert [n for n, p in model.named_parameters() if p.requires_grad] == ["a.w"]
+    assert lr_sched(0) == lr_sched(999) == 3e-3 and opt.kind == {"adam": "adamw",
+                                                                   "sgd": "sgd"}[name]
+    for g in grads:
+        masked = {"a": {"w": g["a"]["w"], "down_bias": np.zeros(5, np.float32)},
+                  "frozen": {"w": np.zeros((4, 3), np.float32)}}
+        updates, state = tx.update(jax.tree.map(jnp.asarray, masked), state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        model.a.w.grad = torch.from_numpy(g["a"]["w"].copy())
+        opt.step()
+        np.testing.assert_allclose(model.a.w.detach().numpy(), np.asarray(jparams["a"]["w"]),
+                                   atol=1e-6, rtol=0)
+    assert opt.count == 3 and np.abs(model.a.w.detach().numpy() - params["a"]["w"]).max() > 1e-4
+    np.testing.assert_array_equal(model.a.down_bias.detach().numpy(), params["a"]["down_bias"])
+    np.testing.assert_array_equal(model.frozen.w.detach().numpy(), params["frozen"]["w"])
+
+
+def jlayers_cfg(cfg):
+    """A dict as the JAX package's attribute-style config."""
+    from radardistill_tpu.config import ConfigDict as JConfigDict
+
+    return JConfigDict(cfg)

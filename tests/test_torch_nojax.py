@@ -211,7 +211,8 @@ PORT_FILES = sorted(
                                     "tools/torch_test.py", "tools/torch_ckpt_surgery.py",
                                     "tools/torch_train_pace.py", "tools/torch_ddp_check.py",
                                     "tools/torch_overfit_check.py",
-                                    "tools/torch_quality_gate.py"])
+                                    "tools/torch_quality_gate.py", "tools/torch_demo.py",
+                                    "tools/torch_calc_caps.py"])
 def test_card_scripts_import_only_torch_and_the_port(script):
     names = _imported_modules(os.path.join(REPO, script))
     roots = {n.split(".")[0] for n in names}
@@ -231,9 +232,13 @@ def test_teacher_eval_tool_imports_only_the_ports_eval_cli():
 
 
 def test_the_walk_covers_the_nuscenes_and_parallel_modules():
+    """And the modules of the anchor family, the tile-sparse backbone and the
+    tools' utilities."""
     for mod in ("data/nuscenes/pcd", "data/nuscenes/dataset", "data/nuscenes/info_gen",
                 "data/nuscenes/eval_bridge", "parallel/mesh", "parallel/multihost",
-                "utils/testing"):
+                "utils/testing", "models/anchor_head", "models/anchor_detector",
+                "models/map_to_bev", "models/backbone_tile_sparse", "ops/tile_sparse",
+                "utils/similarity", "utils/profiler", "utils/remat"):
         assert f"radardistill_tpu_torch/{mod}.py" in PORT_FILES, mod
 
 

@@ -67,7 +67,7 @@ def assert_state_equal(got, want):
     for k in b:
         assert torch.equal(a[k], b[k]), k
     assert got.step == want.step
-    sa, sb = got.optimizer.adamw.state_dict(), want.optimizer.adamw.state_dict()
+    sa, sb = got.optimizer.inner.state_dict(), want.optimizer.inner.state_dict()
     assert sorted(sa["state"]) == sorted(sb["state"])
     for i in sb["state"]:
         for k in sb["state"][i]:
@@ -137,7 +137,7 @@ def test_restore_falls_back_to_params_when_the_optimizer_differs(tmp_path, caplo
     assert (epoch, it) == (1, 2) and "alone" in caplog.text
     for k, v in saved.model.state_dict().items():
         assert torch.equal(st.model.state_dict()[k], v), k
-    assert st.optimizer.count == 0 and not st.optimizer.adamw.state
+    assert st.optimizer.count == 0 and not st.optimizer.inner.state
 
 
 def test_load_params_from_file_overlays_matching_entries(tmp_path):
@@ -315,7 +315,8 @@ def test_train_model_matches_jax_trainer(tmp_path):
 def test_eval_one_epoch_matches_jax():
     """Fixed-shape eval batches wrap the tail; both eval loops count each
     frame once in det_annos and in the recall counters
-    (tests/test_trainer.py::test_eval_dedups_wrapped_samples)."""
+    (tests/test_trainer.py::test_eval_dedups_wrapped_samples), and feed the
+    same outputs to their BEV similarity engines."""
     from radardistill_tpu.data.dataset import DatasetTemplate as JTemplate
     from radardistill_tpu.train.eval_utils import eval_one_epoch as j_eval_one_epoch
     from radardistill_tpu_torch.data.dataset import DatasetTemplate
@@ -363,8 +364,27 @@ def test_eval_one_epoch_matches_jax():
             np.testing.assert_array_equal(g[k], w[k])
     assert got[1] == want[1] and want[1]["gt"] == 10 and want[1]["recall_rcnn_0.3"] > 0
     assert got[2]["samples"] == want[2]["samples"] == 5 and got[2]["p50_ms"] > 0
-    with pytest.raises(NotImplementedError, match="14"):
-        eval_one_epoch(None, tbatches, DS(), similarity_engines=[object()])
+    # BEV similarity engines see every batch's outputs in both loops and
+    # accumulate the same class x class sums
+    from radardistill_tpu.utils.similarity import BEVSimilarityEngine as JEngine
+    from radardistill_tpu_torch.utils.similarity import BEVSimilarityEngine
+
+    bev = {b["gt_boxes"].tobytes(): rng.randn(2, 16, 16, 4).astype(np.float32)
+           for b, _ in batches}
+    pcr = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
+    engines = [JEngine("f", "f", ["car", "truck"], pcr), BEVSimilarityEngine(
+        "f", "f", ["car", "truck"], pcr)]
+    j_eval_one_epoch(lambda p, s, b: {"final_box_dicts": outputs(b),
+                                      "f": bev[np.asarray(b["gt_boxes"]).tobytes()]},
+                     {}, {}, batches, JDS(), similarity_engines=engines[:1])
+    eval_one_epoch(
+        lambda b: {"final_box_dicts": {k: torch.from_numpy(v) for k, v in outputs(b).items()},
+                   "f": torch.from_numpy(bev[b["gt_boxes"].numpy().tobytes()])},
+        tbatches, DS(), similarity_engines=engines[1:])
+    want, got = engines[0].summary(), engines[1].summary()
+    assert want["counts"].sum() == 6 * 2  # two GT a sample: 2 ordered pairs, 6 samples
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=1e-12, err_msg=k)
 
 
 @pytest.mark.parametrize("tool", ["test", "torch_test"])

@@ -7,8 +7,10 @@ result record; --infer_time latency meter), with the same arguments;
 ``--device`` (default ``cuda``, the card) takes the place of ``--platform``.
 It prints recall, the inference p50 with ``--infer_time`` and
 ``dataset.evaluation``'s result. ``--cal_params`` (XLA's cost analysis) has
-no counterpart here and raises; ``--bev_similarity`` raises (ROADMAP queue 1
-item 14). Under ``torchrun --nproc_per_node=N`` each rank evaluates its
+no counterpart here and raises. ``--bev_similarity KEY[,KEY]`` (with
+``--sim_pooling``) accumulates class x class similarities of those output
+features over the pass (``utils/similarity.py``) and writes their CSVs under
+``similarity/``. Under ``torchrun --nproc_per_node=N`` each rank evaluates its
 slice of the data and the detections are gathered in rank order before the
 evaluation, which rank 0 runs and shares.
 """
@@ -39,7 +41,7 @@ def parse_config(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (cpu for small runs without a card)")
     parser.add_argument("--bev_similarity", type=str, default=None,
-                        help="not ported (ROADMAP queue 1, item 14)")
+                        help="comma-separated output keys whose BEV similarity to analyse")
     parser.add_argument("--sim_pooling", type=str, default="center",
                         choices=["center", "avg", "max"])
     parser.add_argument("--set", dest="set_cfgs", default=None, nargs=argparse.REMAINDER)
@@ -112,11 +114,22 @@ def eval_ckpt(args, cfg, state, test_set, test_loader, logger, output_dir, epoch
         for batch, host in test_loader:
             yield batch_to_torch(batch, device), host
 
+    engines = []
+    if getattr(args, "bev_similarity", None):
+        from radardistill_tpu_torch.utils.similarity import BEVSimilarityEngine
+
+        pcr = [float(x) for x in test_set.point_cloud_range]
+        for key_path in args.bev_similarity.split(","):
+            engines.append(BEVSimilarityEngine(key_path.replace(".", "_"), key_path,
+                                               cfg.CLASS_NAMES, pcr, pooling=args.sim_pooling))
+
     det_annos, recall_dict, timing = eval_one_epoch(
         make_eval_step(state.model), loader_iter(), test_set, logger,
         thresh_list=cfg.MODEL.POST_PROCESSING.RECALL_THRESH_LIST,
-        infer_time=args.infer_time,
+        infer_time=args.infer_time, similarity_engines=engines,
     )
+    for eng in engines:
+        logger.info(f"similarity analytics [{eng.feature_name}] -> {eng.save(output_dir)}")
     if args.infer_time and timing["p50_ms"]:
         logger.info(f"inference p50: {timing['p50_ms']:.1f} ms/batch")
     det_annos = gather_detections(det_annos)  # every rank's, in rank order
@@ -136,9 +149,6 @@ def eval_ckpt(args, cfg, state, test_set, test_loader, logger, output_dir, epoch
 
 def main(argv=None):
     args, cfg = parse_config(argv)
-    if args.bev_similarity:
-        raise NotImplementedError(
-            "--bev_similarity is not ported (ROADMAP queue 1, item 14)")
     import torch
 
     from radardistill_tpu_torch.data.loader import build_dataloader

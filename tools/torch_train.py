@@ -15,7 +15,8 @@ each rank reads its slice of the data, the model trains under DDP, and
 ``--sync_bn`` / ``OPTIMIZATION.SYNC_BN`` pick the leg (1, the default: BN
 statistics and loss normalizers over the global batch; 0: per-rank ones, the
 running statistics averaged). Rank 0 logs and writes the checkpoints.
-``--profile_dir`` raises (ROADMAP queue 1 item 14).
+``--profile_dir DIR`` traces ``PROFILE_STEPS`` steps on the loader's first
+batch before the training (``utils/profiler.py``: a Chrome trace in DIR).
 """
 
 import argparse
@@ -25,6 +26,8 @@ import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+PROFILE_STEPS = 3  # traced steps under --profile_dir, after one warm step (as tools/train.py)
 
 
 def parse_config(argv=None):
@@ -55,7 +58,7 @@ def parse_config(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (cpu for small runs without a card)")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="not ported: use tools/torch_profile_slice.py")
+                        help="write a torch.profiler trace of a few steps here")
     parser.add_argument("--log_interval", type=int, default=50,
                         help="iterations between train-loop log lines")
     args = parser.parse_args(argv)
@@ -73,10 +76,6 @@ def parse_config(argv=None):
 def main(argv=None):
     """Returns the trained ``TrainState``."""
     args, cfg = parse_config(argv)
-    if args.profile_dir:
-        raise NotImplementedError(
-            "--profile_dir is not ported (ROADMAP queue 1, item 14); "
-            "tools/torch_profile_slice.py profiles the step")
     import torch
 
     from radardistill_tpu_torch.data.loader import build_dataloader
@@ -188,6 +187,20 @@ def main(argv=None):
                        config={"cfg_file": args.cfg_file})
         except ImportError:
             logger.warning("wandb not installed; skipping")
+
+    if args.profile_dir:
+        # a trace of a few steps on the loader's first batch, one warm step
+        # outside it (utils/profiler.py), before the training proper
+        from radardistill_tpu_torch.models.detector import batch_to_torch
+        from radardistill_tpu_torch.utils.profiler import trace
+
+        warm_batch = batch_to_torch(next(iter(train_loader))[0], device)
+        step_fn(warm_batch)
+        with trace(args.profile_dir):
+            for _ in range(PROFILE_STEPS):
+                metrics = step_fn(warm_batch)
+            float(metrics["loss"])
+        logger.info(f"profiler trace of {PROFILE_STEPS} steps written to {args.profile_dir}")
 
     logger.info("**********************Start training**********************")
     state = train_model(
