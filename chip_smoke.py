@@ -332,6 +332,16 @@ kernel); ``OPTIMIZER: adam`` and ``sgd`` on the card against the CPU.
 ``launches_anchor_cli``, ``launches_anchor_step``, ``launches_remat`` (5
 steps) and ``launches_tile_sparse_forward`` count them.
 
+The reference-checkpoint import, phase 44, after phase 41
+(``phase_pcdet_import``): a synthetic full-width pcdet checkpoint through
+``tools/torch_convert_ckpt.py``; every entry of ``radar_distill_train.yaml``'s
+model loaded from the file on the card, equal to the in-memory conversion;
+the bf16 distillation eval forward at 1440², bs2 on those weights (K5 x 2, K1
+x 4, K2 x 3), finite and bit-equal to the forward on the in-memory
+conversion; ``tools/torch_test.py --ckpt`` on ``radar_distill_val.yaml`` over
+a synthetic nuScenes tree of 2 samples (every entry loaded, K5 x 1 and K2 x 3
+a forward). ``launches_pcdet`` counts the forward and the CLI.
+
 Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
 float32 scales alike, but not every stock op around it (the VFE's sums); one
 flipped input code flips a few percent of the 9 x Co codes it reaches in the
@@ -3512,6 +3522,124 @@ def phase_tile_sparse(torch, dev, smi, tree, runs=3, sets=()):
     return launches
 
 
+def tensor_leaves(tree, prefix=""):
+    """{dotted key: tensor} of the floating and integer tensors of a nested
+    output dict."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(tensor_leaves(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree} if hasattr(tree, "dtype") else {}
+
+
+def phase_pcdet_import(torch, dev, smi, work):
+    """Phase 44, the reference-checkpoint import. (a) A pcdet-layout
+    ``model_state`` of the RadarDistill topology at full width
+    (``utils/testing.py::reference_state_dict`` with fan-in-scaled values),
+    saved as the reference saves a checkpoint, through
+    ``tools/torch_convert_ckpt.py``. (b) The converted file into the shipped
+    ``radar_distill_train.yaml`` model on the card
+    (``CheckpointManager.load_params_from_file``): every entry must load and
+    equal the in-memory ``pcdet_convert`` of the same state dict; the bf16
+    distillation eval forward at 1440², bs2 (K5 x 2, K1 x 4 under ``INT8:
+    static``, K2 x 3) on the file's weights, finite, and bit-equal to the
+    same forward with the in-memory conversion loaded (and to a repeat of
+    itself). (c) ``tools/torch_test.py`` on ``radar_distill_val.yaml`` with
+    ``--ckpt`` the converted file, on a synthetic nuScenes tree of 2 val
+    samples, bs1: every entry of the radar model loaded (its log's line), K5 x
+    1 and K2 x 3 a forward. Returns the launches of (b)'s forward and (c)."""
+    import numpy as np
+
+    from radardistill_tpu_torch.data.synthetic import make_batch
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+    from radardistill_tpu_torch.pcdet_convert import pcdet_convert
+    from radardistill_tpu_torch.train.checkpoint import CheckpointManager
+    from radardistill_tpu_torch.train.train_step import TrainState
+    from radardistill_tpu_torch.utils.production import TRAIN_YAML
+    from radardistill_tpu_torch.utils.testing import reference_state_dict
+    from tools import torch_convert_ckpt, torch_test
+    from tools.torch_nuscenes_tree import make_tree
+
+    t_start = time.perf_counter()
+    sd = reference_state_dict(np.random.RandomState(44), scale="fan_in")
+    src, dst = work / "pillarnet_reference.pth", work / "pillarnet_converted.pth"
+    torch.save({"model_state": {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()},
+                "optimizer_state": None, "epoch": 20, "it": 0, "version": "pcdet+synthetic"}, src)
+    t0 = time.perf_counter()
+    torch_convert_ckpt.main(["--src", str(src), "--dst", str(dst)])
+    t_convert = time.perf_counter() - t0
+    memory, unmapped = pcdet_convert(sd)
+    if unmapped:
+        raise RuntimeError(f"pcdet import: unmapped {unmapped[:5]}")
+
+    cfg, info, batch = make_batch(TRAIN_YAML)
+    model = build_network(cfg, info, compute_dtype=torch.bfloat16)
+    state = CheckpointManager(work / "pcdet_ckpt").load_params_from_file(
+        TrainState(model, None), dst)
+    entries = model.state_dict()
+    differ = [k for k, v in entries.items() if not torch.equal(v.cpu(), memory[k].to(v.dtype))]
+    print(f"pcdet import: {len(sd)} pcdet tensors converted by tools/torch_convert_ckpt.py in "
+          f"{t_convert:.2f} s; loaded {state.loaded} of {len(entries)} model entries of "
+          f"radar_distill_train.yaml from the file; {len(differ)} differ from the in-memory "
+          f"conversion")
+    if state.loaded != len(entries) or differ:
+        raise RuntimeError(f"pcdet import: loaded {state.loaded} of {len(entries)}, differing "
+                           f"{differ[:5]}")
+    if next(model.parameters()).device != dev:
+        raise RuntimeError("pcdet import: the model is not on the card")
+    bdev = batch_to_torch(batch)
+    with torch.no_grad():
+        model(bdev)  # warm-up
+        torch.cuda.synchronize()
+        read = reset_launches()
+        got = tensor_leaves(model(bdev))
+        torch.cuda.synchronize()
+        fwd_launches = read()
+        again = tensor_leaves(model(bdev))
+        model.load_state_dict(memory, strict=True)
+        want = tensor_leaves(model(bdev))
+        torch.cuda.synchronize()
+    check_launches("pcdet import forward", fwd_launches,
+                   {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1})
+    finite = all(not v.is_floating_point() or bool(torch.isfinite(v).all())
+                 for k, v in got.items() if not k.startswith("final_box_dicts."))
+    boxes = got["final_box_dicts.boxes"][got["final_box_dicts.valid"]]
+    same = [k for k in want if torch.equal(got[k], want[k])]
+    repeat = [k for k in want if torch.equal(got[k], again[k])]
+    print(f"pcdet import: distillation eval forward bf16, 1440², bs2, on the file's weights: "
+          f"launches {fwd_launches}; finite {finite}, {boxes.shape[0]} valid boxes (finite "
+          f"{bool(torch.isfinite(boxes).all())}); {len(same)} of {len(want)} outputs bit-equal "
+          f"to the forward on the in-memory conversion, {len(repeat)} to a repeat")
+    if not finite or not bool(torch.isfinite(boxes).all()) or len(same) != len(want):
+        raise RuntimeError(f"pcdet import: finite {finite}, outputs differing from the in-memory "
+                           f"conversion's {sorted(set(want) - set(same))[:8]}")
+    del model, state, bdev, batch, got, again, want
+    torch.cuda.empty_cache()
+
+    root = work / "nuscenes_pcdet"
+    _, val_infos = make_tree(root, 2, 2)
+    tag = "chip_smoke_pcdet"
+    read = reset_launches()
+    result = torch_test.main(["--cfg_file", str(ROOT / "tools/cfgs/radar_distill/radar_distill_val.yaml"),
+                              "--batch_size", "1", "--ckpt", str(dst), "--extra_tag", tag,
+                              "--set", *tree_sets(root)])
+    torch.cuda.synchronize()
+    cli_launches = read()
+    check_launches("pcdet import val CLI", cli_launches,
+                   {k: len(val_infos) * v for k, v in VAL_FORWARD.items()})
+    (log,) = (Path("output") / "radar_distill_val" / tag / "eval").glob("log_eval_*.txt")
+    line = re.search(r"loaded (\d+) of (\d+) model entries from .*", log.read_text())
+    print(f"pcdet import: tools/torch_test.py --cfg_file radar_distill_val.yaml --ckpt "
+          f"{dst.name}, {len(val_infos)} synthetic nuScenes samples, bs1: "
+          f"\"{line and line[0]}\"; launches {cli_launches}; mAP {result['mAP']:.4f} "
+          f"(fallback metric); the phase {time.perf_counter() - t_start:.1f} s on {smi}")
+    if not line or line[1] != line[2] or not 0 <= result["mAP"] <= 1:
+        raise RuntimeError(f"pcdet import val CLI: {line and line[0]}, result {result}")
+    return {k: fwd_launches[k] + cli_launches[k] for k in fwd_launches}
+
+
 def main() -> int:
     if not (ROOT / "radardistill_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -3690,6 +3818,13 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s; phases 42-43 (remat, tile-sparse): "
           f"{t_remat_tile:.1f} s")
 
+    # the reference-checkpoint import: a pcdet .pth converted, loaded, run
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        pcdet_launches = phase_pcdet_import(torch, dev, smi, Path(work))
+    torch.cuda.empty_cache()
+    print(f"phase 44 (the reference-checkpoint import): {time.perf_counter() - t0:.1f} s")
+
     dcn_py = "radardistill_tpu/ops/pallas_dcn.py"
     block_py = "radardistill_tpu/ops/pallas_conv_block.py"
     table = [
@@ -3729,6 +3864,7 @@ def main() -> int:
                 "launches_anchor_step": anchor_launches[name],
                 "launches_remat": remat_launches.get(name, 0),
                 "launches_tile_sparse_forward": tile_launches[name],
+                "launches_pcdet": pcdet_launches[name],
                 **{f"launches_static_{r}": route_launches[k][name] for r, k in (
                     ("dense_input", "TABLE_INPUT: false"), ("linear_table", "PACKED_TABLE: false"),
                     ("s2d2", "_S2D2"))},
@@ -3748,7 +3884,7 @@ def main() -> int:
             "launches_s2d_teacher_pretrain", "launches_teacher_unfrozen",
             "launches_static_dense_input", "launches_static_linear_table",
             "launches_static_s2d2", "launches_anchor_cli", "launches_anchor_step",
-            "launches_remat", "launches_tile_sparse_forward", "max_abs_err",
+            "launches_remat", "launches_tile_sparse_forward", "launches_pcdet", "max_abs_err",
             "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "aside_ms",
             "teacher_bf16_rel_l2", "alternating_ms", "alternating_library_ms",
             "k4_route", "repeats_bitwise", "r5_ms_in_turns", "r8_ms_in_turns", "old_route_ms",

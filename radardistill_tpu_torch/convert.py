@@ -14,19 +14,21 @@ each leaf by one rule per leaf kind:
     LayerNorm scale -> weight;
   - GRN gamma/beta (1, 1, 1, C), the DCN's HWIO ``down_weight`` and its
     ``down_bias`` unchanged;
-  - the ``KernelHolder`` kernels of a teacher's stage 1
+  - the ``KernelHolder`` kernels of a 3D backbone's stage 1
     (``conv1_0/conv1/conv/kernel``, ``conv2_down/conv/conv/kernel``, in the
-    space-to-depth teacher and in the dense ``PillarRes18BackBone8x`` alike)
-    stay HWIO under the name ``kernel``, because the packed kernels are
-    assembled from that layout; the S2D teacher's ``PackedMaskedBatchNorm``
-    vectors map like any BatchNorm. So both teachers take one ``state_dict``;
+    space-to-depth teacher, the dense ``PillarRes18BackBone8x`` and the
+    active-site radar backbone alike) stay HWIO under the name ``kernel``,
+    because the packed kernels are assembled from that layout; the S2D
+    teacher's ``PackedMaskedBatchNorm`` vectors map like any BatchNorm. So
+    both teachers take one ``state_dict``, and both radar backbones another;
   - a tile-sparse stage's flat leaves (``b0_conv1_kernel`` HWIO,
     ``b0_conv1_bias``) keep their names and layout;
   - the anchor head's flax ``nn.Conv`` kernels (k, k, I, O) -> (O, I, k, k),
     as any conv's.
 
-A reference pcdet ``.pth`` loads by composition: ``tools/convert_torch_ckpt.py``'s
-``Converter`` makes the flax tree from it, and this bridge the ``state_dict``.
+A reference pcdet ``.pth`` loads through ``tools/torch_convert_ckpt.py``
+(``pcdet_convert.py``, the port's copy of the JAX tool's ``Converter``, which
+maps it straight to this ``state_dict``).
 """
 
 from __future__ import annotations

@@ -10,7 +10,10 @@ tables and the per-stage active sets come from the host
 (``data/host_precompute.as_tables``) or, when ``tables`` is None, are built on
 the device in the same order and with the same values. Submodule names mirror
 the flax scopes (``conv1_0/conv1/conv``, ``conv2_down/bn``, ...); a stage has
-the same parameters in either formulation. In train mode every BN of the table
+the same parameters in either formulation. Stage 1 (``conv1_0``, ``conv1_1``,
+``conv2_down``) keeps its kernels HWIO (``layers.KernelHolder``), as the dense
+``PillarRes18BackBone8x`` does, so the radar branch has one ``state_dict`` in
+either backbone and a checkpoint of one loads into the other. In train mode every BN of the table
 stages takes its statistics over the valid rows of its stage, and the whole
 backbone is differentiable in the table (index tables carry no gradient).
 """
@@ -26,29 +29,32 @@ from ..caps import DEFAULT_CAPS, stage_caps
 from ..ops import active_site as asx
 from .backbone_sparse2d import DenseBasicBlock, SparseBasicBlock, SparseDownBlock
 from .layers import (BN_EPS_BACKBONE, BN_MOM_BACKBONE, BatchNormTorch, Conv2dTorch, ConvParams,
-                     MaskedBatchNorm, max_pool_mask)
+                     KernelHolder, MaskedBatchNorm, max_pool_mask)
 
 
 class ASConv(nn.Module):
-    """3x3 active-site conv; weight (O, I, 3, 3) under ``conv``."""
+    """3x3 active-site conv; weight (O, I, 3, 3) under ``conv``, or with
+    ``hwio`` a ``KernelHolder``'s HWIO ``kernel``."""
 
-    def __init__(self, in_ch, features, use_bias=False):
+    def __init__(self, in_ch, features, use_bias=False, hwio=False):
         super().__init__()
-        self.conv = ConvParams(in_ch, features, 3, 1, use_bias)
+        self.conv = (KernelHolder(in_ch, features, use_bias) if hwio
+                     else ConvParams(in_ch, features, 3, 1, use_bias))
 
     def forward(self, feats, tap):
-        kernel = self.conv.weight.permute(2, 3, 1, 0)  # HWIO
+        kernel = (self.conv.kernel if isinstance(self.conv, KernelHolder)
+                  else self.conv.weight.permute(2, 3, 1, 0))  # HWIO
         return asx.conv3x3_as_b(feats, tap, kernel, self.conv.bias)
 
 
 class SparseBasicBlockAS(nn.Module):
     """Residual submanifold block on site tables."""
 
-    def __init__(self, features):
+    def __init__(self, features, hwio=False):
         super().__init__()
-        self.conv1 = ASConv(features, features, True)
+        self.conv1 = ASConv(features, features, True, hwio)
         self.bn1 = MaskedBatchNorm(features, BN_EPS_BACKBONE)
-        self.conv2 = ASConv(features, features, True)
+        self.conv2 = ASConv(features, features, True, hwio)
         self.bn2 = MaskedBatchNorm(features, BN_EPS_BACKBONE)
 
     def forward(self, x, tap, valid):
@@ -61,9 +67,9 @@ class SparseBasicBlockAS(nn.Module):
 class SparseDownBlockAS(nn.Module):
     """Strided 3x3 sparse conv + BN + ReLU on site tables."""
 
-    def __init__(self, in_ch, features):
+    def __init__(self, in_ch, features, hwio=False):
         super().__init__()
-        self.conv = ASConv(in_ch, features, False)
+        self.conv = ASConv(in_ch, features, False, hwio)
         self.bn = MaskedBatchNorm(features, BN_EPS_BACKBONE)
 
     def forward(self, x, tap, new_valid):
@@ -92,12 +98,12 @@ class PillarRes18BackBone8xAS(nn.Module):
         self.hw = tuple(hw)
         self.caps = stage_caps(caps, self.hw)
         self.dense_from, self.densify_all = dense_from, densify_all
-        self.conv1_0 = SparseBasicBlockAS(32)
-        self.conv1_1 = SparseBasicBlockAS(32)
+        self.conv1_0 = SparseBasicBlockAS(32, hwio=True)
+        self.conv1_1 = SparseBasicBlockAS(32, hwio=True)
         for stage, (cin, cout) in ((2, (32, 64)), (3, (64, 128)), (4, (128, 256))):
             down, block = ((SparseDownBlockAS, SparseBasicBlockAS) if stage < dense_from
                            else (SparseDownBlock, SparseBasicBlock))
-            self.add_module(f"conv{stage}_down", down(cin, cout))
+            self.add_module(f"conv{stage}_down", down(cin, cout, hwio=stage == 2))
             self.add_module(f"conv{stage}_0", block(cout))
             self.add_module(f"conv{stage}_1", block(cout))
         self.conv5_down_conv = Conv2dTorch(256, 256, 3, 2, 1, use_bias=False)

@@ -6,10 +6,15 @@ RadarDistill model config (the keys of
 ``tools/cfgs/radar_distill/radar_distill_train.yaml``) at a configurable grid,
 so that tests run on tiny grids and ``tools/torch_overfit_check.py`` /
 ``tools/torch_quality_gate.py`` on theirs.
-``tests/test_torch_s2d_modules.py`` holds it equal to the original.
+``tests/test_torch_s2d_modules.py`` holds it equal to the original. And
+``reference_state_dict``, the port's copy of the synthetic pcdet checkpoint of
+``tests/test_convert.py``, for the reference-checkpoint import's tests and
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from ..config import ConfigDict
 
@@ -143,3 +148,134 @@ def make_model_cfg(
         "class_names": tuple(CLASS_NAMES),
     }
     return cfg, dataset_info
+
+
+def reference_state_dict(rng, scale=None):
+    """A synthetic reference pcdet ``model_state`` of the RadarDistill topology
+    (teacher and radar branch, the full widths of ``make_model_cfg``: VFE
+    inputs 14 / 15, 6 heads of ``[1, 2, 2, 1, 2, 2]`` classes), numpy arrays
+    drawn from the ``numpy.random.RandomState`` ``rng``. The shipped yamls'
+    models have the same widths.
+
+    The port's copy of ``tests/test_convert.py::reference_state_dict``: with
+    ``scale=None`` it draws the same values in the same order (standard
+    normal weights, BN scales and running variances uniform on [0.5, 1.5)).
+    ``scale="fan_in"`` keeps the keys and shapes and draws values that keep
+    an eval forward finite through the deep stacks: weights N(0, 1/fan_in),
+    biases, BN shifts and running means N(0, 0.1²), BN and LayerNorm scales
+    and running variances uniform on [0.9, 1.1), GRN gamma / beta N(0, 0.1²).
+    """
+    if scale not in (None, "fan_in"):
+        raise ValueError(f"scale: None or 'fan_in', not {scale!r}")
+    fan = scale == "fan_in"
+    sd = {}
+
+    def weight(shape, fan_in):
+        v = rng.randn(*shape).astype(np.float32)
+        return v / np.float32(np.sqrt(fan_in)) if fan else v
+
+    def shift(shape):  # a bias, BN shift or running mean, GRN gamma / beta
+        v = rng.randn(*shape).astype(np.float32)
+        return np.float32(0.1) * v if fan else v
+
+    def positive(c):  # a BN scale or running variance
+        v = rng.rand(c).astype(np.float32)
+        return np.float32(0.2) * v + np.float32(0.9) if fan else v + 0.5
+
+    def conv(key, o, i, k=3, bias=False):
+        sd[f"{key}.weight"] = weight((o, i, k, k), i * k * k)
+        if bias:
+            sd[f"{key}.bias"] = shift((o,))
+
+    def spconv_w(key, o, i, k=3, bias=False):
+        sd[f"{key}.weight"] = weight((o, k, k, i), i * k * k)  # spconv2 layout
+        if bias:
+            sd[f"{key}.bias"] = shift((o,))
+
+    def bn(key, c):
+        sd[f"{key}.weight"] = positive(c)
+        sd[f"{key}.bias"] = shift((c,))
+        sd[f"{key}.running_mean"] = shift((c,))
+        sd[f"{key}.running_var"] = positive(c)
+        sd[f"{key}.num_batches_tracked"] = np.asarray(7)
+
+    def linear(key, o, i, bias=True):
+        sd[f"{key}.weight"] = weight((o, i), i)
+        if bias:
+            sd[f"{key}.bias"] = shift((o,))
+
+    # VFE (lidar in=14, radar in=15)
+    for scope, cin in (("vfe", 14), ("radar_vfe", 15)):
+        linear(f"{scope}.pfn_layers.0.linear", 32, cin, bias=False)
+        bn(f"{scope}.pfn_layers.0.norm", 32)
+
+    # backbones
+    for scope in ("backbone_3d", "radar_backbone_3d"):
+        # conv1: 2 res blocks
+        for b in (0, 1):
+            for m in ("conv1", "conv2"):
+                spconv_w(f"{scope}.conv1.{b}.{m}", 32, 32, bias=True)
+                bn(f"{scope}.conv1.{b}.bn{m[-1]}", 32)
+        for stage, (cin, cout) in (("conv2", (32, 64)), ("conv3", (64, 128)),
+                                   ("conv4", (128, 256))):
+            spconv_w(f"{scope}.{stage}.0.0", cout, cin)
+            bn(f"{scope}.{stage}.0.1", cout)
+            for b in (1, 2):
+                for m in ("conv1", "conv2"):
+                    spconv_w(f"{scope}.{stage}.{b}.{m}", cout, cout, bias=True)
+                    bn(f"{scope}.{stage}.{b}.bn{m[-1]}", cout)
+        # conv5 dense
+        conv(f"{scope}.conv5.0.0", 256, 256)
+        bn(f"{scope}.conv5.0.1", 256)
+        for b in (1, 2):
+            for m in ("conv1", "conv2"):
+                conv(f"{scope}.conv5.{b}.{m}", 256, 256, bias=True)
+                bn(f"{scope}.conv5.{b}.bn{m[-1]}", 256)
+
+    # necks (teacher + the one inside Radar_Distill)
+    for scope in ("backbone_2d", "radar_backbone_2d"):
+        for blk, cin in (("0", 512), ("1", 256)):
+            conv(f"{scope}.blocks.{blk}.1", 256, cin)
+            bn(f"{scope}.blocks.{blk}.2", 256)
+            for k in range(5):
+                conv(f"{scope}.blocks.{blk}.{4 + 3 * k}", 256, 256)
+                bn(f"{scope}.blocks.{blk}.{5 + 3 * k}", 256)
+        sd[f"{scope}.deblocks.0.0.weight"] = weight((256, 256, 2, 2), 256)
+        bn(f"{scope}.deblocks.0.1", 256)
+
+    # CMA (inside radar_backbone_2d)
+    for e in (1, 2, 3):
+        for b, down in ((0, True), (1, False)):
+            base = f"radar_backbone_2d.encoder_{e}.{b}"
+            sd[f"{base}.dwconv.weight"] = weight((256, 1, 7, 7), 49)
+            sd[f"{base}.dwconv.bias"] = shift((256,))
+            sd[f"{base}.norm.weight"] = (positive(256) if fan else
+                                         rng.randn(256).astype(np.float32))
+            sd[f"{base}.norm.bias"] = shift((256,))
+            linear(f"{base}.pwconv1", 1024, 256)
+            linear(f"{base}.pwconv2", 256, 1024)
+            sd[f"{base}.grn.gamma"] = shift((1, 1, 1, 1024))
+            sd[f"{base}.grn.beta"] = shift((1, 1, 1, 1024))
+            if down:
+                conv(f"{base}.conv_offset_mask1", 27, 256, bias=True)
+                sd[f"{base}.down_layer.weight"] = weight((256, 256, 3, 3), 256 * 9)
+                # frozen-at-init DCN bias (exists despite bias=False)
+                sd[f"{base}.down_layer.bias"] = shift((256,))
+        sd[f"radar_backbone_2d.decoder_{e}.0.weight"] = weight((256, 256, 4, 4), 256)
+        sd[f"radar_backbone_2d.decoder_{e}.0.bias"] = shift((256,))
+        bn(f"radar_backbone_2d.decoder_{e}.1", 256)
+        conv(f"radar_backbone_2d.agg_{e}.0", 256, 512, k=1, bias=True)
+        bn(f"radar_backbone_2d.agg_{e}.1", 256)
+
+    # heads
+    head_classes = [len(g) for g in HEADS_GROUPS]
+    subheads = {"center": 2, "center_z": 1, "dim": 3, "rot": 2, "vel": 2, "iou": 1}
+    for scope in ("dense_head", "radar_dense_head"):
+        conv(f"{scope}.shared_conv.0", 64, 256, bias=True)
+        bn(f"{scope}.shared_conv.1", 64)
+        for h, ncls in enumerate(head_classes):
+            for sub, oc in list(subheads.items()) + [("hm", ncls)]:
+                conv(f"{scope}.heads_list.{h}.{sub}.0.0", 64, 64, bias=True)
+                bn(f"{scope}.heads_list.{h}.{sub}.0.1", 64)
+                conv(f"{scope}.heads_list.{h}.{sub}.1", oc, 64, bias=True)
+    return sd

@@ -5,6 +5,8 @@ and at grid 64 under each deep-chain configuration of the teacher: ``INT8_STAGES
 ``FP_STAGES: 5``, ``INT8: true``, and the wide conv once)
 and one distillation train step, two train steps through ``tools/torch_train.py``
 on the grid-128 yaml and ``tools/torch_ckpt_surgery.py`` on its checkpoint,
+a synthetic reference pcdet checkpoint through ``tools/torch_convert_ckpt.py``
+into the distillation model,
 a val forward without host tables under
 ``DENSE_FROM: 3``, the dense-input route of ``synthetic/smoke.yaml`` at grid
 64 and the plain versions of the three probe kernels on the CPU
@@ -12,9 +14,11 @@ with random weights from a seeded generator; afterwards neither
 ``jax`` nor ``flax`` nor any module of ``radardistill_tpu`` may be in
 ``sys.modules``. An AST walk over every file of the port and over the card
 scripts finds no import of them either (the nuScenes and data-parallel modules
-among them), also after a nuScenes item and a detection gather. Also: the port's data layer loads none
-of its model layer, and ``chip_smoke.py`` copied out of the repo fails without
-printing a result."""
+among them), also after a nuScenes item and a detection gather; neither the
+port nor its card scripts import a JAX tool (``tools.convert_torch_ckpt``, any
+``tools`` module without ``torch_`` in its name). Also: the port's data layer
+loads none of its model layer, and ``chip_smoke.py`` copied out of the repo
+fails without printing a result."""
 
 import ast
 import glob
@@ -83,6 +87,18 @@ cli_state = torch_train.main([
     "--num_epochs_to_eval", "0"])
 torch_ckpt_surgery.main(["--src", "output/production_cert_grid128/default/ckpt/checkpoint_epoch_1",
                          "--dst", "init"])
+# a reference pcdet checkpoint through tools/torch_convert_ckpt.py, loaded
+import numpy as np
+from radardistill_tpu_torch.train.checkpoint import CheckpointManager
+from radardistill_tpu_torch.train.train_step import TrainState
+from radardistill_tpu_torch.utils.testing import reference_state_dict
+from tools import torch_convert_ckpt
+torch.save({"model_state": {k: torch.from_numpy(np.asarray(v)) for k, v in reference_state_dict(
+    np.random.RandomState(0), scale="fan_in").items()}, "epoch": 3}, "ref.pth")
+torch_convert_ckpt.main(["--src", "ref.pth", "--dst", "converted.pth"])
+pcdet = CheckpointManager("ckpt").load_params_from_file(TrainState(model2, None), "converted.pth")
+for f in ("ref.pth", "converted.pth"):  # 160 MB each
+    os.remove(f)
 # a nuScenes item (a key frame without sweeps, one radar channel in binary
 # .pcd) and a detection gather (one process: the identity)
 import pickle
@@ -151,6 +167,7 @@ print(json.dumps({
     "cli_steps": cli_state.step,
     "cli_files": sorted(os.listdir("output/production_cert_grid128/default/ckpt")) + [
         f for f in os.listdir(".") if f == "init"],
+    "pcdet_loaded": [pcdet.loaded, len(model2.state_dict())],
     "nusc": [list(nitem["points"].shape), list(nitem["radar_points"].shape), nitem["frame_id"]],
     "merged": merged,
     "dense": [bool(torch.isfinite(out5["x_conv5"]).all()
@@ -176,6 +193,7 @@ def test_port_slice_runs_without_jax():
     assert rec["int8_mode"] == "static" and rec["as_overflow2"] == 0
     assert rec["train_loss_finite"] and rec["train_updates"] == 1
     assert rec["cli_steps"] == 2 and rec["cli_files"] == ["checkpoint_epoch_1", "init"]
+    assert rec["pcdet_loaded"] == [652, 652]
     assert len(rec["chains"]) == 3 and all(rec["chains"].values()), rec["chains"]
     assert rec["wide_corner"] == 4 * 8.0
     assert rec["raw_batch_keys"] == [] and rec["raw_finite"] and rec["raw_overflow"] == 0
@@ -212,7 +230,7 @@ PORT_FILES = sorted(
                                     "tools/torch_train_pace.py", "tools/torch_ddp_check.py",
                                     "tools/torch_overfit_check.py",
                                     "tools/torch_quality_gate.py", "tools/torch_demo.py",
-                                    "tools/torch_calc_caps.py"])
+                                    "tools/torch_calc_caps.py", "tools/torch_convert_ckpt.py"])
 def test_card_scripts_import_only_torch_and_the_port(script):
     names = _imported_modules(os.path.join(REPO, script))
     roots = {n.split(".")[0] for n in names}
@@ -238,8 +256,38 @@ def test_the_walk_covers_the_nuscenes_and_parallel_modules():
                 "data/nuscenes/eval_bridge", "parallel/mesh", "parallel/multihost",
                 "utils/testing", "models/anchor_head", "models/anchor_detector",
                 "models/map_to_bev", "models/backbone_tile_sparse", "ops/tile_sparse",
-                "utils/similarity", "utils/profiler", "utils/remat"):
+                "utils/similarity", "utils/profiler", "utils/remat", "pcdet_convert"):
         assert f"radardistill_tpu_torch/{mod}.py" in PORT_FILES, mod
+
+
+def _tools_imported(path):
+    """The ``tools`` modules ``path`` imports, as ``import tools.x``, ``from
+    tools.x import ...`` or ``from tools import x``."""
+    out = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names if a.name.startswith("tools."))
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if node.module == "tools":
+                out.update(f"tools.{a.name}" for a in node.names)
+            elif node.module.startswith("tools."):
+                out.add(node.module)
+    return out
+
+
+def test_the_port_imports_no_jax_tool():
+    """No file of the port, no ``tools/torch_*.py`` and not ``chip_smoke.py``
+    imports ``tools.convert_torch_ckpt`` or any other ``tools`` module whose
+    name lacks ``torch_`` (those are the JAX package's tools)."""
+    scripts = PORT_FILES + sorted(os.path.relpath(p, REPO) for p in glob.glob(
+        os.path.join(REPO, "tools", "torch_*.py"))) + ["chip_smoke.py"]
+    assert "tools/torch_convert_ckpt.py" in scripts
+    seen = set()
+    for rel in scripts:
+        names = _tools_imported(os.path.join(REPO, rel))
+        seen |= names
+        assert not [n for n in names if not n.split(".")[1].startswith("torch_")], (rel, names)
+    assert "tools.torch_convert_ckpt" in seen and "tools.torch_train" in seen
 
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():

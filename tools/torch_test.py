@@ -203,6 +203,8 @@ def main(argv=None):
     else:
         if args.ckpt:
             state = ckpt_mgr.load_params_from_file(state, args.ckpt)
+            logger.info(f"loaded {state.loaded} of {len(model.state_dict())} model entries from "
+                        f"{args.ckpt}")
             tag = Path(args.ckpt).name
         else:
             restored = ckpt_mgr.restore(state)
