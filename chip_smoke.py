@@ -342,6 +342,21 @@ conversion; ``tools/torch_test.py --ckpt`` on ``radar_distill_val.yaml`` over
 a synthetic nuScenes tree of 2 samples (every entry loaded, K5 x 1 and K2 x 3
 a forward). ``launches_pcdet`` counts the forward and the CLI.
 
+The cost count, phase 45, after phase 44 (``phase_cost``):
+``utils/profiler.py::cost_analysis``, the port of the JAX tool's
+``--cal_params``. (a) The val eval step at 1440², bs1, float32, on
+``make_batch()``'s batch: 24 911 999 parameters and flops within 5% of XLA's
+696.868 G for the JAX step on the same batch (``tools/xla_cost_reference.py``
+on the CPU, printed beside it with its 15.774 G bytes), K5 x 1 and K2 x 3
+counted through their formulas; then ``tools/torch_test.py --cal_params`` on
+``radar_distill_val.yaml`` over a synthetic tree of 2 val samples, its log
+line printed. (b) The same step at grid 256, float32, TF32 off, counted on
+the card (K5, K2 launched) and on the CPU (their plain versions): flops equal
+within 1e-4, bytes within 1e-2, every aten op whose bytes differ named. (c)
+The bfloat16 distillation eval forward at 1440², bs2, and one distillation
+train step: the hook's per-kernel tallies equal to the dispatchers' own
+launch counts (K1 x 4, K5 x 2, K2 x 3; and K3 x 3, K4 x 3).
+
 Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
 float32 scales alike, but not every stock op around it (the VFE's sums); one
 flipped input code flips a few percent of the 9 x Co codes it reaches in the
@@ -505,7 +520,7 @@ def check_expand(torch, name, table, inv, iters=100):
     """One K5 shape: bit-equal to the plain version; (kernel, plain, library,
     bound) ms. The library call is a row ``index_select``: ``inv`` addresses
     rows of the table only (absent sites point at its zero row)."""
-    from radardistill_tpu_torch.ops.expand import expand_rows, expand_rows_plain
+    from radardistill_tpu_torch.ops.expand import expand_rows, expand_rows_plain, expand_rows_work
 
     got, want = expand_rows(table, inv), expand_rows_plain(table, inv)
     torch.cuda.synchronize()
@@ -517,7 +532,7 @@ def check_expand(torch, name, table, inv, iters=100):
     ms, plain_ms = paired_ms(torch, lambda: expand_rows(table, inv),
                              lambda: expand_rows_plain(table, inv), iters)
     lib_ms = cuda_ms(torch, lambda: torch.index_select(table, 0, idx), iters)
-    nbytes = (table.numel() + got.numel()) * table.element_size() + inv.numel() * 4
+    nbytes = expand_rows_work(table, inv)[1]
     bound = nbytes / PEAK_BYTES * 1e3
     print(f"K5 expand_rows {name} {str(table.dtype)[6:]} table {tuple(table.shape)} inv "
           f"{tuple(inv.shape)}: bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -604,7 +619,7 @@ def phase_k2(torch, dev):
 
     from radardistill_tpu_torch.ops import dcn_sample as ds_mod
     from radardistill_tpu_torch.ops.dcn import DCN_MAX_OFFSET, shapes_supported
-    from radardistill_tpu_torch.ops.dcn_sample import dcn_sample, dcn_sample_plain
+    from radardistill_tpu_torch.ops.dcn_sample import dcn_sample, dcn_sample_plain, dcn_sample_work
 
     gen = torch.Generator().manual_seed(2)
     sites = ((180, 90), (90, 45), (180, 90))  # the CMA's three downsamples at 1440²
@@ -648,12 +663,11 @@ def phase_k2(torch, dev):
                 grid = grid_of(torch, off, h, ho, R).to(dtype)
                 aside_ms = cuda_ms(torch, lambda: F.grid_sample(
                     xn, grid, mode="bilinear", padding_mode="zeros", align_corners=True), 20)
-                nbytes = ((x.numel() + got.numel()) * x.element_size()
-                          + (off.numel() + msk.numel()) * 4)
                 # per output value: four corner multiply-adds and the mask
                 # multiply, in float32 outside the tensor cores
+                ops, nbytes = dcn_sample_work(x, off, msk, 2, 1, 3, R)
                 bytes_ms = nbytes / PEAK_BYTES * 1e3
-                ops_ms = 9.0 * got.numel() / PEAK_F32_OPS * 1e3
+                ops_ms = ops / PEAK_F32_OPS * 1e3
                 print(f"K2 dcn_sample bfloat16 bs{b} at {h}²->{ho}²: wrapper {ms:.4f} ms, launch "
                       f"alone {launch_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                       f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, {nbytes / 1e6:.1f} "
@@ -698,7 +712,8 @@ def phase_k34(torch, dev):
     from radardistill_tpu_torch.ops.dcn import (DCN_MAX_OFFSET, modulated_deform_conv,
                                                 shapes_supported)
     from radardistill_tpu_torch.ops.dcn_grad import (dcn_input_grad, dcn_input_grad_plain,
-                                                     dcn_offset_grad, dcn_offset_grad_plain,
+                                                     dcn_input_grad_work, dcn_offset_grad,
+                                                     dcn_offset_grad_plain, dcn_offset_grad_work,
                                                      input_grad_route)
     from radardistill_tpu_torch.ops.dcn_sample import dcn_sample_plain
 
@@ -788,8 +803,6 @@ def phase_k34(torch, dev):
                 raise RuntimeError(f"K4: a clamped CMA site took the {route} route")
             k3["max_abs_err"] = max(k3["max_abs_err"], e_g, e_m)
             k4["max_abs_err"] = max(k4["max_abs_err"], e_x)
-            ops_ms = 2.0 * 9 * 4 * c * b * ho * ho / PEAK_F32_OPS * 1e3
-            small = (off.numel() + msk.numel()) * 4
             # the bare launches: preallocated outputs, K4's window table made
             g18_o, dm9_o, dx_o = torch.empty_like(g18), torch.empty_like(dm9), torch.empty_like(dx)
             plan = dcn_grad.tile_plan(h, h)
@@ -811,15 +824,17 @@ def phase_k34(torch, dev):
             cot = (ds.view(b, ho, ho, 9, c) * msk[..., None].to(dtype)).permute(0, 4, 1, 2, 3)
             cot = cot.reshape(b, c, ho, ho * 9).contiguous()
             bwd = torch.ops.aten.grid_sampler_2d_backward
-            for rec, name, kern, alone, plain, nbytes, aside in (
+            for rec, name, kern, alone, plain, work, aside in (
                     (k3, "K3 dcn_offset_grad", lambda: dcn_offset_grad(x, off, ds, msk, *geo),
                      k3_alone, lambda: dcn_offset_grad_plain(x, off, ds, msk, *geo),
-                     (x.numel() + ds.numel()) * 2 + small + (g18.numel() + dm9.numel()) * 4,
+                     dcn_offset_grad_work(x, off, ds, msk, *geo),
                      lambda: bwd(cot, xn, grid, 0, 0, True, [False, True])),
                     (k4, "K4 dcn_input_grad", lambda: dcn_input_grad(ds, off, msk, h, h, *geo),
                      k4_alone, lambda: dcn_input_grad_plain(ds, off, msk, h, h, *geo),
-                     (ds.numel() + dx.numel()) * 2 + small,
+                     dcn_input_grad_work(ds, off, msk, h, h, *geo),
                      lambda: bwd(cot, xn, grid, 0, 0, True, [True, False]))):
+                ops, nbytes = work
+                ops_ms = ops / PEAK_F32_OPS * 1e3
                 ms, plain_ms = paired_ms(torch, kern, plain, iters=10)
                 launch_ms = (cuda_ms(torch, alone, 20) + cuda_ms(torch, alone, 20)) / 2
                 aside_ms = cuda_ms(torch, aside, 10)
@@ -894,14 +909,25 @@ def int8_link(torch, dev, gen, b, h, w, c, co, kh, nph, zero, with_res):
         res=(codes(b, h, w, co), torch.tensor(3.0, device=dev), 127.0) if with_res else None)
 
 
-def int8_link_bound(link, mask_numel):
-    """(operations ms, bytes ms) of one int8 link."""
+def int8_link_bound(link, mask_q=None):
+    """(operations ms, bytes ms) of one int8 link: K1's formula
+    (``conv_block_work``: the multiply-adds over the real taps and the
+    epilogue), or with a per-channel ``mask_q`` K7's (``chain_conv_work``)."""
+    import torch
+
+    from radardistill_tpu_torch.ops.conv_block import conv_block_work
+    from radardistill_tpu_torch.ops.int8_conv import chain_conv_work
+
     xq, kq, res = link["xc"][0], link["kq"], link["res"]
     b, h, w, c = xq.shape
     kh, co = kq.shape[0], kq.shape[3]
-    ops = 2.0 * b * h * w * kh * kh * c * co
-    nbytes = (xq.numel() + kq.numel() + mask_numel + b * h * w * co + 8 * co * 4
-              + (res[0].numel() if res else 0))
+    ab = torch.empty((8, co), dtype=torch.float32, device="meta")
+    r = None if res is None else res[0]
+    if mask_q is None:
+        ops, nbytes = conv_block_work(xq, kq, ab, link["mask_c"], r)
+    else:
+        xp = torch.empty((b, h + kh - 1, w, c), dtype=torch.int8, device="meta")
+        ops, nbytes = chain_conv_work(xp, kq, ab, mask_q, r)
     return ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
@@ -955,7 +981,7 @@ def phase_k1(torch, dev):
         torch.cuda.synchronize()
         if not torch.equal(out, got):
             raise RuntimeError("K1: the bare launch differs from the wrapper's codes")
-        bound_ops, bound_bytes = int8_link_bound(link, link["mask_c"].numel())
+        bound_ops, bound_bytes = int8_link_bound(link)
         ms, old_ms = paired_ms(torch, lambda: run(conv_block), lambda: run(resident), iters=20)
         launch_ms = (cuda_ms(torch, alone, 20) + cuda_ms(torch, alone, 20)) / 2
         plain_ms = cuda_ms(torch, lambda: run(conv_block_plain), 2)
@@ -1009,7 +1035,7 @@ def phase_k1_deep(torch, dev):
             want, got_old = run(conv_block_plain)[0], run(old)[0]
             torch.cuda.synchronize()
             n_bad, n_old = int((got != want).sum()), int((got_old != want).sum())
-            ops_ms, bytes_ms = int8_link_bound(link, link["mask_c"].numel())
+            ops_ms, bytes_ms = int8_link_bound(link)
             # the wrapper as a caller meets it (host-bound below 720²), and its
             # device time; the wgmma links on their mma.sync variant too
             new_fn, old_fn = lambda: run(conv_block), lambda: run(old)  # noqa: E731
@@ -1106,7 +1132,7 @@ def phase_k7(torch, dev):
         ones_c, out1 = ones[..., :1].contiguous(), torch.empty_like(got)
         k1_alone = lambda: conv3x3_wgmma.launch_link(  # noqa: E731
             xq, wk, ab, ones_c, None if res is None else res[0], wsum, out1, -127)
-        ops_ms, bytes_ms = int8_link_bound(link, mq.numel())
+        ops_ms, bytes_ms = int8_link_bound(link, mq)
         ms, old_ms = paired_ms(torch, lambda: run(chain_conv), lambda: run(streamed), iters=20)
         # the wrapper costs the host more than the card: its device time too
         dev_ms = device_ms(torch, lambda: run(chain_conv), 20)
@@ -1159,7 +1185,8 @@ def phase_k6(torch, dev):
 
     from radardistill_tpu_torch.ops import conv3x3_wgmma
     from radardistill_tpu_torch.ops.conv_block import (conv_block_fp, conv_block_fp_plain,
-                                                       fp_block_conv, fp_route_of)
+                                                       conv_block_fp_work, fp_block_conv,
+                                                       fp_route_of)
 
     gen = torch.Generator().manual_seed(8)
     rec = dict.fromkeys(("max_abs_err", "ms", "launch_ms", "old_route_ms", "plain_ms",
@@ -1215,10 +1242,9 @@ def phase_k6(torch, dev):
             old2 = cuda_ms(torch, lambda: fp_block_conv(block=forced["mma_sync"], **link), 10)
             launch_ms = (cuda_ms(torch, alone, 10) + cuda_ms(torch, alone, 10)) / 2
             aside_ms = cuda_ms(torch, lambda: F.conv2d(xn, wn, None, 1, 1 if kh == 3 else 0), 10)
-            ops_ms = 2.0 * out.numel() * kh * kh * c / PEAK_BF16_OPS * 1e3
-            nbytes = (2 * (link["x"].numel() + link["kernel"].numel() + out.numel()
-                           + (out.numel() if with_res else 0))
-                      + link["mask_c"].numel() + 2 * co * 4)
+            ops, nbytes = conv_block_fp_work(link["x"], link["kernel"].to(torch.bfloat16), ab,
+                                             link["mask_c"], link["res"])
+            ops_ms = ops / PEAK_BF16_OPS * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             print(f"  x {count}: wgmma wrapper {ms:.4f} ms, launch alone {launch_ms:.4f} ms "
                   f"({ops_ms * PEAK_BF16_OPS / 1e12 / launch_ms:.0f} TFLOP/s) [mma.sync "
@@ -1273,7 +1299,7 @@ def phase_k9(torch, dev):
 
     from radardistill_tpu_torch.ops import conv3x3_wgmma
     from radardistill_tpu_torch.ops.wide_conv import (conv3x3_wide, conv3x3_wide_plain, conv_or_dx,
-                                                      wgmma_weights)
+                                                      conv_or_dx_work, wgmma_weights)
 
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(9)
@@ -1324,8 +1350,11 @@ def phase_k9(torch, dev):
         launch_ms = (cuda_ms(torch, alone, 20) + cuda_ms(torch, alone, 20)) / 2
         lib_ms = cuda_ms(torch, lambda: (F.conv2d(xn, wn, padding=1),
                                          F.conv2d(cn, wtn, padding=1)), 20)
-        ops_ms = 2 * 2.0 * b * hw * hw * 9 * c * c / PEAK_BF16_OPS * 1e3
-        bytes_ms = 2 * 2.0 * (2 * xd.numel() + kd.numel()) / PEAK_BYTES * 1e3
+        # y and dx, each on a bfloat16 operand, as the wrapper launches them
+        y_work = conv_or_dx_work(xd, kd)
+        dx_work = conv_or_dx_work(ct, kd, backward=True)
+        ops_ms = (y_work[0] + dx_work[0]) / PEAK_BF16_OPS * 1e3
+        bytes_ms = (y_work[1] + dx_work[1]) / PEAK_BYTES * 1e3
         print(f"K9 conv3x3_wide bfloat16, y and dx (TMA + wgmma mainloop): wrapper {ms:.4f} ms, "
               f"launches alone {launch_ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d "
               f"{lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, "
@@ -2729,7 +2758,7 @@ def phase_k1_s2d2(torch, dev):
         torch.cuda.synchronize()
         if not torch.equal(out, got):
             raise RuntimeError("K1 packed stage 2: the bare launch differs from the wrapper")
-        bound_ops, bound_bytes = int8_link_bound(link, link["mask_c"].numel())
+        bound_ops, bound_bytes = int8_link_bound(link)
         ms, plain_ms = paired_ms(torch, lambda: run(conv_block), lambda: run(conv_block_plain),
                                  iters=20, plain_iters=2)
         launch_ms = (cuda_ms(torch, alone, 20) + cuda_ms(torch, alone, 20)) / 2
@@ -3640,6 +3669,126 @@ def phase_pcdet_import(torch, dev, smi, work):
     return {k: fwd_launches[k] + cli_launches[k] for k in fwd_launches}
 
 
+# XLA's cost analysis of the JAX val eval step at 1440², bs1, float32, on
+# make_batch()'s batch (tools/xla_cost_reference.py, the JAX tool's count, on
+# the CPU): flops, bytes accessed, parameters
+XLA_VAL_1440 = {"flops": 696.868e9, "bytes_accessed": 15.774e9, "params": 24_911_999}
+
+
+def phase_cost(torch, dev, smi, work):
+    """Phase 45, the cost count (see the module docstring). Returns the
+    launches of (c)'s forward and train step."""
+    from radardistill_tpu_torch.data.synthetic import make_batch
+    from radardistill_tpu_torch.models import build_network
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+    from radardistill_tpu_torch.models.layers import init_random_
+    from radardistill_tpu_torch.train.train_step import make_eval_step
+    from radardistill_tpu_torch.utils.production import TRAIN_YAML
+    from radardistill_tpu_torch.utils.profiler import cost_analysis
+    from tools import torch_test
+    from tools.torch_nuscenes_tree import make_tree
+
+    t_start = time.perf_counter()
+    g = lambda x: f"{x / 1e9:.3f} G"  # noqa: E731
+
+    def model_of(cfg, info, dtype=torch.float32, device=dev):
+        return init_random_(build_network(cfg, info, compute_dtype=dtype, device=device),
+                            torch.Generator().manual_seed(45))
+
+    def count_checked(name, fn, arg, expect):
+        """Count ``fn(arg)``; the hook's tallies must equal the launches."""
+        read = reset_launches()
+        ca = cost_analysis(fn, arg)
+        torch.cuda.synchronize()
+        launches = read()
+        tallies = {k: ca["kernels"].get(k, 0) for k in launches if "." not in k}
+        check_launches(name, {k: launches[k] for k in tallies}, expect)
+        if tallies != {k: launches[k] for k in tallies}:
+            raise RuntimeError(f"{name}: the hook's tallies {ca['kernels']} are not the "
+                               f"launches {launches}")
+        split = ", ".join(f"{k} {g(v)}" for k, v in ca["split"].items())
+        print(f"cost {name}: flops {g(ca['flops'])} ({split}), bytes "
+              f"{g(ca['bytes_accessed'])}; kernels {ca['kernels']} = launches")
+        return ca, launches
+
+    # (a) the val step at 1440², float32, against the JAX tool's reading
+    cfg, info, batch = make_batch()
+    model = model_of(cfg, info)
+    n_params = sum(p.numel() for p in model.parameters())
+    val = {"expand_rows": 1, "dcn_sample": 3}
+    ca, _ = count_checked("val eval step float32 1440² bs1", make_eval_step(model),
+                    batch_to_torch(batch), val)
+    rel = ca["flops"] / XLA_VAL_1440["flops"] - 1
+    print(f"cost val 1440²: params {n_params} (JAX {XLA_VAL_1440['params']}), flops "
+          f"{ca['flops']:.0f} against XLA's {XLA_VAL_1440['flops']:.0f} ({100 * rel:+.2f}%), "
+          f"bytes {ca['bytes_accessed']:.0f} (XLA after fusion {XLA_VAL_1440['bytes_accessed']:.0f})")
+    if n_params != XLA_VAL_1440["params"] or not abs(rel) <= 0.05:
+        raise RuntimeError(f"cost val 1440²: params {n_params}, flops {100 * rel:+.2f}% off XLA")
+    ckpt = work / "val_random.pth"
+    torch.save({"model_state": {k: v.cpu() for k, v in model.state_dict().items()}}, ckpt)
+    del model
+    root = work / "nuscenes_cost"
+    _, val_infos = make_tree(root, 2, 2)
+    tag = "chip_smoke_cost"
+    read = reset_launches()
+    torch_test.main(["--cfg_file", str(ROOT / "tools/cfgs/radar_distill/radar_distill_val.yaml"),
+                     "--batch_size", "1", "--ckpt", str(ckpt), "--extra_tag", tag,
+                     "--cal_params", "--set", *tree_sets(root)])
+    torch.cuda.synchronize()
+    cli = read()
+    # the count's forward runs the kernels too: one forward more than the eval's
+    check_launches("cost val CLI", cli,
+                   {k: (len(val_infos) + 1) * v for k, v in VAL_FORWARD.items()})
+    (log,) = (Path("output") / "radar_distill_val" / tag / "eval").glob("log_eval_*.txt")
+    line = re.search(r"params: \S+M  flops/batch: \S+ G  bytes: \S+ G", log.read_text())
+    print(f"cost: tools/torch_test.py --cfg_file radar_distill_val.yaml --cal_params, "
+          f"{len(val_infos)} synthetic nuScenes samples, bs1: \"{line and line[0]}\"; "
+          f"launches {cli} (the count's forward and the eval's)")
+    if not line:
+        raise RuntimeError("cost val CLI: no --cal_params line in the log")
+
+    # (b) grid 256, float32: the card (kernels) against the CPU (plain versions)
+    cfg, info, batch = make_batch(grid=256)
+    cpu_model = model_of(cfg, info, device="cpu")
+    card_model = model_of(cfg, info)
+    card_model.load_state_dict(cpu_model.state_dict())
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        on_card, _ = count_checked("val eval step float32 grid 256 on the card",
+                             make_eval_step(card_model), batch_to_torch(batch), val)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    on_cpu = cost_analysis(make_eval_step(cpu_model), batch_to_torch(batch, "cpu"))
+    d_flops = abs(on_card["flops"] / on_cpu["flops"] - 1)
+    d_bytes = abs(on_card["bytes_accessed"] / on_cpu["bytes_accessed"] - 1)
+    differ = {k: (on_card["op_bytes"].get(k, 0), on_cpu["op_bytes"].get(k, 0))
+              for k in set(on_card["op_bytes"]) | set(on_cpu["op_bytes"])
+              if on_card["op_bytes"].get(k, 0) != on_cpu["op_bytes"].get(k, 0)}
+    print(f"cost val grid 256: card flops {on_card['flops']:.0f}, CPU {on_cpu['flops']:.0f} "
+          f"(rel {d_flops:.2e}, limit 1e-4); card bytes {on_card['bytes_accessed']:.0f}, CPU "
+          f"{on_cpu['bytes_accessed']:.0f} (rel {d_bytes:.2e}, limit 1e-2); kernels card "
+          f"{on_card['kernels']}, CPU {on_cpu['kernels']}; aten ops whose bytes differ (card, "
+          f"CPU): {differ}")
+    if not (d_flops <= 1e-4 and d_bytes <= 1e-2) or on_card["kernels"] != on_cpu["kernels"]:
+        raise RuntimeError(f"cost grid 256: card and CPU counts differ (flops {d_flops}, bytes "
+                           f"{d_bytes})")
+    del cpu_model, card_model
+
+    # (c) the distillation eval forward and train step, bfloat16, 1440², bs2
+    cfg, info, batch = make_batch(TRAIN_YAML)
+    bdev = batch_to_torch(batch)
+    model, step, _ = build_trainer(torch, TRAIN_YAML, cfg, info, torch.bfloat16, dev)
+    fwd = {"expand_rows": 2, "dcn_sample": 3, "conv_block": 4}
+    _, fwd_launches = count_checked("distillation eval forward bf16 1440² bs2",
+                              make_eval_step(model), bdev, fwd)
+    model.train()
+    _, step_launches = count_checked("distillation train step bf16 1440² bs2", step, bdev,
+                                {**fwd, "dcn_offset_grad": 3, "dcn_input_grad": 3})
+    print(f"phase 45 (the cost count): {time.perf_counter() - t_start:.1f} s on {smi}")
+    return {k: fwd_launches[k] + step_launches[k] for k in fwd_launches}
+
+
 def main() -> int:
     if not (ROOT / "radardistill_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -3825,6 +3974,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 44 (the reference-checkpoint import): {time.perf_counter() - t0:.1f} s")
 
+    # the cost count of the eval step and the train step, the kernels' formulas included
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        cost_launches = phase_cost(torch, dev, smi, Path(work))
+    torch.cuda.empty_cache()
+
     dcn_py = "radardistill_tpu/ops/pallas_dcn.py"
     block_py = "radardistill_tpu/ops/pallas_conv_block.py"
     table = [
@@ -3865,6 +4019,7 @@ def main() -> int:
                 "launches_remat": remat_launches.get(name, 0),
                 "launches_tile_sparse_forward": tile_launches[name],
                 "launches_pcdet": pcdet_launches[name],
+                "launches_cost": cost_launches[name],
                 **{f"launches_static_{r}": route_launches[k][name] for r, k in (
                     ("dense_input", "TABLE_INPUT: false"), ("linear_table", "PACKED_TABLE: false"),
                     ("s2d2", "_S2D2"))},
@@ -3884,7 +4039,8 @@ def main() -> int:
             "launches_s2d_teacher_pretrain", "launches_teacher_unfrozen",
             "launches_static_dense_input", "launches_static_linear_table",
             "launches_static_s2d2", "launches_anchor_cli", "launches_anchor_step",
-            "launches_remat", "launches_tile_sparse_forward", "launches_pcdet", "max_abs_err",
+            "launches_remat", "launches_tile_sparse_forward", "launches_pcdet",
+            "launches_cost", "max_abs_err",
             "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "aside_ms",
             "teacher_bf16_rel_l2", "alternating_ms", "alternating_library_ms",
             "k4_route", "repeats_bitwise", "r5_ms_in_turns", "r8_ms_in_turns", "old_route_ms",

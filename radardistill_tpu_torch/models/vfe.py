@@ -18,6 +18,11 @@ Counterpart of ``radardistill_tpu/models/vfe.py``:
 - ``DynamicPillarVFE``: the dense VFE with the original feature order
   ``[raw, f_cluster, f_center]`` (no ``f_relative``).
 - ``MeanVFE``: the per-pillar mean of the raw point features, no parameters.
+- ``PFNLayerV2`` and ``DynamicPillarVFESimple2D.build_point_features``: the
+  JAX package's dense-grid formulation of the PFN layer (a per-pillar max
+  over the whole (B, H, W, C) grid) and of the point features (the cluster
+  means through the grid), which no model path calls; kept, as there, to
+  hold the table formulation against.
 
 The points arrive either sorted by the host with their slots, unique pillar
 ids and cluster means (``pre``, the table VFEs only), or raw: then the device
@@ -94,6 +99,35 @@ class PFNLayerV2Sparse(nn.Module):
         return torch.cat([x, back], dim=-1), None
 
 
+class PFNLayerV2(nn.Module):
+    """Linear -> BN1d (over the valid points in train mode) -> ReLU ->
+    per-pillar max on the dense grid: ``forward(feats (B, N, Ci), ids (B, N),
+    point_mask (B, N), grid_size)`` -> ([x, the max gathered back] (B, N, C),
+    None), or for the last layer (x, bev (B, H, W, C)); empty pillars are 0,
+    the sentinel id H * W drops a point. Non-last layers halve
+    ``out_channels``; parameters ``linear`` and ``norm`` as in
+    ``PFNLayerV2Sparse``."""
+
+    def __init__(self, in_channels, out_channels, use_norm=True, last_layer=False, dtype=None):
+        super().__init__()
+        self.last_layer, self.dtype = last_layer, dtype
+        out_ch = out_channels if last_layer else out_channels // 2
+        self.linear = Dense(in_channels, out_ch, use_bias=not use_norm)
+        self.norm = MaskedBatchNorm(out_ch) if use_norm else None
+
+    def forward(self, feats, ids, point_mask, grid_size):
+        x = self.linear(feats)
+        if self.norm is not None:
+            x = self.norm(x, point_mask)
+        x = torch.where(point_mask[..., None], torch.relu(x), 0.0)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        bev = voxelize.scatter_max_bev(x, ids, grid_size)
+        if self.last_layer:
+            return x, bev
+        return torch.cat([x, voxelize.gather_from_bev(bev, ids)], dim=-1), None
+
+
 class DynamicPillarVFESimple2D(nn.Module):
     """The dense VFE: ``forward(points, point_mask)`` -> (bev (B, H, W, C),
     pillar_mask (B, H, W) bool), through a pillar table of one row per point
@@ -152,6 +186,16 @@ class DynamicPillarVFESimple2D(nn.Module):
         feats.append(xyz - pc0)
         out = torch.cat(feats, dim=-1)
         return torch.where(valid[..., None], out, 0.0)
+
+    def build_point_features(self, points, valid, ids):
+        """The point features of :meth:`_assemble_features` with each
+        cluster mean taken through the dense grid (a scatter-sum, a count and
+        a gather back, ``voxelize.pillar_mean_per_point``): the JAX package's
+        dense-grid formulation, which no model path calls. points (B, N, F),
+        valid (B, N), ids (B, N) -> (B, N, Ci)."""
+        mean = (voxelize.pillar_mean_per_point(points[..., 0:3], ids, self.grid_size)
+                if self.use_cluster_xyz else None)
+        return self._assemble_features(points, valid, ids, mean)
 
     def _slot_mean(self, xyz, valid, slot, capacity):
         """Cluster mean of each point's pillar: a float32 ``index_add_`` of

@@ -19,6 +19,12 @@ densifies (``densify_packed_batch`` for a linear-order table,
 ``densify_packed_direct_batch`` for a packed-order one) have the same kind of
 backward, a row gather of the cotangent at each table row's packed address,
 so a teacher outside ``FREEZE_PIPELINE`` trains through them.
+
+The JAX package's unbatched forms (``conv_neighbor_table``, ``gather_taps``,
+``invert_taps``, ``gather_taps_inv``, ``conv3x3_as``, ``densify``,
+``densify_packed``, ``sparsify``: one sample, no leading axis) are here too,
+as the batched functions at B = 1 with the same backward passes; no model
+path calls them.
 """
 
 from __future__ import annotations
@@ -323,3 +329,77 @@ def densify_packed_direct_batch(feats: torch.Tensor, uids: torch.Tensor, hw: Tup
     inv = inv.view(b, h * w)
     dense = _DensifyPackedRows.apply(feats, uids, _batch_rows(inv, cap), (h, w))
     return dense.reshape(b, h // 2, w // 2, 4 * c), (inv < cap).reshape(b, h // 2, w // 2, 4)
+
+
+# ------------------------------------------------- one sample, no batch axis
+
+
+def conv_neighbor_table(out_uids: torch.Tensor, in_grid: torch.Tensor, in_hw: Tuple[int, int],
+                        out_w: int, stride: int, cap_in: int):
+    """:func:`conv_neighbor_table_b` of one sample: out_uids (cap_out,),
+    in_grid (H_in*W_in,) -> nb, msk (9, cap_out)."""
+    nb, msk = conv_neighbor_table_b(out_uids[None], in_grid[None], in_hw, out_w, stride, cap_in)
+    return nb[0], msk[0]
+
+
+def gather_taps(feats: torch.Tensor, nb: torch.Tensor, msk: torch.Tensor) -> torch.Tensor:
+    """feats (cap_in, C), nb/msk (9, cap_out) -> (9, cap_out, C), missing
+    neighbours zero; autograd's backward (a scatter-add of the cotangent)."""
+    return _flat_tap_gather(feats[None], nb[None])[0] * msk[..., None].to(feats.dtype)
+
+
+def invert_taps(nb: torch.Tensor, msk: torch.Tensor, cap_in: int):
+    """:func:`invert_taps_b` of one sample: nb/msk (9, cap_out) -> inv, imsk
+    (9, cap_in)."""
+    inv, imsk = invert_taps_b(nb[None], msk[None], cap_in)
+    return inv[0], imsk[0]
+
+
+def gather_taps_inv(feats, nb, msk, inv, imsk) -> torch.Tensor:
+    """:func:`gather_taps` whose backward gathers the cotangent through the
+    inverse maps (:func:`gather_taps_inv_b` of one sample)."""
+    return gather_taps_inv_b(feats[None], nb[None], msk[None], inv[None], imsk[None])[0]
+
+
+def conv3x3_as(feats: torch.Tensor, nb: torch.Tensor, msk: torch.Tensor, kernel: torch.Tensor,
+               bias=None, out_dtype=None, inv=None, imsk=None) -> torch.Tensor:
+    """3x3 conv on the active sites of one sample: feats (cap_in, Ci), taps
+    (9, cap_out), kernel HWIO (3, 3, Ci, Co) -> (cap_out, Co) in ``out_dtype``
+    (feats' by default), the product and the bias in float32. With
+    ``inv``/``imsk`` the feature gradient is the gather of
+    :func:`gather_taps_inv`, else autograd's scatter-add."""
+    g = gather_taps_inv(feats, nb, msk, inv, imsk) if inv is not None else gather_taps(
+        feats, nb, msk)
+    k, n, ci = g.shape
+    y = torch.matmul(g.permute(1, 0, 2).reshape(n, k * ci).float(),
+                     kernel.reshape(k * ci, -1).float())
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype or feats.dtype)
+
+
+def densify(feats: torch.Tensor, uids: torch.Tensor, hw: Tuple[int, int]):
+    """One table (cap, C) -> (H, W, C) dense + (H, W) mask
+    (:func:`densify_batch` of one sample, its row-gather backward)."""
+    dense, mask = densify_batch(feats[None], uids[None], hw)
+    return dense[0], mask[0]
+
+
+def densify_packed(feats: torch.Tensor, uids: torch.Tensor, hw: Tuple[int, int]):
+    """One linear-order table (cap, C) -> (H/2, W/2, 4*C) packed dense + (H, W)
+    mask (:func:`densify_packed_batch` of one sample)."""
+    dense, mask = densify_packed_batch(feats[None], uids[None], hw)
+    return dense[0], mask[0]
+
+
+def sparsify(bev: torch.Tensor, mask: torch.Tensor, cap: int):
+    """Dense (H, W, C) + (H, W) mask -> (feats (cap, C), uids (cap,), count):
+    the active sites in id order, beyond ``cap`` the largest dropped; count
+    is the active sites before capping."""
+    h, w, c = bev.shape
+    ids = torch.where(mask.reshape(-1), torch.arange(h * w, dtype=torch.int32,
+                                                     device=bev.device), h * w)
+    uids, _, count = compact_unique(ids[None], cap, h * w)
+    uids = uids[0]
+    feats = bev.reshape(h * w, c)[uids.long().clamp(0, h * w - 1)]
+    return feats * (uids < h * w)[:, None].to(feats.dtype), uids, count[0]

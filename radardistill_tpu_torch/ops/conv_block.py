@@ -79,6 +79,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiler
 from . import conv3x3_wgmma, cuda_lib
 
 OUT_CODES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -238,6 +239,41 @@ def streamed_co(co: int) -> bool:
     return co in (16, 32, 64) or (co > 0 and co % 128 == 0)
 
 
+def link_taps(h: int, w: int, kh: int) -> int:
+    """(output pixel, tap) pairs of a link's window over an h x w image that
+    read a real input cell (3x3 padded (1, 1), 2x2 padded (1, 0)): the taps
+    XLA's convolution count takes, padding taps left out."""
+    return profiler.real_taps(h, h, kh, 1, 1) * profiler.real_taps(w, w, kh, 1, 1)
+
+
+def link_epilogue_flops(pixels: int, co: int, nph: int, res: bool, out_dtype) -> int:
+    """Operations of an int8 link's epilogue, one an elementwise op of the
+    plain version: per output ``acc * alpha + beta`` with its conversion (3),
+    the residual's conversion, affine and add (4), the relu and the mask's
+    multiply (2), and the requantization (5: scale, round, shift, clip, cast)
+    or the cast of a bfloat16 output (1); per pixel the mask's ``nph``
+    conversions."""
+    per = 5 + (4 if res else 0) + (5 if out_dtype == torch.int8
+                                   else int(out_dtype != torch.float32))
+    return pixels * (co * per + nph)
+
+
+def conv_block_work(xq, kq, ab, mask_c, res=None, zpad: int = 0, out_dtype=torch.int8,
+                    variant: Optional[str] = None):
+    """(operations, bytes) of one K1 call, the figures of PERF.md's bound of
+    K1: the int8 multiply-adds over the real taps (2 operations each) and
+    the epilogue (:func:`link_epilogue_flops`); x, kernel, mask, constants and
+    residual read once, the output written once."""
+    b, h, w, c = xq.shape
+    kh, co, nph = kq.shape[0], kq.shape[3], mask_c.shape[-1]
+    ops = (2 * b * c * co * link_taps(h, w, kh)
+           + link_epilogue_flops(b * h * w, co, nph, res is not None, out_dtype))
+    nbytes = (xq.numel() + kq.numel() + mask_c.numel() + b * h * w * co * out_dtype.itemsize
+              + ab.numel() * ab.element_size() + (0 if res is None else res.numel()))
+    return ops, nbytes
+
+
+@profiler.counted("conv_block", conv_block_work)
 def conv_block(xq, kq, ab, mask_c, res=None, zpad: int = 0, out_dtype=torch.int8,
                variant: Optional[str] = None):
     """x (B, H, W, C) int8, kernel (kh, kh, C, Co) int8 in its natural HWIO
@@ -433,6 +469,31 @@ def fp_route_of(c: int, co: int, nph: int, dtype, identity: bool = False) -> str
     return "wgmma" if fp_wgmma_takes(c, co, nph, dtype, identity) else "mma_sync"
 
 
+def conv_block_fp_work(x, k, ab=None, mask_c=None, res=None, identity=False,
+                       variant: Optional[str] = None):
+    """(operations, bytes) of one K6 call, the figures of PERF.md's bound of
+    K6: the multiply-adds over the real taps (2 operations each) and the
+    epilogue, one an elementwise op of the plain version (per output the
+    affine 2, the residual's conversion and add 2, the relu and the mask's
+    multiply 2, the cast to bfloat16 1; per pixel the mask's ``nph``
+    conversions; the bare convolution only its cast); x, kernel, mask,
+    constants and residual read once, the output written once."""
+    b, h, w, c = x.shape
+    kh, co = k.shape[0], k.shape[3]
+    cast = int(x.dtype != torch.float32)
+    if identity:
+        epilogue = b * h * w * co * cast
+    else:
+        per = 4 + (2 if res is not None else 0) + cast
+        epilogue = b * h * w * (co * per + mask_c.shape[-1])
+    nbytes = (x.numel() + k.numel() + b * h * w * co
+              + (0 if res is None else res.numel())) * x.element_size()
+    if not identity:
+        nbytes += mask_c.numel() * mask_c.element_size() + ab.numel() * ab.element_size()
+    return 2 * b * c * co * link_taps(h, w, kh) + epilogue, nbytes
+
+
+@profiler.counted("conv_block_fp", conv_block_fp_work)
 def conv_block_fp(x, k, ab=None, mask_c=None, res=None, identity=False,
                   variant: Optional[str] = None):
     """x (B, H, W, C) bfloat16 or float32, kernel (kh, kh, C, Co) in x's dtype

@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import profiler
 from . import cuda_lib
 from .dcn_sample import DTYPE_CODES, corner_terms
 
@@ -107,6 +108,24 @@ def dcn_offset_grad_plain(x: torch.Tensor, offset: torch.Tensor, dsampled: torch
     return g18, gm
 
 
+def _small_bytes(offset, mask):
+    return offset.numel() * offset.element_size() + mask.numel() * mask.element_size()
+
+
+def dcn_offset_grad_work(x, offset, dsampled, mask, stride=2, padding=1, kernel_size=3,
+                         max_offset=None):
+    """(flops, bytes) of one K3 call (PERF.md's bound of K3): per output site,
+    tap, corner and channel a multiply-add (2 x K² x 4 x C float32 operations a
+    site); x, dsampled, offset and mask read once, g18 and dm9 written once."""
+    b, ho, wo = offset.shape[:3]
+    kk, c = kernel_size * kernel_size, x.shape[3]
+    sites = b * ho * wo
+    return (2 * kk * 4 * c * sites,
+            (x.numel() + dsampled.numel()) * x.element_size() + _small_bytes(offset, mask)
+            + sites * 3 * kk * 4)
+
+
+@profiler.counted("dcn_offset_grad", dcn_offset_grad_work)
 def dcn_offset_grad(x: torch.Tensor, offset: torch.Tensor, dsampled: torch.Tensor,
                     mask: torch.Tensor, stride: int = 2, padding: int = 1,
                     kernel_size: int = 3, max_offset: Optional[float] = None
@@ -275,6 +294,18 @@ def launch_tile(dsampled: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor
     cuda_lib.check(rc, "dcn_input_grad (tile)")
 
 
+def dcn_input_grad_work(dsampled, offset, mask, H, W, stride=2, padding=1, kernel_size=3,
+                        max_offset=None):
+    """(flops, bytes) of one K4 call (PERF.md's bound of K4): K3's operations;
+    dsampled, offset and mask read once, dx written once."""
+    b, ho, wo, kkc = dsampled.shape
+    c = kkc // (kernel_size * kernel_size)
+    return (2 * kkc * 4 * b * ho * wo,
+            (dsampled.numel() + b * H * W * c) * dsampled.element_size()
+            + _small_bytes(offset, mask))
+
+
+@profiler.counted("dcn_input_grad", dcn_input_grad_work)
 def dcn_input_grad(dsampled: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                    H: int, W: int, stride: int = 2, padding: int = 1, kernel_size: int = 3,
                    max_offset: Optional[float] = None) -> torch.Tensor:

@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import profiler
 from . import cuda_lib
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -112,6 +113,19 @@ def launch(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor, out: torch
     cuda_lib.check(rc, "dcn_sample")
 
 
+def dcn_sample_work(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                    stride: int = 2, padding: int = 1, kernel_size: int = 3,
+                    max_offset: Optional[float] = None):
+    """(flops, bytes) of one K2 call (PERF.md's bound of K2): per sampled
+    value four corner multiply-adds and the mask's multiply, 9 float32
+    operations; x, offset and mask read once, the samples written once."""
+    b, ho, wo = offset.shape[:3]
+    out = b * ho * wo * kernel_size * kernel_size * x.shape[3]
+    return 9 * out, ((x.numel() + out) * x.element_size() + offset.numel() * offset.element_size()
+                     + mask.numel() * mask.element_size())
+
+
+@profiler.counted("dcn_sample", dcn_sample_work)
 def dcn_sample(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                stride: int = 2, padding: int = 1, kernel_size: int = 3,
                max_offset: Optional[float] = None) -> torch.Tensor:

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiler
 from . import cuda_lib
 
 DTYPES = (torch.float32, torch.bfloat16, torch.int8)
@@ -38,6 +39,14 @@ def expand_rows_plain(table: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[:, None], rows, torch.zeros((), dtype=table.dtype, device=table.device))
 
 
+def expand_rows_work(table: torch.Tensor, inv: torch.Tensor):
+    """(flops, bytes) of one K5 call: a copy, no arithmetic; inv read, the
+    table read once, the rows written (PERF.md's bound of K5)."""
+    rows = inv.shape[0] * table.shape[1] * table.element_size()
+    return 0, table.numel() * table.element_size() + inv.numel() * inv.element_size() + rows
+
+
+@profiler.counted("expand_rows", expand_rows_work)
 def expand_rows(table: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     """table (R, C) float32, bfloat16 or int8, rows a multiple of 16 bytes
     (C % 4 == 0 in float32, C % 8 == 0 in bfloat16, C % 16 == 0 in int8); inv
@@ -117,6 +126,17 @@ def gather_rows_windowed_plain(table: torch.Tensor, idx: torch.Tensor, n_win: in
     return rows, window_overflow(idx, r, n_win)
 
 
+def gather_rows_windowed_work(table: torch.Tensor, idx: torch.Tensor, n_win: int):
+    """(flops, bytes) of one K8 call: a copy, no arithmetic; idx read once,
+    each distinct row it copies read once (runs of entries repeat one row),
+    every output row written once (PERF.md's bound of K8). The distinct rows
+    are this call's: counting them reads idx back."""
+    row = table.shape[1] * table.element_size()
+    rows_read = torch.unique(idx[in_window(idx, table.shape[0], n_win)]).numel()
+    return 0, idx.numel() * idx.element_size() + rows_read * row + idx.numel() * row
+
+
+@profiler.counted("gather_rows_windowed", gather_rows_windowed_work)
 def gather_rows_windowed(table: torch.Tensor, idx: torch.Tensor, n_win: int):
     """table (R, C) float32, bfloat16 or int8 with rows a multiple of 16
     bytes; idx (M,) int32, M a multiple of 512 -> (rows (M, C), overflow () int32).

@@ -54,10 +54,7 @@ def bound_bytes(case) -> int:
     """What the gather must move: idx read once, each distinct row it copies
     read once (the tap tables fill their holes forward, so runs of entries
     repeat one row), every output row written once."""
-    table, idx = case["table"], case["idx"]
-    row = table.shape[1] * table.element_size()
-    rows_read = torch.unique(idx[expand.in_window(idx, table.shape[0], case["n_win"])]).numel()
-    return idx.numel() * 4 + rows_read * row + idx.numel() * row
+    return expand.gather_rows_windowed_work(case["table"], case["idx"], case["n_win"])[1]
 
 
 def check_case(case):

@@ -1,9 +1,9 @@
-"""Box geometry: rotated BEV overlap and IoU (decode), aligned 3D IoU, the
-axis-aligned DIoU and the gaussian radius (losses and targets).
+"""Box geometry: rotated BEV overlap and IoU (decode), 3D IoU (the matrix
+and the aligned one), corners and point membership, the axis-aligned DIoU
+and GIoU and the gaussian radius (losses and targets).
 
-Counterpart of ``radardistill_tpu/ops/geometry.py`` (``boxes_iou_bev``,
-``boxes_aligned_iou3d``, ``bbox3d_overlaps_diou``, ``center_to_corner2d``,
-``gaussian_radius`` and what they need). Boxes are ``[x, y, z, dx, dy, dz, heading, ...]``. The
+Counterpart of ``radardistill_tpu/ops/geometry.py``, every public function
+of it. Boxes are ``[x, y, z, dx, dy, dz, heading, ...]``. The
 intersection clips one box by the other's four half-planes on a fixed
 8-vertex ring (Sutherland-Hodgman), branch-free over any batch shape.
 """
@@ -27,6 +27,32 @@ def boxes_to_corners_bev(boxes: torch.Tensor) -> torch.Tensor:
     cx = lx * cos_a[..., None] - ly * sin_a[..., None] + x[..., None]
     cy = lx * sin_a[..., None] + ly * cos_a[..., None] + y[..., None]
     return torch.stack([cx, cy], dim=-1)
+
+
+def boxes_to_corners_3d(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 7) boxes -> (..., 8, 3) 3D corners, the bottom four then the top
+    four, each in the BEV corners' order."""
+    bev = boxes_to_corners_bev(boxes)
+    z, dz = boxes[..., 2], boxes[..., 5]
+    shape = bev[..., :1].shape
+    bot = torch.cat([bev, (z - dz / 2)[..., None, None].expand(shape)], dim=-1)
+    top = torch.cat([bev, (z + dz / 2)[..., None, None].expand(shape)], dim=-1)
+    return torch.cat([bot, top], dim=-2)
+
+
+def points_in_boxes(points_xyz: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """(N, 3) points x (M, 7) boxes -> (N, M) bool: each point turned into
+    each box's frame and tested against its half sizes, strictly inside (the
+    reference's ``points_in_boxes_gpu``; ``data/box_np.py`` keeps the host
+    form)."""
+    shift = points_xyz[:, None, :] - boxes[None, :, :3]
+    cos_a, sin_a = torch.cos(-boxes[:, 6]), torch.sin(-boxes[:, 6])
+    local_x = shift[..., 0] * cos_a - shift[..., 1] * sin_a
+    local_y = shift[..., 0] * sin_a + shift[..., 1] * cos_a
+    in_x = torch.abs(local_x) < boxes[None, :, 3] / 2
+    in_y = torch.abs(local_y) < boxes[None, :, 4] / 2
+    in_z = torch.abs(shift[..., 2]) < boxes[None, :, 5] / 2
+    return in_x & in_y & in_z
 
 
 def _polygon_area(verts: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
@@ -103,6 +129,24 @@ def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(area_a + area_b - inter, min=1e-6)
 
 
+def _height_overlap(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """(N, 7) x (M, 7) -> (N, M) overlap of the boxes' z extents, at least 0."""
+    a_max = (boxes_a[:, 2] + boxes_a[:, 5] / 2)[:, None]
+    a_min = (boxes_a[:, 2] - boxes_a[:, 5] / 2)[:, None]
+    b_max = (boxes_b[:, 2] + boxes_b[:, 5] / 2)[None, :]
+    b_min = (boxes_b[:, 2] - boxes_b[:, 5] / 2)[None, :]
+    return torch.clamp(torch.minimum(a_max, b_max) - torch.maximum(a_min, b_min), min=0)
+
+
+def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Rotated 3D IoU matrix (N, M): the BEV overlap times the height overlap
+    over the union of the volumes."""
+    overlaps_3d = boxes_overlap_bev(boxes_a, boxes_b) * _height_overlap(boxes_a, boxes_b)
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return overlaps_3d / torch.clamp(vol_a + vol_b - overlaps_3d, min=1e-6)
+
+
 def boxes_overlap_bev_aligned(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     """(N, 7) x (N, 7) -> (N,) pairwise rotated BEV intersection areas."""
     return _intersection_area_batched(boxes_to_corners_bev(boxes_a), boxes_to_corners_bev(boxes_b))
@@ -154,6 +198,31 @@ def bbox3d_overlaps_diou(pred_boxes: torch.Tensor, gt_boxes: torch.Tensor) -> to
     dious = (vol_inter / torch.clamp(vol_union, min=1e-6)
              - inter_diag / torch.clamp(outer_diag, min=1e-6))
     return torch.clamp(dious, -1.0, 1.0)
+
+
+def bbox3d_overlaps_giou(pred_boxes: torch.Tensor, gt_boxes: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned-in-BEV GIoU, (N, 7) x (N, 7) -> (N,); differentiable."""
+    qc = center_to_corner2d(pred_boxes[:, :2], pred_boxes[:, 3:5])
+    gc = center_to_corner2d(gt_boxes[:, :2], gt_boxes[:, 3:5])
+    inter_max = torch.minimum(qc[:, 2], gc[:, 2])
+    inter_min = torch.maximum(qc[:, 0], gc[:, 0])
+    out_max = torch.maximum(qc[:, 2], gc[:, 2])
+    out_min = torch.minimum(qc[:, 0], gc[:, 0])
+
+    p_lo, p_hi = pred_boxes[:, 2] - 0.5 * pred_boxes[:, 5], pred_boxes[:, 2] + 0.5 * pred_boxes[:, 5]
+    g_lo, g_hi = gt_boxes[:, 2] - 0.5 * gt_boxes[:, 5], gt_boxes[:, 2] + 0.5 * gt_boxes[:, 5]
+    vol_p = pred_boxes[:, 3] * pred_boxes[:, 4] * pred_boxes[:, 5]
+    vol_g = gt_boxes[:, 3] * gt_boxes[:, 4] * gt_boxes[:, 5]
+    inter_h = torch.clamp(torch.minimum(g_hi, p_hi) - torch.maximum(g_lo, p_lo), min=0)
+    inter = torch.clamp(inter_max - inter_min, min=0)
+    vol_inter = inter[:, 0] * inter[:, 1] * inter_h
+    vol_union = vol_g + vol_p - vol_inter
+    outer_h = torch.clamp(torch.maximum(g_hi, p_hi) - torch.minimum(g_lo, p_lo), min=0)
+    outer = torch.clamp(out_max - out_min, min=0)
+    closure = outer[:, 0] * outer[:, 1] * outer_h
+    gious = (vol_inter / torch.clamp(vol_union, min=1e-6)
+             - (closure - vol_union) / torch.clamp(closure, min=1e-6))
+    return torch.clamp(gious, -1.0, 1.0)
 
 
 def gaussian_radius(height: torch.Tensor, width: torch.Tensor, min_overlap: float = 0.5):

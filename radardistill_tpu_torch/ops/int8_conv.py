@@ -45,8 +45,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiler
 from . import conv3x3_wgmma, cuda_lib
-from .conv_block import _check_on_card, int_conv_exact, link_constants, streamed_co, tap_sums
+from .conv_block import (_check_on_card, int_conv_exact, link_constants, link_epilogue_flops,
+                         link_taps, streamed_co, tap_sums)
 
 ROUTES = ("wgmma", "streamed")
 
@@ -94,6 +96,23 @@ def chain_route_of(kh: int, c: int, co: int) -> str:
     return "wgmma" if conv3x3_wgmma.takes(c, co, int8=True) else "streamed"
 
 
+def chain_conv_work(xp, kq, ab, mask_q, res=None, zpad: int = 0, variant=None):
+    """(operations, bytes) of one K7 call, K1's formula on the link's own
+    H x W (the ``zpad`` rows of xp are padding, which the kernel never reads):
+    the int8 multiply-adds over the real taps and the epilogue with a mask
+    per output channel; x's interior, kernel, mask, constants and residual
+    read once, the output written once."""
+    kh, _, c, co = kq.shape
+    b, hp, w, _ = xp.shape
+    h = hp - (kh - 1)
+    ops = (2 * b * c * co * link_taps(h, w, kh)
+           + link_epilogue_flops(b * h * w, co, co, res is not None, torch.int8))
+    nbytes = (b * h * w * c + kq.numel() + mask_q.numel() + b * h * w * co
+              + ab.numel() * ab.element_size() + (0 if res is None else res.numel()))
+    return ops, nbytes
+
+
+@profiler.counted("chain_conv", chain_conv_work)
 def chain_conv(xp, kq, ab, mask_q, res=None, zpad: int = 0, variant=None):
     """xp (B, H + kh - 1, W, C) int8, padded in H with (1, kh - 2) rows of
     ``zpad``; kernel (kh, kh, C, Co) int8 HWIO; ab (8, Co) float32 (rows:

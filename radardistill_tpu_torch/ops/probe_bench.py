@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from . import conv3x3_wgmma
-from .probes import ROUTES, conv_probe, conv_probe_plain, mma_rate, mma_rate_plain
+from .probes import (ROUTES, conv_probe, conv_probe_plain, conv_probe_work, mma_rate,
+                     mma_rate_plain, mma_rate_work)
 
 PEAK_BYTES = 3.35e12
 # operations/s of the tensor cores, dense
@@ -112,7 +113,7 @@ def mma_rate_table(dev, target_ops=1.5e12):
         a, b = _rate_operands(shape, dtype, dev, gen)
         want = mma_rate_plain(a, b, reps)
         plain_ms = cuda_ms(lambda: mma_rate_plain(a, b, reps), 2)
-        ops1 = 2.0 * m * k * n * reps
+        ops1, nbytes = mma_rate_work(a, b, reps)
         grid_reps = int(min(max(round(target_ops / ops1), 1), 4096))
         lib_ms, lib_what = _library_matmul_ms(a, b, min(reps * grid_reps, 128))
         lib_rate = None if lib_ms is None else 2.0 * m * k * n / lib_ms / 1e9
@@ -123,7 +124,6 @@ def mma_rate_table(dev, target_ops=1.5e12):
             ms = cuda_ms(lambda: mma_rate(a, b, reps, route, grid_reps), 3)
             rate = ops1 * grid_reps / ms / 1e9  # T operations / s
             share = rate * 1e12 / PEAK_OPS[tname]
-            nbytes = (a.numel() + b.numel()) * a.element_size() + got.numel() * got.element_size()
             rec = {"shape": shape, "type": tname, "route": route, "max_abs_err": err,
                    "ms": ms / grid_reps, "plain_ms": plain_ms, "tops": rate, "share_of_peak": share,
                    "library_ms": None if lib_ms is None else lib_ms * reps,
@@ -192,13 +192,13 @@ def conv_probe_table(dev, iters=5):
     recs = []
     for shape in CONV_SHAPES:
         b, h, w, c, co = shape
-        ops = 2.0 * b * h * w * 9 * c * co
         operands = {False: _conv_operands(shape, False, dev, gen),
                     True: _conv_operands(shape, True, dev, gen)}
         for mode in ("dots", "conv", "int8"):
             xp, k, a = operands[mode == "int8"]
             tname = "int8" if mode == "int8" else "bfloat16"
             args = (xp, k, mode, a) if mode == "int8" else (xp, k, mode)
+            ops, nbytes = conv_probe_work(*args)
             want = conv_probe_plain(*args)
             plain_ms = cuda_ms(lambda: conv_probe_plain(*args), 1)
             lib_ms = None
@@ -214,7 +214,6 @@ def conv_probe_table(dev, iters=5):
                 launch_ms = (_launch_alone_ms(xp, k, mode, a, got, iters) if route == "wgmma"
                              else None)
                 rate = ops / ms / 1e9
-                nbytes = (xp.numel() + k.numel() + got.numel()) * xp.element_size()
                 rec = {"shape": shape, "mode": mode, "route": route, "type": tname,
                        "max_abs_err": err, "ms": ms, "launch_ms": launch_ms,
                        "plain_ms": plain_ms, "library_ms": lib_ms, "tops": rate,

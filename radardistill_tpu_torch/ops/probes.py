@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiler
 from . import conv3x3_wgmma, cuda_lib
 from .conv_block import _check_on_card, _full_float32_matmul
 
@@ -84,6 +85,16 @@ def mma_rate_plain(a: torch.Tensor, b: torch.Tensor, reps: int = 8) -> torch.Ten
     return acc.to(_rate_out_dtype(a.dtype))
 
 
+def mma_rate_work(a, b, reps=8, route="mma_sync", grid_reps=1):
+    """(operations, bytes) of one P2 call (PERF.md's bound of P2): ``reps``
+    products of (M, K) x (K, N) for each of ``grid_reps`` passes; a and b
+    read once, the sum written once."""
+    (m, k), n = a.shape, b.shape[1]
+    return (2 * m * k * n * reps * grid_reps,
+            (a.numel() + b.numel()) * a.element_size() + m * n * _rate_out_dtype(a.dtype).itemsize)
+
+
+@profiler.counted("mma_rate", mma_rate_work)
 def mma_rate(a: torch.Tensor, b: torch.Tensor, reps: int = 8, route: str = "mma_sync",
              grid_reps: int = 1) -> torch.Tensor:
     """a (M, K), b (K, N), both bfloat16, int8 or float32 -> (M, N) in a's
@@ -169,6 +180,17 @@ def conv_probe_plain(xp, k, mode, a=None, relu=None):
     return torch.clamp(torch.round(y * 0.37) - 127.0, -127.0, 127.0).to(torch.int8)
 
 
+def conv_probe_work(xp, k, mode, a=None, relu=None, route="mma_sync"):
+    """(operations, bytes) of one P1 call (PERF.md's bound of P1): nine
+    products of C x Co multiply-adds an output pixel; xp, the taps and the
+    output each moved once in xp's dtype."""
+    b, hp, w, c = xp.shape
+    co = k.shape[-1]
+    return (2 * b * (hp - 2) * w * 9 * c * co,
+            (xp.numel() + k.numel() + b * (hp - 2) * w * co) * xp.element_size())
+
+
+@profiler.counted("conv_probe", conv_probe_work)
 def conv_probe(xp, k, mode, a=None, relu=None, route="mma_sync"):
     """xp (B, H + 2, W, C), the activation with one zero row above and one
     below; k (3, 3, C, Co) or (9, C, Co), the nine taps -> (B, H, W, Co).

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiler
 from . import conv3x3_wgmma
 from .conv_block import _check_on_card, _full_float32_matmul, conv_block_fp, conv_block_fp_plain
 
@@ -49,6 +50,17 @@ def wgmma_weights(kernel, backward=False):
     return kt.view(9, co, c)
 
 
+def conv_or_dx_work(x, kernel, backward=False):
+    """(operations, bytes) of one K9 call (PERF.md's bound of K9): 9 x C x
+    Co multiply-adds an output pixel, padding taps included; x, the kernel
+    and the output each moved once in x's dtype."""
+    b, h, w, c = x.shape
+    co = kernel.shape[2] if backward else kernel.shape[3]
+    return (2 * b * h * w * 9 * c * co,
+            (x.numel() + kernel.numel() + b * h * w * co) * x.element_size())
+
+
+@profiler.counted("conv3x3_wide", conv_or_dx_work)
 def conv_or_dx(x, kernel, backward=False):
     """y (or, with ``backward``, dx = the conv of dy = x with the flipped,
     transposed kernel) on the card or, for a CPU tensor, the plain version:

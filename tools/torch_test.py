@@ -6,8 +6,11 @@ Counterpart of ``tools/test.py`` (reference tools/test.py: single-ckpt eval
 result record; --infer_time latency meter), with the same arguments;
 ``--device`` (default ``cuda``, the card) takes the place of ``--platform``.
 It prints recall, the inference p50 with ``--infer_time`` and
-``dataset.evaluation``'s result. ``--cal_params`` (XLA's cost analysis) has
-no counterpart here and raises. ``--bev_similarity KEY[,KEY]`` (with
+``dataset.evaluation``'s result. ``--cal_params`` first logs the model's
+parameter count and the flops and bytes of the eval step on the loader's
+first batch, as the JAX tool logs XLA's cost analysis
+(``utils/profiler.py::cost_analysis``, which counts the port's aten ops and
+hand-written kernels by XLA's rules). ``--bev_similarity KEY[,KEY]`` (with
 ``--sim_pooling``) accumulates class x class similarities of those output
 features over the pass (``utils/similarity.py``) and writes their CSVs under
 ``similarity/``. Under ``torchrun --nproc_per_node=N`` each rank evaluates its
@@ -37,7 +40,7 @@ def parse_config(argv=None):
     parser.add_argument("--max_waiting_mins", type=float, default=30)
     parser.add_argument("--infer_time", action="store_true")
     parser.add_argument("--cal_params", action="store_true",
-                        help="not ported (the JAX tool reads XLA's cost analysis)")
+                        help="log the parameters and the eval step's flops and bytes")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (cpu for small runs without a card)")
     parser.add_argument("--bev_similarity", type=str, default=None,
@@ -100,8 +103,6 @@ def eval_ckpt(args, cfg, state, test_set, test_loader, logger, output_dir, epoch
     rank gathered, written to ``eval_{epoch_tag}/result.pkl``, then
     ``test_set.evaluation`` (rank 0 writes and evaluates; every rank returns
     rank 0's dict). Returns the evaluation's dict."""
-    if args.cal_params:
-        raise NotImplementedError("--cal_params (XLA's cost analysis) is not ported")
     from radardistill_tpu_torch.models.detector import batch_to_torch
     from radardistill_tpu_torch.parallel.multihost import (all_gather_object,
                                                            gather_detections, process_index)
@@ -109,6 +110,14 @@ def eval_ckpt(args, cfg, state, test_set, test_loader, logger, output_dir, epoch
     from radardistill_tpu_torch.train.train_step import make_eval_step
 
     device = next(state.model.parameters()).device
+    if args.cal_params:
+        from radardistill_tpu_torch.utils.profiler import cost_analysis
+
+        b0, _ = next(iter(test_loader))
+        ca = cost_analysis(make_eval_step(state.model), batch_to_torch(b0, device))
+        n_params = sum(p.numel() for p in state.model.parameters())
+        logger.info(f"params: {n_params/1e6:.2f}M  flops/batch: {ca['flops']/1e9:.1f} G  "
+                    f"bytes: {ca['bytes_accessed']/1e9:.2f} G")
 
     def loader_iter():
         for batch, host in test_loader:
