@@ -357,6 +357,27 @@ The bfloat16 distillation eval forward at 1440², bs2, and one distillation
 train step: the hook's per-kernel tallies equal to the dispatchers' own
 launch counts (K1 x 4, K5 x 2, K2 x 3; and K3 x 3, K4 x 3).
 
+The restore of the JAX package's checkpoints, phase 46, after phase 45
+(``phase_jax_ckpt``), on the committed fixture ``tests/fixtures/jax_run`` (two
+epochs of ``radar_distill_train.yaml``'s full-width ``TrainState``, written
+by the JAX package's ``CheckpointManager``; ``tools/make_jax_ckpt_fixture.py``).
+(a) Both epochs read by ``train/jax_ckpt.py`` on this machine's host, every
+tensor bit-equal to ``utils/testing.py::jax_ckpt_leaf``, with the read's
+seconds (``tools/torch_jax_ckpt_read.py::read_rate``). (b)
+``CheckpointManager.restore`` into the train yaml's bf16 ``TrainState`` on
+the card: the newest epoch, 652 of 652 model entries and the moments of
+every trainable parameter equal to the generated tree's, ``step`` the
+fixture's count. (c) The distillation eval forward at 1440², bs2 (K5 x 2, K1
+x 4, K2 x 3), finite and bit-equal to the same forward after
+``load_jax_variables``' mapping of the generated tree. (d) One train step
+(K3 x 3, K4 x 3 more): its update bit-equal to the update of an optimizer set
+in memory from the generated tree on the same gradients, the step count one
+more. (e) ``tools/torch_train.py`` for one step in a copy of the run directory
+with ``--max_ckpt_save_num 1``: it resumes at epoch 2, writes its file and
+removes the JAX directories. (f) ``tools/torch_test.py --ckpt`` the JAX
+directory on ``radar_distill_val.yaml`` over 2 synthetic samples (K5 x 1,
+K2 x 3 a forward). ``launches_jaxckpt`` counts (c)-(f).
+
 Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
 float32 scales alike, but not every stock op around it (the VFE's sums); one
 flipped input code flips a few percent of the 9 x Co codes it reaches in the
@@ -3789,6 +3810,217 @@ def phase_cost(torch, dev, smi, work):
     return {k: fwd_launches[k] + step_launches[k] for k in fwd_launches}
 
 
+def _tensor_paths(tree, path=()):
+    """{key path: leaf} of the arrays of a JAX checkpoint's tree (tensors as
+    the reader gives them, numpy arrays as the generator does)."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _tensor_paths(sub, path + (key,)).items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _tensor_paths(sub, path + (str(i),)).items()}
+    return {path: tree} if hasattr(tree, "shape") else {}
+
+
+def _generated(tree, epoch, path=()):
+    """``tree`` with each tensor replaced by the generator's value of its path
+    (``utils/testing.py::jax_ckpt_leaf``, numpy): the fixture made in memory."""
+    from radardistill_tpu_torch.utils.testing import jax_ckpt_leaf
+
+    if isinstance(tree, dict):
+        return {k: _generated(v, epoch, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_generated(v, epoch, path + (str(i),)) for i, v in enumerate(tree)]
+    if hasattr(tree, "shape"):
+        return jax_ckpt_leaf(path, tuple(tree.shape), tree.numpy().dtype, epoch)
+    return tree
+
+
+def phase_jax_ckpt(torch, dev, smi, work):
+    """Phase 46, the restore of the JAX package's checkpoints (module
+    docstring). Returns the launches of (c)'s forward, (d)'s step and the two
+    CLIs of (e) and (f)."""
+    import shutil
+
+    from radardistill_tpu_torch.convert import (load_jax_variables, optimizer_state_from_jax,
+                                                 state_dict_from_jax)
+    from radardistill_tpu_torch.data.synthetic import make_batch
+    from radardistill_tpu_torch.models.detector import batch_to_torch
+    from radardistill_tpu_torch.train.checkpoint import CheckpointManager
+    from radardistill_tpu_torch.train.optim import build_optimizer
+    from radardistill_tpu_torch.utils.production import TRAIN_YAML, production_cfg
+    from radardistill_tpu_torch.utils.testing import jax_ckpt_count
+    from tools import torch_test, torch_train
+    from tools.torch_jax_ckpt_read import cpu_name, read_rate
+    from tools.torch_nuscenes_tree import make_tree
+
+    t_start = time.perf_counter()
+    fixture = ROOT / "tests" / "fixtures" / "jax_run"
+    count = jax_ckpt_count(2)
+
+    # (a) the fixture read on this machine, equal to its generator
+    for epoch in (1, 2):
+        r = read_rate(fixture / f"checkpoint_epoch_{epoch}", repeat=epoch + 1)
+        got = _tensor_paths(r["tree"])
+        generated = _generated(r["tree"], epoch)
+        want = _tensor_paths(generated)
+        differ = [k for k in want if got[k].numpy().tobytes() != want[k].tobytes()]
+        print(f"jax ckpt: checkpoint_epoch_{epoch} ({r['disk_bytes']} bytes on disk) through "
+              f"train/jax_ckpt.py: {r['tensors']} tensors of {r['tensor_bytes']} bytes in "
+              f"{', '.join(f'{x:.4f}' for x in r['seconds'])} s, {r['s_per_gb']:.4f} s per GB "
+              f"(host CPU {cpu_name()}; {smi}); {len(want) - len(differ)} of {len(want)} "
+              f"bit-equal to the generator")
+        if differ or len(want) != r["tensors"]:
+            raise RuntimeError(f"jax ckpt: epoch {epoch} differs from the generator in "
+                               f"{differ[:5]}")
+    generated = generated["state"]  # epoch 2's
+    del r, got, want
+    t_read = time.perf_counter()
+
+    # (b) CheckpointManager.restore into the full-width train-yaml TrainState
+    cfg, info, batch = make_batch(TRAIN_YAML)
+    model, step_fn, _ = build_trainer(torch, TRAIN_YAML, cfg, info, torch.bfloat16, dev)
+    state = step_fn.state
+    restored = CheckpointManager(fixture).restore(state)
+    memory = state_dict_from_jax(model, generated)
+    entries = model.state_dict()
+    same = [k for k, v in entries.items() if torch.equal(v.cpu(), memory[k].to(v.dtype))]
+    full, _ = production_cfg(TRAIN_YAML)
+    in_memory, _ = build_optimizer(full.OPTIMIZATION, model, 1000, model.frozen)
+    in_memory.load_state_dict(optimizer_state_from_jax(model, in_memory, generated["opt_state"]))
+    moments = [p for p in state.optimizer.params if all(torch.equal(
+        state.optimizer.inner.state[p][k], in_memory.inner.state[p][k])
+        for k in ("exp_avg", "exp_avg_sq", "step"))]
+    print(f"jax ckpt: CheckpointManager.restore of the run directory into "
+          f"radar_distill_train.yaml's TrainState on the card: epoch, it "
+          f"{restored and restored[1:]}, step {state.step} (the fixture's count {count}); "
+          f"{len(same)} of {len(entries)} model entries and the moments of {len(moments)} of "
+          f"{len(state.optimizer.params)} trainable parameters equal to the generated tree's")
+    if (restored is None or restored[1:] != (2, count) or state.step != count
+            or len(same) != len(entries) or len(moments) != len(state.optimizer.params)
+            or next(model.parameters()).device != dev):
+        raise RuntimeError(f"jax ckpt: restore {restored and restored[1:]}, step {state.step}, "
+                           f"entries {len(same)}, moments {len(moments)}")
+
+    # (c) the bf16 distillation eval forward on the restored weights, then on
+    # the generated tree's (load_jax_variables' mapping)
+    bdev = batch_to_torch(batch)
+    model.eval()
+    with torch.no_grad():
+        model(bdev)  # warm-up
+        torch.cuda.synchronize()
+        read = reset_launches()
+        got = tensor_leaves(model(bdev))
+        torch.cuda.synchronize()
+        fwd_launches = read()
+        load_jax_variables(model, generated)
+        want = tensor_leaves(model(bdev))
+    check_launches("jax ckpt forward", fwd_launches,
+                   {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1})
+    finite = all(not v.is_floating_point() or bool(torch.isfinite(v).all())
+                 for k, v in got.items() if not k.startswith("final_box_dicts."))
+    equal = [k for k in want if torch.equal(got[k], want[k])]
+    print(f"jax ckpt: distillation eval forward bf16, 1440², bs2, on the restored weights: "
+          f"launches {fwd_launches}; finite {finite}; {len(equal)} of {len(want)} outputs "
+          f"bit-equal to the forward after load_jax_variables of the generated tree")
+    if not finite or len(equal) != len(want):
+        raise RuntimeError(f"jax ckpt forward: finite {finite}, differing "
+                           f"{sorted(set(want) - set(equal))[:8]}")
+    del got, want
+
+    # (d) one train step from the restored optimizer; the same update from the
+    # optimizer set in memory on the same gradients (the backward's atomics
+    # need not repeat bit for bit, the update must)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    grads = []
+    optimizer, step_method = state.optimizer, state.optimizer.step
+
+    def capture():
+        grads[:] = [None if p.grad is None else p.grad.clone() for p in optimizer.params]
+        return step_method()
+
+    optimizer.step = capture
+    read = reset_launches()
+    metrics = step_fn(bdev)
+    torch.cuda.synchronize()
+    step_launches = read()
+    del optimizer.step
+    check_launches("jax ckpt train step", step_launches, TRAIN_STEP)
+    after = {n: p.detach().clone() for n, p in model.named_parameters()}
+    model.load_state_dict(before)
+    for p, g in zip(in_memory.params, grads):
+        p.grad = g
+    in_memory.step()
+    differ = [n for n, p in model.named_parameters() if not torch.equal(p.detach(), after[n])]
+    moved = sum(not torch.equal(after[n], before[n]) for n, p in model.named_parameters()
+                if p.requires_grad)
+    loss = float(metrics["loss"])
+    print(f"jax ckpt: one train step bf16, 1440², bs2, from the restored optimizer: launches "
+          f"{step_launches}; loss {loss:.6f}; step {state.step}; {moved} of "
+          f"{len(optimizer.params)} trained parameters moved; the same update from the "
+          f"optimizer set in memory (count {in_memory.count}): {len(after) - len(differ)} of "
+          f"{len(after)} parameters bit-equal")
+    if (differ or loss != loss or state.step != count + 1 or in_memory.count != count + 1
+            or moved != len(optimizer.params)):
+        raise RuntimeError(f"jax ckpt train step: differing {differ[:5]}, loss {loss}, step "
+                           f"{state.step}, moved {moved}")
+    del model, step_fn, state, optimizer, in_memory, grads, before, after, memory, bdev, batch
+    del generated, metrics
+    torch.cuda.empty_cache()
+    t_step = time.perf_counter()
+
+    # (e) the train CLI resumes in a copy of the run directory for one step
+    tag = "chip_smoke_jax_ckpt"
+    argv = ["--cfg_file", str(ROOT / "tools/cfgs/synthetic/production_cert.yaml"),
+            "--batch_size", "2", "--workers", "0", "--epochs", "3", "--extra_tag", tag,
+            "--max_ckpt_save_num", "1", "--num_epochs_to_eval", "0",
+            "--set", "DATA_CONFIG.NUM_SAMPLES", "2"]
+    out = Path("output") / torch_train.parse_config(argv)[1].TAG / tag
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(fixture, out / "ckpt")
+    read = reset_launches()
+    trained = torch_train.main(argv)
+    torch.cuda.synchronize()
+    train_launches = read()
+    check_launches("jax ckpt train CLI", train_launches, TRAIN_STEP)
+    left = sorted(p.name for p in (out / "ckpt").iterdir())
+    (log,) = out.glob("log_train_*.txt")
+    resumed = f"resumed from epoch 2 it {count}" in log.read_text()
+    print(f"jax ckpt: tools/torch_train.py --max_ckpt_save_num 1 in a copy of the run "
+          f"directory: resumed {resumed}, step {trained.step}, the directory now {left} "
+          f"(a file: {(out / 'ckpt' / 'checkpoint_epoch_3').is_file()})")
+    if (not resumed or trained.step != count + 1 or left != ["checkpoint_epoch_3"]
+            or not (out / "ckpt" / "checkpoint_epoch_3").is_file()):
+        raise RuntimeError(f"jax ckpt train CLI: resumed {resumed}, step {trained.step}, {left}")
+    del trained
+    torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+
+    # (f) the eval CLI with --ckpt the JAX directory, on the val yaml
+    root = work / "nuscenes_jax_ckpt"
+    _, val_infos = make_tree(root, 2, 2)
+    read = reset_launches()
+    result = torch_test.main(["--cfg_file", str(ROOT / "tools/cfgs/radar_distill/radar_distill_val.yaml"),
+                              "--batch_size", "1", "--ckpt", str(fixture / "checkpoint_epoch_2"),
+                              "--extra_tag", tag, "--set", *tree_sets(root)])
+    torch.cuda.synchronize()
+    test_launches = read()
+    check_launches("jax ckpt val CLI", test_launches,
+                   {k: len(val_infos) * v for k, v in VAL_FORWARD.items()})
+    (log,) = (Path("output") / "radar_distill_val" / tag / "eval").glob("log_eval_*.txt")
+    line = re.search(r"loaded (\d+) of (\d+) model entries from .*", log.read_text())
+    print(f"jax ckpt: tools/torch_test.py --cfg_file radar_distill_val.yaml --ckpt "
+          f"checkpoint_epoch_2/, {len(val_infos)} synthetic nuScenes samples, bs1: "
+          f"\"{line and line[0]}\"; launches {test_launches}; mAP {result['mAP']:.4f}; the "
+          f"phase {time.perf_counter() - t_start:.1f} s on {smi}: (a) {t_read - t_start:.1f} s, (b)-(d) "
+          f"{t_step - t_read:.1f} s, (e) {t_train - t_step:.1f} s, (f) "
+          f"{time.perf_counter() - t_train:.1f} s")
+    if not line or line[1] != line[2] or not 0 <= result["mAP"] <= 1:
+        raise RuntimeError(f"jax ckpt val CLI: {line and line[0]}, result {result}")
+    return {k: fwd_launches[k] + step_launches[k] + train_launches[k] + test_launches[k]
+            for k in fwd_launches}
+
+
 def main() -> int:
     if not (ROOT / "radardistill_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -3979,6 +4211,13 @@ def main() -> int:
         cost_launches = phase_cost(torch, dev, smi, Path(work))
     torch.cuda.empty_cache()
 
+    # a JAX run's checkpoint: read, restored, run, resumed and evaluated
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        jax_ckpt_launches = phase_jax_ckpt(torch, dev, smi, Path(work))
+    torch.cuda.empty_cache()
+    print(f"phase 46 (the JAX checkpoint restore): {time.perf_counter() - t0:.1f} s")
+
     dcn_py = "radardistill_tpu/ops/pallas_dcn.py"
     block_py = "radardistill_tpu/ops/pallas_conv_block.py"
     table = [
@@ -4020,6 +4259,7 @@ def main() -> int:
                 "launches_tile_sparse_forward": tile_launches[name],
                 "launches_pcdet": pcdet_launches[name],
                 "launches_cost": cost_launches[name],
+                "launches_jaxckpt": jax_ckpt_launches[name],
                 **{f"launches_static_{r}": route_launches[k][name] for r, k in (
                     ("dense_input", "TABLE_INPUT: false"), ("linear_table", "PACKED_TABLE: false"),
                     ("s2d2", "_S2D2"))},
@@ -4040,7 +4280,7 @@ def main() -> int:
             "launches_static_dense_input", "launches_static_linear_table",
             "launches_static_s2d2", "launches_anchor_cli", "launches_anchor_step",
             "launches_remat", "launches_tile_sparse_forward", "launches_pcdet",
-            "launches_cost", "max_abs_err",
+            "launches_cost", "launches_jaxckpt", "max_abs_err",
             "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "aside_ms",
             "teacher_bf16_rel_l2", "alternating_ms", "alternating_library_ms",
             "k4_route", "repeats_bitwise", "r5_ms_in_turns", "r8_ms_in_turns", "old_route_ms",

@@ -19,6 +19,17 @@ Under data parallelism only rank 0 writes (the reference's DDP rank-0
 ``torch.save``); the model in the ``TrainState`` is the unwrapped module, so
 its keys carry no ``module.`` prefix and a checkpoint of N ranks loads into
 one process and the reverse.
+
+A checkpoint of the JAX package (an orbax directory ``checkpoint_epoch_{e}/``
+in the same run directory, read by ``jax_ckpt.py`` without JAX) loads
+wherever a checkpoint does: ``restore`` (``--eval_all`` and the trainer's
+resume), ``restore(epoch=...)`` and ``load_params_from_file``. Its
+``params`` and ``batch_stats`` map onto the model through
+``convert.state_dict_from_jax``, its optax state onto the optimizer through
+``convert.optimizer_state_from_jax`` (the update count, and with it the
+learning-rate schedule, continues the JAX run's), its ``epoch`` and ``it``
+as the port's. Rotation and a save over a checkpoint of the same name remove
+such a directory as the JAX package does.
 """
 
 from __future__ import annotations
@@ -26,12 +37,15 @@ from __future__ import annotations
 import logging
 import os
 import re
+import shutil
 from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
+from ..convert import optimizer_state_from_jax, state_dict_from_jax
 from ..parallel.multihost import process_index
+from . import jax_ckpt
 
 VERSION = "radardistill_tpu_torch+0.1.0"
 
@@ -104,8 +118,28 @@ def init_radar_from_teacher(model: torch.nn.Module, src: Dict[str, torch.Tensor]
     return len(twins)
 
 
-def _read(path: Path) -> dict:
-    return torch.load(path, map_location="cpu", weights_only=True)
+def read_payload(path: Path, model: torch.nn.Module) -> dict:
+    """The checkpoint at ``path``: the port's file, or a JAX checkpoint
+    directory with its parameters and BN statistics mapped onto ``model``'s
+    names (``model_state``; the entries of a teacher scope that ``model``
+    lacks keep their names, laid out as the radar twin's) and its optax state
+    under ``jax_opt_state``."""
+    if not jax_ckpt.is_jax_checkpoint(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    tree = jax_ckpt.read_checkpoint(path)
+    jax_state = tree["state"]
+    variables = {k: jax_state.get(k) or {} for k in ("params", "batch_stats")}
+    return {"model_state": state_dict_from_jax(model, variables, twins=TEACHER_TO_RADAR),
+            "jax_opt_state": jax_state.get("opt_state"), "epoch": int(tree["epoch"]),
+            "it": int(tree["it"]), "version": tree.get("version")}
+
+
+def _remove(path: Path):
+    """Remove a checkpoint: the port's file or a JAX checkpoint directory."""
+    if path.is_dir():
+        shutil.rmtree(path)
+    else:
+        path.unlink()
 
 
 class CheckpointManager:
@@ -136,6 +170,8 @@ class CheckpointManager:
         }
         tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
         torch.save(payload, tmp)
+        if path.is_dir():  # a JAX checkpoint of the same name
+            shutil.rmtree(path)
         os.replace(tmp, path)
         self._rotate()
         return path
@@ -145,7 +181,7 @@ class CheckpointManager:
             self.ckpt_dir.glob("checkpoint_epoch_[0-9]*"), key=lambda p: p.stat().st_mtime
         )
         while len(ckpts) > self.max_keep:
-            ckpts.pop(0).unlink()
+            _remove(ckpts.pop(0))
 
     def list_epochs(self):
         out = []
@@ -182,14 +218,18 @@ class CheckpointManager:
             if not path.exists():
                 continue
             try:
-                payload = _read(path)
+                payload = read_payload(path, state.model)
             except Exception as e:
                 log.warning("restore of %s failed (%s: %s); skipping as corrupt",
                             path, type(e).__name__, e)
                 continue
             try:
                 state.model.load_state_dict(payload["model_state"], strict=True)
-                state.optimizer.load_state_dict(payload["optimizer_state"])
+                optimizer_state = payload.get("optimizer_state")
+                if "jax_opt_state" in payload:
+                    optimizer_state = optimizer_state_from_jax(
+                        state.model, state.optimizer, payload["jax_opt_state"])
+                state.optimizer.load_state_dict(optimizer_state)
             except Exception as e:
                 log.warning("full restore of %s failed (%s: %s); loading the model's "
                             "parameters and statistics alone", path, type(e).__name__, e)
@@ -206,10 +246,11 @@ class CheckpointManager:
         ``path`` supplied. ``teacher_to_radar`` (``--init_from_teacher``):
         then ``init_radar_from_teacher`` from the same read of the file, its
         count in ``state.duplicated``."""
-        src = _read(Path(path))["model_state"]
+        src = read_payload(Path(path), state.model)["model_state"]
         state.loaded = _load_overlay(state.model, src)
         if teacher_to_radar:
             state.duplicated = init_radar_from_teacher(state.model, src)
         if pretrained_overlay:
-            _load_overlay(state.model, _read(Path(pretrained_overlay))["model_state"])
+            overlay = read_payload(Path(pretrained_overlay), state.model)["model_state"]
+            _load_overlay(state.model, overlay)
         return state

@@ -54,17 +54,27 @@ def production_cfg(yaml_name: str = TRAIN_YAML, grid: Optional[int] = None) -> T
             rb2.POINT_CLOUD_RANGE = list(pc)
             rb2.GRID_SIZE = [grid, grid, 1]
 
-    # match tools/train.py exactly: the data layer carries f32 values
-    # (processor.py:74, dataset.py:40) and train.py floats them back
+    return cfg, dataset_info(cfg)
+
+
+def dataset_info(cfg) -> dict:
+    """The ``dataset_info`` a full config's data layer gives the model: grid,
+    voxel size and range from ``DATA_CONFIG`` as float32 values floated back
+    (processor.py:74, dataset.py:40, as tools/train.py reads them), and the
+    class names."""
     import numpy as np
 
-    voxel32 = [float(v) for v in np.asarray(voxel, np.float32)]
-    pc32 = [float(v) for v in np.asarray(pc, np.float32)]
+    proc = [
+        p for p in cfg.DATA_CONFIG.DATA_PROCESSOR
+        if p["NAME"].startswith("transform_points_to_voxels")
+    ][0]
+    voxel32 = [float(v) for v in np.asarray(proc["VOXEL_SIZE"], np.float64).astype(np.float32)]
+    pc32 = [float(v) for v in np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                                         np.float64).astype(np.float32)]
     g = int(round((pc32[3] - pc32[0]) / voxel32[0]))
-    dataset_info = {
+    return {
         "grid_size": (g, g),
         "voxel_size": tuple(voxel32),
         "point_cloud_range": tuple(pc32),
         "class_names": tuple(cfg.CLASS_NAMES),
     }
-    return cfg, dataset_info

@@ -279,3 +279,70 @@ def reference_state_dict(rng, scale=None):
                 bn(f"{scope}.heads_list.{h}.{sub}.0.1", 64)
                 conv(f"{scope}.heads_list.{h}.{sub}.1", oc, 64, bias=True)
     return sd
+
+
+# The JAX checkpoint fixture (tests/fixtures/jax_run/, tools/make_jax_ckpt_fixture.py)
+JAX_CKPT_PERIOD = 61  # a prime: no channel count is a multiple of it
+JAX_CKPT_LEVELS = 16
+JAX_CKPT_STEPS_PER_EPOCH = 52
+JAX_CKPT_RANDOM = ("radar_vfe", "radar_neck.deblock1_bn.bn")  # drawn, not periodic
+_JAX_CKPT_STATES = ("params", "batch_stats", "mu", "nu", "trace")
+
+
+def jax_ckpt_count(epoch: int) -> int:
+    """The update count of the fixture's checkpoint of ``epoch``."""
+    return JAX_CKPT_STEPS_PER_EPOCH * epoch
+
+
+def jax_ckpt_leaf(path, shape, dtype, epoch: int) -> np.ndarray:
+    """The value of the leaf at the key path ``path`` (a tuple of strings, as
+    the JAX checkpoint's ``_METADATA`` names it) in the fixture's checkpoint of
+    ``epoch``, from numpy alone.
+
+    Integer leaves: ``epoch`` for ``epoch``, else the update count (``step``,
+    ``it`` and optax's counts). Float leaves of a parameter tree (``params``,
+    ``batch_stats``, Adam's ``mu`` / ``nu``, SGD's ``trace``) repeat a table
+    of ``JAX_CKPT_PERIOD`` values drawn from ``JAX_CKPT_LEVELS`` levels evenly
+    spread over (-1, 1), from a seed of their path and epoch, so that zstd
+    stores any of them in a few hundred bytes; under the
+    scopes of ``JAX_CKPT_RANDOM`` they are standard normal draws of that seed
+    instead, which do not compress. Either draw ``u`` is scaled by the leaf's
+    kind: kernels ``u · sqrt(3 / fan in)`` (normal draws ``u / sqrt(fan
+    in)``), BatchNorm and LayerNorm scales ``1 + 0.1 u`` and running
+    variances ``1 + 0.5 u`` (normal draws: ``1 + 0.1 u``), both clipped to
+    [0.5, 1.5], ``mu`` ``1e-4 u``, ``nu`` ``1e-8 (1 + 0.5 u)`` clipped to
+    [0.5e-8, 1.5e-8], ``trace`` ``1e-3 u``, every other leaf ``0.1 u``."""
+    import zlib
+
+    dtype = np.dtype(dtype)
+    shape = tuple(int(s) for s in shape)
+    name = ".".join(path)
+    if dtype.kind in "iu":
+        value = epoch if path[-1] == "epoch" else jax_ckpt_count(epoch)
+        return np.full(shape, value, dtype)
+    rng = np.random.RandomState(zlib.crc32(f"{name}:{epoch}".encode()))
+    state = next((k for k in _JAX_CKPT_STATES if k in path), None)
+    scope = ".".join(path[path.index(state) + 1:]) if state else ""
+    n = int(np.prod(shape))
+    drawn = any(scope.startswith(r + ".") for r in JAX_CKPT_RANDOM)
+    if drawn:
+        u = rng.standard_normal(n)
+    else:
+        half = JAX_CKPT_LEVELS / 2
+        table = (rng.randint(0, JAX_CKPT_LEVELS, JAX_CKPT_PERIOD) - (half - 0.5)) / half
+        u = np.resize(table, n)
+    leaf = path[-1]
+    if state == "mu":
+        v = 1e-4 * u
+    elif state == "nu":
+        v = np.clip(1e-8 * (1 + 0.5 * u), 0.5e-8, 1.5e-8)
+    elif state == "trace":
+        v = 1e-3 * u
+    elif leaf in ("kernel", "down_weight") and len(shape) > 1:
+        fan_in = int(np.prod(shape[:-1]))
+        v = u / np.sqrt(fan_in) if drawn else u * np.sqrt(3.0 / fan_in)
+    elif leaf in ("scale", "var"):
+        v = np.clip(1 + (0.5 if leaf == "var" and not drawn else 0.1) * u, 0.5, 1.5)
+    else:
+        v = 0.1 * u
+    return v.astype(dtype).reshape(shape)

@@ -10,9 +10,11 @@ into the distillation model,
 a val forward without host tables under
 ``DENSE_FROM: 3``, the dense-input route of ``synthetic/smoke.yaml`` at grid
 64 and the plain versions of the three probe kernels on the CPU
-with random weights from a seeded generator; afterwards neither
-``jax`` nor ``flax`` nor any module of ``radardistill_tpu`` may be in
-``sys.modules``. An AST walk over every file of the port and over the card
+with random weights from a seeded generator, and the JAX checkpoint fixture
+(``tests/fixtures/jax_run``) restored into the distillation model and its
+optimizer; afterwards neither ``jax`` nor ``flax`` nor ``orbax``,
+``tensorstore``, ``zstandard``, ``optax`` nor any module of
+``radardistill_tpu`` may be in ``sys.modules``. An AST walk over every file of the port and over the card
 scripts finds no import of them either (the nuScenes and data-parallel modules
 among them), also after a nuScenes item and a detection gather; neither the
 port nor its card scripts import a JAX tool (``tools.convert_torch_ckpt``, any
@@ -31,6 +33,10 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# what the port, its card scripts and its tools may not import: JAX, the JAX
+# package, and what reads or writes the JAX package's checkpoints
+FOREIGN = {"jax", "jaxlib", "flax", "radardistill_tpu", "orbax", "tensorstore", "zstandard",
+           "optax"}
 
 SCRIPT = r"""
 import json, sys
@@ -99,6 +105,10 @@ torch_convert_ckpt.main(["--src", "ref.pth", "--dst", "converted.pth"])
 pcdet = CheckpointManager("ckpt").load_params_from_file(TrainState(model2, None), "converted.pth")
 for f in ("ref.pth", "converted.pth"):  # 160 MB each
     os.remove(f)
+# the JAX package's checkpoint fixture: the newest epoch, model and optimizer
+jax_opt, _ = build_optimizer(full2.OPTIMIZATION, model2, 100, model2.frozen)
+jax_run = CheckpointManager(os.path.join(sys.argv[1], "tests/fixtures/jax_run")).restore(
+    TrainState(model2, jax_opt))
 # a nuScenes item (a key frame without sweeps, one radar channel in binary
 # .pcd) and a detection gather (one process: the identity)
 import pickle
@@ -143,7 +153,8 @@ batch5 = collate_batch([make_scene(0, num_lidar=500, num_radar=50, num_boxes=3,
 batch5.pop("_host", None)
 out5 = model5(batch_to_torch(batch5, "cpu"))
 foreign = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "radardistill_tpu"))
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "radardistill_tpu", "orbax",
+                                        "tensorstore", "zstandard", "optax"))
 print(json.dumps({
     "foreign": foreign,
     "finite": bool(all(torch.isfinite(v).all() for v in out["radar_preds"].values())),
@@ -168,6 +179,7 @@ print(json.dumps({
     "cli_files": sorted(os.listdir("output/production_cert_grid128/default/ckpt")) + [
         f for f in os.listdir(".") if f == "init"],
     "pcdet_loaded": [pcdet.loaded, len(model2.state_dict())],
+    "jax_run": [jax_run[1], jax_run[2], jax_opt.count, len(jax_opt.inner.state)],
     "nusc": [list(nitem["points"].shape), list(nitem["radar_points"].shape), nitem["frame_id"]],
     "merged": merged,
     "dense": [bool(torch.isfinite(out5["x_conv5"]).all()
@@ -194,6 +206,7 @@ def test_port_slice_runs_without_jax():
     assert rec["train_loss_finite"] and rec["train_updates"] == 1
     assert rec["cli_steps"] == 2 and rec["cli_files"] == ["checkpoint_epoch_1", "init"]
     assert rec["pcdet_loaded"] == [652, 652]
+    assert rec["jax_run"] == [2, 104, 104, 273]  # epoch, it, step, parameters with moments
     assert len(rec["chains"]) == 3 and all(rec["chains"].values()), rec["chains"]
     assert rec["wide_corner"] == 4 * 8.0
     assert rec["raw_batch_keys"] == [] and rec["raw_finite"] and rec["raw_overflow"] == 0
@@ -230,12 +243,13 @@ PORT_FILES = sorted(
                                     "tools/torch_train_pace.py", "tools/torch_ddp_check.py",
                                     "tools/torch_overfit_check.py",
                                     "tools/torch_quality_gate.py", "tools/torch_demo.py",
-                                    "tools/torch_calc_caps.py", "tools/torch_convert_ckpt.py"])
+                                    "tools/torch_calc_caps.py", "tools/torch_convert_ckpt.py",
+                                    "tools/torch_jax_ckpt_read.py"])
 def test_card_scripts_import_only_torch_and_the_port(script):
     names = _imported_modules(os.path.join(REPO, script))
     roots = {n.split(".")[0] for n in names}
     assert {"torch", "radardistill_tpu_torch"} & roots
-    assert not roots & {"jax", "jaxlib", "flax", "radardistill_tpu", "chip_smoke"}, names
+    assert not roots & (FOREIGN | {"chip_smoke"}), names
 
 
 def test_teacher_eval_tool_imports_only_the_ports_eval_cli():
@@ -246,7 +260,7 @@ def test_teacher_eval_tool_imports_only_the_ports_eval_cli():
              if isinstance(node, ast.ImportFrom) for a in node.names}
     assert ("tools", "torch_test") in froms, froms
     names = _imported_modules(path)
-    assert not {n.split(".")[0] for n in names} & {"jax", "jaxlib", "flax", "radardistill_tpu"}
+    assert not {n.split(".")[0] for n in names} & FOREIGN
 
 
 def test_the_walk_covers_the_nuscenes_and_parallel_modules():
@@ -256,7 +270,8 @@ def test_the_walk_covers_the_nuscenes_and_parallel_modules():
                 "data/nuscenes/eval_bridge", "parallel/mesh", "parallel/multihost",
                 "utils/testing", "models/anchor_head", "models/anchor_detector",
                 "models/map_to_bev", "models/backbone_tile_sparse", "ops/tile_sparse",
-                "utils/similarity", "utils/profiler", "utils/remat", "pcdet_convert"):
+                "utils/similarity", "utils/profiler", "utils/remat", "pcdet_convert",
+                "train/jax_ckpt"):
         assert f"radardistill_tpu_torch/{mod}.py" in PORT_FILES, mod
 
 
@@ -291,19 +306,19 @@ def test_the_port_imports_no_jax_tool():
 
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
-    """Every ``.py`` of the port: no import of jax, flax or radardistill_tpu,
-    absolute or spelled through ``importlib``/``__import__`` with a literal."""
+    """Every ``.py`` of the port: no import of jax, flax, radardistill_tpu,
+    orbax, tensorstore, zstandard or optax, absolute or spelled through
+    ``importlib``/``__import__`` with a literal."""
     assert len(PORT_FILES) > 25
     for rel in PORT_FILES:
         path = os.path.join(REPO, rel)
         roots = {n.split(".")[0] for n in _imported_modules(path)}
-        assert not roots & {"jax", "jaxlib", "flax", "radardistill_tpu"}, (rel, roots)
+        assert not roots & FOREIGN, (rel, roots)
         for node in ast.walk(ast.parse(open(path).read())):
             if isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
                     node.func, "id", "")) in ("import_module", "__import__"):
                 lits = [a.value for a in node.args if isinstance(a, ast.Constant)]
-                assert not any(str(v).split(".")[0] in ("jax", "flax", "radardistill_tpu")
-                               for v in lits), (rel, lits)
+                assert not any(str(v).split(".")[0] in FOREIGN for v in lits), (rel, lits)
 
 
 def test_port_builds_no_library_inside_the_jax_package():

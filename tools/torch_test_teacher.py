@@ -1,13 +1,14 @@
 """Teacher-only evaluation of the PyTorch port: ``python
-tools/torch_test_teacher.py --teacher_ckpt FILE``, run from the repository
+tools/torch_test_teacher.py --teacher_ckpt FILE_OR_DIR``, run from the repository
 root.
 
 Counterpart of ``tools/test_teacher.py`` (reference tools/test_teacher.py:
 evaluate the LiDAR teacher with the lidar-only ``pillarnet.yaml`` from
 ``--teacher_ckpt``): ``tools/torch_test.py`` with that configuration, that
-checkpoint and the tag ``teacher``. Other arguments (``--device``,
-``--infer_time``, ``--set ...``) pass through to it. Returns its evaluation's
-dict.
+checkpoint and the tag ``teacher``. The checkpoint is the port's file or a
+JAX package's checkpoint directory (``train/jax_ckpt.py`` reads it). Other
+arguments (``--device``, ``--infer_time``, ``--set ...``) pass through to
+it. Returns its evaluation's dict.
 """
 
 import argparse
