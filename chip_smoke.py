@@ -107,9 +107,12 @@ Phases 12-19, the deep chains of the teacher:
 
  12. K1 vs its plain version at every link shape of the ``INT8_STAGES: 5``
      chain beyond stage 1, each on the route the dispatch gives it (printed;
-     14 links on ``wgmma``, the five Co-64 links on the resident ``mma.sync``
-     variant): every int8 code equal; each timed as the wrapper and on the
-     device alone, the ``wgmma`` links also on their ``mma.sync`` variant;
+     all 19 on ``wgmma``, the five Co-64 links on its transposed kernel):
+     every int8 code equal, and equal to the ``mma.sync`` variant's
+     (resident or streamed); each timed as the wrapper and on the device
+     alone against that variant in turns, the five Co-64 links also as the
+     bare launch, and summed beside their bound with the card's name and
+     power limit;
  13. K7 ``chain_conv`` vs its plain version at the conv5 link, pre-padded
      (2, 91, 90, 1024) x (2, 2, 1024, 256) with an all-ones lane mask, and at a
      3x3 (90², 256 -> 256) link with a 60% per-channel mask and a residual, on
@@ -140,7 +143,7 @@ Phases 12-19, the deep chains of the teacher:
      results must equal the wrapper's; ``F.conv2d``'s time as its library
      call;
  16. distillation forward, bfloat16, 1440², ``INT8_STAGES: 5``: K1 x 23
-     (18 on ``wgmma``, 5 on ``mma.sync``), K7 x 1 (on ``wgmma``), K6 x 0, K5 x
+     (all on ``wgmma``, 0 on ``mma.sync``), K7 x 1 (on ``wgmma``), K6 x 0, K5 x
      2, K2 x 3;
      finite outputs, p50;
  17. the same with ``INT8_STAGES: 1`` + ``FP_STAGES: 5``: K1 x 4 (``wgmma``), K6 x 19
@@ -156,7 +159,8 @@ Phases 12-19, the deep chains of the teacher:
      the same comparison read with every K6 link on ``mma.sync``
      (``FP_TEACHER_BF16_REL_BEFORE``);
  19. one warm and three timed train steps with the ``INT8_STAGES: 5`` teacher:
-     finite losses, K1 x 23 (18 + 5), K3 x 3 and K4 x 3 per step as before.
+     finite losses, K1 x 23 (all on ``wgmma``), K3 x 3 and K4 x 3 per step as
+     before.
 
 Phases 20-24, the route without host tables and the last three kernels:
 
@@ -423,7 +427,8 @@ run (K7: its streamed kernel); K1's also ``deep_*``, the
 sums over the 19 deeper links of ``INT8_STAGES: 5`` on their routes
 (``deep_old_route_ms``: all 19 on ``mma.sync``; ``deep_device_*``: their
 device time with the host's enqueue hidden, as the wrappers of the links
-below 720² cost the host more than the card); K7's ``device_ms`` is its
+below 720² cost the host more than the card; phase 12's last line sums the
+five Co-64 links apart, their bare launches and bound among them); K7's ``device_ms`` is its
 wrapper's device time, the same way. ``launches_runtime`` is each
 kernel's count over phase 25, ``launches_nuscenes`` over phase 26,
 ``launches_ddp`` over the DDP steps of phase 27, ``launches_teacher_pretrain``
@@ -460,7 +465,7 @@ INT8_DEEP_LINKS = ((720, 128, 64, 2, 1, 0), (720, 64, 64, 3, 2, 2), (360, 256, 1
                    (360, 128, 128, 3, 2, 2), (180, 512, 256, 2, 1, 0), (180, 256, 256, 3, 2, 2),
                    (90, 256, 256, 3, 2, 2))  # + 4 stage-1 links, + K7 into conv5: 23 + 1
 # the tensor-core instruction of each kernel that has one (K1: its route at
-# the stage-1 links; the Co-64 links of INT8_STAGES: 5 stay on mma.sync)
+# every link of INT8_STAGES: 5, the Co-64 links on the transposed kernel)
 MMA_ROUTES = {"conv_block": "wgmma", "conv3x3_wide": "wgmma", "conv_probe": "wgmma",
               "mma_rate": "wgmma", "conv_block_fp": "wgmma", "chain_conv": "wgmma"}
 # K1's launches in one distillation forward: the four stage-1 links, all on
@@ -1027,20 +1032,25 @@ def phase_k1(torch, dev):
     return bound_of(rec)
 
 
-def phase_k1_deep(torch, dev):
+def phase_k1_deep(torch, dev, smi):
     """K1 at the link shapes of the ``INT8_STAGES: 5`` chain beyond stage 1,
     each on the route the dispatch gives it (``wgmma`` where C and Co are
-    multiples of 128, else the ``mma.sync`` kernel, resident or streamed);
-    every code equal to the plain version's on that route and on the
-    ``mma.sync`` variant (resident where the weight fits, else streamed), and
-    the links on ``wgmma`` are timed against that variant too. Returns the
-    sums over those 19 launches."""
+    multiples of 128, or Co is 64 with C a multiple of 64: the transposed
+    kernel; else the ``mma.sync`` kernel, resident or streamed); every code
+    equal to the plain version's on that route and on the ``mma.sync``
+    variant (resident where the weight fits, else streamed), and the links on
+    ``wgmma`` are timed against that variant in turns. The five Co-64 links
+    are also timed as the bare launch and summed apart. Returns the sums over
+    those 19 launches."""
+    from radardistill_tpu_torch.ops import conv3x3_wgmma
     from radardistill_tpu_torch.ops.conv_block import (conv_block, conv_block_plain,
-                                                       int8_block_conv_v2, resident_fits, route_of)
+                                                       int8_block_conv_v2, link_constants,
+                                                       resident_fits, route_of, tap_sums)
 
     gen = torch.Generator().manual_seed(6)
     tot = dict.fromkeys(("ms", "old_route_ms", "device_ms", "device_old_route_ms", "plain_ms",
-                         "bound_ms", "wgmma_device_ms", "mma_sync_device_ms"), 0.0)
+                         "bound_ms", "wgmma_device_ms", "mma_sync_device_ms", "co64_device_ms",
+                         "co64_old_route_device_ms", "co64_launch_ms", "co64_bound_ms"), 0.0)
     for hw, c, co, kh, n_plain, n_res in INT8_DEEP_LINKS:
         route = route_of(kh, c, co, 1, torch.int8)
         old_route = "resident" if resident_fits(kh, c, co, 1) else "streamed"
@@ -1067,14 +1077,28 @@ def phase_k1_deep(torch, dev):
                 ms = old_ms = (cuda_ms(torch, new_fn, 10) + cuda_ms(torch, new_fn, 10)) / 2
                 dev_ms = dev_old_ms = device_ms(torch, new_fn, 10)
             plain_ms = cuda_ms(torch, lambda: run(conv_block_plain), 2)
+            launch_ms = None
+            if co == 64:  # the transposed kernel alone, on prepared operands
+                xq, kq, res = link["xc"][0], link["kq"], link["res"]
+                ab = link_constants(link["xc"], kq, link["sw"], link["bias"], link["gt"],
+                                    link["sh"], link["bound"], res)[0]
+                wk, wsum, out = conv3x3_wgmma.wgmma_taps(kq), tap_sums(kq), torch.empty_like(got)
+                alone = lambda: conv3x3_wgmma.launch_link(  # noqa: E731
+                    xq, wk, ab, link["mask_c"], None if res is None else res[0], wsum, out, -127)
+                alone()
+                torch.cuda.synchronize()
+                if not torch.equal(out, got):
+                    raise RuntimeError("K1: the bare Co-64 launch differs from the wrapper's codes")
+                launch_ms = (cuda_ms(torch, alone, 10) + cuda_ms(torch, alone, 10)) / 2
             print(f"K1 conv_block ({route}) x (2, {hw}, {hw}, {c}) k ({kh}, {kh}, {c}, {co}) "
                   f"res {with_res}: {n_bad} of {got.numel()} codes differ, {n_old} on the "
                   f"{old_route} mma.sync variant; "
                   f"{100 * float((want > -127).float().mean()):.0f}% of codes above -127; wrapper "
                   f"{ms:.4f} ms, device {dev_ms:.4f} ms ({old_route} mma.sync {old_ms:.4f}, "
-                  f"device {dev_old_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-                  f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes "
-                  f"{bytes_ms:.4f})")
+                  f"device {dev_old_ms:.4f} ms), "
+                  + (f"launch alone {launch_ms:.4f} ms, " if launch_ms is not None else "")
+                  + f"plain {plain_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms (operations "
+                  f"{ops_ms:.4f}, bytes {bytes_ms:.4f})")
             if (n_bad or n_old
                     or moved[f"conv_block.{'wgmma' if route == 'wgmma' else 'mma_sync'}"] != 1):
                 raise RuntimeError(f"K1 at {hw}² C {c}: {n_bad} codes differ from plain, {n_old} "
@@ -1084,11 +1108,22 @@ def phase_k1_deep(torch, dev):
                            ("bound_ms", max(ops_ms, bytes_ms)),
                            (f"{'wgmma' if route == 'wgmma' else 'mma_sync'}_device_ms", dev_ms)):
                 tot[key] += count * v
+            if co == 64:
+                for key, v in (("co64_device_ms", dev_ms), ("co64_old_route_device_ms", dev_old_ms),
+                               ("co64_launch_ms", launch_ms),
+                               ("co64_bound_ms", max(ops_ms, bytes_ms))):
+                    tot[key] += count * v
     print(f"K1 over the 19 links of the INT8_STAGES: 5 chain beyond stage 1: wrapper "
           f"{tot['ms']:.4f} ms (all 19 on mma.sync {tot['old_route_ms']:.4f}); device "
           f"{tot['device_ms']:.4f} ms (wgmma links {tot['wgmma_device_ms']:.4f}, mma.sync links "
           f"{tot['mma_sync_device_ms']:.4f}; all 19 on mma.sync {tot['device_old_route_ms']:.4f}), "
           f"plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+    print(f"K1 over the five Co-64 links (stage 2, 720², on {route_of(3, 64, 64, 1, torch.int8)}, "
+          f"{smi}): device {tot['co64_device_ms']:.4f} ms against the resident mma.sync variant's "
+          f"{tot['co64_old_route_device_ms']:.4f} ms in turns, bare launches "
+          f"{tot['co64_launch_ms']:.4f} ms, bound {tot['co64_bound_ms']:.4f} ms")
+    if not tot["co64_device_ms"] < tot["co64_old_route_device_ms"]:
+        raise RuntimeError("K1: the Co-64 links on wgmma are not faster than the resident variant")
     return tot
 
 
@@ -4059,7 +4094,7 @@ def main() -> int:
     k4["r5_ms_in_turns"], k4["r8_ms_in_turns"] = phase_dcn_r8(torch, dev)
     k1 = phase_k1(torch, dev)
     cudnn_bf16_conv_aside(torch, dev)
-    k1_deep = phase_k1_deep(torch, dev)
+    k1_deep = phase_k1_deep(torch, dev, smi)
     k7 = phase_k7(torch, dev)
     k6 = phase_k6(torch, dev)
     k9, k9_launches = phase_k9(torch, dev)
@@ -4135,7 +4170,7 @@ def main() -> int:
     deep = {"int8_stages5": {"INT8_STAGES": 5}, "fp_stages5": {"INT8_STAGES": 1, "FP_STAGES": 5}}
     chain_expect = {
         "int8_stages5": {"expand_rows": 2, "dcn_sample": 3, "conv_block": 23,
-                         "conv_block.wgmma": 18, "conv_block.mma_sync": 5, "chain_conv": 1,
+                         "conv_block.wgmma": 23, "conv_block.mma_sync": 0, "chain_conv": 1,
                          "chain_conv.wgmma": 1},
         "fp_stages5": {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, "conv_block_fp": 19,
                        "conv_block_fp.wgmma": 19}}

@@ -93,8 +93,8 @@
 // each tile's mask bytes into registers, and alpha and beta of its channels
 // into a shared copy per consumer, when the tile starts, so that those reads
 // land while the products run (read after them, they stood exposed after
-// each tile's products). K6's Co-64 links take their own kernel below,
-// conv_co64_kernel, with the product transposed.
+// each tile's products). K6's and K1's Co-64 links take their own kernel
+// below, conv_co64_kernel, with the product transposed.
 //
 // K7's mask (a byte per output channel, int8 out) is not a word per pixel:
 // its epilogue (EPI_K7, K1's otherwise) has each lane load its part of the
@@ -621,61 +621,132 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
   }
 }
 
-// K6's Co-64 links (720^2, 64 -> 64), the product transposed: D (64 output
-// channels x 128 pixels) = W (64 x K) . X^T, so that the pixels are wgmma's N
-// (m64n128k16, A the weight slice, B a view of the halo tile) and the 64
-// channels its M. Untransposed, 64 channels are an n64 product, both of
-// whose operands come from shared memory for half the work of an n128 one
-// (P2 reads 365 TFLOP/s at N 64, 540-641 at N 128-1024 on an H100), and the
-// mainloop above with a 64-channel tile ran these links slower than this
-// kernel does. A tile is 2 output rows x 128 pixels x 64 channels; the halo
-// tile is 4 rows x 130 pixels x 128 bytes (one chunk of 64 channels), and
-// tap (ky, kx) of row r is the 128 consecutive pixels that start (r + ky) *
-// 130 + kx rows into it. The consumers work in ping-pong: each owns whole
-// tiles (two m64n128 accumulators, one a row) and they take the CTA's tiles
-// in turns, so one's epilogue runs beside the other's products (a few
-// percent faster on these links than both consumers on every tile, a row
-// each, on an H100); the rings carry the tiles in order, each slot read by
-// the one consumer whose tile it holds, which finds it by the tile's index.
-// A consumer skips the ring phases of the other's tiles, which its parity
-// waits cannot tell apart from its own, so the mainloops take turns: a
-// consumer starts a tile's products only once the other has passed every
-// wait of the tile before (the barriers order[], CUTLASS's ping-pong order),
-// and each of its waits is then on the phase right after one that has
-// completed.
+// The Co-64 links of K6 (bfloat16, 720^2, 64 -> 64 and 128 -> 64) and of K1
+// (int8, stage 2 of an INT8_STAGES >= 2 teacher: the same shapes), the
+// product transposed: D (64 output channels x 128 pixels) = W (64 x K) . X^T,
+// so that the pixels are wgmma's N (m64n128, A the weight slice, B a view of
+// the halo tile, both K-major as int8 wgmma requires) and the 64 channels its
+// M. Untransposed, 64 channels are an n64 product, both of whose operands come
+// from shared memory for half the work of an n128 one (P2 reads 365 TFLOP/s
+// at N 64, 540-641 at N 128-1024 on an H100), and the mainloop above with a
+// 64-channel tile ran K6's links slower than this kernel does. A tile is 2
+// output rows x 128 pixels x 64 channels, the tiles taken rows first (with
+// columns first, 132 CTAs over 720^2's six tile columns kept each CTA on one
+// column, and the CTAs on the edge columns set the time). A chunk is 64 input
+// channels: the halo tile is 4 rows x 130 pixels x CB bytes, CB = 128 in the
+// 128-byte swizzle (bfloat16) or 64 in the 64-byte swizzle (int8; a chunk of
+// 128 int8 channels would be half zeros at C = 64). Tap (ky, kx) of row r is
+// the 128 consecutive pixels that start (r + ky) * 130 + kx rows into it. The
+// consumers work in ping-pong: each owns whole tiles (two m64n128
+// accumulators, one a row) and they take the CTA's tiles in turns, so one's
+// epilogue runs beside the other's products (a few percent faster on K6's
+// links than both consumers on every tile, a row each, on an H100); the rings
+// carry the tiles in order, each slot read by the one consumer whose tile it
+// holds, which finds it by the tile's index. A consumer skips the ring phases
+// of the other's tiles, which its parity waits cannot tell apart from its
+// own, so the mainloops take turns: a consumer starts a tile's products only
+// once the other has passed every wait of the tile before (the barriers
+// order[], CUTLASS's ping-pong order), and each of its waits is then on the
+// phase right after one that has completed.
 // Thread (warp w, lane 4 g + tq) holds channels 16 w + g (+ 8) of pixels 8 n
-// + 2 tq (+ 1); the epilogue stages a row's 128 pixels x 128 bytes in shared
-// memory (the residual first, read in 16-byte vectors), each thread turns
-// its own elements into the output in place, and the row leaves in 16-byte
-// vectors.
+// + 2 tq (+ 1); the epilogue stages a row's 128 pixels in shared memory (the
+// residual first, in 16-byte vectors), each thread turns its own elements
+// into the output, and the row leaves in 16-byte vectors. K6 turns its
+// bfloat16 residual into the output in place. K1 (int8 accumulator, K1's
+// epilogue) reads its mask words and its residual into registers while the
+// products run, adds its border correction from a table built when the CTA
+// starts, computes the link's values in one pass of shared reads
+// (link_values) and writes the output in a second pass of shared writes; its
+// int8 output replaces its int8 residual in place (80-byte rows), a bfloat16
+// output waits until every residual byte of the row has been read. What
+// bounds K1's links: the epilogue, one warp per SM sub-partition for each
+// consumer, runs longer than the other consumer's products (measured on an
+// H100 with builds that leave out the products or the epilogue), so a tile
+// pair costs one mainloop and one epilogue.
 namespace co64 {
 constexpr int TH = 2, TW = 128, HALO_H = TH + 2, HALO_W = TW + 2;
-constexpr int A_BYTES = HALO_H * HALO_W * ROW;  // 66 560, a whole number of KB
-constexpr int A_STAGES = 2;
-constexpr int W_BYTES = 64 * ROW;  // one weight slice
-constexpr int W_STAGES = 6;
-constexpr int OUT_ROW = 144;  // 128 bytes of a pixel and a pad: conflict-free element access
-constexpr int OUT_BYTES = TW * OUT_ROW;
 constexpr int MASK_WORDS = 2 * 2 * 2 * TW;  // consumer x tile parity x row x pixel
-constexpr int SMEM = 1024 + A_STAGES * A_BYTES + W_STAGES * W_BYTES + 2 * OUT_BYTES +
-                     MASK_WORDS * 4 + 2 * 8 * (A_STAGES + W_STAGES + 1);
-static_assert(A_BYTES % 1024 == 0 && SMEM <= 232448, "co64 layout");
+// K1's border table: per class of pixel (row 0, row H - 1, column 0, column W
+// - 1: four flags) and output channel, zpad x the weight sums of the taps that
+// read outside the image
+constexpr int BORDER_INTS = 16 * 64;
+// a chunk is 64 input channels, CB = 128 bytes a pixel in bfloat16 (K6) or 64
+// in int8 (K1); one halo tile (66 560 or 33 280 bytes) and one weight slice
+__host__ __device__ constexpr int a_bytes(int cb) { return HALO_H * HALO_W * cb; }
+__host__ __device__ constexpr int a_stage(int cb) { return (a_bytes(cb) + 1023) / 1024 * 1024; }
+__host__ __device__ constexpr int w_bytes(int cb) { return 64 * cb; }
+constexpr int A_STAGES = 2, W_STAGES = 6;
+// a staged pixel: 64 output bytes and a pad (K1's int8 link), else 128 and a
+// pad; the pad keeps every thread's element access conflict-free
+__host__ __device__ constexpr int out_row(int epi) { return epi == EPI_K1_S8 ? 80 : 144; }
+constexpr int smem(int cb, int epi) {
+  return 1024 + A_STAGES * a_stage(cb) + W_STAGES * w_bytes(cb) + 2 * TW * out_row(epi) +
+         MASK_WORDS * 4 + (epi == EPI_K6 ? 0 : BORDER_INTS * 4) + 2 * 8 * (A_STAGES + W_STAGES + 1);
+}
+static_assert(smem(128, EPI_K6) <= 232448 && smem(64, EPI_K1_BF16) <= 232448, "co64 layout");
+
+// the descriptor of a K-major view in the chunk's swizzle
+template <int CB>
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  if constexpr (CB == 128)
+    return rdt::wgmma_desc_sw128_rows(addr, 1024);
+  else
+    return rdt::wgmma_desc_sw64_rows(addr, 512);
+}
 }  // namespace co64
 
+// The first pass of K1's epilogue in the Co-64 kernel below, over one
+// accumulator row: link_value in place, the float values left as bits in the
+// accumulators; the residual bytes staged in `row0`'s pixels, OUT_ROW bytes
+// apart, the mask bytes in the words `mrow`; both rows' channels, 8 apart,
+// lie in one mask phase (16, 32 or 64 channels), the byte at bit `sh`. Reads
+// of shared memory only, and the residual's branch out of the loop, so that
+// the elements' chains overlap.
+template <bool RES, int OUT_ROW>
+__device__ __forceinline__ void link_values(int (&a)[64], const int8_t* row0,
+                                            const uint32_t* mrow, int tq, const int (&co_r)[2],
+                                            const float (&al)[2], const float (&be)[2], int sh,
+                                            float rs, float rsh) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int px = 8 * n + 2 * tq + e;
+      const float m = (float)(int8_t)(mrow[px] >> sh);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        int& v = a[4 * n + 2 * r + e];
+        v = __float_as_int(link_value(v, al[r], be[r], RES, RES ? row0[px * OUT_ROW + co_r[r]] : 0,
+                                      rs, rsh, m));
+      }
+    }
+}
+
+template <class T, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
-                 __nv_bfloat16* __restrict__ out, const EpiArgs ep, int B, int H, int W, int C,
+                 uint8_t* __restrict__ out, const EpiArgs ep, int B, int H, int W, int C,
                  int kh) {
-  constexpr int CH = 64, CO = 64, TW = co64::TW, TH = co64::TH, HALO_W = co64::HALO_W;
+  constexpr bool K6 = EPI == EPI_K6, S8_OUT = EPI == EPI_K1_S8;
+  static_assert(K6 == std::is_same<T, Bf16>::value, "K6 in bfloat16, K1 in int8");
+  using acc_t = typename T::acc_t;
+  constexpr int CH = 64, CB = CH * T::ES, CO = 64, TW = co64::TW, TH = co64::TH;
+  constexpr int HALO_W = co64::HALO_W;
   constexpr int A_STAGES = co64::A_STAGES, W_STAGES = co64::W_STAGES;
-  constexpr int A_BYTES = co64::A_BYTES, W_BYTES = co64::W_BYTES, OUT_ROW = co64::OUT_ROW;
+  constexpr int A_BYTES = co64::a_bytes(CB), A_STAGE = co64::a_stage(CB);
+  constexpr int W_BYTES = co64::w_bytes(CB), OUT_ROW = co64::out_row(EPI);
+  // bytes a pixel of the residual and of the output
+  constexpr int RES_PIX = K6 ? 2 * CO : CO, OUT_PIX = S8_OUT ? CO : 2 * CO;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sa = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
-                                           ~(uintptr_t)1023);
-  uint8_t* sw = sa + A_STAGES * A_BYTES;
+  // 1024-byte aligned by an offset into the shared array, so that the
+  // compiler keeps the address space (shared loads and stores in the
+  // epilogue, not generic ones)
+  uint8_t* sa = smem_raw + ((1024u - rdt::smem_addr(smem_raw)) & 1023u);
+  uint8_t* sw = sa + A_STAGES * A_STAGE;
   uint8_t* so_all = sw + W_STAGES * W_BYTES;
-  uint32_t* smask_all = reinterpret_cast<uint32_t*>(so_all + 2 * co64::OUT_BYTES);
-  uint64_t* full_a = reinterpret_cast<uint64_t*>(smask_all + co64::MASK_WORDS);
+  uint32_t* smask_all = reinterpret_cast<uint32_t*>(so_all + 2 * TW * OUT_ROW);
+  int* sborder = reinterpret_cast<int*>(smask_all + co64::MASK_WORDS);
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(sborder + (K6 ? 0 : co64::BORDER_INTS));
   uint64_t* empty_a = full_a + A_STAGES;
   uint64_t* full_b = empty_a + A_STAGES;
   uint64_t* empty_b = full_b + W_STAGES;
@@ -694,6 +765,21 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
     for (int s = 0; s < 2; ++s) rdt::mbar_init(order + s, 128);
     rdt::mbar_init_fence();
   }
+  if constexpr (!K6) {
+    // the border table: entry (class f, channel co), f's bits row 0, row H -
+    // 1, column 0, column W - 1 (tap (ky, kx) reads row y + ky - 1, column x +
+    // kx - 1)
+    for (int i = threadIdx.x; i < co64::BORDER_INTS; i += THREADS) {
+      const int f = i / CO, co = i % CO;
+      int sum = 0;
+      for (int ky = 0; ky < kh; ++ky)
+        for (int kx = 0; kx < kh; ++kx)
+          if (((f & 1) && ky == 0) || ((f & 2) && ky == 2) || ((f & 4) && kx == 0) ||
+              ((f & 8) && kx == 2))
+            sum += __ldg(ep.wsum + (ky * kh + kx) * CO + co);
+      sborder[i] = ep.zpad * sum;
+    }
+  }
   __syncthreads();
 
   const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
@@ -707,12 +793,12 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
     rdt::tma_prefetch_desc(&tmw);
     int ia = 0, pa = 0, ib = 0, pb = 0;
     for (int id = blockIdx.x; id < n_tiles; id += gridDim.x) {
-      const int b = id / (tiles_x * tiles_y), y0 = ((id / tiles_x) % tiles_y) * TH,
-                x0 = (id % tiles_x) * TW;
+      const int b = id / (tiles_x * tiles_y), y0 = (id % tiles_y) * TH,
+                x0 = ((id / tiles_y) % tiles_x) * TW;
       for (int c = 0; c < chunks; ++c) {
         rdt::mbar_wait(empty_a + ia, pa ^ 1);
         rdt::mbar_arrive_expect_tx(full_a + ia, A_BYTES);
-        rdt::tma_load_4d(sa + ia * A_BYTES, &tmx, full_a + ia, c * CH, x0 - 1, y0 - 1, b);
+        rdt::tma_load_4d(sa + ia * A_STAGE, &tmx, full_a + ia, c * CH, x0 - 1, y0 - 1, b);
         if (++ia == A_STAGES) ia = 0, pa ^= 1;
         for (int t = 0; t < taps; ++t) {
           rdt::mbar_wait(empty_b + ib, pb ^ 1);
@@ -729,7 +815,7 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
   rdt::setmaxnreg_inc<232>();
   const int cw = wg - 1;  // takes the CTA's tiles cw, cw + 2, ...
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
-  uint8_t* so = so_all + cw * co64::OUT_BYTES;
+  uint8_t* so = so_all + cw * TW * OUT_ROW;
   uint32_t* smask = smask_all + cw * 2 * 2 * TW;
   const uint32_t sa_addr = rdt::smem_addr(sa), sw_addr = rdt::smem_addr(sw);
   const int co_r[2] = {16 * warp + g, 16 * warp + g + 8};
@@ -741,32 +827,40 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
     be[r] = __ldg(ep.ab + CO + co_r[r]);
     sh[r] = 8 * (co_r[r] / (CO / ep.nph));
   }
-  const bool has_res = ep.res16 != nullptr;
-  float acc[2][64];
+  float s_out = 0.0f, rs = 0.0f, rsh = 0.0f;
+  if constexpr (!K6) {
+    s_out = __ldg(ep.ab + 2 * CO), rs = __ldg(ep.ab + 3 * CO), rsh = __ldg(ep.ab + 4 * CO);
+  }
+  const uint8_t* res = K6 ? reinterpret_cast<const uint8_t*>(ep.res16)
+                          : reinterpret_cast<const uint8_t*>(ep.res);
+  const bool has_res = res != nullptr;
+  acc_t acc[2][64];
   int parity = 0;
   for (int i = cw, id = blockIdx.x + cw * gridDim.x; id < n_tiles;
        i += 2, id += 2 * gridDim.x, parity ^= 1) {
-    const int b = id / (tiles_x * tiles_y), y0 = ((id / tiles_x) % tiles_y) * TH,
-              x0 = (id % tiles_x) * TW;
-    // the two rows' mask words, and their residual into L2
+    const int b = id / (tiles_x * tiles_y), y0 = (id % tiles_y) * TH,
+              x0 = ((id / tiles_y) % tiles_x) * TW;
+    // the two rows' mask words, read into registers now and stored in this
+    // tile's shared slot after the products, so that the reads land while
+    // the products run; their residual into L2
+    uint32_t mw_own[2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int yy = y0 + j;
-      uint32_t m = 0;
+      mw_own[j] = 0;
       if (yy < H && x0 + tid < W) {
         const size_t pix = ((size_t)b * H + yy) * W + x0 + tid;
         const int8_t* mp = ep.mask + pix * ep.nph;
-        m = ep.nph == 4   ? __ldg(reinterpret_cast<const uint32_t*>(mp))
-            : ep.nph == 2 ? (uint32_t)__ldg(reinterpret_cast<const uint16_t*>(mp))
-                          : (uint32_t)(uint8_t)__ldg(mp);
-        if (has_res) prefetch_l2(ep.res16 + pix * CO);
+        mw_own[j] = ep.nph == 4   ? __ldg(reinterpret_cast<const uint32_t*>(mp))
+                    : ep.nph == 2 ? (uint32_t)__ldg(reinterpret_cast<const uint16_t*>(mp))
+                                  : (uint32_t)(uint8_t)__ldg(mp);
+        if (has_res) prefetch_l2(res + pix * RES_PIX);
       }
-      smask[(parity * 2 + j) * TW + tid] = m;
     }
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int k = 0; k < 64; ++k) acc[j][k] = 0.0f;
+      for (int k = 0; k < 64; ++k) acc[j][k] = 0;
     int prev_a = -1, prev_b = -1;  // slots whose last products may still run
     // the other consumer has waited on every phase of the tile before: phase
     // k of order[1] ends consumer 0's tile 2k, phase k of order[0] consumer
@@ -780,21 +874,20 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
     for (int c = 0; c < chunks; ++c) {
       const int sa_seq = i * chunks + c, ia = sa_seq % A_STAGES;
       rdt::mbar_wait(full_a + ia, (sa_seq / A_STAGES) & 1);
-      const uint32_t a_base = sa_addr + ia * A_BYTES;
+      const uint32_t a_base = sa_addr + ia * A_STAGE;
 #pragma unroll 1
       for (int t = 0; t < taps; ++t) {
         const int sb_seq = sa_seq * taps + t, ib = sb_seq % W_STAGES;
         rdt::mbar_wait(full_b + ib, (sb_seq / W_STAGES) & 1);
         const int ky = t / kh, kx = t - ky * kh;
-        const uint32_t px_tap = a_base + (ky * HALO_W + kx) * ROW;
+        const uint32_t px_tap = a_base + (ky * HALO_W + kx) * CB;
         const uint32_t w_tap = sw_addr + ib * W_BYTES;
         rdt::wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < ROW; ks += 32) {
-          const uint64_t dw = rdt::wgmma_desc_sw128(w_tap + ks);
-          rdt::wgmma_bf16_n128(acc[0], dw, rdt::wgmma_desc_sw128_rows(px_tap + ks, 1024));
-          rdt::wgmma_bf16_n128(acc[1], dw,
-                               rdt::wgmma_desc_sw128_rows(px_tap + HALO_W * ROW + ks, 1024));
+        for (int ks = 0; ks < CB; ks += 32) {  // one instruction: 32 bytes of K
+          const uint64_t dw = co64::desc<CB>(w_tap + ks);
+          T::mma(acc[0], dw, co64::desc<CB>(px_tap + ks));
+          T::mma(acc[1], dw, co64::desc<CB>(px_tap + HALO_W * CB + ks));
         }
         rdt::wgmma_commit();
         rdt::wgmma_wait<1>();  // the previous tap's products are done
@@ -808,6 +901,23 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
       prev_a = ia;
     }
     rdt::mbar_arrive(order + (cw ^ 1));  // every thread, its last wait passed
+    // K1: both rows' residual (64 bytes a pixel) into registers, 16-byte
+    // vectors, read while the last products run
+    constexpr int RES_VECS = RES_PIX / 16;
+    uint4 rv_k1[2][K6 ? 1 : RES_VECS];
+    if constexpr (!K6) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < RES_VECS; ++q) {
+          const int v = tid + 128 * q, px = v / RES_VECS, u = v % RES_VECS;
+          rv_k1[j][q] = make_uint4(0, 0, 0, 0);
+          if (has_res && y0 + j < H && x0 + px < W)
+            rv_k1[j][q] = __ldg(reinterpret_cast<const uint4*>(
+                                    res + (((size_t)b * H + y0 + j) * W + x0 + px) * RES_PIX) +
+                                u);
+        }
+    }
     rdt::wgmma_wait<0>();
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -817,9 +927,14 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
       rdt::mbar_arrive(empty_b + prev_b);
       rdt::mbar_arrive(empty_a + prev_a);
     }
-
-    // epilogue, a row at a time through the staging rows
 #pragma unroll
+    for (int j = 0; j < 2; ++j) smask[(parity * 2 + j) * TW + tid] = mw_own[j];
+
+    // epilogue, a row at a time through the staging rows: the row's
+    // accumulators are acc[0] (row 1's move there after row 0), so that the
+    // code of a row is emitted once (unrolled over both rows, the epilogue
+    // ran slower: measured on an H100)
+#pragma unroll 1
     for (int j = 0; j < 2; ++j) {
       const int yy = y0 + j;
       const bool row_in = yy < H;
@@ -827,59 +942,127 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
       consumer_sync(cw);  // the staging rows are free, the mask words in place
       if (has_res) {
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int v = tid + 128 * q, px = v >> 3, u = v & 7;
-          uint4 rv = make_uint4(0, 0, 0, 0);
-          if (row_in && x0 + px < W)
-            rv = __ldg(reinterpret_cast<const uint4*>(ep.res16 + (row_pix + px) * CO) + u);
+        for (int q = 0; q < RES_VECS; ++q) {
+          const int v = tid + 128 * q, px = v / RES_VECS, u = v % RES_VECS;
+          uint4 rv;
+          if constexpr (K6) {
+            rv = make_uint4(0, 0, 0, 0);
+            if (row_in && x0 + px < W)
+              rv = __ldg(reinterpret_cast<const uint4*>(res + (row_pix + px) * RES_PIX) + u);
+          } else {
+            rv = rv_k1[0][q];
+          }
           *reinterpret_cast<uint4*>(so + px * OUT_ROW + 16 * u) = rv;
         }
         consumer_sync(cw);
       }
       const uint32_t* mrow = smask + (parity * 2 + j) * TW;
+      if constexpr (K6) {
 #pragma unroll
-      for (int n = 0; n < 16; ++n)
+        for (int n = 0; n < 16; ++n)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int px = 8 * n + 2 * tq + e;
-          const uint32_t mw = mrow[px];
+          for (int e = 0; e < 2; ++e) {
+            const int px = 8 * n + 2 * tq + e;
+            const uint32_t mw = mrow[px];
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            __nv_bfloat16* el = reinterpret_cast<__nv_bfloat16*>(so + px * OUT_ROW) + co_r[r];
-            const float res = has_res ? __bfloat162float(*el) : 0.0f;
-            const float m = (float)(int8_t)(mw >> sh[r]);
-            *el = __float2bfloat16_rn(
-                fp_value(acc[j][4 * n + 2 * r + e], al[r], be[r], has_res, res, m));
+            for (int r = 0; r < 2; ++r) {
+              __nv_bfloat16* el = reinterpret_cast<__nv_bfloat16*>(so + px * OUT_ROW) + co_r[r];
+              const float m = (float)(int8_t)(mw >> sh[r]);
+              const float rv = has_res ? __bfloat162float(*el) : 0.0f;
+              *el = __float2bfloat16_rn(
+                  fp_value(acc[0][4 * n + 2 * r + e], al[r], be[r], has_res, rv, m));
+            }
           }
-        }
-      consumer_sync(cw);
+      } else {
+        // K1's border correction, in the exact int32 accumulator, from the
+        // border table: every pixel of rows 0 and H - 1 takes its row's
+        // class, pixels 0 and W - 1 of a row their own
+        if (ep.zpad != 0 && row_in && (yy == 0 || yy == H - 1 || x0 == 0 || x0 + TW >= W)) {
+          const int* row_class = sborder + ((yy == 0) | (yy == H - 1) << 1) * CO;
+          if (yy == 0 || yy == H - 1)
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {  // the row out, 16-byte vectors
-        const int v = tid + 128 * q, px = v >> 3, u = v & 7;
+            for (int k = 0; k < 64; ++k) acc[0][k] += row_class[co_r[(k >> 1) & 1]];
+          // the columns' share: class f (flags 4: column 0, 8: column W - 1)
+          // less the row's class
+          auto column = [&](int px, int f) {
+#pragma unroll
+            for (int n = 0; n < 16; ++n)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                if (8 * n + 2 * tq + e == px)
+#pragma unroll
+                  for (int r = 0; r < 2; ++r)
+                    acc[0][4 * n + 2 * r + e] += row_class[f * CO + co_r[r]] - row_class[co_r[r]];
+          };
+          if (x0 == 0) column(0, W == 1 ? 12 : 4);
+          if (x0 + TW >= W && W > 1) column(W - 1 - x0, 8);
+        }
+        // two passes: the link's values into the accumulators (reads of the
+        // shared mask words and residual bytes only), then the output into
+        // the staging rows (writes only), so that no read waits on a write
+        // before it
+        const int8_t* row0 = reinterpret_cast<const int8_t*>(so);
+        if (has_res)
+          link_values<true, OUT_ROW>(acc[0], row0, mrow, tq, co_r, al, be, sh[0], rs, rsh);
+        else
+          link_values<false, OUT_ROW>(acc[0], row0, mrow, tq, co_r, al, be, sh[0], rs, rsh);
+        // an int8 code takes its own residual byte's place; a bfloat16 value
+        // also covers other threads' residual bytes
+        if (!S8_OUT && has_res) consumer_sync(cw);
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              uint8_t* row = so + (8 * n + 2 * tq + e) * OUT_ROW;
+              const float v = __int_as_float(acc[0][4 * n + 2 * r + e]);
+              if constexpr (S8_OUT)
+                reinterpret_cast<signed char*>(row)[co_r[r]] = requant(v, s_out);
+              else
+                reinterpret_cast<__nv_bfloat16*>(row)[co_r[r]] = __float2bfloat16_rn(v);
+            }
+      }
+      consumer_sync(cw);
+      constexpr int VECS = OUT_PIX / 16;
+#pragma unroll
+      for (int q = 0; q < VECS; ++q) {  // the row out, 16-byte vectors
+        const int v = tid + 128 * q, px = v / VECS, u = v % VECS;
         if (row_in && x0 + px < W)
-          reinterpret_cast<uint4*>(out + (row_pix + px) * CO)[u] =
+          reinterpret_cast<uint4*>(out + (row_pix + px) * OUT_PIX)[u] =
               *reinterpret_cast<const uint4*>(so + px * OUT_ROW + 16 * u);
+      }
+      if (j == 0) {
+#pragma unroll
+        for (int k = 0; k < 64; ++k) acc[0][k] = acc[1][k];
+#pragma unroll
+        for (int q = 0; q < (K6 ? 1 : RES_VECS); ++q) rv_k1[0][q] = rv_k1[1][q];
       }
     }
   }
 }
 
+// x (B, H, W, C) and wk (kh * kh, 64, C) in T's type, C a multiple of 64
+template <class T, int EPI>
 cudaError_t launch_co64(const void* x, const void* wk, const EpiArgs& ep, void* out, int B, int H,
                         int W, int C, int kh, int device, cudaStream_t stream) {
+  constexpr int CH = 64, CB = CH * T::ES;
+  constexpr CUtensorMapSwizzle SWIZZLE =
+      CB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const cuuint64_t es = T::ES;
   CUtensorMap tmx, tmw;
   const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t xstrides[3] = {C * 2ull, (cuuint64_t)W * C * 2, (cuuint64_t)H * W * C * 2};
-  const cuuint32_t xbox[4] = {64, co64::HALO_W, co64::HALO_H, 1};
-  cudaError_t err =
-      rdt::encode_sw128(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, xdims, xstrides, xbox);
+  const cuuint64_t xstrides[3] = {C * es, (cuuint64_t)W * C * es, (cuuint64_t)H * W * C * es};
+  const cuuint32_t xbox[4] = {CH, co64::HALO_W, co64::HALO_H, 1};
+  cudaError_t err = rdt::encode_swizzled(&tmx, T::TMA_TYPE, 4, x, xdims, xstrides, xbox, SWIZZLE);
   if (err != cudaSuccess) return err;
   const cuuint64_t wdims[3] = {(cuuint64_t)C, 64, (cuuint64_t)(kh * kh)};
-  const cuuint64_t wstrides[2] = {C * 2ull, 64ull * C * 2};
-  const cuuint32_t wbox[3] = {64, 64, 1};
-  err = rdt::encode_sw128(&tmw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, wk, wdims, wstrides, wbox);
+  const cuuint64_t wstrides[2] = {C * es, 64ull * C * es};
+  const cuuint32_t wbox[3] = {CH, 64, 1};
+  err = rdt::encode_swizzled(&tmw, T::TMA_TYPE, 3, wk, wdims, wstrides, wbox, SWIZZLE);
   if (err != cudaSuccess) return err;
-  auto kernel = conv_co64_kernel;
-  constexpr int smem = co64::SMEM;
+  auto kernel = conv_co64_kernel<T, EPI>;
+  constexpr int smem = co64::smem(CB, EPI);
   static int configured = -1;  // the device whose attribute was set
   if (configured != device) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -893,8 +1076,8 @@ cudaError_t launch_co64(const void* x, const void* wk, const EpiArgs& ep, void* 
       (long long)B * ((H + co64::TH - 1) / co64::TH) * ((W + co64::TW - 1) / co64::TW);
   if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int grid = (int)(n_tiles < sms ? n_tiles : sms);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      tmx, tmw, static_cast<__nv_bfloat16*>(out), ep, B, H, W, C, kh);
+  kernel<<<grid, THREADS, smem, stream>>>(tmx, tmw, static_cast<uint8_t*>(out), ep, B, H, W, C,
+                                          kh);
   return cudaGetLastError();
 }
 
@@ -973,12 +1156,14 @@ extern "C" int rdt_conv3x3_wgmma(const void* x, const void* wk, const void* scal
 // (B, H, W, Co) int8 or null; wsum (kh * kh, Co) int32, wk summed over C; out
 // (B, H, W, Co) int8 (out_kind 0) or bfloat16 (2). kh 3 (padding (1, 1)) or
 // 2 (padding (1, 0)); padding cells hold zpad. Every tensor contiguous and
-// 16-byte aligned; C and Co multiples of 128.
+// 16-byte aligned; C and Co multiples of 128, or Co 64 (the transposed
+// kernel) and C a multiple of 64.
 extern "C" int rdt_conv_block_wgmma(const void* x, const void* wk, const void* ab,
                                     const void* mask, const void* res, const void* wsum,
                                     void* out, int B, int H, int W, int C, int Co, int kh,
                                     int nph, int zpad, int out_kind, int device, void* stream) {
-  if (C <= 0 || C % 128 != 0 || Co <= 0 || Co % 128 != 0 || (kh != 2 && kh != 3) ||
+  const bool narrow = Co == 64 && C > 0 && C % 64 == 0;  // the transposed kernel
+  if (!(narrow || (C > 0 && C % 128 == 0 && Co > 0 && Co % 128 == 0)) || (kh != 2 && kh != 3) ||
       (nph != 1 && nph != 2 && nph != 4) || (out_kind != 0 && out_kind != 2) ||
       ab == nullptr || mask == nullptr || wsum == nullptr)
     return cudaErrorInvalidValue;
@@ -993,6 +1178,10 @@ extern "C" int rdt_conv_block_wgmma(const void* x, const void* wk, const void* a
   ep.wsum = static_cast<const int*>(wsum);
   ep.nph = nph;
   ep.zpad = zpad;
+  if (narrow)
+    return out_kind == 0
+               ? launch_co64<S8, EPI_K1_S8>(x, wk, ep, out, B, H, W, C, kh, device, st)
+               : launch_co64<S8, EPI_K1_BF16>(x, wk, ep, out, B, H, W, C, kh, device, st);
   if (out_kind == 0)
     return launch<S8, EPI_K1_S8>(x, wk, ep, out, B, H, H, H, W, C, Co, kh, -1, 1, 0, device, st);
   return launch<S8, EPI_K1_BF16>(x, wk, ep, out, B, H, H, H, W, C, Co, kh, -1, 1, 0, device, st);
@@ -1050,6 +1239,7 @@ extern "C" int rdt_conv_block_fp_wgmma(const void* x, const void* wk, const void
   ep.mask = static_cast<const int8_t*>(mask);
   ep.res16 = static_cast<const __nv_bfloat16*>(res);
   ep.nph = nph;
-  if (Co == 64) return launch_co64(x, wk, ep, out, B, H, W, C, kh, device, st);
+  if (Co == 64)
+    return launch_co64<Bf16, EPI_K6>(x, wk, ep, out, B, H, W, C, kh, device, st);
   return launch<Bf16, EPI_K6>(x, wk, ep, out, B, H, H, H, W, C, Co, kh, -1, 1, 0, device, st);
 }

@@ -78,6 +78,16 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128_rows(uint32_t addr, uint32_
          (1ull << 62);
 }
 
+// The 64-byte-swizzle layout read the same way: rows of 64 bytes (32 bytes
+// of K a step, two steps a row), 8-row groups `group_bytes` apart (512 in a
+// dense tile), the 16-byte unit u of the row at address a stored at unit u ^
+// ((a / 128) % 4), as TMA's 64-byte swizzle stores it; `addr` may start at
+// any 64-byte row, the base-offset field 0 as above.
+__device__ __forceinline__ uint64_t wgmma_desc_sw64_rows(uint32_t addr, uint32_t group_bytes) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(group_bytes >> 4) << 32) |
+         (2ull << 62);
+}
+
 '''
 
 

@@ -128,20 +128,27 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tiled map in the 128-byte swizzle over a tensor of `rank` dimensions,
+// A tiled map in the given swizzle over a tensor of `rank` dimensions,
 // innermost first: dims in elements, strides in bytes of dimensions 1 ..
-// rank - 1, box in elements (box[0] * element size == 128). Out-of-bounds
-// elements of a box read as zero.
-inline cudaError_t encode_sw128(CUtensorMap* map, CUtensorMapDataType type, int rank,
-                                const void* base, const cuuint64_t* dims,
-                                const cuuint64_t* strides, const cuuint32_t* box) {
+// rank - 1, box in elements (box[0] * element size the swizzle's width, 128
+// or 64 bytes). Out-of-bounds elements of a box read as zero.
+inline cudaError_t encode_swizzled(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                                   const void* base, const cuuint64_t* dims,
+                                   const cuuint64_t* strides, const cuuint32_t* box,
+                                   CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
-                        ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t encode_sw128(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                                const void* base, const cuuint64_t* dims,
+                                const cuuint64_t* strides, const cuuint32_t* box) {
+  return encode_swizzled(map, type, rank, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace rdt

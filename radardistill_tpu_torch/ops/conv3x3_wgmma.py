@@ -3,8 +3,8 @@ mbarrier rings, ``wgmma`` from shared memory, a persistent grid.
 
 Five wrappers launch it and count their launches: K1's ``conv_block`` and
 K6's ``conv_block_fp`` on their ``wgmma`` routes (``ops/conv_block.py``, the
-fused int8 and bfloat16 links, 3x3 or 2x2; K6's Co-64 links on the kernel's
-transposed form), K7's ``chain_conv`` on its ``wgmma`` route
+fused int8 and bfloat16 links, 3x3 or 2x2; the Co-64 links of both on the
+kernel's transposed form), K7's ``chain_conv`` on its ``wgmma`` route
 (``ops/int8_conv.py``: K1's link on a pre-padded input and a mask per output
 channel), K9's ``conv3x3_wide`` (``ops/wide_conv.py``, bfloat16 y and dx) and
 P1's ``conv_probe(..., route="wgmma")`` (``ops/probes.py``, ``conv``, ``dots``
@@ -27,6 +27,13 @@ def takes(c: int, co: int, int8: bool = False) -> bool:
     """The kernel stages 128 bytes of input channels at a time (C a multiple
     of 64 in bfloat16, of 128 in int8) and 128 output channels per tile."""
     return c > 0 and co > 0 and c % (128 if int8 else 64) == 0 and co % 128 == 0
+
+
+def takes_link(c: int, co: int) -> bool:
+    """K1's int8 link: C and Co multiples of 128 (the mainloop), or Co exactly
+    64 (the transposed kernel: the 64 channels as ``wgmma``'s M) with C a
+    multiple of 64 (chunks of 64 channels, 64 bytes in the 64-byte swizzle)."""
+    return takes(c, co, int8=True) or (co == 64 and c > 0 and c % 64 == 0)
 
 
 def takes_fp(c: int, co: int) -> bool:
@@ -70,9 +77,9 @@ def launch_link(x: torch.Tensor, wk: torch.Tensor, ab: torch.Tensor, mask: torch
     ab (8, Co) float32, mask (B, H, W, nph) int8 with nph 1, 2 or 4, res (B, H,
     W, Co) int8 or None, wsum (kh * kh, Co) int32 (wk summed over C), out (B,
     H, W, Co) int8 or bfloat16; padding cells hold ``zpad``. The caller has
-    checked device, dtype, contiguity, alignment and :func:`takes`. ``lib``:
-    the library to call, ``cuda_lib.lib()`` unless another build of this
-    kernel is given (bound with ``cuda_lib.bind``)."""
+    checked device, dtype, contiguity, alignment and :func:`takes_link`.
+    ``lib``: the library to call, ``cuda_lib.lib()`` unless another build of
+    this kernel is given (bound with ``cuda_lib.bind``)."""
     b, h, w, c = x.shape
     taps, co = wk.shape[:2]
     rc = (lib or cuda_lib.lib()).rdt_conv_block_wgmma(

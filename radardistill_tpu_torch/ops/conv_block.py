@@ -30,12 +30,13 @@ operation at a time). On a CUDA tensor it launches the kernel on one of three
 routes, or raises if the route cannot take the link. :func:`route_of` is the
 rule: the ``wgmma`` route (``csrc/conv3x3_wgmma.cu``, the Hopper conv
 mainloop: TMA into mbarrier rings, ``wgmma``) wherever C and Co are multiples
-of 128, the mask has 1, 2 or 4 phases and the output is int8 or bfloat16 (the
-four stage-1 links and 14 of the 19 deeper links of ``INT8_STAGES: 5``);
+of 128, or Co is 64 and C a multiple of 64 (the transposed kernel of the same
+file, the 64 channels as ``wgmma``'s M), the mask has 1, 2 or 4 phases and
+the output is int8 or bfloat16 (all 23 links of ``INT8_STAGES: 5``);
 otherwise the ``mma.sync`` kernel of ``csrc/conv_block.cu`` in its resident
 variant, which keeps the whole weight in shared memory (Co up to 128 and a
-weight that fits: the Co-64 links), or its streamed variant, which tiles Co
-by 128 and walks over C in chunks. The ``wgmma`` route reads the weight
+weight that fits), or its streamed variant, which tiles Co by 128 and walks
+over C in chunks. The ``wgmma`` route reads the weight
 K-major (``conv3x3_wgmma.wgmma_taps``, one transposing copy) and pads with
 zeros; it adds ``zpad`` times the padding taps' weight sums (:func:`tap_sums`,
 :func:`border_correction`) to the exact int32 accumulator of the pixels next
@@ -184,9 +185,11 @@ def resident_fits(kh: int, c: int, co: int, nph: int) -> bool:
 
 def wgmma_takes(c: int, co: int, nph: int, out_dtype) -> bool:
     """Whether the ``wgmma`` route takes the link: C and Co multiples of 128
-    (one 128-byte chunk of input channels, 128 output channels a tile), 1, 2
-    or 4 mask phases, an int8 or bfloat16 output."""
-    return (conv3x3_wgmma.takes(c, co, int8=True) and nph in (1, 2, 4)
+    (one 128-byte chunk of input channels, 128 output channels a tile), or Co
+    64 with C a multiple of 64 (the transposed kernel,
+    ``conv3x3_wgmma.takes_link``), 1, 2 or 4 mask phases, an int8 or bfloat16
+    output."""
+    return (conv3x3_wgmma.takes_link(c, co) and nph in (1, 2, 4)
             and out_dtype in (torch.int8, torch.bfloat16))
 
 
@@ -281,8 +284,9 @@ def conv_block(xq, kq, ab, mask_c, res=None, zpad: int = 0, out_dtype=torch.int8
     (B, H, W, nph) int8, res (B, H, W, Co) int8 or None -> (B, H, W, Co) in
     ``out_dtype`` (int8, float32 or bfloat16). On the card the route is
     :func:`route_of` the shape and the output type, or ``variant`` (one of
-    ``ROUTES``) forces one: ``wgmma`` takes C and Co multiples of 128, 1, 2
-    or 4 mask phases, int8 or bfloat16 out; ``resident`` and ``streamed`` (the
+    ``ROUTES``) forces one: ``wgmma`` takes C and Co multiples of 128, or Co
+    64 with C a multiple of 64, 1, 2 or 4 mask phases, int8 or bfloat16 out;
+    ``resident`` and ``streamed`` (the
     ``mma.sync`` kernel) take C a multiple of 32 and Co in {16, 32, 64} or a
     multiple of 128, ``resident`` only where the weight fits in shared memory
     beside one input tile (:func:`resident_fits`). A forced route that does
@@ -300,9 +304,10 @@ def conv_block(xq, kq, ab, mask_c, res=None, zpad: int = 0, out_dtype=torch.int8
     out = torch.empty((b, h, w, co), dtype=out_dtype, device=xq.device)
     if route == "wgmma":
         if not wgmma_takes(c, co, nph, out_dtype):
-            raise ValueError(f"conv_block: the wgmma route takes C and Co multiples of 128, 1, 2 "
-                             f"or 4 mask phases and an int8 or bfloat16 output, not C {c}, Co "
-                             f"{co}, {nph} phases, {out_dtype}")
+            raise ValueError(f"conv_block: the wgmma route takes C and Co multiples of 128 or "
+                             f"Co 64 with C a multiple of 64, 1, 2 or 4 mask phases and an int8 "
+                             f"or bfloat16 output, not C {c}, Co {co}, {nph} phases, "
+                             f"{out_dtype}")
         conv3x3_wgmma.launch_link(xq, conv3x3_wgmma.wgmma_taps(kq), ab, mask_c, res,
                                   tap_sums(kq), out, zpad)
     elif route in ("resident", "streamed"):

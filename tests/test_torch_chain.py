@@ -798,3 +798,55 @@ def test_k1_at_the_packed_stage2_link_equals_plain_on_card(cuda, with_res):
     want = _run_torch(link, None, cuda, block=cb.conv_block_plain)[0]
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# K1's five Co-64 links of INT8_STAGES: 5 on the transposed wgmma kernel: the
+# two stage-2 shapes at 720², batch 2 (2 x 360 x 6 = 4320 tiles of 2 x 128
+# pixels, more than the card's CTAs), with and without a residual; an odd grid
+# with a 4-phase mask and a residual; two 64-channel chunks a tile (C 128,
+# 3x3) at zero 0 (no border correction); a 2-phase mask on one row whose last
+# tile holds the image's last column alone
+CO64_CASES = [dict(kh=2, zero=127.0, c=128, co=64, h=720, w=720),
+              dict(kh=2, zero=127.0, c=128, co=64, h=720, w=720, with_res=True),
+              dict(kh=3, zero=127.0, c=64, co=64, h=720, w=720),
+              dict(kh=3, zero=127.0, c=64, co=64, h=720, w=720, with_res=True),
+              dict(kh=3, zero=127.0, nph=4, c=64, co=64, h=19, w=37, with_res=True),
+              dict(kh=3, zero=0.0, nph=4, c=128, co=64, h=19, w=137, with_res=True),
+              dict(kh=2, zero=127.0, nph=2, c=64, co=64, h=1, w=129)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CO64_CASES, ids=_ids)
+def test_k1_co64_links_on_wgmma_equal_plain_and_resident_on_card(cuda, case):
+    """The dispatch sends the link to ``wgmma`` and its counter moves; every
+    int8 code equals the plain version's and the resident ``mma.sync``
+    variant's."""
+    from tests.test_torch_conv_block import _run_torch
+
+    link = _link(41, **case)
+    kh, _, c, co = link["kq"].shape
+    assert cb.route_of(kh, c, co, link["mask"].shape[-1], torch.int8) == "wgmma"
+    routes = dict(cb.conv_block.route_launches)
+    got = _run_torch(link, None, cuda)[0]
+    assert cb.conv_block.route_launches == {**routes, "wgmma": routes["wgmma"] + 1}
+    want = _run_torch(link, None, cuda, block=cb.conv_block_plain)[0]
+    resident = _run_torch(link, None, cuda,
+                          block=lambda *a, **k: cb.conv_block(*a, variant="resident", **k))[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, resident)
+    assert float((want > -127).float().mean()) > 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [CO64_CASES[3], CO64_CASES[5]], ids=_ids)
+def test_k1_co64_bfloat16_output_on_card(cuda, case):
+    """A chain's last link on the transposed kernel: ``y`` as bfloat16, within
+    1e-2 x max|ref| of the plain version (one bfloat16 rounding each)."""
+    from tests.test_torch_conv_block import _run_torch
+
+    link = _link(42, **case)
+    got = _run_torch(link, torch.bfloat16, cuda)
+    want = _run_torch(link, torch.bfloat16, cuda, block=cb.conv_block_plain)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
+

@@ -240,9 +240,10 @@ def test_kernel_equals_plain_on_card(cuda, case, deq_out):
     link = _link(8, **case)
     kh, _, c, co = link["kq"].shape
     route = cb.route_of(kh, c, co, link["mask"].shape[-1], deq_out or torch.int8)
-    if c % 128 == 0 and co % 128 == 0 and deq_out != torch.float32:
+    if deq_out != torch.float32 and ((c % 128 == 0 and co % 128 == 0)
+                                     or (co == 64 and c % 64 == 0)):
         assert route == "wgmma"
-    else:  # float32 out, or C or Co off the 128 grid: mma.sync
+    else:  # float32 out, or C or Co off the wgmma route's grid: mma.sync
         assert route == ("streamed" if co == 256 else "resident")
     before, routes = cb.conv_block.launches, dict(cb.conv_block.route_launches)
     got = _run_torch(link, deq_out, cuda)
@@ -281,10 +282,11 @@ def test_kernel_raises_on_shapes_it_does_not_take(cuda):
     link = _link(9, c=32, co=48, h=8, w=8)  # Co 48: no tile of either variant
     with pytest.raises(ValueError):
         _run_torch(link, None, cuda)
-    # the wgmma route, forced: C 64, Co 64, a float32 output
+    # the wgmma route, forced: C 64 into Co 128, C 96 or Co 32, a float32 output
     wgmma = lambda *a, **k: cb.conv_block(*a, variant="wgmma", **k)  # noqa: E731
-    for case, deq_out in ((dict(c=64, co=128), None), (dict(c=128, co=64), None),
-                          (dict(c=128, co=128), torch.float32)):
+    for case, deq_out in ((dict(c=64, co=128), None), (dict(c=96, co=64), None),
+                          (dict(c=64, co=32), None), (dict(c=128, co=128), torch.float32),
+                          (dict(c=64, co=64), torch.float32)):
         before = dict(cb.conv_block.route_launches)
         with pytest.raises(ValueError):
             _run_torch(_link(9, h=8, w=8, **case), deq_out, cuda, block=wgmma)

@@ -60,9 +60,10 @@ def test_wgmma_taps_are_k_major(kh):
 
 
 def test_dispatch_of_the_int8_stages_5_chain():
-    """The four stage-1 links and 14 of the 19 deeper links of ``INT8_STAGES:
-    5`` go to ``wgmma``; the five Co-64 links stay on ``mma.sync`` (the
-    resident variant); a float32 output never takes ``wgmma``."""
+    """All 23 links of ``INT8_STAGES: 5`` go to ``wgmma``: the four stage-1
+    links, the 14 deeper links with C and Co multiples of 128, and the five
+    Co-64 links (the transposed kernel); a float32 output never takes
+    ``wgmma``."""
     stage1 = [((720, 128, 128, 3), 4)]
     deep = [((hw, c, co, kh), n_plain + n_res)
             for hw, c, co, kh, n_plain, n_res in chip_smoke.INT8_DEEP_LINKS]
@@ -71,17 +72,95 @@ def test_dispatch_of_the_int8_stages_5_chain():
         for nph in (1, 4):
             route = cb.route_of(kh, c, co, nph, torch.int8)
             assert route == cb.route_of(kh, c, co, nph, torch.bfloat16)
-            assert route == ("wgmma" if co != 64 else "resident"), (c, co, kh, nph)
+            assert route == "wgmma", (c, co, kh, nph)
             assert cb.route_of(kh, c, co, nph, torch.float32) != "wgmma"
         count[cb.route_of(kh, c, co, 1, torch.int8)] += n
     assert sum(n for _, n in deep) == 19
-    assert count == {"wgmma": 18, "resident": 5, "streamed": 0}
+    assert count == {"wgmma": 23, "resident": 0, "streamed": 0}
     # the deeper weights beyond shared memory, in float32, stream
     assert cb.route_of(3, 256, 256, 1, torch.float32) == "streamed"
     assert cb.route_of(2, 512, 256, 1, torch.float32) == "streamed"
-    # three mask phases, or C 64: mma.sync
+    # three mask phases, or C 64 into Co 128: mma.sync
     assert cb.route_of(3, 128, 384, 3, torch.int8) != "wgmma"
     assert cb.route_of(3, 64, 128, 1, torch.int8) == "resident"
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+@pytest.mark.parametrize("nph", [1, 2, 4])
+@pytest.mark.parametrize("c", [64, 128])
+def test_co64_links_take_the_transposed_wgmma_kernel(c, nph, out_dtype):
+    """Co 64 with C a multiple of 64 (one or two 64-channel chunks), 1, 2 or 4
+    mask phases and an int8 or bfloat16 output: ``wgmma``, both windows."""
+    assert cb.wgmma_takes(c, 64, nph, out_dtype)
+    for kh in (2, 3):
+        assert cb.route_of(kh, c, 64, nph, out_dtype) == "wgmma"
+
+
+@pytest.mark.parametrize("c,co,nph,out_dtype,route", [
+    (96, 64, 1, torch.int8, "resident"),        # C not a multiple of 64
+    (64, 32, 1, torch.int8, "resident"),        # Co 32: no tile of the kernel
+    (64, 128, 1, torch.int8, "resident"),       # C 64 into Co 128: half a mainloop chunk
+    (64, 64, 1, torch.float32, "resident"),     # a float32 output
+    (64, 64, 3, torch.int8, "streamed"),        # three mask phases
+], ids=["c96", "co32", "c64-co128", "f32-out", "nph3"])
+def test_shapes_the_transposed_kernel_does_not_take(c, co, nph, out_dtype, route):
+    assert not cb.wgmma_takes(c, co, nph, out_dtype)
+    assert cb.route_of(3, c, co, nph, out_dtype) == route
+
+
+@pytest.mark.parametrize("kh,c", [(3, 64), (2, 128)], ids=["kh3-c64", "kh2-c128"])
+def test_co64_wgmma_taps_give_the_plain_conv(kh, c):
+    """The K-major taps (kh * kh, 64, C) the transposed kernel reads as its A
+    operand, summed as it sums them (tap t = ky * kh + kx reads the input cell
+    (y + ky - 1, x + kx - 1), zero outside), give the exact integer
+    convolution, and with the border correction the one padded with zpad:
+    the two Co-64 link shapes of ``INT8_STAGES: 5``."""
+    rng = np.random.RandomState(20 + kh)
+    xq = torch.from_numpy(rng.randint(-127, 128, (2, 7, 13, c)).astype(np.int8))
+    kq = torch.from_numpy(rng.randint(-127, 128, (kh, kh, c, 64)).astype(np.int8))
+    wk = conv3x3_wgmma.wgmma_taps(kq)
+    assert tuple(wk.shape) == (kh * kh, 64, c) and wk.is_contiguous() and wk.dtype == torch.int8
+    xp = torch.nn.functional.pad(xq.long(), (0, 0, 1, 1, 1, 1))  # 2x2 reads rows -1, 0
+    acc = torch.zeros(2, 7, 13, 64, dtype=torch.long)
+    for t in range(kh * kh):
+        ky, kx = divmod(t, kh)
+        acc += xp[:, ky:ky + 7, kx:kx + 13] @ wk[t].long().t()
+    pad = (1, 1) if kh == 3 else (1, 0)
+    assert torch.equal(acc.int(), cb.int_conv_exact(xq, kq, 1, (pad, pad), 0))
+    corr = cb.border_correction(cb.tap_sums(kq), 7, 13, kh, -127)
+    assert torch.equal(acc.int() + corr, cb.int_conv_exact(xq, kq, 1, (pad, pad), -127))
+
+
+def _border_table(wsum, kh, zpad):
+    """The transposed kernel's border table (``conv_co64_kernel``): entry (f,
+    co) is zpad x the weight sums of the taps outside the image for the class
+    f of a pixel, flags 1: row 0, 2: row H - 1, 4: column 0, 8: column W - 1
+    (tap (ky, kx) reads row y + ky - 1, column x + kx - 1)."""
+    table = torch.zeros(16, wsum.shape[1], dtype=torch.int32)
+    for f in range(16):
+        for ky in range(kh):
+            for kx in range(kh):
+                if ((f & 1 and ky == 0) or (f & 2 and ky == 2) or (f & 4 and kx == 0)
+                        or (f & 8 and kx == 2)):
+                    table[f] += wsum[ky * kh + kx]
+    return zpad * table
+
+
+@pytest.mark.parametrize("kh", [2, 3])
+@pytest.mark.parametrize("h,w", [(7, 13), (1, 1), (1, 2), (2, 129)])
+def test_border_table_classes_give_the_border_correction(kh, h, w):
+    """The kernel's rule on the CPU: a pixel's class (its row 0 / H - 1 and
+    column 0 / W - 1 flags, both flags of a side on a 1-wide image) picks the
+    table entry that equals ``border_correction`` at that pixel."""
+    kq = torch.from_numpy(np.random.RandomState(30 + kh).randint(-127, 128, (kh, kh, 16, 64))
+                          .astype(np.int8))
+    wsum = cb.tap_sums(kq)
+    table = _border_table(wsum, kh, -127)
+    want = cb.border_correction(wsum, h, w, kh, -127)
+    for y in range(h):
+        for x in range(w):
+            f = (y == 0) | (y == h - 1) << 1 | (x == 0) << 2 | (x == w - 1) << 3
+            assert torch.equal(table[f], want[y, x]), (y, x)
 
 
 def test_cpu_tensors_take_the_plain_version_on_any_route():

@@ -9,7 +9,9 @@ includes (``tma_ops.cuh``, ``wgmma_ops.cuh``), e.g. a parent commit's
 ``radardistill_tpu_torch/csrc`` unpacked with ``git archive``. Both build for
 sm_90a (ptxas registers and spills printed); then at the link shapes of the
 teacher's chain that take the route (the stage-1 link (2, 720, 720, 128) x (3,
-3, 128, 128) with 4 mask phases, and the deeper C, Co % 128 links) and for
+3, 128, 128) with 4 mask phases, the deeper C, Co % 128 links, and the two
+Co-64 shapes of stage 2 on the transposed kernel, which the other build must
+also take) and for
 each ``zpad`` 0 / -127 with and without a residual, int8 out (and once
 bfloat16 out at 720²): both versions' outputs must equal ``conv_block_plain``;
 the bare launches (``rdt_conv_block_wgmma`` on prepared operands) are timed
@@ -28,7 +30,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
-SHAPES = ((2, 720, 720, 128, 128, 3, 4), (2, 360, 360, 128, 128, 3, 1),
+SHAPES = ((2, 720, 720, 128, 128, 3, 4), (2, 720, 720, 128, 64, 2, 1),
+          (2, 720, 720, 64, 64, 3, 1), (2, 360, 360, 128, 128, 3, 1),
           (2, 180, 180, 256, 256, 3, 1), (2, 180, 180, 512, 256, 2, 1),
           (2, 90, 90, 256, 256, 3, 1))  # (B, H, W, C, Co, kh, nph)
 
@@ -38,7 +41,8 @@ def ptxas_summary(log: str) -> list[str]:
     out, keep = [], False
     for line in log.splitlines():
         if "entry function" in line:
-            keep = "conv_wgmma_kernel" in line and ("S8ELi2" in line or "S8ELi3" in line)
+            keep = (("conv_wgmma_kernel" in line or "conv_co64_kernel" in line)
+                    and ("S8ELi2" in line or "S8ELi3" in line))
         elif keep and ("Used" in line or "spill" in line):
             out.append(line.strip())
     return out
@@ -111,7 +115,7 @@ def main() -> int:
                   f"launch alone other {(t[0] + t[3]) / 2:.4f} ms, this {this_ms:.4f} ms "
                   f"({ops / this_ms / 1e9:.0f} TOP/s); wrapper {cuda_ms(wrap, 20):.4f} ms, its "
                   f"device time {cuda_ms(wrap, 20, hide_host=True):.4f} ms", flush=True)
-        if kh == 3:  # P1's int8 mode: the same products, P1's short epilogue
+        if kh == 3 and co % 128 == 0:  # P1's int8 mode: the same products, its short epilogue
             xp = torch.nn.functional.pad(xq, (0, 0, 0, 0, 1, 1))
             o = torch.empty((b, h, w, co), dtype=torch.int8, device=dev)
             a = torch.full((co,), 1e-3, device=dev)
