@@ -121,7 +121,14 @@ Phases 12-19, the deep chains of the teacher:
      ``mma.sync`` kernel's, and on an all-ones mask to K1's on the same link;
      the wrapper (and its device time), the bare launch beside K1's bare
      launch of the same product with a mask word a pixel, the streamed
-     kernel's wrapper and the plain version timed in one run;
+     kernel's wrapper and the plain version timed in one run; then the five
+     Co-64 links that ``CONV_BLOCK_V1=1`` sends through K7 (stage 2, 720²,
+     a 60% per-channel mask; ``phase_k7_co64``): every code equal to plain
+     and to the forced streamed route, the dispatch on ``wgmma`` (the
+     transposed kernel); the wrapper and its device time against the
+     streamed route's in turns, the bare launch, the carry's pad and the
+     plain version, summed beside their bound with the card's name and power
+     limit; the ``wgmma`` device sum must be below the streamed one;
  14. K6 ``conv_block_fp`` vs its plain version at the seven link shapes of the
      ``FP_STAGES: 5`` chain in bfloat16 (within 1e-2 x max|ref|: one bfloat16
      rounding of a differently ordered float32 sum), with and without a
@@ -151,7 +158,8 @@ Phases 12-19, the deep chains of the teacher:
  18. both configurations in float32 at grid 512, card vs CPU (teacher features
      1e-3, ``radar_preds`` 1e-4; under ``INT8_STAGES: 5`` the teacher's bound
      is 5e-2, see below), and the ``INT8_STAGES: 5`` teacher once more with
-     ``CONV_BLOCK_V1=1`` (every link through K7, 18 on its ``wgmma`` route):
+     ``CONV_BLOCK_V1=1`` (every link through K7, all 24 on its ``wgmma``
+     route, the five Co-64 links on the transposed kernel, 0 streamed):
      features bit-equal; then the
      ``FP_STAGES: 5`` teacher in bfloat16 against the card's own float32
      forward of the same batch and weights at grid 512: the rel-L2 of
@@ -429,8 +437,13 @@ sums over the 19 deeper links of ``INT8_STAGES: 5`` on their routes
 device time with the host's enqueue hidden, as the wrappers of the links
 below 720² cost the host more than the card; phase 12's last line sums the
 five Co-64 links apart, their bare launches and bound among them); K7's ``device_ms`` is its
-wrapper's device time, the same way. ``launches_runtime`` is each
-kernel's count over phase 25, ``launches_nuscenes`` over phase 26,
+wrapper's device time, the same way, and its ``co64_*`` the sums over its
+five Co-64 links of phase 13 (``co64_old_route_ms`` and
+``co64_device_old_route_ms``: the streamed route in turns; ``co64_launch_ms``
+the bare launches; ``co64_pad_ms`` the device time of the carries' pads in H
+that the wrapper makes first; ``co64_plain_ms`` the plain version's).
+``launches_runtime`` is each kernel's count over phase 25,
+``launches_nuscenes`` over phase 26,
 ``launches_ddp`` over the DDP steps of phase 27, ``launches_teacher_pretrain``
 over phase 28 and ``launches_radar_baseline`` over phase 29; K5's
 ``dense_vfe`` holds phase 31's records. Any failed phase exits
@@ -1127,19 +1140,43 @@ def phase_k1_deep(torch, dev, smi):
     return tot
 
 
-def phase_k7(torch, dev):
+def k7_bare_launch(torch, link, mq, got, name):
+    """K7's bare launch (``conv3x3_wgmma.launch_chain``) of one ``int8_link``
+    with a carry zero of 127 and the lane mask ``mq``, on operands prepared
+    once and a preallocated output; raises unless its codes equal ``got``,
+    the wrapper's. Returns the launch and its prepared (ab, wk, wsum)."""
+    import torch.nn.functional as F
+
+    from radardistill_tpu_torch.ops import conv3x3_wgmma
+    from radardistill_tpu_torch.ops.conv_block import link_constants, tap_sums
+
+    xq, kq, res = link["xc"][0], link["kq"], link["res"]
+    kh = kq.shape[0]
+    ab = link_constants(link["xc"], kq, link["sw"], link["bias"], link["gt"], link["sh"],
+                        link["bound"], res)[0]
+    xp = F.pad(xq, (0, 0, 0, 0, 1, kh - 2), value=-127)
+    wk, wsum, out = conv3x3_wgmma.wgmma_taps(kq), tap_sums(kq), torch.empty_like(got)
+    alone = lambda: conv3x3_wgmma.launch_chain(  # noqa: E731
+        xp, wk, ab, mq, None if res is None else res[0], wsum, out, -127)
+    alone()
+    torch.cuda.synchronize()
+    if not torch.equal(out, got):
+        raise RuntimeError(f"{name}: the bare launch differs from the wrapper's codes")
+    return alone, (ab, wk, wsum)
+
+
+def phase_k7(torch, dev, smi):
     """K7 at the conv5 link of the ``INT8_STAGES: 5`` chain and at a 3x3 link
     with a per-channel mask and a residual, on the route the dispatch gives
     them (``wgmma``): equal to plain, to the streamed kernel and, on an
     all-ones mask, to K1. Timed in one run: the wrapper (and its device
     time), the bare launch on prepared operands beside K1's on the same
     product with its one-word mask, the streamed kernel's wrapper, the plain
-    version. The record is the conv5 link's, the main path's launch."""
-    import torch.nn.functional as F
-
+    version. The record is the conv5 link's, the main path's launch; its
+    ``co64_*`` keys are :func:`phase_k7_co64`'s sums over the five Co-64
+    links."""
     from radardistill_tpu_torch.ops import conv3x3_wgmma
-    from radardistill_tpu_torch.ops.conv_block import (conv_block, int8_block_conv_v2,
-                                                       link_constants, tap_sums)
+    from radardistill_tpu_torch.ops.conv_block import conv_block, int8_block_conv_v2
     from radardistill_tpu_torch.ops.int8_conv import (chain_conv, chain_conv_plain,
                                                       chain_route_of, int8_block_conv)
 
@@ -1172,19 +1209,9 @@ def phase_k7(torch, dev):
             raise RuntimeError(f"K7 {name}: launches {moved}")
         n_bad, n_old = int((got != want).sum()), int((old != want).sum())
         n_k1 = int((k7_ones != k1_ones).sum())
-        # the bare launch on prepared operands and a preallocated output
-        xq, kq, res = link["xc"][0], link["kq"], link["res"]
-        ab = link_constants(link["xc"], kq, link["sw"], link["bias"], link["gt"], link["sh"],
-                            link["bound"], res)[0]
-        xp = F.pad(xq, (0, 0, 0, 0, 1, kh - 2), value=-127)
-        wk, wsum, out = conv3x3_wgmma.wgmma_taps(kq), tap_sums(kq), torch.empty_like(got)
-        alone = lambda: conv3x3_wgmma.launch_chain(  # noqa: E731
-            xp, wk, ab, mq, None if res is None else res[0], wsum, out, -127)
-        alone()
-        torch.cuda.synchronize()
-        if not torch.equal(out, got):
-            raise RuntimeError(f"K7 {name}: the bare launch differs from the wrapper's codes")
+        alone, (ab, wk, wsum) = k7_bare_launch(torch, link, mq, got, f"K7 {name}")
         # K1's bare launch of the same product, its mask a word a pixel
+        xq, res = link["xc"][0], link["res"]
         ones_c, out1 = ones[..., :1].contiguous(), torch.empty_like(got)
         k1_alone = lambda: conv3x3_wgmma.launch_link(  # noqa: E731
             xq, wk, ab, ones_c, None if res is None else res[0], wsum, out1, -127)
@@ -1211,7 +1238,92 @@ def phase_k7(torch, dev):
             rec = bound_of({"max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
                             "launch_ms": launch_ms, "old_route_ms": old_ms, "plain_ms": plain_ms,
                             "bytes_ms": bytes_ms, "ops_ms": ops_ms, "library_ms": None})
+    rec.update({f"co64_{k}": v for k, v in phase_k7_co64(torch, dev, smi).items()})
     return rec
+
+
+# K7's links under CONV_BLOCK_V1=1 that have 64 output channels: stage 2 of
+# INT8_STAGES: 5 at 720², batch 2 (five launches)
+K7_CO64_LINKS = tuple(link for link in INT8_DEEP_LINKS if link[2] == 64)
+
+
+def phase_k7_co64(torch, dev, smi):
+    """K7 at the five Co-64 links that ``CONV_BLOCK_V1=1`` sends through it,
+    each with a mask that differs from channel to channel, on the route the
+    dispatch gives them (``wgmma``: the transposed kernel): every code equal
+    to plain and to the forced streamed route, the dispatched route's counter
+    moved. Timed in turns, dispatched and streamed: the wrapper as a caller
+    meets it and its device time with the host's enqueue hidden; then the
+    bare launch on prepared operands, the device time of the carry's pad in H
+    that ``int8_block_conv`` makes before either route (``pad_ms``), and the
+    plain version.
+    Returns the sums over the five launches; raises unless the dispatch takes
+    ``wgmma`` and its device time sums below the streamed route's."""
+    import torch.nn.functional as F
+
+    from radardistill_tpu_torch.ops.int8_conv import (chain_conv, chain_conv_plain,
+                                                      chain_route_of, int8_block_conv)
+
+    gen = torch.Generator().manual_seed(21)
+    streamed = lambda *a, **k: chain_conv(*a, variant="streamed", **k)  # noqa: E731
+    tot = dict.fromkeys(("ms", "old_route_ms", "device_ms", "device_old_route_ms", "launch_ms",
+                         "pad_ms", "plain_ms", "bound_ms"), 0.0)
+    routes = set()
+    for hw, c, co, kh, n_plain, n_res in K7_CO64_LINKS:
+        route = chain_route_of(kh, c, co)
+        routes.add(route)
+        for with_res, count in ((False, n_plain), (True, n_res)):
+            if not count:
+                continue
+            link = int8_link(torch, dev, gen, 2, hw, hw, c, co, kh, 1, 127.0, with_res)
+            args = {k: v for k, v in link.items() if k != "mask_c"}
+            mq = (torch.rand(2, hw, hw, co, generator=gen) < 0.6).to(torch.int8).to(dev)
+            run = lambda block: int8_block_conv(mask_q=mq, block=block, **args)[0]  # noqa: E731
+            read = reset_launches()
+            got = run(chain_conv)
+            moved = read()
+            want, old = run(chain_conv_plain), run(streamed)
+            torch.cuda.synchronize()
+            n_bad, n_old = int((got != want).sum()), int((old != want).sum())
+            ops_ms, bytes_ms = int8_link_bound(link, mq)
+            new_fn, old_fn = lambda: run(chain_conv), lambda: run(streamed)  # noqa: E731
+            ms, old_ms = paired_ms(torch, new_fn, old_fn, iters=10)
+            dev_ms, dev_old_ms = paired_ms(torch, new_fn, old_fn, iters=10, timer=device_ms)
+            launch_ms = None
+            if route == "wgmma":
+                alone = k7_bare_launch(torch, link, mq, got, f"K7 Co-64 link {c} -> {co}")[0]
+                launch_ms = (cuda_ms(torch, alone, 10) + cuda_ms(torch, alone, 10)) / 2
+            xq = link["xc"][0]
+            pad_ms = device_ms(torch, lambda: F.pad(xq, (0, 0, 0, 0, 1, kh - 2), value=-127), 10)
+            plain_ms = cuda_ms(torch, lambda: run(chain_conv_plain), 2)
+            print(f"K7 chain_conv ({route}) x (2, {hw + kh - 1}, {hw}, {c}) pre-padded, k ({kh}, "
+                  f"{kh}, {c}, {co}), per-channel mask, res {with_res}: {n_bad} of {got.numel()} "
+                  f"codes differ from plain, {n_old} on the streamed route; "
+                  f"{100 * float((want > -127).float().mean()):.0f}% of codes above -127; wrapper "
+                  f"{ms:.4f} ms, device {dev_ms:.4f} ms (streamed {old_ms:.4f}, device "
+                  f"{dev_old_ms:.4f} ms), "
+                  + (f"launch alone {launch_ms:.4f} ms, " if launch_ms is not None else "")
+                  + f"the carry's pad {pad_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes "
+                  f"{bytes_ms:.4f}) x {count}")
+            if n_bad or n_old or moved[f"chain_conv.{route}"] != 1:
+                raise RuntimeError(f"K7 at {hw}² C {c} -> Co {co}: {n_bad} codes differ from "
+                                   f"plain, {n_old} on the streamed route; launches {moved}")
+            for key, v in (("ms", ms), ("old_route_ms", old_ms), ("device_ms", dev_ms),
+                           ("device_old_route_ms", dev_old_ms), ("launch_ms", launch_ms or 0.0),
+                           ("pad_ms", pad_ms), ("plain_ms", plain_ms),
+                           ("bound_ms", max(ops_ms, bytes_ms))):
+                tot[key] += count * v
+    print(f"K7 over the five Co-64 links (stage 2 of INT8_STAGES: 5 under CONV_BLOCK_V1=1, 720², "
+          f"on {'/'.join(sorted(routes))}, {smi}): wrapper {tot['ms']:.4f} ms against the streamed "
+          f"route's {tot['old_route_ms']:.4f} ms, device {tot['device_ms']:.4f} ms against "
+          f"{tot['device_old_route_ms']:.4f} ms in turns, bare launches {tot['launch_ms']:.4f} ms, "
+          f"the carries' pads {tot['pad_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms")
+    if routes != {"wgmma"} or not tot["device_ms"] < tot["device_old_route_ms"]:
+        raise RuntimeError(f"K7: the Co-64 links ran on {routes}, device {tot['device_ms']:.4f} ms "
+                           f"against the streamed route's {tot['device_old_route_ms']:.4f} ms")
+    return tot
 
 
 def fp_link(torch, dev, gen, dtype, b, h, w, c, co, kh, nph, with_res):
@@ -1533,13 +1645,14 @@ def phase_forward_bf16(torch, dev, name, cfg, info, batch, expect_launches, runs
     return launches
 
 
-def phase_forward_f32(torch, dev, name, cfg, info, batch, tol, v1_equal=()):
+def phase_forward_f32(torch, dev, name, cfg, info, batch, tol, v1_equal=(), v1_links=0):
     """One path in float32 with TF32 off: the kernel path on the card against
     the plain path (the same model on the CPU). ``tol`` maps an output key to
     its rel-L2 limit; a key naming a dict of predictions holds each head. The
     keys of ``v1_equal`` must come out bit-equal when the same model runs on
     the card once more with ``CONV_BLOCK_V1=1`` (every int8 link through the
-    first-generation kernel)."""
+    first-generation kernel, all ``v1_links`` of them on its ``wgmma``
+    route)."""
     import os
 
     from radardistill_tpu_torch.models import build_network
@@ -1587,8 +1700,11 @@ def phase_forward_f32(torch, dev, name, cfg, info, batch, tol, v1_equal=()):
               f"{v2_launches['conv_block']}, {v2_launches['chain_conv']}); "
               f"{', '.join(v1_equal)} bit-equal to the v2 route's: {not differ}")
         links = v2_launches["conv_block"] + v2_launches["chain_conv"]
-        if differ or v1_launches["conv_block"] != 0 or v1_launches["chain_conv"] != links:
-            raise RuntimeError(f"{name}: v1 route differs in {differ}, launches {v1_launches}")
+        if (differ or v1_launches["conv_block"] != 0 or links != v1_links
+                or v1_launches["chain_conv"] != links or v1_launches["chain_conv.wgmma"] != links
+                or v1_launches["chain_conv.streamed"] != 0):
+            raise RuntimeError(f"{name}: v1 route differs in {differ}, launches {v1_launches} "
+                               f"(want chain_conv x {v1_links}, all on wgmma)")
 
 
 def build_trainer(torch, yaml_name, cfg, info, dtype, device):
@@ -4095,7 +4211,7 @@ def main() -> int:
     k1 = phase_k1(torch, dev)
     cudnn_bf16_conv_aside(torch, dev)
     k1_deep = phase_k1_deep(torch, dev, smi)
-    k7 = phase_k7(torch, dev)
+    k7 = phase_k7(torch, dev, smi)
     k6 = phase_k6(torch, dev)
     k9, k9_launches = phase_k9(torch, dev)
 
@@ -4197,7 +4313,8 @@ def main() -> int:
         t_tol = 5e-2 if name == "int8_stages5" else 1e-3  # see the module docstring
         phase_forward_f32(torch, dev, f"distillation forward {over}", cfg, info, batch,
                           {**{k: t_tol for k in teacher}, "radar_preds": 1e-4},
-                          v1_equal=teacher[:4] if name == "int8_stages5" else ())
+                          v1_equal=teacher[:4] if name == "int8_stages5" else (),
+                          v1_links=24)
     fp_rel = phase_fp_teacher_bf16(torch, dev, small)
     worse = {k: v for k, v in fp_rel.items() if not v <= 1.5 * FP_TEACHER_BF16_REL_BEFORE[k]}
     if worse:
@@ -4321,7 +4438,9 @@ def main() -> int:
             "k4_route", "repeats_bitwise", "r5_ms_in_turns", "r8_ms_in_turns", "old_route_ms",
             "device_ms",
             "deep_ms", "deep_old_route_ms", "deep_device_ms", "deep_device_old_route_ms",
-            "deep_plain_ms", "deep_bound_ms", "dense_vfe", "packed_stage2", "packed_densify")
+            "deep_plain_ms", "deep_bound_ms", "co64_ms", "co64_old_route_ms", "co64_device_ms",
+            "co64_device_old_route_ms", "co64_launch_ms", "co64_pad_ms", "co64_plain_ms",
+            "co64_bound_ms", "dense_vfe", "packed_stage2", "packed_densify")
     print(f"chip_smoke.py: every phase passed; {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included, on {smi}")
     print(json.dumps({"kernels": [{k: kern.get(k) for k in keys} for kern in kernels]}))

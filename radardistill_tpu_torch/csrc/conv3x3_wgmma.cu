@@ -28,6 +28,8 @@
 //       xp[:, 1 : 1 + H] through a 4-d TMA map whose image stride is that of
 //       xp (H + kh - 1 rows), so the zpad rows are never read: TMA's zero
 //       fill and K1's border correction (below) stand for them, exactly.
+//       Its Co-64 links (stage 2 under CONV_BLOCK_V1=1) take the transposed
+//       conv_co64_kernel below, as K1's do, with the same strided map.
 //
 // The weight arrives K-major, wk (kh * kh, Co, C): tap t's (Co, C) slice. For
 // dx the caller passes the forward's (3, 3, Co_f, C_f) kernel as it lies,
@@ -93,8 +95,8 @@
 // each tile's mask bytes into registers, and alpha and beta of its channels
 // into a shared copy per consumer, when the tile starts, so that those reads
 // land while the products run (read after them, they stood exposed after
-// each tile's products). K6's and K1's Co-64 links take their own kernel
-// below, conv_co64_kernel, with the product transposed.
+// each tile's products). K6's, K1's and K7's Co-64 links take their own
+// kernel below, conv_co64_kernel, with the product transposed.
 //
 // K7's mask (a byte per output channel, int8 out) is not a word per pixel:
 // its epilogue (EPI_K7, K1's otherwise) has each lane load its part of the
@@ -103,7 +105,7 @@
 // run, as K1's mask words do; the epilogue stages a row's vectors in bytes
 // 0-127 of the warp's staging rows, beside the residual, and each thread
 // reads its two channels' bytes there before it writes their output codes in
-// their place.
+// their place. The transposed kernel takes K7's mask another way (below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -220,6 +222,18 @@ __device__ __forceinline__ void consumers_arrive() {
 
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// 16 bytes from device memory into shared memory, asynchronously, past L1
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// this thread's copies have landed; a barrier then shows them to the others
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // the taps (bit ky * kh + kx) of output pixel (yy, xx) that read a cell
@@ -621,9 +635,10 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
   }
 }
 
-// The Co-64 links of K6 (bfloat16, 720^2, 64 -> 64 and 128 -> 64) and of K1
-// (int8, stage 2 of an INT8_STAGES >= 2 teacher: the same shapes), the
-// product transposed: D (64 output channels x 128 pixels) = W (64 x K) . X^T,
+// The Co-64 links of K6 (bfloat16, 720^2, 64 -> 64 and 128 -> 64), of K1
+// (int8, stage 2 of an INT8_STAGES >= 2 teacher: the same shapes) and of K7
+// (K1's under CONV_BLOCK_V1=1, on the interior rows of a pre-padded input),
+// the product transposed: D (64 output channels x 128 pixels) = W (64 x K) . X^T,
 // so that the pixels are wgmma's N (m64n128, A the weight slice, B a view of
 // the halo tile, both K-major as int8 wgmma requires) and the 64 channels its
 // M. Untransposed, 64 channels are an n64 product, both of whose operands come
@@ -658,14 +673,24 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
 // starts, computes the link's values in one pass of shared reads
 // (link_values) and writes the output in a second pass of shared writes; its
 // int8 output replaces its int8 residual in place (80-byte rows), a bfloat16
-// output waits until every residual byte of the row has been read. What
-// bounds K1's links: the epilogue, one warp per SM sub-partition for each
-// consumer, runs longer than the other consumer's products (measured on an
-// H100 with builds that leave out the products or the epilogue), so a tile
-// pair costs one mainloop and one epilogue.
+// output waits until every residual byte of the row has been read. K7 is K1
+// with int8 out and a mask byte per output channel (EPI_K7): when a tile
+// starts, each consumer copies the tile's 2 x 128 pixels x 64 mask bytes (16
+// KB) into its own shared slot with 16-byte cp.async copies, which land
+// while the products run, and pads each pixel to 80 bytes, so that the
+// epilogue's byte reads (a thread's two channels, 8 apart, at pixels 2 tq
+// apart) fall in distinct banks. What bounds K1's and K7's links: the
+// epilogue, one warp per SM sub-partition for each consumer, runs longer than
+// the other consumer's products (measured on an H100 with builds that leave
+// out the products or the epilogue), so a tile pair costs one mainloop and one
+// epilogue.
 namespace co64 {
 constexpr int TH = 2, TW = 128, HALO_H = TH + 2, HALO_W = TW + 2;
 constexpr int MASK_WORDS = 2 * 2 * 2 * TW;  // consumer x tile parity x row x pixel
+// K7's mask, a byte per output channel: per consumer the tile's 2 rows x 128
+// pixels of 64 bytes, each pixel padded to LANE_ROW bytes so that a warp's
+// reads are conflict-free
+constexpr int LANE_ROW = 80, LANE_BYTES = 2 * TW * LANE_ROW;
 // K1's border table: per class of pixel (row 0, row H - 1, column 0, column W
 // - 1: four flags) and output channel, zpad x the weight sums of the taps that
 // read outside the image
@@ -676,14 +701,23 @@ __host__ __device__ constexpr int a_bytes(int cb) { return HALO_H * HALO_W * cb;
 __host__ __device__ constexpr int a_stage(int cb) { return (a_bytes(cb) + 1023) / 1024 * 1024; }
 __host__ __device__ constexpr int w_bytes(int cb) { return 64 * cb; }
 constexpr int A_STAGES = 2, W_STAGES = 6;
-// a staged pixel: 64 output bytes and a pad (K1's int8 link), else 128 and a
-// pad; the pad keeps every thread's element access conflict-free
-__host__ __device__ constexpr int out_row(int epi) { return epi == EPI_K1_S8 ? 80 : 144; }
+// a staged pixel: 64 output bytes and a pad (K1's and K7's int8 links), else
+// 128 and a pad; the pad keeps every thread's element access conflict-free
+__host__ __device__ constexpr int out_row(int epi) {
+  return epi == EPI_K1_S8 || epi == EPI_K7 ? 80 : 144;
+}
+// the mask words (K1, K6) or K7's mask bytes, both consumers'
+__host__ __device__ constexpr int mask_bytes(int epi) {
+  return epi == EPI_K7 ? 2 * LANE_BYTES : MASK_WORDS * 4;
+}
 constexpr int smem(int cb, int epi) {
   return 1024 + A_STAGES * a_stage(cb) + W_STAGES * w_bytes(cb) + 2 * TW * out_row(epi) +
-         MASK_WORDS * 4 + (epi == EPI_K6 ? 0 : BORDER_INTS * 4) + 2 * 8 * (A_STAGES + W_STAGES + 1);
+         mask_bytes(epi) + (epi == EPI_K6 ? 0 : BORDER_INTS * 4) +
+         2 * 8 * (A_STAGES + W_STAGES + 1);
 }
-static_assert(smem(128, EPI_K6) <= 232448 && smem(64, EPI_K1_BF16) <= 232448, "co64 layout");
+static_assert(smem(128, EPI_K6) <= 232448 && smem(64, EPI_K1_BF16) <= 232448 &&
+                  smem(64, EPI_K7) <= 232448,
+              "co64 layout");
 
 // the descriptor of a K-major view in the chunk's swizzle
 template <int CB>
@@ -698,26 +732,34 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr) {
 // The first pass of K1's epilogue in the Co-64 kernel below, over one
 // accumulator row: link_value in place, the float values left as bits in the
 // accumulators; the residual bytes staged in `row0`'s pixels, OUT_ROW bytes
-// apart, the mask bytes in the words `mrow`; both rows' channels, 8 apart,
-// lie in one mask phase (16, 32 or 64 channels), the byte at bit `sh`. Reads
-// of shared memory only, and the residual's branch out of the loop, so that
-// the elements' chains overlap.
-template <bool RES, int OUT_ROW>
+// apart. K1's mask bytes lie in the words `mrow`: both rows' channels, 8
+// apart, lie in one mask phase (16, 32 or 64 channels), the byte at bit `sh`.
+// K7's (LANE) lie in `lrow`, a byte per channel, pixels co64::LANE_ROW bytes
+// apart. Reads of shared memory only, and the residual's branch out of the
+// loop, so that the elements' chains overlap.
+template <bool RES, bool LANE, int OUT_ROW>
 __device__ __forceinline__ void link_values(int (&a)[64], const int8_t* row0,
-                                            const uint32_t* mrow, int tq, const int (&co_r)[2],
-                                            const float (&al)[2], const float (&be)[2], int sh,
-                                            float rs, float rsh) {
+                                            const uint32_t* mrow, const int8_t* lrow, int tq,
+                                            const int (&co_r)[2], const float (&al)[2],
+                                            const float (&be)[2], int sh, float rs, float rsh) {
 #pragma unroll
   for (int n = 0; n < 16; ++n)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int px = 8 * n + 2 * tq + e;
-      const float m = (float)(int8_t)(mrow[px] >> sh);
+      float m[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if constexpr (LANE)
+          m[r] = (float)lrow[px * co64::LANE_ROW + co_r[r]];
+        else
+          m[r] = (float)(int8_t)(mrow[px] >> sh);
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         int& v = a[4 * n + 2 * r + e];
         v = __float_as_int(link_value(v, al[r], be[r], RES, RES ? row0[px * OUT_ROW + co_r[r]] : 0,
-                                      rs, rsh, m));
+                                      rs, rsh, m[r]));
       }
     }
 }
@@ -727,8 +769,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
                  uint8_t* __restrict__ out, const EpiArgs ep, int B, int H, int W, int C,
                  int kh) {
-  constexpr bool K6 = EPI == EPI_K6, S8_OUT = EPI == EPI_K1_S8;
-  static_assert(K6 == std::is_same<T, Bf16>::value, "K6 in bfloat16, K1 in int8");
+  // LANE: K7's mask, a byte per output channel
+  constexpr bool K6 = EPI == EPI_K6, LANE = EPI == EPI_K7, S8_OUT = EPI == EPI_K1_S8 || LANE;
+  static_assert(K6 == std::is_same<T, Bf16>::value, "K6 in bfloat16, K1 and K7 in int8");
   using acc_t = typename T::acc_t;
   constexpr int CH = 64, CB = CH * T::ES, CO = 64, TW = co64::TW, TH = co64::TH;
   constexpr int HALO_W = co64::HALO_W;
@@ -744,8 +787,9 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
   uint8_t* sa = smem_raw + ((1024u - rdt::smem_addr(smem_raw)) & 1023u);
   uint8_t* sw = sa + A_STAGES * A_STAGE;
   uint8_t* so_all = sw + W_STAGES * W_BYTES;
-  uint32_t* smask_all = reinterpret_cast<uint32_t*>(so_all + 2 * TW * OUT_ROW);
-  int* sborder = reinterpret_cast<int*>(smask_all + co64::MASK_WORDS);
+  uint8_t* smask_raw = so_all + 2 * TW * OUT_ROW;
+  uint32_t* smask_all = reinterpret_cast<uint32_t*>(smask_raw);
+  int* sborder = reinterpret_cast<int*>(smask_raw + co64::mask_bytes(EPI));
   uint64_t* full_a = reinterpret_cast<uint64_t*>(sborder + (K6 ? 0 : co64::BORDER_INTS));
   uint64_t* empty_a = full_a + A_STAGES;
   uint64_t* full_b = empty_a + A_STAGES;
@@ -817,6 +861,7 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
   uint8_t* so = so_all + cw * TW * OUT_ROW;
   uint32_t* smask = smask_all + cw * 2 * 2 * TW;
+  int8_t* slane = reinterpret_cast<int8_t*>(smask_raw) + cw * co64::LANE_BYTES;  // K7's
   const uint32_t sa_addr = rdt::smem_addr(sa), sw_addr = rdt::smem_addr(sw);
   const int co_r[2] = {16 * warp + g, 16 * warp + g + 8};
   float al[2], be[2];
@@ -825,7 +870,7 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
   for (int r = 0; r < 2; ++r) {
     al[r] = __ldg(ep.ab + co_r[r]);
     be[r] = __ldg(ep.ab + CO + co_r[r]);
-    sh[r] = 8 * (co_r[r] / (CO / ep.nph));
+    sh[r] = LANE ? 0 : 8 * (co_r[r] / (CO / ep.nph));
   }
   float s_out = 0.0f, rs = 0.0f, rsh = 0.0f;
   if constexpr (!K6) {
@@ -843,19 +888,34 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
     // the two rows' mask words, read into registers now and stored in this
     // tile's shared slot after the products, so that the reads land while
     // the products run; their residual into L2
-    uint32_t mw_own[2];
+    uint32_t mw_own[2] = {0u, 0u};
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int yy = y0 + j;
-      mw_own[j] = 0;
       if (yy < H && x0 + tid < W) {
         const size_t pix = ((size_t)b * H + yy) * W + x0 + tid;
-        const int8_t* mp = ep.mask + pix * ep.nph;
-        mw_own[j] = ep.nph == 4   ? __ldg(reinterpret_cast<const uint32_t*>(mp))
-                    : ep.nph == 2 ? (uint32_t)__ldg(reinterpret_cast<const uint16_t*>(mp))
-                                  : (uint32_t)(uint8_t)__ldg(mp);
+        if constexpr (!LANE) {
+          const int8_t* mp = ep.mask + pix * ep.nph;
+          mw_own[j] = ep.nph == 4   ? __ldg(reinterpret_cast<const uint32_t*>(mp))
+                      : ep.nph == 2 ? (uint32_t)__ldg(reinterpret_cast<const uint16_t*>(mp))
+                                    : (uint32_t)(uint8_t)__ldg(mp);
+        }
         if (has_res) prefetch_l2(res + pix * RES_PIX);
       }
+    }
+    // K7: the two rows' mask bytes (16 KB) straight into this consumer's
+    // shared slots, 16-byte copies that land while the products run; every
+    // thread of the consumer read the last tile's bytes before its last
+    // barrier of that tile, so one slot per consumer does
+    if constexpr (LANE) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int v = tid + 128 * q, j = v >> 9, px = (v >> 2) & (TW - 1), u = v & 3;
+        if (y0 + j < H && x0 + px < W)
+          cp_async_16(rdt::smem_addr(slane + (j * TW + px) * co64::LANE_ROW + 16 * u),
+                      ep.mask + (((size_t)b * H + y0 + j) * W + x0 + px) * CO + 16 * u);
+      }
+      cp_async_commit();
     }
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -927,8 +987,12 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
       rdt::mbar_arrive(empty_b + prev_b);
       rdt::mbar_arrive(empty_a + prev_a);
     }
+    if constexpr (LANE) {
+      cp_async_wait_all();  // the barrier at the first row shows them to the consumer
+    } else {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) smask[(parity * 2 + j) * TW + tid] = mw_own[j];
+      for (int j = 0; j < 2; ++j) smask[(parity * 2 + j) * TW + tid] = mw_own[j];
+    }
 
     // epilogue, a row at a time through the staging rows: the row's
     // accumulators are acc[0] (row 1's move there after row 0), so that the
@@ -1002,10 +1066,13 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
         // the staging rows (writes only), so that no read waits on a write
         // before it
         const int8_t* row0 = reinterpret_cast<const int8_t*>(so);
+        const int8_t* lrow = slane + j * TW * co64::LANE_ROW;
         if (has_res)
-          link_values<true, OUT_ROW>(acc[0], row0, mrow, tq, co_r, al, be, sh[0], rs, rsh);
+          link_values<true, LANE, OUT_ROW>(acc[0], row0, mrow, lrow, tq, co_r, al, be, sh[0], rs,
+                                           rsh);
         else
-          link_values<false, OUT_ROW>(acc[0], row0, mrow, tq, co_r, al, be, sh[0], rs, rsh);
+          link_values<false, LANE, OUT_ROW>(acc[0], row0, mrow, lrow, tq, co_r, al, be, sh[0], rs,
+                                            rsh);
         // an int8 code takes its own residual byte's place; a bfloat16 value
         // also covers other threads' residual bytes
         if (!S8_OUT && has_res) consumer_sync(cw);
@@ -1042,17 +1109,20 @@ conv_co64_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
   }
 }
 
-// x (B, H, W, C) and wk (kh * kh, 64, C) in T's type, C a multiple of 64
+// x (B, H, W, C) and wk (kh * kh, 64, C) in T's type, C a multiple of 64;
+// x's images x_rows rows apart (H but for K7's view of the interior rows of
+// its padded input)
 template <class T, int EPI>
 cudaError_t launch_co64(const void* x, const void* wk, const EpiArgs& ep, void* out, int B, int H,
-                        int W, int C, int kh, int device, cudaStream_t stream) {
+                        int x_rows, int W, int C, int kh, int device, cudaStream_t stream) {
   constexpr int CH = 64, CB = CH * T::ES;
   constexpr CUtensorMapSwizzle SWIZZLE =
       CB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   const cuuint64_t es = T::ES;
   CUtensorMap tmx, tmw;
   const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t xstrides[3] = {C * es, (cuuint64_t)W * C * es, (cuuint64_t)H * W * C * es};
+  const cuuint64_t xstrides[3] = {C * es, (cuuint64_t)W * C * es,
+                                  (cuuint64_t)x_rows * W * C * es};
   const cuuint32_t xbox[4] = {CH, co64::HALO_W, co64::HALO_H, 1};
   cudaError_t err = rdt::encode_swizzled(&tmx, T::TMA_TYPE, 4, x, xdims, xstrides, xbox, SWIZZLE);
   if (err != cudaSuccess) return err;
@@ -1180,8 +1250,8 @@ extern "C" int rdt_conv_block_wgmma(const void* x, const void* wk, const void* a
   ep.zpad = zpad;
   if (narrow)
     return out_kind == 0
-               ? launch_co64<S8, EPI_K1_S8>(x, wk, ep, out, B, H, W, C, kh, device, st)
-               : launch_co64<S8, EPI_K1_BF16>(x, wk, ep, out, B, H, W, C, kh, device, st);
+               ? launch_co64<S8, EPI_K1_S8>(x, wk, ep, out, B, H, H, W, C, kh, device, st)
+               : launch_co64<S8, EPI_K1_BF16>(x, wk, ep, out, B, H, H, W, C, kh, device, st);
   if (out_kind == 0)
     return launch<S8, EPI_K1_S8>(x, wk, ep, out, B, H, H, H, W, C, Co, kh, -1, 1, 0, device, st);
   return launch<S8, EPI_K1_BF16>(x, wk, ep, out, B, H, H, H, W, C, Co, kh, -1, 1, 0, device, st);
@@ -1193,12 +1263,14 @@ extern "C" int rdt_conv_block_wgmma(const void* x, const void* wk, const void* a
 // reads rows 0 .. H - 1 of each and never the zpad rows around them. mask
 // (B, H, W, Co) int8, one byte per output channel; the other operands and
 // the result as for rdt_conv_block_wgmma, int8 out. Every tensor 16-byte
-// aligned and contiguous but for x's image stride; C and Co multiples of 128.
+// aligned and contiguous but for x's image stride; C and Co multiples of 128,
+// or Co 64 (the transposed kernel) and C a multiple of 64.
 extern "C" int rdt_chain_conv_wgmma(const void* x, const void* wk, const void* ab,
                                     const void* mask, const void* res, const void* wsum,
                                     void* out, int B, int H, int W, int C, int Co, int kh,
                                     int x_rows, int zpad, int device, void* stream) {
-  if (C <= 0 || C % 128 != 0 || Co <= 0 || Co % 128 != 0 || (kh != 2 && kh != 3) ||
+  const bool narrow = Co == 64 && C > 0 && C % 64 == 0;  // the transposed kernel
+  if (!(narrow || (C > 0 && C % 128 == 0 && Co > 0 && Co % 128 == 0)) || (kh != 2 && kh != 3) ||
       x_rows < H || ab == nullptr || mask == nullptr || wsum == nullptr)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -1211,8 +1283,9 @@ extern "C" int rdt_chain_conv_wgmma(const void* x, const void* wk, const void* a
   ep.wsum = static_cast<const int*>(wsum);
   ep.nph = Co;
   ep.zpad = zpad;
-  return launch<S8, EPI_K7>(x, wk, ep, out, B, H, x_rows, H, W, C, Co, kh, -1, 1, 0, device,
-                            static_cast<cudaStream_t>(stream));
+  auto st = static_cast<cudaStream_t>(stream);
+  if (narrow) return launch_co64<S8, EPI_K7>(x, wk, ep, out, B, H, x_rows, W, C, kh, device, st);
+  return launch<S8, EPI_K7>(x, wk, ep, out, B, H, x_rows, H, W, C, Co, kh, -1, 1, 0, device, st);
 }
 
 // K6 on the mainloop. x (B, H, W, C) bfloat16; wk (kh * kh, Co, C) bfloat16,
@@ -1240,6 +1313,6 @@ extern "C" int rdt_conv_block_fp_wgmma(const void* x, const void* wk, const void
   ep.res16 = static_cast<const __nv_bfloat16*>(res);
   ep.nph = nph;
   if (Co == 64)
-    return launch_co64<Bf16, EPI_K6>(x, wk, ep, out, B, H, W, C, kh, device, st);
+    return launch_co64<Bf16, EPI_K6>(x, wk, ep, out, B, H, H, W, C, kh, device, st);
   return launch<Bf16, EPI_K6>(x, wk, ep, out, B, H, H, H, W, C, Co, kh, -1, 1, 0, device, st);
 }

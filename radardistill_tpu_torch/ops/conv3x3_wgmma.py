@@ -6,11 +6,12 @@ K6's ``conv_block_fp`` on their ``wgmma`` routes (``ops/conv_block.py``, the
 fused int8 and bfloat16 links, 3x3 or 2x2; the Co-64 links of both on the
 kernel's transposed form), K7's ``chain_conv`` on its ``wgmma`` route
 (``ops/int8_conv.py``: K1's link on a pre-padded input and a mask per output
-channel), K9's ``conv3x3_wide`` (``ops/wide_conv.py``, bfloat16 y and dx) and
-P1's ``conv_probe(..., route="wgmma")`` (``ops/probes.py``, ``conv``, ``dots``
-and ``int8``). This module holds what they share: the shapes the kernel takes and
-the bare ctypes calls on tensors the caller prepared, which ``chip_smoke.py``
-also times alone. It has no plain version of its own: each wrapper keeps the
+channel, its Co-64 links on the transposed form too), K9's ``conv3x3_wide``
+(``ops/wide_conv.py``, bfloat16 y and dx) and P1's ``conv_probe(...,
+route="wgmma")`` (``ops/probes.py``, ``conv``, ``dots`` and ``int8``). This
+module holds what they share: the shapes the kernel takes and the bare ctypes
+calls on tensors the caller prepared, which ``chip_smoke.py`` also times
+alone. It has no plain version of its own: each wrapper keeps the
 plain version of its function.
 """
 
@@ -30,9 +31,10 @@ def takes(c: int, co: int, int8: bool = False) -> bool:
 
 
 def takes_link(c: int, co: int) -> bool:
-    """K1's int8 link: C and Co multiples of 128 (the mainloop), or Co exactly
-    64 (the transposed kernel: the 64 channels as ``wgmma``'s M) with C a
-    multiple of 64 (chunks of 64 channels, 64 bytes in the 64-byte swizzle)."""
+    """K1's and K7's int8 link: C and Co multiples of 128 (the mainloop), or
+    Co exactly 64 (the transposed kernel: the 64 channels as ``wgmma``'s M)
+    with C a multiple of 64 (chunks of 64 channels, 64 bytes in the 64-byte
+    swizzle)."""
     return takes(c, co, int8=True) or (co == 64 and c > 0 and c % 64 == 0)
 
 
@@ -107,8 +109,10 @@ def launch_chain(xp: torch.Tensor, wk: torch.Tensor, ab: torch.Tensor, mask: tor
     padding rows need not be read); wk (kh * kh, Co, C) int8 (the taps
     K-major), ab (8, Co) float32, mask (B, H, W, Co) int8 (a byte per output
     channel), res (B, H, W, Co) int8 or None, wsum (kh * kh, Co) int32, out
-    (B, H, W, Co) int8. The caller has checked device, dtype, contiguity,
-    alignment and :func:`takes`. ``lib`` as for :func:`launch_link`."""
+    (B, H, W, Co) int8. Co 64 runs the transposed kernel, whose tensor map
+    reads the same interior rows. The caller has checked device, dtype,
+    contiguity, alignment and :func:`takes_link`. ``lib`` as for
+    :func:`launch_link`."""
     taps, co = wk.shape[:2]
     kh = 3 if taps == 9 else 2
     x = interior_rows(xp, kh)

@@ -24,17 +24,19 @@ and Co to 128 lanes is not carried over.
 it launches the kernel on one of two routes, or raises if the route cannot
 take the link. :func:`chain_route_of` is the rule:
 
-  - ``wgmma`` where C and Co are multiples of 128 (the conv5 link of
-    ``INT8_STAGES: 5``, and the C, Co % 128 links under ``CONV_BLOCK_V1=1``):
-    K1's link on the Hopper conv mainloop (``csrc/conv3x3_wgmma.cu``,
-    ``rdt_chain_conv_wgmma``), which reads the interior rows ``xp[:, 1 : 1 +
-    H]`` through a strided tensor map, never the ``zpad`` rows, and gives
-    the border K1's exact int32 correction (``conv_block.border_correction``),
-    so its accumulator equals the padded convolution's; its epilogue reads
-    the mask per output channel;
-  - ``streamed`` for the rest (the Co-64 and C-64 links under
-    ``CONV_BLOCK_V1=1``): ``rdt_chain_conv`` (``csrc/conv_block.cu``, the
-    streamed ``mma.sync`` kernel of K1 with this addressing, the same
+  - ``wgmma`` where K1's ``wgmma`` route takes the widths
+    (``conv3x3_wgmma.takes_link``: C and Co multiples of 128, or Co 64 with C
+    a multiple of 64; that is the conv5 link of ``INT8_STAGES: 5`` and all 24
+    links under ``CONV_BLOCK_V1=1``): K1's link on the Hopper conv mainloop
+    (``csrc/conv3x3_wgmma.cu``, ``rdt_chain_conv_wgmma``; the Co-64 links on
+    its transposed ``conv_co64_kernel``, as K1's), which reads the interior
+    rows ``xp[:, 1 : 1 + H]`` through a strided tensor map, never the
+    ``zpad`` rows, and gives the border K1's exact int32 correction
+    (``conv_block.border_correction``), so its accumulator equals the padded
+    convolution's; its epilogue reads the mask per output channel;
+  - ``streamed`` for the rest (widths no model of the repository has, e.g.
+    C 64 into Co 16, or C 96): ``rdt_chain_conv`` (``csrc/conv_block.cu``,
+    the streamed ``mma.sync`` kernel of K1 with this addressing, the same
     product and epilogue device code).
 
 Every int8 code equals K1's on operands both can take.
@@ -88,12 +90,12 @@ def chain_conv_plain(xp, kq, ab, mask_q, res=None, zpad: int = 0):
 
 def chain_route_of(kh: int, c: int, co: int) -> str:
     """The dispatch rule of ``chain_conv`` on the card: ``wgmma`` where C and
-    Co are multiples of 128 (``conv3x3_wgmma.takes``; both windows, kh 2 and
-    3), else ``streamed`` (which raises on C % 32 or a Co it has no tile
-    for)."""
+    Co are multiples of 128 or Co is 64 with C a multiple of 64
+    (``conv3x3_wgmma.takes_link``; both windows, kh 2 and 3), else
+    ``streamed`` (which raises on C % 32 or a Co it has no tile for)."""
     if kh not in (2, 3):
         raise ValueError(f"chain_route_of: kh {kh}")
-    return "wgmma" if conv3x3_wgmma.takes(c, co, int8=True) else "streamed"
+    return "wgmma" if conv3x3_wgmma.takes_link(c, co) else "streamed"
 
 
 def chain_conv_work(xp, kq, ab, mask_q, res=None, zpad: int = 0, variant=None):
@@ -119,11 +121,11 @@ def chain_conv(xp, kq, ab, mask_q, res=None, zpad: int = 0, variant=None):
     alpha, beta, s_out, rs, rsh); mask (B, H, W, Co) int8; res (B, H, W, Co)
     int8 or None -> (B, H, W, Co) int8. On the card the route is
     :func:`chain_route_of`, or ``variant`` (one of ``ROUTES``) forces one:
-    ``wgmma`` takes C and Co multiples of 128, ``streamed`` C a multiple of
-    32 and Co in {16, 32, 64} or a multiple of 128; a forced route that does
-    not take the link raises. Each launch counts in ``chain_conv.launches``
-    and ``chain_conv.route_launches[route]``. The plain version takes any
-    shape."""
+    ``wgmma`` takes C and Co multiples of 128, or Co 64 with C a multiple of
+    64, ``streamed`` C a multiple of 32 and Co in {16, 32, 64} or a multiple
+    of 128; a forced route that does not take the link raises. Each launch
+    counts in ``chain_conv.launches`` and ``chain_conv.route_launches[route]``.
+    The plain version takes any shape."""
     if xp.device.type == "cpu":
         return chain_conv_plain(xp, kq, ab, mask_q, res, zpad)
     _check(xp, kq, ab, mask_q, res)
@@ -134,9 +136,9 @@ def chain_conv(xp, kq, ab, mask_q, res=None, zpad: int = 0, variant=None):
     route = chain_route_of(kh, c, co) if variant is None else variant
     out = torch.empty((b, h, w, co), dtype=torch.int8, device=xp.device)
     if route == "wgmma":
-        if not conv3x3_wgmma.takes(c, co, int8=True):
-            raise ValueError(f"chain_conv: the wgmma route takes C and Co multiples of 128, not "
-                             f"C {c}, Co {co}")
+        if not conv3x3_wgmma.takes_link(c, co):
+            raise ValueError(f"chain_conv: the wgmma route takes C and Co multiples of 128, or "
+                             f"Co 64 with C a multiple of 64, not C {c}, Co {co}")
         conv3x3_wgmma.launch_chain(xp, conv3x3_wgmma.wgmma_taps(kq), ab, mask_q, res,
                                    tap_sums(kq), out, zpad)
     elif route == "streamed":

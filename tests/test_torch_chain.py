@@ -239,16 +239,18 @@ def test_chain_conv_rejects_what_it_does_not_take():
 
 # the link shapes (kh, C, Co) of the INT8_STAGES: 5 chain, which CONV_BLOCK_V1=1
 # sends through K7: the stage-1 links, the deeper ones (chip_smoke.INT8_DEEP_LINKS)
-# and the conv5 link K7 always takes
-V1_LINKS = {(3, 128, 128): "wgmma", (2, 128, 64): "streamed", (3, 64, 64): "streamed",
+# and the conv5 link K7 always takes; all on wgmma, the Co-64 ones of stage 2 on
+# its transposed kernel
+V1_LINKS = {(3, 128, 128): "wgmma", (2, 128, 64): "wgmma", (3, 64, 64): "wgmma",
             (2, 256, 128): "wgmma", (3, 128, 128): "wgmma", (2, 512, 256): "wgmma",
             (3, 256, 256): "wgmma", (2, 1024, 256): "wgmma"}
 
 
 def test_chain_route_of_sends_the_128_channel_links_to_wgmma():
     """C and Co multiples of 128 go to the ``wgmma`` mainloop (the conv5
-    link and every such link under ``CONV_BLOCK_V1=1``); the Co-64 and C-64
-    links, and any other width, stay on the streamed kernel."""
+    link and every such link under ``CONV_BLOCK_V1=1``), and so do the Co-64
+    links of stage 2 (its transposed kernel); any other width stays on the
+    streamed kernel."""
     for (kh, c, co), route in V1_LINKS.items():
         assert ic.chain_route_of(kh, c, co) == route, (kh, c, co)
     for kh, c, co in ((3, 32, 32), (2, 128, 16), (3, 384, 192), (2, 96, 128)):
@@ -258,23 +260,35 @@ def test_chain_route_of_sends_the_128_channel_links_to_wgmma():
         ic.chain_route_of(1, 128, 128)
 
 
-@pytest.mark.parametrize("kh,w,with_res", [(2, 15, False), (3, 15, True), (3, 9, False)])
-def test_interior_rows_with_the_border_correction_equal_the_padded_link(kh, w, with_res):
+@pytest.mark.parametrize("kh", [2, 3])
+def test_chain_route_of_takes_the_co64_links_on_wgmma(kh):
+    """The rule at its edges, K1's (``conv3x3_wgmma.takes_link``): Co 64 takes
+    the transposed kernel where C is a multiple of 64; C 96 into Co 64, C 64
+    into Co 16 and C 32 into Co 32 stay streamed."""
+    for c, co in ((64, 64), (128, 64), (192, 64), (1024, 64)):
+        assert ic.chain_route_of(kh, c, co) == "wgmma", (c, co)
+        assert conv3x3_wgmma.takes_link(c, co)
+    for c, co in ((96, 64), (64, 16), (32, 32), (32, 64), (64, 32), (64, 192)):
+        assert ic.chain_route_of(kh, c, co) == "streamed", (c, co)
+        assert not conv3x3_wgmma.takes_link(c, co)
+
+
+def _interior_rows_case(kh, w, with_res, c, co):
     """What the ``wgmma`` route computes, on the CPU: the interior rows of the
     padded input (a view, no copy) convolved with zeros outside, plus
     ``border_correction``, is the exact int32 accumulator of the input padded
-    with ``zpad`` rows (-127: the carry's zero is 127), at odd W; the codes
-    that K1's epilogue makes from it with the lane mask equal
+    with ``zpad`` rows (-127: the carry's zero is 127); the codes that K1's
+    epilogue makes from it with the per-channel mask equal
     ``chain_conv_plain``'s, which match the Pallas kernel's (interpret mode)
     as ``test_chain_link_codes_match_pallas`` holds them."""
-    link = _link(16, kh=kh, zero=127.0, c=32, co=32, h=10, w=w, with_res=with_res)
-    mq = (np.random.RandomState(17).rand(2, 10, w, 32) > 0.4).astype(np.int8)
+    link = _link(16, kh=kh, zero=127.0, c=c, co=co, h=10, w=w, with_res=with_res)
+    mq = (np.random.RandomState(17).rand(2, 10, w, co) > 0.4).astype(np.int8)
     t = torch.as_tensor
     xq, kq, zpad = t(link["xq"]), t(link["kq"]), -127
     xp = F.pad(xq, (0, 0, 0, 0, 1, kh - 2), value=zpad)
     x = conv3x3_wgmma.interior_rows(xp, kh)
     assert torch.equal(x, xq) and x.stride() == xp.stride()
-    assert x.data_ptr() == xp.data_ptr() + w * 32  # row 1 of image 0
+    assert x.data_ptr() == xp.data_ptr() + w * c  # row 1 of image 0
     pad = (1, kh - 2)
     acc = (cb.int_conv_exact(x, kq, 1, (pad, pad), 0)
            + cb.border_correction(cb.tap_sums(kq), 10, w, kh, zpad))
@@ -294,6 +308,22 @@ def test_interior_rows_with_the_border_correction_equal_the_padded_link(kh, w, w
     diff = np.abs(q.numpy().astype(np.int32) - qj)
     assert diff.max() <= 1 and float((diff != 0).mean()) <= CODE_SHARE_LIMIT
     assert (qj > -127).mean() > 0.1
+
+
+@pytest.mark.parametrize("kh,w,with_res", [(2, 15, False), (3, 15, True), (3, 9, False)])
+def test_interior_rows_with_the_border_correction_equal_the_padded_link(kh, w, with_res):
+    """:func:`_interior_rows_case` at C = Co = 32, odd W."""
+    _interior_rows_case(kh, w, with_res, 32, 32)
+
+
+@pytest.mark.parametrize("kh,c,w,with_res", [(2, 128, 15, False), (2, 128, 9, True),
+                                             (3, 64, 15, True), (3, 64, 9, False)])
+def test_interior_rows_with_the_border_correction_equal_the_padded_link_at_co64(kh, c, w,
+                                                                                 with_res):
+    """:func:`_interior_rows_case` at the two Co-64 widths of stage 2 (C 128
+    into Co 64, 2x2; C 64 into Co 64, 3x3), which the transposed kernel
+    takes: odd W, per-channel masks, with and without a residual."""
+    _interior_rows_case(kh, w, with_res, c, 64)
 
 
 # ------------------------------------------------------ helpers of the chains
@@ -697,6 +727,18 @@ CHAIN_WGMMA_CASES = [dict(kh=2, zero=127.0, c=1024, co=256, h=90, w=90, ones=Tru
                      dict(kh=3, zero=127.0, c=128, co=128, h=19, w=37, with_res=True),
                      dict(kh=2, zero=0.0, c=256, co=384, h=13, w=65),
                      dict(kh=3, zero=0.0, c=128, co=256, h=5, w=7, with_res=True)]
+# ... and its five Co-64 links under CONV_BLOCK_V1=1 on the transposed kernel:
+# the two stage-2 shapes at 720², batch 2 (4320 tiles of 2 x 128 pixels), with
+# and without a residual; an odd grid, a one-row grid whose last tile holds
+# the image's last column alone, zpad 0 (no border correction) with three
+# 64-channel chunks
+CHAIN_WGMMA_CASES += [dict(kh=2, zero=127.0, c=128, co=64, h=720, w=720),
+                      dict(kh=2, zero=127.0, c=128, co=64, h=720, w=720, with_res=True),
+                      dict(kh=3, zero=127.0, c=64, co=64, h=720, w=720),
+                      dict(kh=3, zero=127.0, c=64, co=64, h=720, w=720, with_res=True),
+                      dict(kh=3, zero=127.0, c=64, co=64, h=19, w=37, with_res=True),
+                      dict(kh=2, zero=127.0, c=64, co=64, h=1, w=129),
+                      dict(kh=3, zero=0.0, c=192, co=64, h=9, w=137, with_res=True)]
 
 
 @pytest.mark.gpu
