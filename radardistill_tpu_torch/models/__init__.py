@@ -8,6 +8,7 @@ from typing import Any, Dict
 
 import torch
 
+from ..utils.profiler import mark_backward, span
 from .anchor_detector import AnchorDetector, anchor_training_loss
 from .center_head import (HeadSpec, centerhead_loss, flatten_class_channels,
                           flatten_target_heatmaps)
@@ -50,7 +51,17 @@ def compute_training_loss(model_cfg, out: Dict[str, Any], class_names, voxel_siz
       DISTILL: True   -> distillation (AFD + PFD) + radar head loss
       DISTILL: False  -> radar head loss only
 
-    Returns (loss, tb): the scalar to differentiate and a dict of its terms."""
+    Returns (loss, tb): the scalar to differentiate and a dict of its terms.
+    It runs in the span ``losses`` (the head's loss in ``losses.head``, the
+    distillation's in ``losses.distill``), and the loss's backward in
+    ``losses.backward``."""
+    with span("losses"):
+        loss, tb = _training_loss(model_cfg, out, class_names, voxel_size, point_cloud_range)
+    mark_backward("losses.backward", loss)
+    return loss, tb
+
+
+def _training_loss(model_cfg, out, class_names, voxel_size, point_cloud_range):
     if model_cfg["NAME"] in ANCHOR_DETECTORS:
         grid = tuple(int(round((point_cloud_range[3 + i] - point_cloud_range[i])
                                / voxel_size[i])) for i in (0, 1))
@@ -68,12 +79,13 @@ def compute_training_loss(model_cfg, out: Dict[str, Any], class_names, voxel_siz
 
     lw = head_cfg["LOSS_CONFIG"]["LOSS_WEIGHTS"]
     heads = head_cfg["SEPARATE_HEAD_CFG"]["HEAD_DICT"]
-    loss, tb = centerhead_loss(
-        preds, targets, spec, code_weights=lw["code_weights"], cls_weight=lw["cls_weight"],
-        loc_weight=lw["loc_weight"], hw=hw,
-        feature_map_stride=head_cfg["TARGET_ASSIGNER_CONFIG"]["FEATURE_MAP_STRIDE"],
-        voxel_size=voxel_size, point_cloud_range=point_cloud_range,
-        with_iou="iou" in heads, iou_reg=bool(head_cfg.get("IOU_REG", False)))
+    with span("losses.head"):
+        loss, tb = centerhead_loss(
+            preds, targets, spec, code_weights=lw["code_weights"], cls_weight=lw["cls_weight"],
+            loc_weight=lw["loc_weight"], hw=hw,
+            feature_map_stride=head_cfg["TARGET_ASSIGNER_CONFIG"]["FEATURE_MAP_STRIDE"],
+            voxel_size=voxel_size, point_cloud_range=point_cloud_range,
+            with_iou="iou" in heads, iou_reg=bool(head_cfg.get("IOU_REG", False)))
 
     if distill_flag:
         d_in = {k: out[k] for k in (
@@ -82,7 +94,8 @@ def compute_training_loss(model_cfg, out: Dict[str, Any], class_names, voxel_siz
             "radar_spatial_features_2d", "radar_spatial_features_2d_8x")}
         d_in["heatmaps"] = flatten_target_heatmaps(spec, targets["heatmaps"])
         d_in["radar_hm_preds"] = flatten_class_channels(spec, preds["hm"])
-        d_loss, d_tb = distill_loss(d_in)
+        with span("losses.distill"):
+            d_loss, d_tb = distill_loss(d_in)
         loss = loss + d_loss
         tb.update(d_tb)
     if "as_overflow" in out:

@@ -20,12 +20,12 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..ops.nms import class_agnostic_nms
 from .anchor_head import (AnchorHeadSingle, ResidualCoder, anchor_head_loss,
                           assign_anchor_targets, decode_anchor_predictions, generate_anchors)
 from .bev_backbone import BaseBEVBackbone
+from ..utils.profiler import mark_backward, span
 from ..utils.remat import remat_call
 from .vfe import DynamicPillarVFESimple2D, PillarVFE
 
@@ -112,22 +112,25 @@ class AnchorDetector(nn.Module):
     def _forward(self, batch):
         cfg = self.model_cfg
         out: Dict[str, Any] = {}
-        with record_function("vfe"):
+        with span("vfe"):
             if "voxels" in batch:
                 bev, _ = self.vfe(batch["voxels"], batch["voxel_num_points"],
                                   batch["voxel_coords"])
             else:
                 bev, _ = self.vfe(batch["points"], batch["points_mask"])
-        with record_function("backbone_2d"):
+            mark_backward("vfe.backward", bev)
+        with span("backbone_2d"):
             sp2d, _ = remat_call(self.remat and self.training, self.backbone_2d,
                                  bev.to(self.compute_dtype))
+            mark_backward("backbone_2d.backward", sp2d)
         out["spatial_features_2d"] = sp2d
-        with record_function("dense_head"):
+        with span("dense_head"):
             preds = self.dense_head(sp2d)
+            mark_backward("dense_head.backward", preds)
         out["anchor_preds"] = preds
         if self.training:
             if "gt_boxes" in batch:
-                with record_function("assign_targets"):
+                with span("assign_targets"):
                     out["target_dicts"] = assign_anchor_targets(
                         self.anchors_per_class, batch["gt_boxes"].float(),
                         self.anchor_class_ids, self.coder, self.matched_thr, self.unmatched_thr)
@@ -135,7 +138,7 @@ class AnchorDetector(nn.Module):
 
         hc = cfg["DENSE_HEAD"]
         pp = cfg.get("POST_PROCESSING", hc.get("POST_PROCESSING", {}))
-        with record_function("decode_and_nms"):
+        with span("decode_and_nms"):
             scores, boxes = decode_anchor_predictions(
                 {k: v.float() for k, v in preds.items()}, self.anchors_flat, self.coder,
                 dir_offset=hc.get("DIR_OFFSET", 0.78539),

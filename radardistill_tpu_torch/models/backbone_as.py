@@ -27,6 +27,7 @@ from torch import nn
 
 from ..caps import DEFAULT_CAPS, stage_caps
 from ..ops import active_site as asx
+from ..utils.profiler import span
 from .backbone_sparse2d import DenseBasicBlock, SparseBasicBlock, SparseDownBlock
 from .layers import (BN_EPS_BACKBONE, BN_MOM_BACKBONE, BatchNormTorch, Conv2dTorch, ConvParams,
                      KernelHolder, MaskedBatchNorm, max_pool_mask)
@@ -88,7 +89,13 @@ class PillarRes18BackBone8xAS(nn.Module):
     (sentinel H*W) and, optionally, the host tables of
     ``data/host_precompute.as_tables``. ``hw`` is the stride-1 (H, W); caps are
     clipped to each stage's area. ``densify_all`` adds ``x_conv{n}`` /
-    ``mask{n}`` of the table stages to the output (tests and analysis)."""
+    ``mask{n}`` of the table stages to the output (tests and analysis).
+    The forward's steps have child spans of the detector's stage (``stage``):
+    ``.tables`` (the tap tables built on the device), ``.sparse`` (the table
+    stages) and ``.dense`` (the hand-off's densify, the dense stages and
+    conv5)."""
+
+    stage = "backbone_3d"
 
     def __init__(self, hw: Tuple[int, int], caps=DEFAULT_CAPS, dense_from: int = 3,
                  densify_all: bool = False):
@@ -117,22 +124,25 @@ class PillarRes18BackBone8xAS(nn.Module):
         (``tap1``, and per stage before ``dense_from`` ``dtap{n}``, ``uids{n}``,
         ``tap{n}``) and the true (uncapped) down counts ``counts`` (B,
         dense_from - 2), all int32 / bool, with the host's values."""
-        h, w = self.hw
-        cap_in = self.caps[0]
-        grid = asx.site_index_grid(uids, h * w, cap_in)
-        tables: Dict[str, object] = {"tap1": _device_tap(uids, grid, (h, w), w, 1, cap_in)}
-        sh, sw, counts = h, w, []
-        for stage in range(2, self.dense_from):
-            cap_out = self.caps[stage - 1]
-            new_uids, cnt = asx.downsample_active(uids, (sh, sw), cap_out)
-            counts.append(cnt)
-            tables[f"dtap{stage}"] = _device_tap(new_uids, grid, (sh, sw), sw // 2, 2, cap_in)
-            sh, sw, cap_in, uids = sh // 2, sw // 2, cap_out, new_uids
-            tables[f"uids{stage}"] = uids
-            grid = asx.site_index_grid(uids, sh * sw, cap_in)
-            tables[f"tap{stage}"] = _device_tap(uids, grid, (sh, sw), sw, 1, cap_in)
-        tables["counts"] = (torch.stack(counts, dim=1) if counts else
-                            torch.zeros((uids.shape[0], 0), dtype=torch.int32, device=uids.device))
+        with span(f"{self.stage}.tables"):
+            h, w = self.hw
+            cap_in = self.caps[0]
+            grid = asx.site_index_grid(uids, h * w, cap_in)
+            tables: Dict[str, object] = {"tap1": _device_tap(uids, grid, (h, w), w, 1, cap_in)}
+            sh, sw, counts = h, w, []
+            for stage in range(2, self.dense_from):
+                cap_out = self.caps[stage - 1]
+                new_uids, cnt = asx.downsample_active(uids, (sh, sw), cap_out)
+                counts.append(cnt)
+                tables[f"dtap{stage}"] = _device_tap(new_uids, grid, (sh, sw), sw // 2, 2,
+                                                     cap_in)
+                sh, sw, cap_in, uids = sh // 2, sw // 2, cap_out, new_uids
+                tables[f"uids{stage}"] = uids
+                grid = asx.site_index_grid(uids, sh * sw, cap_in)
+                tables[f"tap{stage}"] = _device_tap(uids, grid, (sh, sw), sw, 1, cap_in)
+            tables["counts"] = (
+                torch.stack(counts, dim=1) if counts else
+                torch.zeros((uids.shape[0], 0), dtype=torch.int32, device=uids.device))
         return tables
 
     def forward(self, feats, uids, tables=None) -> Dict[str, torch.Tensor]:
@@ -141,20 +151,18 @@ class PillarRes18BackBone8xAS(nn.Module):
             raise ValueError(f"VFE table capacity {feats.shape[1]} != caps[0] {self.caps[0]}")
         if tables is None:
             tables = self.build_tables(uids)
-        valid = uids < h * w
-        x = feats * valid[..., None].to(feats.dtype)
-        tap = tables["tap1"]
-        x = self.conv1_0(x, tap, valid)
-        x = self.conv1_1(x, tap, valid)
-        sites = {1: (x, uids)}
-
         out: Dict[str, torch.Tensor] = {}
-        sh, sw = h, w
-        dense_x = dense_mask = None
-        overflow = torch.zeros((), dtype=torch.int32, device=feats.device)
-        for stage in (2, 3, 4):
-            down, b0, b1 = (getattr(self, f"conv{stage}_{n}") for n in ("down", "0", "1"))
-            if stage < self.dense_from:
+        with span(f"{self.stage}.sparse"):
+            valid = uids < h * w
+            x = feats * valid[..., None].to(feats.dtype)
+            tap = tables["tap1"]
+            x = self.conv1_0(x, tap, valid)
+            x = self.conv1_1(x, tap, valid)
+            sites = {1: (x, uids)}
+            sh, sw = h, w
+            overflow = torch.zeros((), dtype=torch.int32, device=feats.device)
+            for stage in range(2, self.dense_from):
+                down, b0, b1 = (getattr(self, f"conv{stage}_{n}") for n in ("down", "0", "1"))
                 cnt = tables["counts"][:, stage - 2]
                 overflow = overflow + torch.clamp(
                     cnt - self.caps[stage - 1], min=0).sum().to(torch.int32)
@@ -164,26 +172,27 @@ class PillarRes18BackBone8xAS(nn.Module):
                 tap = tables[f"tap{stage}"]
                 x = b1(b0(x, tap, valid), tap, valid)
                 sites[stage] = (x, uids)
-            else:
-                if dense_x is None:  # hand off: densify the current table
-                    dense_x, dense_mask = asx.densify_batch(x, uids, (sh, sw))
+
+        with span(f"{self.stage}.dense"):
+            # hand off: densify the last table (conv4's when dense_from == 5)
+            dense_x, dense_mask = asx.densify_batch(x, uids, (sh, sw))
+            if self.dense_from == 5:
+                out["x_conv4"], out["mask4"] = dense_x, dense_mask
+            for stage in range(self.dense_from, 5):
+                down, b0, b1 = (getattr(self, f"conv{stage}_{n}") for n in ("down", "0", "1"))
                 dense_mask = max_pool_mask(dense_mask, 3, 2, 1)
                 dense_x = down(dense_x, dense_mask)
                 dense_x = b1(b0(dense_x, dense_mask), dense_mask)
                 sh, sw = sh // 2, sw // 2
                 out[f"x_conv{stage}"], out[f"mask{stage}"] = dense_x, dense_mask
+            y = torch.relu(self.conv5_down_bn(self.conv5_down_conv(dense_x)))
+            y = self.conv5_0(y)
+            out["x_conv5"] = self.conv5_1(y)
+            out["as_overflow"] = overflow
 
-        if dense_x is None:  # dense_from == 5: densify conv4's table
-            dense_x, dense_mask = asx.densify_batch(x, uids, (sh, sw))
-            out["x_conv4"], out["mask4"] = dense_x, dense_mask
-        y = torch.relu(self.conv5_down_bn(self.conv5_down_conv(dense_x)))
-        y = self.conv5_0(y)
-        out["x_conv5"] = self.conv5_1(y)
-        out["as_overflow"] = overflow
-
-        if self.densify_all:
-            for stage, (f_, u_) in sites.items():
-                s = 1 << (stage - 1)
-                out[f"x_conv{stage}"], out[f"mask{stage}"] = asx.densify_batch(
-                    f_, u_, (h // s, w // s))
+            if self.densify_all:
+                for stage, (f_, u_) in sites.items():
+                    s = 1 << (stage - 1)
+                    out[f"x_conv{stage}"], out[f"mask{stage}"] = asx.densify_batch(
+                        f_, u_, (h // s, w // s))
         return out

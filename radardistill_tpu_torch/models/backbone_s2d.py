@@ -59,6 +59,7 @@ from ..ops import active_site as asx
 from ..ops.conv_block import fp_block_conv, int8_block
 from ..ops.int8_conv import int8_block_conv
 from ..utils.bitpack import unpack_bool
+from ..utils.profiler import span
 from .backbone_sparse2d import DenseBasicBlock, SparseBasicBlock, SparseDownBlock
 from .layers import (BN_EPS_BACKBONE, BN_MOM_BACKBONE, BatchNormTorch, Conv2dTorch,
                      MaskedBatchNorm, deq8, int8_conv, int8_conv_affine, int8_qkernel,
@@ -386,7 +387,11 @@ class PillarRes18BackBone8xS2D(nn.Module):
     (``x_conv2_packed`` for x_conv2 under ``pack_stage2``); with
     ``unpack_outputs`` also x_conv1, x_conv2 unpacked and mask1, to hold the
     module against the dense backbone. Under ``int8_static`` in eval mode the
-    packed stages exist only as int8 carries and are dequantized on exit."""
+    packed stages exist only as int8 carries and are dequantized on exit.
+    Masks dilated here are built in the child span ``<stage>.tables`` of the
+    detector's stage (``stage``)."""
+
+    stage = "backbone_3d"
 
     def __init__(self, hw: Tuple[int, int], dtype=torch.float32, int8=False,
                  int8_static=False, int8_stages=1, fp_stages=0, table_input=True,
@@ -433,10 +438,11 @@ class PillarRes18BackBone8xS2D(nn.Module):
         stride-1 occupancy when called."""
         w0 = self.hw[1]
         if hp_masks is None or self.pack_stage2:
-            masks, m = [], mask()
-            for _ in range(3):
-                m = max_pool_mask(m, 3, 2, 1)
-                masks.append(m)
+            with span(f"{self.stage}.tables"):
+                masks, m = [], mask()
+                for _ in range(3):
+                    m = max_pool_mask(m, 3, 2, 1)
+                    masks.append(m)
             return masks
         return [unpack_bool(m, w0 >> (i + 1)) if m.dtype == torch.uint8 else m
                 for i, m in enumerate(hp_masks)]

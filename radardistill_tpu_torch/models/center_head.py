@@ -29,6 +29,7 @@ from torch import nn
 
 from ..ops import geometry, nms
 from ..parallel.mesh import batch_sum
+from ..utils.profiler import span
 from .anchor_head import HeadConv
 from .layers import (BN_MOM_DEFAULT, BatchNormTorch, Conv2dTorch, batch_stats, clip_sigmoid,
                      update_running_)
@@ -423,57 +424,66 @@ def decode_and_nms(preds: Dict[str, torch.Tensor], spec: HeadSpec, hw: Tuple[int
                    with_iou: bool = True, with_vel: bool = True):
     """Batched decode + per-head class-agnostic NMS with fixed-shape outputs:
     'boxes' (B, n_heads·post, 9), 'scores', 'labels' (1-based global),
-    'valid'. Box layout [x, y, z, dx, dy, dz, rot, vx, vy]."""
+    'valid'. Box layout [x, y, z, dx, dy, dz, rot, vx, vy]. Its steps run in
+    child spans of the ``decode_and_nms`` stage: ``.topk`` (the sort of each
+    head's map), ``.boxes`` (the gathers and the box decode) and, per sample
+    and head, those of ``ops.nms.class_agnostic_nms``."""
     H, W = hw
     dev = preds["hm"].device
     B = preds["hm"].shape[0]
-    pclr = torch.tensor(post_center_limit_range, dtype=torch.float32, device=dev)
-    class_valid = torch.as_tensor(spec.class_valid, device=dev)
-    class_ids = torch.as_tensor(spec.class_ids, dtype=torch.int32, device=dev)
+    with span("decode_and_nms.boxes"):
+        pclr = torch.tensor(post_center_limit_range, dtype=torch.float32, device=dev)
+        class_valid = torch.as_tensor(spec.class_valid, device=dev)
+        class_ids = torch.as_tensor(spec.class_ids, dtype=torch.int32, device=dev)
 
     all_boxes, all_scores, all_labels, all_valid = [], [], [], []
     for h in range(spec.num_heads):
-        hm = torch.sigmoid(preds["hm"][..., h, :].float())
-        hm = torch.where(class_valid[h], hm, -1.0)
-        hm_flat = hm.permute(0, 3, 1, 2).reshape(B, -1)
-        scores, inds = nms.top_k_stable(hm_flat, k_per_head)
-        cls_local = inds // (H * W)
-        spatial = inds % (H * W)
-        ys = (spatial // W).float()
-        xs = (spatial % W).float()
+        with span("decode_and_nms.topk"):
+            hm = torch.sigmoid(preds["hm"][..., h, :].float())
+            hm = torch.where(class_valid[h], hm, -1.0)
+            hm_flat = hm.permute(0, 3, 1, 2).reshape(B, -1)
+            scores, inds = nms.top_k_stable(hm_flat, k_per_head)
 
-        def g(key, ch):
-            flat = preds[key][..., h, :].float().reshape(B, H * W, ch)
-            return torch.gather(flat, 1, spatial[..., None].expand(B, spatial.shape[1], ch))
+        with span("decode_and_nms.boxes"):
+            cls_local = inds // (H * W)
+            spatial = inds % (H * W)
+            ys = (spatial // W).float()
+            xs = (spatial % W).float()
 
-        center = g("center", 2)
-        rot = g("rot", 2)
-        x_w = ((xs[..., None] + center[..., 0:1]) * feature_map_stride
-               * float(voxel_size[0]) + float(point_cloud_range[0]))
-        y_w = ((ys[..., None] + center[..., 1:2]) * feature_map_stride
-               * float(voxel_size[1]) + float(point_cloud_range[1]))
-        parts = [x_w, y_w, g("center_z", 1), torch.exp(g("dim", 3)),
-                 torch.atan2(rot[..., 1:2], rot[..., 0:1])]
-        if with_vel:
-            parts.append(g("vel", 2))
-        boxes = torch.cat(parts, dim=-1)
+            def g(key, ch):
+                flat = preds[key][..., h, :].float().reshape(B, H * W, ch)
+                return torch.gather(flat, 1, spatial[..., None].expand(B, spatial.shape[1], ch))
 
-        valid = (torch.all(boxes[..., :3] >= pclr[:3], -1)
-                 & torch.all(boxes[..., :3] <= pclr[3:], -1))
-        if score_thresh is not None:
-            valid = valid & (scores > score_thresh)
-        if with_iou:
-            iou_p = torch.clamp(g("iou", 1)[..., 0], 0.0, 1.0)
-            scores = torch.pow(scores, 1 - rectifier) * torch.pow(iou_p, rectifier)
+            center = g("center", 2)
+            rot = g("rot", 2)
+            x_w = ((xs[..., None] + center[..., 0:1]) * feature_map_stride
+                   * float(voxel_size[0]) + float(point_cloud_range[0]))
+            y_w = ((ys[..., None] + center[..., 1:2]) * feature_map_stride
+                   * float(voxel_size[1]) + float(point_cloud_range[1]))
+            parts = [x_w, y_w, g("center_z", 1), torch.exp(g("dim", 3)),
+                     torch.atan2(rot[..., 1:2], rot[..., 0:1])]
+            if with_vel:
+                parts.append(g("vel", 2))
+            boxes = torch.cat(parts, dim=-1)
 
-        labels = class_ids[h][cls_local]
+            valid = (torch.all(boxes[..., :3] >= pclr[:3], -1)
+                     & torch.all(boxes[..., :3] <= pclr[3:], -1))
+            if score_thresh is not None:
+                valid = valid & (scores > score_thresh)
+            if with_iou:
+                iou_p = torch.clamp(g("iou", 1)[..., 0], 0.0, 1.0)
+                scores = torch.pow(scores, 1 - rectifier) * torch.pow(iou_p, rectifier)
+            labels = class_ids[h][cls_local]
+
         sels = [nms.class_agnostic_nms(boxes[b], scores[b], valid[b], nms_thresh,
                                        pre_max=min(nms_pre, k_per_head), post_max=nms_post)
                 for b in range(B)]
-        all_boxes.append(torch.stack([boxes[b, i] for b, (i, _) in enumerate(sels)]))
-        all_scores.append(torch.stack([scores[b, i] for b, (i, _) in enumerate(sels)]))
-        all_labels.append(torch.stack([labels[b, i] for b, (i, _) in enumerate(sels)]))
-        all_valid.append(torch.stack([v for _, v in sels]))
+        with span("decode_and_nms.boxes"):
+            all_boxes.append(torch.stack([boxes[b, i] for b, (i, _) in enumerate(sels)]))
+            all_scores.append(torch.stack([scores[b, i] for b, (i, _) in enumerate(sels)]))
+            all_labels.append(torch.stack([labels[b, i] for b, (i, _) in enumerate(sels)]))
+            all_valid.append(torch.stack([v for _, v in sels]))
 
-    return {"boxes": torch.cat(all_boxes, dim=1), "scores": torch.cat(all_scores, dim=1),
-            "labels": torch.cat(all_labels, dim=1), "valid": torch.cat(all_valid, dim=1)}
+    with span("decode_and_nms.boxes"):
+        return {"boxes": torch.cat(all_boxes, dim=1), "scores": torch.cat(all_scores, dim=1),
+                "labels": torch.cat(all_labels, dim=1), "valid": torch.cat(all_valid, dim=1)}

@@ -63,8 +63,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from torch.profiler import record_function
-
 from ..caps import as_caps, is_as, is_table_s2d
 from .backbone_as import PillarRes18BackBone8xAS
 from .backbone_s2d import PillarRes18BackBone8xS2D
@@ -72,6 +70,7 @@ from .backbone_sparse2d import PillarBackBone8x, PillarRes18BackBone8x
 from .backbone_tile_sparse import PillarRes18BackBone8xTileSparse
 from .bev_backbone import BaseBEVBackboneV1, BaseBEVBackboneV2
 from .center_head import CenterHead, HeadSpec, assign_targets, decode_and_nms
+from ..utils.profiler import mark_backward, span
 from ..utils.remat import remat_call
 from .distill import CMAHourglass
 from .vfe import DynamicPillarVFE, DynamicPillarVFESimple2D, DynamicPillarVFESparse, MeanVFE
@@ -239,6 +238,9 @@ class PillarNet(nn.Module):
                 cfg["RADAR_DENSE_HEAD"], neck_ch)
             if not self.has_teacher:
                 self.head_spec = self.radar_head_spec
+            # the classes serve both branches: their child spans take the
+            # branch's stage name
+            self.radar_vfe.stage, self.radar_backbone_3d.stage = "radar_vfe", "radar_backbone_3d"
 
     def train(self, mode: bool = True):
         """Frozen scopes stay in eval mode; the CMA and the radar neck follow
@@ -261,17 +263,22 @@ class PillarNet(nn.Module):
         (the reference stops the gradient of a frozen teacher scope's outputs,
         which cuts everything upstream of them as well)."""
         grad = torch.is_grad_enabled() and scope not in self.frozen
-        with record_function(scope), torch.set_grad_enabled(grad):
+        with span(scope), torch.set_grad_enabled(grad):
             yield
 
     def _teacher(self, batch, out):
+        # a trained teacher's stages hook their outputs for the backward's
+        # spans (``utils.profiler.mark_backward``); a frozen one takes no
+        # gradient and hooks nothing
         with self._scope("vfe"):
             if self.as_teacher or self.s2dt_teacher:
                 tfeats, tuids, tcnt = self.vfe(batch["points"], batch["points_mask"],
                                                batch.get("hp_lidar"))
                 _overflow(out, torch.clamp(tcnt - self.vfe.capacity, min=0).sum())
+                mark_backward("vfe.backward", tfeats)
             else:
                 bev, mask = self.vfe(batch["points"], batch["points_mask"])
+                mark_backward("vfe.backward", bev)
         with self._scope("backbone_3d"):
             if self.as_teacher:
                 ms = self._remat(self.backbone_3d, tfeats, tuids, batch.get("hp_as_lidar"))
@@ -280,46 +287,60 @@ class PillarNet(nn.Module):
                 ms = self._remat(self.backbone_3d, tfeats, tuids, batch.get("hp_masks"))
             else:
                 ms = self._remat(self.backbone_3d, bev, mask)
+            mark_backward("backbone_3d.backward", ms)
         out["x_conv4"], out["x_conv5"] = ms["x_conv4"], ms["x_conv5"]
         with self._scope("backbone_2d"):
             sp2d, sp2d_8x = self.backbone_2d(ms["x_conv4"], ms["x_conv5"])
+            mark_backward("backbone_2d.backward", (sp2d, sp2d_8x))
         out["spatial_features_2d"], out["spatial_features_2d_8x"] = sp2d, sp2d_8x
         # the teacher's head is dead compute while a student trains
         if not (self.has_radar and self.training):
             with self._scope("dense_head"):
                 out["lidar_preds"] = self.dense_head(sp2d)
+                mark_backward("dense_head.backward", out["lidar_preds"])
 
     def _radar(self, batch, out):
         # radar-only eval datasets carry the radar returns in `points`
         key = "radar_points" if "radar_points" in batch else "points"
-        with record_function("radar_vfe"):
+        # each stage hooks its outputs for the backward's spans
+        # (``utils.profiler.mark_backward``)
+        with span("radar_vfe"):
             if self.as_radar:
                 rfeats, ruids, rcnt = self.radar_vfe(batch[key], batch[f"{key}_mask"],
                                                      batch.get("hp_radar"))
                 _overflow(out, torch.clamp(rcnt - self.radar_vfe.capacity, min=0).sum())
+                mark_backward("radar_vfe.backward", rfeats)
             else:
                 rbev, rmask = self.radar_vfe(batch[key], batch[f"{key}_mask"])
-        with record_function("radar_backbone_3d"):
+                mark_backward("radar_vfe.backward", rbev)
+        with span("radar_backbone_3d"):
             if self.as_radar:
                 rms = self._remat(self.radar_backbone_3d, rfeats, ruids, batch.get("hp_as"))
                 _overflow(out, rms["as_overflow"])
             else:
                 rms = self._remat(self.radar_backbone_3d, rbev, rmask)
+            mark_backward("radar_backbone_3d.backward", rms)
         out["radar_x_conv4"] = rms["x_conv4"]
-        with record_function("radar_cma"):
+        with span("radar_cma"):
             dense_8x_2, dense_8x_1 = self._remat(self.radar_cma, rms["x_conv4"])
+            mark_backward("radar_cma.backward", (dense_8x_2, dense_8x_1))
         out["radar_spatial_features_8x_2"] = dense_8x_2
         out["radar_spatial_features_8x_1"] = dense_8x_1
-        with record_function("radar_neck"):
+        with span("radar_neck"):
             rsp2d, rsp2d_8x = self.radar_neck(dense_8x_2, rms["x_conv5"])
+            mark_backward("radar_neck.backward", (rsp2d, rsp2d_8x))
         out["radar_spatial_features_2d"] = rsp2d
         out["radar_spatial_features_2d_8x"] = rsp2d_8x
-        with record_function("radar_dense_head"):
+        with span("radar_dense_head"):
             out["radar_preds"] = self.radar_dense_head(rsp2d)
+            mark_backward("radar_dense_head.backward", out["radar_preds"])
 
     def forward(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """Each stage runs inside a ``torch.profiler`` span named after it
-        (``STAGES``), so a profile attributes host and device time per stage."""
+        (``STAGES``, ``utils.profiler.span``), so a profile attributes host
+        and device time per stage; steps inside a stage have child spans
+        ``<stage>.<step>``, and each trained stage's backward a span
+        ``<stage>.backward``."""
         with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
             return self._forward(batch)
 
@@ -339,7 +360,7 @@ class PillarNet(nn.Module):
         if self.training:
             # one assignment shared by the head loss and the PFD loss
             if "gt_boxes" in batch:
-                with record_function("assign_targets"):
+                with span("assign_targets"):
                     out["target_dicts"] = assign_targets(
                         batch["gt_boxes"], spec, (fmap.shape[1], fmap.shape[2]),
                         ta["FEATURE_MAP_STRIDE"], self.voxel_size, self.point_cloud_range,
@@ -350,7 +371,7 @@ class PillarNet(nn.Module):
         preds = out["radar_preds" if self.has_radar else "lidar_preds"]
         pp = head_cfg["POST_PROCESSING"]
         heads = head_cfg["SEPARATE_HEAD_CFG"]["HEAD_DICT"]
-        with record_function("decode_and_nms"):
+        with span("decode_and_nms"):
             out["final_box_dicts"] = decode_and_nms(
                 preds, spec, (fmap.shape[1], fmap.shape[2]), ta["FEATURE_MAP_STRIDE"],
                 self.voxel_size, self.point_cloud_range, pp["POST_CENTER_LIMIT_RANGE"],
@@ -373,11 +394,16 @@ def _overflow(out, n):
 def batch_to_torch(batch: Dict[str, Any], device="cuda"):
     """Collated numpy batch, host-precomputed or not -> tensors on ``device`` (the
     card unless the caller asks for the CPU; nested dicts and tuples kept,
-    dtypes kept)."""
+    dtypes kept), in the span ``h2d``."""
+    with span("h2d"):
+        return _to_torch(batch, device)
+
+
+def _to_torch(batch, device):
     if isinstance(batch, dict):
-        return {k: batch_to_torch(v, device) for k, v in batch.items()}
+        return {k: _to_torch(v, device) for k, v in batch.items()}
     if isinstance(batch, (tuple, list)):
-        return type(batch)(batch_to_torch(v, device) for v in batch)
+        return type(batch)(_to_torch(v, device) for v in batch)
     if isinstance(batch, np.ndarray):
         return torch.from_numpy(np.ascontiguousarray(batch)).to(device)
     return batch

@@ -44,6 +44,7 @@ from torch import nn
 
 from ..ops import active_site as asx
 from ..ops import voxelize
+from ..utils.profiler import span
 from .layers import Dense, MaskedBatchNorm
 
 
@@ -135,6 +136,7 @@ class DynamicPillarVFESimple2D(nn.Module):
 
     use_relative_xyz = True
     capacity = None  # the table's: one row per point, set per call
+    stage = "vfe"  # the detector's stage, which names the child span of the table build
 
     def __init__(self, num_filters: Sequence[int], voxel_size, point_cloud_range,
                  grid_size: Tuple[int, int], num_point_features: int, use_norm=True,
@@ -221,15 +223,16 @@ class DynamicPillarVFESimple2D(nn.Module):
         module's). The sort is stable: the max's tie rule and the mean's
         summation order follow the point order."""
         capacity = self.capacity if capacity is None else capacity
-        coords, in_range = voxelize.compute_pillar_coords(
-            points[..., :2], self.point_cloud_range, self.voxel_size, self.grid_size)
-        ids = voxelize.pillar_ids(coords, point_mask & in_range, self.grid_size)
-        key = voxelize.packed_key(ids, self.grid_size) if self.packed_order else ids
-        order = torch.sort(key, dim=-1, stable=True).indices
-        ids = torch.gather(ids, 1, order)
-        points = torch.gather(points, 1, order[..., None].expand(-1, -1, points.shape[-1]))
-        nx, ny = self.grid_size
-        uids, slot, count = asx.compact_unique_sorted(ids, capacity, nx * ny)
+        with span(f"{self.stage}.tables"):
+            coords, in_range = voxelize.compute_pillar_coords(
+                points[..., :2], self.point_cloud_range, self.voxel_size, self.grid_size)
+            ids = voxelize.pillar_ids(coords, point_mask & in_range, self.grid_size)
+            key = voxelize.packed_key(ids, self.grid_size) if self.packed_order else ids
+            order = torch.sort(key, dim=-1, stable=True).indices
+            ids = torch.gather(ids, 1, order)
+            points = torch.gather(points, 1, order[..., None].expand(-1, -1, points.shape[-1]))
+            nx, ny = self.grid_size
+            uids, slot, count = asx.compact_unique_sorted(ids, capacity, nx * ny)
         return points, {"ids": ids, "slot": slot, "uids": uids, "count": count}
 
     def encode_table(self, points, point_mask, capacity: int, pre=None):

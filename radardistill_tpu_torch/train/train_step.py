@@ -21,6 +21,7 @@ from torch import nn
 
 from ..models import compute_training_loss
 from ..parallel.mesh import Mesh, all_reduce_mean_, sync_batch, wrap_ddp
+from ..utils.profiler import span
 from .optim import ClippedOptimizer
 
 
@@ -96,7 +97,8 @@ def make_train_step(model: nn.Module, optimizer: ClippedOptimizer, model_cfg, cl
         metrics and the updated running statistics averaged over the ranks.
 
     Both legs clip and update after the reduction, so every rank takes the
-    same update."""
+    same update. The backward and the optimizer's update run in the spans
+    ``backward`` and ``optimizer``."""
     state = TrainState(model, optimizer)
     parallel = mesh is not None and mesh.group is not None
     net = wrap_ddp(model, mesh) if parallel else model
@@ -115,8 +117,10 @@ def make_train_step(model: nn.Module, optimizer: ClippedOptimizer, model_cfg, cl
         sat = dcn_offset_sat(model)
         if sat is not None:
             tb["dcn_offset_sat"] = sat
-        (loss * scale if scale != 1 else loss).backward()
-        optimizer.step()
+        with span("backward"):  # the step's thread waits on autograd's
+            (loss * scale if scale != 1 else loss).backward()
+        with span("optimizer"):
+            optimizer.step()
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}
         if parallel:
             metrics = _reduce_metrics(metrics, mesh, shares=sync_group is not None)

@@ -30,6 +30,7 @@ import torch
 from ..models.detector import batch_to_torch
 from ..parallel.multihost import barrier, pmean_scalar
 from ..utils.common import AverageMeter
+from ..utils.profiler import span
 from .checkpoint import CheckpointManager
 
 _END = object()
@@ -65,7 +66,8 @@ class _DevicePrefetcher:
     current stream is per thread), so the step's kernels, launched on the
     consumer's current stream, never run on it. ``device`` None hands the
     batches on as they come. Loader exceptions are re-raised in the
-    consumer."""
+    consumer. The consumer's wait for each batch (the trainer's ``t_data``)
+    is the span ``data_wait``."""
 
     def __init__(self, loader, device, depth: int = 2):
         self._q = queue.Queue(maxsize=depth)
@@ -99,7 +101,8 @@ class _DevicePrefetcher:
 
     def __iter__(self):
         while True:
-            item = self._q.get()
+            with span("data_wait"):
+                item = self._q.get()
             if item is _END:
                 return
             if isinstance(item, BaseException):

@@ -1,15 +1,24 @@
-"""Profiling hooks: a trace of a block of work, a step timer, and the cost
-count of one call.
+"""Profiling hooks: a trace of a block of work, the program's spans, and the
+cost count of one call.
 
 Counterpart of ``radardistill_tpu/utils/profiler.py``: ``trace(logdir)``
 records the enclosed block with ``torch.profiler`` (CPU and, where there is
 one, CUDA activity) and writes it as a Chrome trace
 (``trace_<pid>.json``, which TensorBoard's profiler plugin and
-``chrome://tracing`` read); ``StepTimer`` is a wall-clock p50 / p90 tracker
-that synchronizes the card before it reads the clock; ``cost_analysis(fn,
-*args)`` counts the floating-point operations and the bytes of one call of
-``fn``, as the JAX module's function of that name reads them from XLA's cost
-model (``tools/torch_test.py --cal_params`` prints them).
+``chrome://tracing`` read); ``cost_analysis(fn, *args)`` counts the
+floating-point operations and the bytes of one call of ``fn``, as the JAX
+module's function of that name reads them from XLA's cost model
+(``tools/torch_test.py --cal_params`` prints them).
+
+The program's spans are ``torch.profiler`` user annotations, so host spans and
+kernels share the trace's one clock. :func:`span` opens one only while a
+profiler runs (else it costs one flag read). :func:`mark_backward` gives a
+stage's backward a span ``<stage>.backward``: while a profiler runs, the
+forward puts a gradient hook on the stage's outputs (the graph itself is left
+as it is); the hook, which runs when the first of their gradients is
+computed, closes the span open in that backward pass and opens the stage's,
+and the pass's end closes the last one. The spans of one pass tile its
+backward on autograd's thread. A child span is named ``<parent>.<step>``.
 
 The count runs the call once under a ``TorchDispatchMode`` and counts every
 aten op it runs (the backward's too, if the call runs one) by XLA's
@@ -52,12 +61,13 @@ import contextlib
 import functools
 import math
 import os
-import time
 from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd.graph import register_multi_grad_hook
+from torch.profiler import record_function
 from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 
 
@@ -75,29 +85,55 @@ def trace(logdir: str):
     prof.export_chrome_trace(str(Path(logdir) / f"trace_{os.getpid()}.json"))
 
 
-class StepTimer:
-    """Wall-clock p50 / p90 of the measured blocks; with ``sync`` the card
-    finishes its queued work before each reading."""
+_NULL_SPAN = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
 
-    def __init__(self):
-        self.times = []
 
-    @contextlib.contextmanager
-    def measure(self, sync: bool = True):
-        if sync and torch.cuda.is_available():
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        yield
-        if sync and torch.cuda.is_available():
-            torch.cuda.synchronize()
-        self.times.append(time.perf_counter() - t0)
+def span(name: str):
+    """``record_function(name)`` while a profiler runs, else a shared null
+    context."""
+    return record_function(name) if _profiling() else _NULL_SPAN
 
-    def summary(self):
-        if not self.times:
-            return {}
-        t = np.asarray(self.times) * 1e3
-        return {"p50_ms": float(np.percentile(t, 50)), "p90_ms": float(np.percentile(t, 90)),
-                "mean_ms": float(t.mean()), "n": len(t)}
+
+# the ``<stage>.backward`` span open in each running backward pass, by the
+# pass's graph task id
+_open_backward = {}
+
+
+def _close_backward(task: int) -> None:
+    rf = _open_backward.pop(task, None)
+    if rf is not None:
+        rf.__exit__(None, None, None)
+
+
+def _open_stage_backward(name: str) -> None:
+    """Open the span ``name`` in place of the one open in the running backward
+    pass."""
+    task = torch._C._current_graph_task_id()
+    if task in _open_backward:
+        _close_backward(task)
+    else:  # the pass's first stage: its end closes the last span
+        torch.autograd.Variable._execution_engine.queue_callback(
+            functools.partial(_close_backward, task))
+    rf = record_function(name)
+    rf.__enter__()
+    _open_backward[task] = rf
+
+
+def mark_backward(name: str, outputs) -> None:
+    """While a profiler runs and gradients are taken, hook ``outputs`` (a
+    tensor, or a tuple, list or dict of them) so that the first of their
+    gradients computed in a backward pass opens the span ``name``
+    (:func:`_open_stage_backward`); otherwise do nothing."""
+    if not (_profiling() and torch.is_grad_enabled()):
+        return
+    if isinstance(outputs, torch.Tensor):
+        outputs = (outputs,)
+    elif isinstance(outputs, dict):
+        outputs = outputs.values()
+    grad = [t for t in outputs if isinstance(t, torch.Tensor) and t.requires_grad]
+    if grad:
+        register_multi_grad_hook(grad, lambda _: _open_stage_backward(name), mode="any")
 
 
 # ---------------------------------------------------------------- the rules

@@ -22,10 +22,12 @@ model, optimizer and step built as ``chip_smoke.py`` builds them): 10
 unprofiled synced steps, then 5 steps cut into forward / losses / backward /
 optimizer by CUDA events (device-side spans), then one profiled step: device
 busy time and its share of the unprofiled p50, kernel time of each of the four
-phases and of each stage's forward (the spans of ``PillarNet.forward``), both
-by the host time of each kernel's launch, and of
-each stage's backward (autograd nodes are matched to the forward ops of a
-stage by their sequence numbers; what cannot be matched is listed as such).
+phases and of each stage's forward (the spans of ``PillarNet.forward``), and
+of each stage's backward (the program's ``<stage>.backward`` spans, which
+tile the backward on autograd's thread), all by the host time and thread of
+each kernel's launch. The phases are this tool's spans ``forward``,
+``backward`` and ``optimizer`` and the program's own ``losses``
+(``compute_training_loss``).
 
 ``--set KEY=VALUE`` (repeatable, with ``--cfg train``) overrides a key of the
 yaml's ``MODEL.BACKBONE_3D`` before the model is built, as the JAX package's
@@ -121,7 +123,6 @@ def profile_forward(model, batch, trace_dir=None):
 
 
 PHASES = ("forward", "losses", "backward", "optimizer")
-AUTOGRAD_NODE = "autograd::engine::evaluate_function"  # the profiler's name of a backward node
 
 
 def build_step(torch, cfg, info):
@@ -144,15 +145,14 @@ def build_step(torch, cfg, info):
 
     def pieces(batch, mark=lambda name: None):
         """The same step, with ``mark(phase)`` called before each phase and a
-        profiler span around it."""
+        profiler span around it (the program's own for the losses)."""
         model.train()
         opt.zero_grad()
         mark("forward")
         with record_function("forward"):
             out = model(batch)
         mark("losses")
-        with record_function("losses"):
-            loss, _ = compute_training_loss(cfg, out, *geo)
+        loss, _ = compute_training_loss(cfg, out, *geo)
         mark("backward")
         with record_function("backward"):
             loss.backward()
@@ -182,49 +182,38 @@ def profile_step(pieces, batch, trace_dir=None):
         prof.export_chrome_trace(str(Path(trace_dir) / "train_step.json"))
 
     events = prof.events()
-    names = set(STAGES) | set(PHASES) | {"assign_targets"}
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
-    host = {e.name: (e.time_range.start, e.time_range.end) for e in cpu if e.name in names}
+    names = (set(STAGES) | set(PHASES)
+             | {e.name for e in cpu if getattr(e, "is_user_annotation", False)})
+    host = {e.name: (e.time_range.start, e.time_range.end, e.thread)
+            for e in cpu if e.name in names}
 
-    def inside(e, span):
-        return span is not None and span[0] <= e.time_range.start < span[1]
-
-    # forward ops of each stage -> their autograd sequence numbers
-    seq_stage = {}
-    for e in cpu:
-        if e.sequence_nr >= 0 and inside(e, host.get("forward")):
-            for stage in STAGES:
-                if inside(e, host.get(stage)):
-                    seq_stage.setdefault(e.sequence_nr, stage)
-    # phases and forward stages by the host time of each kernel's launch: the
-    # runtime call that launched it (cudaLaunchKernel, cudaMemcpyAsync, ...)
-    # shares its correlation id. The ops a kernel is linked to would not do:
-    # the port's ctypes launches (K1, K5, K2) have no torch op of their own,
-    # and device-side spans miss the backward (autograd launches from its own
-    # thread)
+    # phases and stages by the host time of each kernel's launch: the runtime
+    # call that launched it (cudaLaunchKernel, cudaMemcpyAsync, ...) shares
+    # its correlation id. The ops a kernel is linked to would not do: the
+    # port's ctypes launches (K1, K5, K2, K3, K4) have no torch op of their
+    # own. A stage's backward span lies on autograd's thread, so its kernels
+    # are those launched there while it is open
     kernels = [e for e in events if _is_kernel(e, names)]
-    launched = {e.id: e.time_range.start for e in cpu if e.name.startswith("cu")}
+    launched = {e.id: (e.time_range.start, e.thread) for e in cpu if e.name.startswith("cu")}
 
-    def kernel_ms(span):
-        return sum(k.time_range.end - k.time_range.start for k in kernels
-                   if span is not None and span[0] <= launched.get(k.id, -1) < span[1]) / 1e3
+    def kernel_ms(span, thread=None):
+        if span is None:
+            return 0.0
+        total = 0.0
+        for k in kernels:
+            at, on = launched.get(k.id, (-1, None))
+            if span[0] <= at < span[1] and thread in (None, on):
+                total += k.time_range.end - k.time_range.start
+        return total / 1e3
 
     phase_ms = {p: kernel_ms(host.get(p)) for p in PHASES}
     fwd = {s: kernel_ms(host[s]) for s in STAGES if s in host}
     fwd["outside the stages"] = phase_ms["forward"] - sum(fwd.values())
     n_kernels = sum(1 for k in kernels if k.id in launched)
-    # each stage's backward: kernels linked to an autograd node, matched to
-    # the stage of its forward op by sequence number
-    bwd = {}
-    for e in cpu:
-        if not e.kernels or e.name in names or not inside(e, host.get("backward")):
-            continue
-        node = e
-        while node is not None and not node.name.startswith(AUTOGRAD_NODE):
-            node = node.cpu_parent
-        stage = seq_stage.get(node.sequence_nr) if node is not None else None
-        stage = stage or "not matched to a stage"
-        bwd[stage] = bwd.get(stage, 0.0) + sum(k.duration for k in e.kernels) / 1e3
+    bwd = {n[:-len(".backward")]: kernel_ms(span, span[2]) for n, span in host.items()
+           if n.endswith(".backward")}
+    bwd["outside the stages"] = phase_ms["backward"] - sum(bwd.values())
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)

@@ -15,12 +15,14 @@ each rank reads its slice of the data, the model trains under DDP, and
 ``--sync_bn`` / ``OPTIMIZATION.SYNC_BN`` pick the leg (1, the default: BN
 statistics and loss normalizers over the global batch; 0: per-rank ones, the
 running statistics averaged). Rank 0 logs and writes the checkpoints.
-``--profile_dir DIR`` traces ``PROFILE_STEPS`` steps on the loader's first
-batch before the training (``utils/profiler.py``: a Chrome trace in DIR).
+``--profile_dir DIR`` traces ``PROFILE_STEPS`` steps before the training
+(``utils/profiler.py``: a Chrome trace in DIR), their batches fed by the
+trainer's prefetcher, whose wait for each is the span ``data_wait``.
 """
 
 import argparse
 import datetime
+import itertools
 import os
 import sys
 from pathlib import Path
@@ -189,17 +191,20 @@ def main(argv=None):
             logger.warning("wandb not installed; skipping")
 
     if args.profile_dir:
-        # a trace of a few steps on the loader's first batch, one warm step
-        # outside it (utils/profiler.py), before the training proper
-        from radardistill_tpu_torch.models.detector import batch_to_torch
+        # a trace of a few steps, one warm step outside it (utils/profiler.py),
+        # before the training proper; the batches come through the trainer's
+        # prefetcher, so the trace holds the input waits training has
+        from radardistill_tpu_torch.train.trainer import _DevicePrefetcher
         from radardistill_tpu_torch.utils.profiler import trace
 
-        warm_batch = batch_to_torch(next(iter(train_loader))[0], device)
-        step_fn(warm_batch)
+        batches = iter(_DevicePrefetcher(
+            itertools.islice(itertools.cycle(train_loader), PROFILE_STEPS + 1), device))
+        step_fn(next(batches))
         with trace(args.profile_dir):
-            for _ in range(PROFILE_STEPS):
-                metrics = step_fn(warm_batch)
+            for batch in batches:
+                metrics = step_fn(batch)
             float(metrics["loss"])
+        del batches, batch
         logger.info(f"profiler trace of {PROFILE_STEPS} steps written to {args.profile_dir}")
 
     logger.info("**********************Start training**********************")
