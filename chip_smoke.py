@@ -359,15 +359,18 @@ The cost count, phase 45, after phase 44 (``phase_cost``):
 ``--cal_params``. (a) The val eval step at 1440², bs1, float32, on
 ``make_batch()``'s batch: 24 911 999 parameters and flops within 5% of XLA's
 696.868 G for the JAX step on the same batch (``tools/xla_cost_reference.py``
-on the CPU, printed beside it with its 15.774 G bytes), K5 x 1 and K2 x 3
-counted through their formulas; then ``tools/torch_test.py --cal_params`` on
+on the CPU, printed beside it with its 15.774 G bytes, and beside that XLA's
+figure with the NMS counted as the port's: its 8.339 G for the JAX NMS out,
+the NMS kernels' formula in), K5 x 1, K2 x 3 and the NMS counted through
+their formulas; then ``tools/torch_test.py --cal_params`` on
 ``radar_distill_val.yaml`` over a synthetic tree of 2 val samples, its log
 line printed. (b) The same step at grid 256, float32, TF32 off, counted on
 the card (K5, K2 launched) and on the CPU (their plain versions): flops equal
 within 1e-4, bytes within 1e-2, every aten op whose bytes differ named. (c)
 The bfloat16 distillation eval forward at 1440², bs2, and one distillation
 train step: the hook's per-kernel tallies equal to the dispatchers' own
-launch counts (K1 x 4, K5 x 2, K2 x 3; and K3 x 3, K4 x 3).
+launch counts (K1 x 4, K5 x 2, K2 x 3; and K3 x 3, K4 x 3; the NMS's tally
+``nms_bev``, one a decode, to each of its two kernels' launches).
 
 The restore of the JAX package's checkpoints, phase 46, after phase 45
 (``phase_jax_ckpt``), on the committed fixture ``tests/fixtures/jax_run`` (two
@@ -389,6 +392,20 @@ with ``--max_ckpt_save_num 1``: it resumes at epoch 2, writes its file and
 removes the JAX directories. (f) ``tools/torch_test.py --ckpt`` the JAX
 directory on ``radar_distill_val.yaml`` over 2 synthetic samples (K5 x 1,
 K2 x 3 a forward). ``launches_jaxckpt`` counts (c)-(f).
+
+The decode's NMS kernels, phase 47, after K9 (``phase_nms``; alone: a script
+that imports ``chip_smoke`` and calls ``phase_nms(torch, dev, smi)``), at the
+decode's shapes: P = 6 (bs1) and 24 (bs4) (sample, head) problems of 500
+candidates at about the decode's density. The mask kernel's bits equal to
+the plain IoU's (``boxes_iou_bev`` on the card) bit for bit, the
+dispatcher's selection equal to ``nms_plain``'s problem by problem, its
+launch counter one more a call; then the dispatcher (host and device time),
+the two bare launches together and each alone, and the plain route (a
+problem at a time, its host syncs included), plain, kernel, kernel, plain.
+Its record, appended to the kernels record as ``nms_bev``, is the bs4 call's;
+its ``launches`` are those of the val path's forward (phase 6: the counts
+zeroed just before it), one of each kernel, and each path's decode is held
+to one launch of each in its counts (``DECODE``).
 
 Why 5e-2 under ``INT8_STAGES: 5``: the card and the CPU round the chain's
 float32 scales alike, but not every stock op around it (the VFE's sums); one
@@ -486,6 +503,10 @@ MMA_ROUTES = {"conv_block": "wgmma", "conv3x3_wide": "wgmma", "conv_probe": "wgm
 K1_STAGE1 = {"conv_block": 4, "conv_block.wgmma": 4, "conv_block.mma_sync": 0}
 # the CMA's backward in one train step: K3 x 3, K4 x 3 on its tile route
 DCN_BACKWARD = {"dcn_offset_grad": 3, "dcn_input_grad": 3, "dcn_input_grad.tile": 3}
+# an eval forward's decode: one NMS call over every (sample, head) problem, a
+# launch of each of its two kernels (csrc/nms_bev.cu); a train step decodes
+# nothing
+DECODE = {"nms_bev_mask": 1, "nms_bev_scan": 1}
 # rel-L2 of the FP_STAGES: 5 teacher's features, bfloat16 against the card's
 # float32 forward at grid 512 (phase_fp_teacher_bf16), read on an H100 with
 # every K6 link on the mma.sync kernel, before the wgmma route existed
@@ -1458,6 +1479,97 @@ def phase_fp_teacher_bf16(torch, dev, small):
     return rel
 
 
+def nms_problems(torch, dev, p, k=500, seed=25):
+    """``p`` NMS problems of ``k`` candidates at about the decode's density:
+    boxes (p, k, 9) over 20 m x 20 m, scores on a grid of 1/64 (ties), 95%
+    valid."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed + p)
+    boxes = np.zeros((p, k, 9), np.float32)
+    boxes[..., 0:2] = rng.uniform(-10, 10, (p, k, 2))
+    boxes[..., 2] = rng.uniform(-2, 2, (p, k))
+    boxes[..., 3:6] = rng.uniform(0.5, 5.0, (p, k, 3))
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (p, k))
+    scores = np.round(rng.uniform(size=(p, k)) * 64) / 64
+    valid = rng.uniform(size=(p, k)) < 0.95
+    return (torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).float().to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+def phase_nms(torch, dev, smi):
+    """Phase 47: the decode's NMS kernels (``csrc/nms_bev.cu``) at its shapes,
+    P = 6 (bs1) and 24 (bs4) problems of K = 500 candidates: the mask's bits
+    equal to the plain IoU's (row i above rank j: j's ring clipped by i),
+    the dispatcher's selection equal to ``nms_plain``'s on the card problem by
+    problem, then the dispatcher, its two bare launches (each alone too) and
+    the plain route (``nms_plain`` a problem, its host syncs included) timed
+    plain, kernel, kernel, plain. Returns the record of P = 24 with the
+    P = 6 figures under ``bs1_*``."""
+    from radardistill_tpu_torch.ops import geometry, nms
+
+    thresh, post = 0.2, 83
+    recs = {}
+    for p in (6, 24):
+        boxes, scores, valid = nms_problems(torch, dev, p)
+        counters = (nms.class_agnostic_nms_batched, nms.nms_bev_mask, nms.nms_bev_scan)
+        before = [f.launches for f in counters]
+        sel, sel_valid = nms.class_agnostic_nms_batched(boxes, scores, valid, thresh, 1000, post)
+        torch.cuda.synchronize()
+        if [f.launches - n for f, n in zip(counters, before)] != [1, 1, 1]:
+            raise RuntimeError("NMS: the dispatcher did not take the card route once, with one "
+                               "launch of each kernel")
+
+        def plain():
+            return [nms.nms_plain(boxes[q], scores[q], valid[q], thresh, 1000, post)
+                    for q in range(p)]
+
+        for q, (want, want_valid) in enumerate(plain()):
+            if not (torch.equal(sel[q], want) and torch.equal(sel_valid[q], want_valid)):
+                raise RuntimeError(f"NMS P={p}: problem {q} selects otherwise than the plain route")
+        # the bare launches' inputs, as the dispatcher makes them
+        order, cand_valid, cand = nms._ranked(boxes, scores, valid, 500, None)
+        order = order.contiguous()
+        corners = geometry.boxes_to_corners_bev(cand).contiguous()
+        areas = (cand[..., 3] * cand[..., 4]).contiguous()
+        mask = nms.nms_bev_mask(corners, areas, cand_valid, thresh)
+        bits = (mask[..., None] >> torch.arange(64, device=dev)) & 1
+        bits = bits.reshape(p, 500, -1)[..., :500].bool()
+        rank = torch.arange(500, device=dev)
+        for q in range(p):
+            iou = geometry.boxes_iou_bev(cand[q], cand[q])
+            want = ((iou.T > thresh) & cand_valid[q][:, None] & cand_valid[q][None, :]
+                    & (rank[None, :] > rank[:, None]))
+            if not torch.equal(bits[q], want):
+                raise RuntimeError(f"NMS P={p}: problem {q}: {int((bits[q] != want).sum())} "
+                                   f"mask bits differ from the plain IoU's")
+
+        def launch():
+            nms.nms_bev_scan(nms.nms_bev_mask(corners, areas, cand_valid, thresh), cand_valid,
+                             order, post)
+
+        ms, plain_ms = paired_ms(torch, lambda: nms.class_agnostic_nms_batched(
+            boxes, scores, valid, thresh, 1000, post), plain, iters=200, plain_iters=2)
+        rec = {"ms": ms, "plain_ms": plain_ms,
+               "device_ms": device_ms(torch, lambda: nms.class_agnostic_nms_batched(
+                   boxes, scores, valid, thresh, 1000, post), 200),
+               "launch_ms": device_ms(torch, launch, 200),
+               "mask_ms": device_ms(torch, lambda: nms.nms_bev_mask(corners, areas, cand_valid,
+                                                                     thresh), 200),
+               "scan_ms": device_ms(torch, lambda: nms.nms_bev_scan(mask, cand_valid, order,
+                                                                    post), 200)}
+        flops, nbytes = nms.nms_bev_work(boxes, scores, valid, thresh, 1000, post)
+        rec = bound_of(dict(rec, ops_ms=flops / PEAK_F32_OPS * 1e3,
+                            bytes_ms=nbytes / PEAK_BYTES * 1e3))
+        print(f"NMS P={p} K=500: selection equal to the plain route's, mask bits equal; kept "
+              f"{int(sel_valid.sum())} of {p * post} slots; dispatcher {ms:.4f} ms (device "
+              f"{rec['device_ms']:.4f}), bare mask + scan {rec['launch_ms']:.4f} (mask "
+              f"{rec['mask_ms']:.4f}, scan {rec['scan_ms']:.4f}), plain {plain_ms:.4f}, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) on {smi}")
+        recs[p] = rec
+    return dict(recs[24], max_abs_err=0.0, **{f"bs1_{k}": v for k, v in recs[6].items()})
+
+
 def phase_k9(torch, dev):
     """K9 at (2, 180, 180, 256) -> 256: forward and both gradients against
     autograd through ``F.conv2d`` (TF32 off). The record is one forward and
@@ -1543,6 +1655,7 @@ def reset_launches():
     from radardistill_tpu_torch.ops.dcn_sample import dcn_sample
     from radardistill_tpu_torch.ops.expand import expand_rows, gather_rows_windowed
     from radardistill_tpu_torch.ops.int8_conv import chain_conv
+    from radardistill_tpu_torch.ops.nms import nms_bev_mask, nms_bev_scan
     from radardistill_tpu_torch.ops.probes import conv_probe, mma_rate
     from radardistill_tpu_torch.ops.wide_conv import conv3x3_wide
 
@@ -1550,7 +1663,8 @@ def reset_launches():
            "dcn_offset_grad": dcn_offset_grad, "dcn_input_grad": dcn_input_grad,
            "chain_conv": chain_conv, "conv_block_fp": conv_block_fp,
            "conv3x3_wide": conv3x3_wide, "gather_rows_windowed": gather_rows_windowed,
-           "conv_probe": conv_probe, "mma_rate": mma_rate}
+           "conv_probe": conv_probe, "mma_rate": mma_rate, "nms_bev_mask": nms_bev_mask,
+           "nms_bev_scan": nms_bev_scan}
     for fn in fns.values():
         fn.launches = 0
     routes, dx_routes = conv_block.route_launches, dcn_input_grad.route_launches
@@ -2004,7 +2118,8 @@ def phase_device_train(torch, dev, yaml_name, cfg, info, host_batch, raw_batch):
 
 
 # the step and the eval forward of the distillation yaml, per call: K1 x 4
-# (wgmma), K5 x 2, K2 x 3; the step adds K3 x 3 and K4 x 3 (tile route)
+# (wgmma), K5 x 2, K2 x 3; the step adds K3 x 3 and K4 x 3 (tile route), the
+# eval forward its decode (DECODE)
 EVAL_FORWARD = {"expand_rows": 2, "dcn_sample": 3, "conv_block": 4, "conv_block.wgmma": 4}
 TRAIN_STEP = {**EVAL_FORWARD, "dcn_offset_grad": 3, "dcn_input_grad": 3,
               "dcn_input_grad.tile": 3}
@@ -2148,8 +2263,10 @@ def phase_runtime(torch, dev, smi, step_p50):
     t_eval = time.perf_counter() - t0
     launches = read()
     n_eval = len(test_loader)
+    eval_fwd = {**EVAL_FORWARD, **DECODE}
     want = {**dict.fromkeys(launches, 0),
-            **{k: 6 * v + n_eval * EVAL_FORWARD.get(k, 0) for k, v in TRAIN_STEP.items()}}
+            **{k: 6 * TRAIN_STEP.get(k, 0) + n_eval * eval_fwd.get(k, 0)
+               for k in {**TRAIN_STEP, **eval_fwd}}}
     print(f"runtime launches over 6 steps and {n_eval} eval batches: {launches}")
     if launches != want or not 0 <= result["mAP"] <= 1:
         raise RuntimeError(f"runtime: launches {launches}, expected {want}; result {result}")
@@ -2185,7 +2302,7 @@ def phase_runtime(torch, dev, smi, step_p50):
     return launches
 
 
-VAL_FORWARD = {"expand_rows": 1, "dcn_sample": 3}
+VAL_FORWARD = {"expand_rows": 1, "dcn_sample": 3, **DECODE}
 
 
 def make_nuscenes_tree(work):
@@ -2258,7 +2375,8 @@ def phase_nuscenes(torch, dev, smi, tree, step_p50=None, teacher_ckpt=None):
     steps = read_log(next(out.glob("log_train_*.txt")))
     n_steps, n_val = len(train_infos) // 2, len(val_infos)
     want = {**dict.fromkeys(launches, 0),
-            **{k: n_steps * v + n_val * VAL_FORWARD.get(k, 0) for k, v in TRAIN_STEP.items()}}
+            **{k: n_steps * TRAIN_STEP.get(k, 0) + n_val * VAL_FORWARD.get(k, 0)
+               for k in {**TRAIN_STEP, **VAL_FORWARD}}}
     print(f"nuscenes launches over {n_steps} train steps and {n_val} val forwards: {launches}")
     if launches != want:
         raise RuntimeError(f"nuscenes: launches {launches}, expected {want}")
@@ -2424,11 +2542,10 @@ TEACHER_YAML = ROOT / "tools/cfgs/nuscenes_models/pillarnet.yaml"
 RADAR_YAML = ROOT / "tools/cfgs/nuscenes_models/pillarnet_radar.yaml"
 # the dense-input paths' launches: the dense VFE's densify (K5) in every
 # forward; the radar baseline's CMA adds K2 x 3, and K3 x 3, K4 x 3 (tile
-# route) in its backward
+# route) in its backward; an eval forward adds its decode
 DENSE_TEACHER = {"expand_rows": 1}
-RADAR_BASELINE_FORWARD = {"expand_rows": 1, "dcn_sample": 3}
-RADAR_BASELINE_STEP = {**RADAR_BASELINE_FORWARD, "dcn_offset_grad": 3, "dcn_input_grad": 3,
-                       "dcn_input_grad.tile": 3}
+RADAR_BASELINE_STEP = {"expand_rows": 1, "dcn_sample": 3, **DCN_BACKWARD}
+RADAR_BASELINE_FORWARD = {"expand_rows": 1, "dcn_sample": 3, **DECODE}
 
 
 def phase_k5_dense(torch, dev):
@@ -2569,7 +2686,8 @@ def phase_teacher_pretrain(torch, dev, smi, tree):
                                         "--infer_time", "--set", *sets])
 
     launches, state, cfg, ckpt, _, numbers, resident = phase_dense_cli(
-        torch, dev, smi, tree, "teacher", TEACHER_YAML, 4, 1, DENSE_TEACHER, DENSE_TEACHER,
+        torch, dev, smi, tree, "teacher", TEACHER_YAML, 4, 1, DENSE_TEACHER,
+        {**DENSE_TEACHER, **DECODE},
         evaluate)
     moved, backbone, kernels = backbone_moved(torch, dev, state, cfg)
     print(f"teacher pretraining: {numbers}; backbone_3d: {moved} of {backbone} "
@@ -2764,7 +2882,8 @@ def phase_s2d_pretrain(torch, dev, smi, tree, dense_resident):
                                         "--infer_time", "--set", *sets])
 
     launches, state, cfg, ckpt, _, numbers, (p50, peak) = phase_dense_cli(
-        torch, dev, smi, tree, "s2d_teacher", TEACHER_YAML, 4, 1, DENSE_TEACHER, DENSE_TEACHER,
+        torch, dev, smi, tree, "s2d_teacher", TEACHER_YAML, 4, 1, DENSE_TEACHER,
+        {**DENSE_TEACHER, **DECODE},
         evaluate, extra_sets=S2D_SETS)
     bb = state.model.backbone_3d
     if not isinstance(bb, PillarRes18BackBone8xS2D) or bb.table_input:
@@ -2879,7 +2998,7 @@ def phase_s2d_routes(torch, dev, small):
         cfg, info, batch = make_batch(TRAIN_YAML, backbone_3d=over)
         launches[name] = phase_forward_bf16(
             torch, dev, f"distillation forward {name}", cfg, info, batch,
-            {"expand_rows": 2, "dcn_sample": 3, **k1}, 3)
+            {"expand_rows": 2, "dcn_sample": 3, **k1, **DECODE}, 3)
         del batch
         torch.cuda.empty_cache()
         cfg, info, batch = make_batch(TRAIN_YAML, backbone_3d=over, **small)
@@ -3381,8 +3500,9 @@ def phase_anchor_cli(torch, dev, smi, work):
     launches = read()
     n_train = len(read_log(next(out.glob("log_train_*.txt"))))
     n_steps = 1 + torch_train.PROFILE_STEPS + n_train
+    # 8 val samples at bs2: 4 forwards, each a decode
     check_launches("anchor family CLIs", launches,
-                   {"expand_rows": n_steps + 4})  # 8 val samples at bs2: 4 forwards
+                   {"expand_rows": n_steps + 4, **{k: 4 * n for k, n in DECODE.items()}})
     losses = [r[4] for r in read_log(next(out.glob("log_train_*.txt")))]
     traces = list(prof.glob("trace_*.json"))
     sim = out / "eval" / "similarity" / "spatial_features_2d"
@@ -3470,7 +3590,8 @@ def phase_anchor_full(torch, dev, smi, batch_size=4, num_lidar=160000, grid=1440
             out = eval_step(batch)
             torch.cuda.synchronize()
             etimes.append((time.perf_counter() - t0) * 1e3)
-        check_launches(f"anchor {vfe} eval", read(), {k: runs * n for k, n in want.items()})
+        check_launches(f"anchor {vfe} eval", read(),
+                       {k: runs * n for k, n in {**want, **DECODE}.items()})
         shapes = {k: tuple(v.shape) for k, v in out["final_box_dicts"].items()}
         if shapes["boxes"] != (batch_size, 50, 7) or not all_finite(torch,
                                                                     out["final_box_dicts"]):
@@ -3803,7 +3924,7 @@ def phase_pcdet_import(torch, dev, smi, work):
         want = tensor_leaves(model(bdev))
         torch.cuda.synchronize()
     check_launches("pcdet import forward", fwd_launches,
-                   {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1})
+                   {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, **DECODE})
     finite = all(not v.is_floating_point() or bool(torch.isfinite(v).all())
                  for k, v in got.items() if not k.startswith("final_box_dicts."))
     boxes = got["final_box_dicts.boxes"][got["final_box_dicts.valid"]]
@@ -3843,8 +3964,11 @@ def phase_pcdet_import(torch, dev, smi, work):
 
 # XLA's cost analysis of the JAX val eval step at 1440², bs1, float32, on
 # make_batch()'s batch (tools/xla_cost_reference.py, the JAX tool's count, on
-# the CPU): flops, bytes accessed, parameters
-XLA_VAL_1440 = {"flops": 696.868e9, "bytes_accessed": 15.774e9, "params": 24_911_999}
+# the CPU): flops, bytes accessed, parameters; and of its NMS alone
+# (decode_nms_cost: 6 heads of 500 candidates, whatever the grid), the part
+# that the port's NMS kernels replace
+XLA_VAL_1440 = {"flops": 696.868e9, "bytes_accessed": 15.774e9, "params": 24_911_999,
+                "nms_flops": 8_338_922_496}
 
 
 def phase_cost(torch, dev, smi, work):
@@ -3868,12 +3992,14 @@ def phase_cost(torch, dev, smi, work):
                             torch.Generator().manual_seed(45))
 
     def count_checked(name, fn, arg, expect):
-        """Count ``fn(arg)``; the hook's tallies must equal the launches."""
+        """Count ``fn(arg)``; the hook's tallies must equal the launches (the
+        NMS dispatcher's tally, ``nms_bev``, those of each of its kernels)."""
         read = reset_launches()
         ca = cost_analysis(fn, arg)
         torch.cuda.synchronize()
         launches = read()
-        tallies = {k: ca["kernels"].get(k, 0) for k in launches if "." not in k}
+        tallies = {k: ca["kernels"].get("nms_bev" if k in DECODE else k, 0)
+                   for k in launches if "." not in k}
         check_launches(name, {k: launches[k] for k in tallies}, expect)
         if tallies != {k: launches[k] for k in tallies}:
             raise RuntimeError(f"{name}: the hook's tallies {ca['kernels']} are not the "
@@ -3887,12 +4013,18 @@ def phase_cost(torch, dev, smi, work):
     cfg, info, batch = make_batch()
     model = model_of(cfg, info)
     n_params = sum(p.numel() for p in model.parameters())
-    val = {"expand_rows": 1, "dcn_sample": 3}
+    val = {"expand_rows": 1, "dcn_sample": 3, **DECODE}
     ca, _ = count_checked("val eval step float32 1440² bs1", make_eval_step(model),
                     batch_to_torch(batch), val)
     rel = ca["flops"] / XLA_VAL_1440["flops"] - 1
+    # XLA's count with the NMS counted as the port's: its dense IoU out, the
+    # kernels' formula in
+    as_port = XLA_VAL_1440["flops"] - XLA_VAL_1440["nms_flops"] + ca["kernel_flops"]["nms_bev"]
     print(f"cost val 1440²: params {n_params} (JAX {XLA_VAL_1440['params']}), flops "
           f"{ca['flops']:.0f} against XLA's {XLA_VAL_1440['flops']:.0f} ({100 * rel:+.2f}%), "
+          f"against XLA's with the NMS counted as the port's {as_port:.0f} "
+          f"({100 * (ca['flops'] / as_port - 1):+.2f}%; the kernels' formula "
+          f"{ca['kernel_flops']['nms_bev']:.0f}, XLA's NMS {XLA_VAL_1440['nms_flops']:.0f}), "
           f"bytes {ca['bytes_accessed']:.0f} (XLA after fusion {XLA_VAL_1440['bytes_accessed']:.0f})")
     if n_params != XLA_VAL_1440["params"] or not abs(rel) <= 0.05:
         raise RuntimeError(f"cost val 1440²: params {n_params}, flops {100 * rel:+.2f}% off XLA")
@@ -3953,7 +4085,7 @@ def phase_cost(torch, dev, smi, work):
     model, step, _ = build_trainer(torch, TRAIN_YAML, cfg, info, torch.bfloat16, dev)
     fwd = {"expand_rows": 2, "dcn_sample": 3, "conv_block": 4}
     _, fwd_launches = count_checked("distillation eval forward bf16 1440² bs2",
-                              make_eval_step(model), bdev, fwd)
+                              make_eval_step(model), bdev, {**fwd, **DECODE})
     model.train()
     _, step_launches = count_checked("distillation train step bf16 1440² bs2", step, bdev,
                                 {**fwd, "dcn_offset_grad": 3, "dcn_input_grad": 3})
@@ -4067,7 +4199,7 @@ def phase_jax_ckpt(torch, dev, smi, work):
         load_jax_variables(model, generated)
         want = tensor_leaves(model(bdev))
     check_launches("jax ckpt forward", fwd_launches,
-                   {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1})
+                   {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, **DECODE})
     finite = all(not v.is_floating_point() or bool(torch.isfinite(v).all())
                  for k, v in got.items() if not k.startswith("final_box_dicts."))
     equal = [k for k in want if torch.equal(got[k], want[k])]
@@ -4214,18 +4346,19 @@ def main() -> int:
     k7 = phase_k7(torch, dev, smi)
     k6 = phase_k6(torch, dev)
     k9, k9_launches = phase_k9(torch, dev)
+    nms_rec = phase_nms(torch, dev, smi)
 
     cfg, info, batch = make_batch()
     none = {"dcn_offset_grad": 0, "dcn_input_grad": 0}  # no backward in a forward
     val_launches = phase_forward_bf16(
         torch, dev, "val path", cfg, info, batch,
-        {"expand_rows": 1, "dcn_sample": 3, "conv_block": 0, **none}, 20)
+        {"expand_rows": 1, "dcn_sample": 3, "conv_block": 0, **none, **DECODE}, 20)
     phase_forward_f32(torch, dev, "val path", cfg, info, batch,
                       {"radar_preds": 1e-4, "radar_x_conv4": 1e-4})
     torch.backends.cudnn.allow_tf32 = True
     raw = make_batch(host_precompute=False)[2]  # the same scene, no host tables
     phase_device_tables(torch, dev, "val path", cfg, info, batch, raw,
-                        {"expand_rows": 1, "dcn_sample": 3})
+                        {"expand_rows": 1, "dcn_sample": 3, **DECODE})
     phase_dense_from(torch, dev, VAL_YAML)
 
     t0 = time.perf_counter()
@@ -4234,14 +4367,14 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s on the host")
     fwd_launches = phase_forward_bf16(
         torch, dev, "distillation forward", cfg, info, batch,
-        {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, **none}, 10)
+        {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, **none, **DECODE}, 10)
     launches, step_p50 = phase_train_bf16(
         torch, dev, TRAIN_YAML, cfg, info, batch,
         {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, **DCN_BACKWARD}, 10)
     raw = make_batch(TRAIN_YAML, host_precompute=False)[2]
     dev_launches, built = phase_device_tables(
         torch, dev, "distillation forward", cfg, info, batch, raw,
-        {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1})
+        {"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, **DECODE})
     phase_device_train(torch, dev, TRAIN_YAML, cfg, info, batch, raw)
     k8, k8_launches = phase_k8(torch, dev, built["hp_as"], smi)
     del batch, raw, built
@@ -4294,7 +4427,8 @@ def main() -> int:
     for name, over in deep.items():
         cfg, info, batch = make_batch(TRAIN_YAML, backbone_3d=over)
         chain_launches[name] = phase_forward_bf16(
-            torch, dev, f"distillation forward {over}", cfg, info, batch, chain_expect[name], 5)
+            torch, dev, f"distillation forward {over}", cfg, info, batch,
+            {**chain_expect[name], **DECODE}, 5)
         if name == "int8_stages5":
             phase_train_bf16(torch, dev, TRAIN_YAML, cfg, info, batch,
                              {**chain_expect[name], **DCN_BACKWARD}, 3)
@@ -4330,7 +4464,7 @@ def main() -> int:
     unfrozen_launches, _ = phase_train_bf16(
         torch, dev, TRAIN_YAML, cfg, info, batch,
         {"expand_rows": 2, "dcn_sample": 3, **DCN_BACKWARD}, 5,
-        eval_launches={"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1})
+        eval_launches={"expand_rows": 2, "dcn_sample": 3, **K1_STAGE1, **DECODE})
     del batch
     torch.cuda.empty_cache()
     route_launches = phase_s2d_routes(torch, dev, small)
@@ -4393,31 +4527,34 @@ def main() -> int:
            "chain_conv": chain_launches["int8_stages5"]["chain_conv"],
            "conv3x3_wide": k9_launches, "gather_rows_windowed": k8_launches,
            "conv_probe": p1_launches, "mma_rate": p2_launches}
+    counts = {"launches_val": val_launches, "launches_forward": fwd_launches,
+              "launches_int8_stages5": chain_launches["int8_stages5"],
+              "launches_fp_stages5": chain_launches["fp_stages5"],
+              "launches_device_tables": dev_launches, "launches_runtime": runtime_launches,
+              "launches_nuscenes": nusc_launches, "launches_ddp": ddp_launches,
+              "launches_teacher_pretrain": teacher_launches,
+              "launches_radar_baseline": radar_launches,
+              "launches_s2d_teacher_pretrain": s2d_launches,
+              "launches_teacher_unfrozen": unfrozen_launches,
+              "launches_anchor_cli": anchor_cli_launches, "launches_anchor_step": anchor_launches,
+              "launches_remat": remat_launches, "launches_tile_sparse_forward": tile_launches,
+              "launches_pcdet": pcdet_launches, "launches_cost": cost_launches,
+              "launches_jaxckpt": jax_ckpt_launches,
+              **{f"launches_static_{r}": route_launches[k] for r, k in (
+                  ("dense_input", "TABLE_INPUT: false"), ("linear_table", "PACKED_TABLE: false"),
+                  ("s2d2", "_S2D2"))}}
     kernels = [{"name": name, "route": "cuda", "source": f"radardistill_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": own.get(name, launches[name]),
-                "launches_val": val_launches[name], "launches_forward": fwd_launches[name],
-                "launches_int8_stages5": chain_launches["int8_stages5"][name],
-                "launches_fp_stages5": chain_launches["fp_stages5"][name],
-                "launches_device_tables": dev_launches[name],
-                "launches_runtime": runtime_launches[name],
-                "launches_nuscenes": nusc_launches[name], "launches_ddp": ddp_launches[name],
-                "launches_teacher_pretrain": teacher_launches[name],
-                "launches_radar_baseline": radar_launches[name],
-                "launches_s2d_teacher_pretrain": s2d_launches[name],
-                "launches_teacher_unfrozen": unfrozen_launches[name],
-                "launches_anchor_cli": anchor_cli_launches[name],
-                "launches_anchor_step": anchor_launches[name],
-                "launches_remat": remat_launches.get(name, 0),
-                "launches_tile_sparse_forward": tile_launches[name],
-                "launches_pcdet": pcdet_launches[name],
-                "launches_cost": cost_launches[name],
-                "launches_jaxckpt": jax_ckpt_launches[name],
-                **{f"launches_static_{r}": route_launches[k][name] for r, k in (
-                    ("dense_input", "TABLE_INPUT: false"), ("linear_table", "PACKED_TABLE: false"),
-                    ("s2d2", "_S2D2"))},
-                "launch_ms": None,
+                **{key: c.get(name, 0) for key, c in counts.items()}, "launch_ms": None,
                 "mma": MMA_ROUTES.get(name), **rec}
                for name, src, replaces, rec in table]
+    # the decode's NMS, which replaces no Pallas kernel: its launches (both
+    # kernels) those of the val path's forward, its times those of phase 47
+    nms_of = lambda c: sum(c.get(k, 0) for k in DECODE)  # noqa: E731
+    kernels.append({"name": "nms_bev", "route": "cuda",
+                    "source": "radardistill_tpu_torch/csrc/nms_bev.cu", "replaces": None,
+                    **nms_rec, "launches": nms_of(val_launches),
+                    **{key: nms_of(c) for key, c in counts.items()}})
     # K1: the stage-1 links' time on the old resident mma.sync variant, and
     # the 19 deeper links of INT8_STAGES: 5 on their routes
     kernels[2].update({f"deep_{k}": v for k, v in k1_deep.items()})

@@ -6,7 +6,8 @@ by ``VFE.NAME`` (``PillarVFE`` on fixed voxels, else the dense
 ``BaseBEVBackbone`` -> ``AnchorHeadSingle``. In train mode
 ``target_dicts`` (axis-aligned anchor assignment) joins the output when the
 batch has ``gt_boxes``; in eval mode the residuals are decoded against the
-anchors and each sample goes through ``ops.nms.class_agnostic_nms`` into the
+anchors and the samples go through one call of
+``ops.nms.class_agnostic_nms_batched`` (a problem a sample) into the
 fixed-shape ``final_box_dicts`` of ``PillarNet``. ``anchor_training_loss``
 is the loss (``models.compute_training_loss`` routes ``PointPillar`` and
 ``SECONDNet`` to it). The model has no frozen scopes: ``frozen`` is empty.
@@ -21,7 +22,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-from ..ops.nms import class_agnostic_nms
+from ..ops.nms import class_agnostic_nms_batched
 from .anchor_head import (AnchorHeadSingle, ResidualCoder, anchor_head_loss,
                           assign_anchor_targets, decode_anchor_predictions, generate_anchors)
 from .bev_backbone import BaseBEVBackbone
@@ -147,18 +148,17 @@ class AnchorDetector(nn.Module):
             best, labels = scores.max(dim=-1)
             labels1 = labels + 1
             nms_cfg = pp.get("NMS_CONFIG", {})
-            sel, sel_valid = zip(*(class_agnostic_nms(
-                boxes[i], best[i], torch.ones_like(best[i], dtype=torch.bool),
+            sel, sel_valid = class_agnostic_nms_batched(
+                boxes, best, torch.ones_like(best, dtype=torch.bool),
                 nms_thresh=float(nms_cfg.get("NMS_THRESH", 0.2)),
                 pre_max=int(nms_cfg.get("NMS_PRE_MAXSIZE", 1024)),
                 post_max=int(nms_cfg.get("NMS_POST_MAXSIZE", 83)),
-                score_thresh=float(pp.get("SCORE_THRESH", 0.1))) for i in range(best.shape[0])))
-            sel = torch.stack(sel)
+                score_thresh=float(pp.get("SCORE_THRESH", 0.1)))
             out["final_box_dicts"] = {
                 "boxes": torch.gather(boxes, 1, sel[..., None].expand(-1, -1, boxes.shape[-1])),
                 "scores": torch.gather(best, 1, sel),
                 "labels": torch.gather(labels1, 1, sel),
-                "valid": torch.stack(sel_valid)}
+                "valid": sel_valid}
         return out
 
 

@@ -55,6 +55,15 @@ class HeadSpec:
         self.class_ids = ids          # (n_heads, max_cls) global 1-based
         self.class_valid = valid      # (n_heads, max_cls)
         self.total_classes = sum(len(h) for h in self.heads)
+        self._ids_on = {}
+
+    def class_ids_on(self, device) -> torch.Tensor:
+        """``class_ids`` as an int32 tensor on ``device``, copied there once
+        (a copy from the host in every decode would synchronize it)."""
+        key = str(device)
+        if key not in self._ids_on:
+            self._ids_on[key] = torch.as_tensor(self.class_ids, device=device)
+        return self._ids_on[key]
 
 
 HM_INIT_BIAS = -2.19  # the heatmap's prior (reference center_head.py:230)
@@ -424,23 +433,24 @@ def decode_and_nms(preds: Dict[str, torch.Tensor], spec: HeadSpec, hw: Tuple[int
                    with_iou: bool = True, with_vel: bool = True):
     """Batched decode + per-head class-agnostic NMS with fixed-shape outputs:
     'boxes' (B, n_heads·post, 9), 'scores', 'labels' (1-based global),
-    'valid'. Box layout [x, y, z, dx, dy, dz, rot, vx, vy]. Its steps run in
-    child spans of the ``decode_and_nms`` stage: ``.topk`` (the sort of each
-    head's map), ``.boxes`` (the gathers and the box decode) and, per sample
-    and head, those of ``ops.nms.class_agnostic_nms``."""
+    'valid', head by head. Box layout [x, y, z, dx, dy, dz, rot, vx, vy]. Its
+    steps run in child spans of the ``decode_and_nms`` stage: ``.topk`` (the
+    sort of each head's map), ``.boxes`` (the gathers and the box decode) and
+    those of ``ops.nms.class_agnostic_nms_batched``, called once over every
+    (sample, head) problem. Nothing is copied from the host in a call (a
+    synchronizing copy): the range is compared as float32 values held in
+    Python floats, the class ids are the spec's copy on the device."""
     H, W = hw
-    dev = preds["hm"].device
     B = preds["hm"].shape[0]
-    with span("decode_and_nms.boxes"):
-        pclr = torch.tensor(post_center_limit_range, dtype=torch.float32, device=dev)
-        class_valid = torch.as_tensor(spec.class_valid, device=dev)
-        class_ids = torch.as_tensor(spec.class_ids, dtype=torch.int32, device=dev)
-
-    all_boxes, all_scores, all_labels, all_valid = [], [], [], []
+    lo, hi = ([float(np.float32(v)) for v in post_center_limit_range[a:a + 3]] for a in (0, 3))
+    class_ids = spec.class_ids_on(preds["hm"].device)
+    per_head = []
     for h in range(spec.num_heads):
         with span("decode_and_nms.topk"):
             hm = torch.sigmoid(preds["hm"][..., h, :].float())
-            hm = torch.where(class_valid[h], hm, -1.0)
+            n_cls = len(spec.heads[h])
+            if n_cls < spec.max_cls:  # the head's padding classes score -1
+                hm = F.pad(hm[..., :n_cls], (0, spec.max_cls - n_cls), value=-1.0)
             hm_flat = hm.permute(0, 3, 1, 2).reshape(B, -1)
             scores, inds = nms.top_k_stable(hm_flat, k_per_head)
 
@@ -466,24 +476,26 @@ def decode_and_nms(preds: Dict[str, torch.Tensor], spec: HeadSpec, hw: Tuple[int
                 parts.append(g("vel", 2))
             boxes = torch.cat(parts, dim=-1)
 
-            valid = (torch.all(boxes[..., :3] >= pclr[:3], -1)
-                     & torch.all(boxes[..., :3] <= pclr[3:], -1))
-            if score_thresh is not None:
-                valid = valid & (scores > score_thresh)
+            valid = (scores > score_thresh if score_thresh is not None
+                     else torch.ones_like(scores, dtype=torch.bool))
             if with_iou:
                 iou_p = torch.clamp(g("iou", 1)[..., 0], 0.0, 1.0)
                 scores = torch.pow(scores, 1 - rectifier) * torch.pow(iou_p, rectifier)
             labels = class_ids[h][cls_local]
-
-        sels = [nms.class_agnostic_nms(boxes[b], scores[b], valid[b], nms_thresh,
-                                       pre_max=min(nms_pre, k_per_head), post_max=nms_post)
-                for b in range(B)]
-        with span("decode_and_nms.boxes"):
-            all_boxes.append(torch.stack([boxes[b, i] for b, (i, _) in enumerate(sels)]))
-            all_scores.append(torch.stack([scores[b, i] for b, (i, _) in enumerate(sels)]))
-            all_labels.append(torch.stack([labels[b, i] for b, (i, _) in enumerate(sels)]))
-            all_valid.append(torch.stack([v for _, v in sels]))
+        per_head.append((boxes, scores, labels, valid))
 
     with span("decode_and_nms.boxes"):
-        return {"boxes": torch.cat(all_boxes, dim=1), "scores": torch.cat(all_scores, dim=1),
-                "labels": torch.cat(all_labels, dim=1), "valid": torch.cat(all_valid, dim=1)}
+        # (B·heads, k, ...): problem b·heads + h is sample b's head h
+        boxes, scores, labels, valid = (torch.stack(t, dim=1).flatten(0, 1)
+                                        for t in zip(*per_head))
+        for a in range(3):  # the centre inside the range
+            valid = valid & (boxes[..., a] >= lo[a]) & (boxes[..., a] <= hi[a])
+    sel, sel_valid = nms.class_agnostic_nms_batched(
+        boxes, scores, valid, nms_thresh, pre_max=min(nms_pre, k_per_head), post_max=nms_post)
+    with span("decode_and_nms.boxes"):
+        n = spec.num_heads * sel.shape[1]
+        return {"boxes": torch.gather(boxes, 1, sel[..., None].expand(*sel.shape, boxes.shape[-1]))
+                .reshape(B, n, -1),
+                "scores": torch.gather(scores, 1, sel).reshape(B, n),
+                "labels": torch.gather(labels, 1, sel).reshape(B, n),
+                "valid": sel_valid.reshape(B, n)}

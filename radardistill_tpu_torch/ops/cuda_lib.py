@@ -20,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("expand.cu", "dcn_sample.cu", "dcn_offset_grad.cu", "dcn_input_grad.cu",
            "conv_block.cu", "conv_block_fp.cu", "gather_win.cu", "conv_probe.cu", "mma_rate.cu",
-           "conv3x3_wgmma.cu")
+           "conv3x3_wgmma.cu", "nms_bev.cu")
 # included by the conv, probe and DCN sources
 HEADERS = ("conv_tile.cuh", "wgmma_ops.cuh", "tma_ops.cuh", "dcn_geom.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "radardistill_tpu_torch"
@@ -99,6 +99,8 @@ SIGNATURES = {
     "rdt_chain_conv_wgmma": [_P] * 7 + [_I32] * 9 + [_P],
     "rdt_conv_block_fp_wgmma": [_P] * 6 + [_I32] * 8 + [_P],
     "rdt_mma_rate_bn": [_I32] * 4,
+    "rdt_nms_bev_mask": [_P, _P, _P, _I32, _I32, ctypes.c_float, _P, _I32, _P],
+    "rdt_nms_bev_scan": [_P, _P, _P, _I32, _I32, _I32, _P, _P, _I32, _P],
     "rdt_mma_rate": [_P, _P, _P, _I32, _I32, _I32, ctypes.c_longlong, ctypes.c_longlong,
                      *([_I32] * 5), _P],
 }

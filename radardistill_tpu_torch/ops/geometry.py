@@ -18,12 +18,13 @@ _MAX_VERTS = 8  # a 4-gon clipped by 4 half-planes has at most 8 vertices
 def boxes_to_corners_bev(boxes: torch.Tensor) -> torch.Tensor:
     """(..., 7) boxes -> (..., 4, 2) BEV corners, counter-clockwise."""
     x, y = boxes[..., 0], boxes[..., 1]
-    dx, dy = boxes[..., 3], boxes[..., 4]
     cos_a, sin_a = torch.cos(boxes[..., 6]), torch.sin(boxes[..., 6])
-    tmpl = torch.tensor([[0.5, -0.5], [0.5, 0.5], [-0.5, 0.5], [-0.5, -0.5]],
-                        dtype=boxes.dtype, device=boxes.device)
-    lx = tmpl[:, 0] * dx[..., None]
-    ly = tmpl[:, 1] * dy[..., None]
+    # the template (±0.5, ±0.5) times the sizes, built where the boxes are (a
+    # template tensor from the host would be a synchronizing copy); halving
+    # and negating are exact, so the values are the template products'
+    hx, hy = 0.5 * boxes[..., 3], 0.5 * boxes[..., 4]
+    lx = torch.stack([hx, hx, -hx, -hx], dim=-1)
+    ly = torch.stack([-hy, hy, hy, -hy], dim=-1)
     cx = lx * cos_a[..., None] - ly * sin_a[..., None] + x[..., None]
     cy = lx * sin_a[..., None] + ly * cos_a[..., None] + y[..., None]
     return torch.stack([cx, cy], dim=-1)

@@ -14,7 +14,9 @@ compaction (``ops/geometry.py::_clip_halfplane_batched``) written as the
 PyTorch port writes it, a scatter of the kept vertices instead of a masked
 sum over a (16, 8) one-hot: the same function with less work, the figure
 ``tests/test_torch_cost.py`` holds the port's count to. The package itself is
-unchanged; the function is swapped for the compile only.
+unchanged; the function is swapped for the compile only. Beside the step it
+prints XLA's count of the step's NMS alone (``decode_nms_cost``: six heads of
+500 candidates), the part of the step that the port's NMS kernels replace.
 """
 
 import argparse
@@ -107,6 +109,33 @@ def val_step_cost(grid=None, scatter_compaction=False):
             "params": sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes["params"]))}
 
 
+def decode_nms_cost(scatter_compaction=False, heads=6, k=500, post_max=83, nms_thresh=0.2):
+    """XLA's flops of the JAX decode's NMS alone, as the val step runs it:
+    ``heads`` calls of ``ops/nms.py::class_agnostic_nms`` over one sample's
+    ``k`` candidates (``MAX_OBJ_PER_SAMPLE`` 500 of ``radar_distill_val.yaml``,
+    ``NMS_POST_MAXSIZE`` 83, ``NMS_THRESH`` 0.2), each vmapped over the batch
+    of 1; ``scatter_compaction`` as in ``val_step_cost``."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+
+    import radardistill_tpu.ops.geometry as geometry
+    from radardistill_tpu.ops.nms import class_agnostic_nms
+
+    fn = jax.vmap(functools.partial(class_agnostic_nms, nms_thresh=nms_thresh, pre_max=k,
+                                    post_max=post_max))
+    args = (jax.ShapeDtypeStruct((1, k, 9), jnp.float32),
+            jax.ShapeDtypeStruct((1, k), jnp.float32), jax.ShapeDtypeStruct((1, k), jnp.bool_))
+    swap = (_swapped(geometry, "_clip_halfplane_batched", clip_halfplane_scatter)
+            if scatter_compaction else contextlib.nullcontext())
+    with swap:
+        lowered = jax.jit(fn).lower(*args)
+    ca = lowered.compile().cost_analysis()
+    ca = ca[0] if isinstance(ca, list) else ca
+    return heads * ca["flops"]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--grid", type=int, default=None)
@@ -116,9 +145,11 @@ def main(argv=None):
 
     jax.config.update("jax_platforms", "cpu")
     c = val_step_cost(args.grid, args.scatter_compaction)
+    c["nms_flops"] = decode_nms_cost(args.scatter_compaction)
     print(f"XLA val eval step, grid {args.grid or 1440}, bs1, float32"
           f"{', the port compaction' if args.scatter_compaction else ''}: params {c['params']}, "
-          f"flops {c['flops']:.0f}, bytes accessed {c['bytes_accessed']:.0f}")
+          f"flops {c['flops']:.0f}, bytes accessed {c['bytes_accessed']:.0f}; the decode's NMS "
+          f"alone {c['nms_flops']:.0f} flops")
     return c
 
 
